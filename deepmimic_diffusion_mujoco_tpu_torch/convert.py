@@ -1,0 +1,108 @@
+"""Flax parameter trees -> PyTorch state dicts.
+
+``temporal_unet_from_flax`` takes the JAX TemporalUnet's params (nested
+dicts of numpy arrays, with or without the top-level ``"params"`` key) and
+returns a state dict that ``models.temporal_unet.TemporalUnet`` loads with
+``strict=True``. The mapping is a table of path patterns:
+
+=======================================================  ==========================================  =========================
+flax path                                                torch key                                   transform
+=======================================================  ==========================================  =========================
+Dense_i/{kernel,bias}                                    time_mlp.i.{weight,bias}                    kernel.T
+ResidualTemporalBlock_i/Conv1dBlock_j/conv_kernel        res_blocks.i.blocks.j.weight                none: (k, Cin, Cout)
+ResidualTemporalBlock_i/Conv1dBlock_j/conv_bias          res_blocks.i.blocks.j.bias
+ResidualTemporalBlock_i/Conv1dBlock_j/gn_scale, gn_bias  res_blocks.i.blocks.j.gn_weight, gn_bias
+ResidualTemporalBlock_i/Dense_0/{kernel,bias}            res_blocks.i.time_dense.{weight,bias}       kernel.T
+ResidualTemporalBlock_i/Conv_0/{kernel,bias}             res_blocks.i.residual.{weight,bias}         kernel[0].T (1x1 conv)
+PreNormResidualAttention_i/{g,b}                         attentions.i.{g,b}                          none: (1, 1, C)
+PreNormResidualAttention_i/LinearAttention_0/Conv_0      attentions.i.attn.to_qkv.weight (no bias)   kernel[0].T
+PreNormResidualAttention_i/LinearAttention_0/Conv_1      attentions.i.attn.to_out.{weight,bias}      kernel[0].T
+Conv_i, i < number of ConvTranspose                      downsamples.i.{weight,bias}                 kernel.transpose(2, 1, 0)
+Conv_i, the last one                                     final_conv.{weight,bias}                    kernel[0].T (1x1 conv)
+ConvTranspose_i                                          upsamples.i.{weight,bias}                   kernel[::-1].transpose(1, 2, 0)
+Conv1dBlock_0/...                                        final_block....                             as Conv1dBlock above
+=======================================================  ==========================================  =========================
+
+Flax's ``ConvTranspose(4, stride 2, "SAME")`` equals
+``torch.nn.ConvTranspose1d(C, C, 4, stride=2, padding=1)`` only with the
+kernel flipped along k (flax does not flip, a true transposed conv does).
+"""
+from __future__ import annotations
+
+import re
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict) or hasattr(v, "items"):
+            out.update(_flatten(dict(v), path))
+        else:
+            out[path] = np.asarray(v, np.float32)
+    return out
+
+
+_DENSE = lambda a: a.T
+_CONV1X1 = lambda a: a[0].T
+_SAME = lambda a: a
+
+_CONV_BLOCK = {"conv_kernel": ("weight", _SAME), "conv_bias": ("bias", _SAME),
+               "gn_scale": ("gn_weight", _SAME), "gn_bias": ("gn_bias", _SAME)}
+_LEAF = {"kernel": "weight", "bias": "bias"}
+
+# (pattern over the flax path, torch key template, transform of a kernel)
+_TABLE = [
+    (r"Dense_(\d+)/(kernel|bias)", "time_mlp.{0}.{leaf}", _DENSE),
+    (r"ResidualTemporalBlock_(\d+)/Conv1dBlock_(\d+)/(\w+)", "res_blocks.{0}.blocks.{1}.{block}", None),
+    (r"ResidualTemporalBlock_(\d+)/Dense_0/(kernel|bias)", "res_blocks.{0}.time_dense.{leaf}", _DENSE),
+    (r"ResidualTemporalBlock_(\d+)/Conv_0/(kernel|bias)", "res_blocks.{0}.residual.{leaf}", _CONV1X1),
+    (r"PreNormResidualAttention_(\d+)/(g|b)", "attentions.{0}.{1}", _SAME),
+    (r"PreNormResidualAttention_(\d+)/LinearAttention_0/Conv_0/(kernel)", "attentions.{0}.attn.to_qkv.{leaf}", _CONV1X1),
+    (r"PreNormResidualAttention_(\d+)/LinearAttention_0/Conv_1/(kernel|bias)", "attentions.{0}.attn.to_out.{leaf}", _CONV1X1),
+    (r"ConvTranspose_(\d+)/(kernel|bias)", "upsamples.{0}.{leaf}", lambda a: a[::-1].transpose(1, 2, 0)),
+    (r"Conv1dBlock_0/(\w+)", "final_block.{block}", None),
+]
+
+
+def temporal_unet_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax TemporalUnet param tree to the port's state dict."""
+    tree = params_np.get("params", params_np)
+    flat = _flatten(tree)
+    n_up = len({m.group(1) for p in flat if (m := re.match(r"ConvTranspose_(\d+)/", p))})
+    out = OrderedDict()
+    for path, arr in flat.items():
+        m = re.fullmatch(r"Conv_(\d+)/(kernel|bias)", path)
+        if m:
+            i, leaf = int(m.group(1)), m.group(2)
+            if i < n_up:
+                key, fn = f"downsamples.{i}.{_LEAF[leaf]}", (lambda a: a.transpose(2, 1, 0))
+            else:
+                key, fn = f"final_conv.{_LEAF[leaf]}", _CONV1X1
+            out[key] = _tensor(fn(arr) if leaf == "kernel" else arr)
+            continue
+        for pattern, template, fn in _TABLE:
+            m = re.fullmatch(pattern, path)
+            if not m:
+                continue
+            groups = m.groups()
+            leaf = groups[-1]
+            if fn is None:  # a Conv1dBlock leaf
+                name, fn = _CONV_BLOCK[leaf]
+                key = template.format(*groups, block=name)
+                out[key] = _tensor(fn(arr))
+            else:
+                key = template.format(*groups, leaf=_LEAF.get(leaf, leaf))
+                out[key] = _tensor(fn(arr) if leaf == "kernel" else arr)
+            break
+        else:
+            raise KeyError(f"no mapping for flax parameter {path!r}")
+    return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))

@@ -1,0 +1,52 @@
+"""Build models and schedules from an ExperimentConfig.
+
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``. The port has
+the temporal U-Net so far; the other architectures and bf16 compute raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+"""
+from __future__ import annotations
+
+import torch
+
+from .device import resolve_device
+from .diffusion.schedules import Schedule, make_schedule
+from .models.temporal_unet import TemporalUnet
+from .train.config import DiffusionConfig, ExperimentConfig, ModelConfig
+
+_NOT_PORTED = {
+    "transformer": "ROADMAP.md Queue A, slice 3 (stack-B transformer)",
+    "decoder": "ROADMAP.md Queue A, slice 3 (stack-B transformer decoder)",
+    "local_attention": "ROADMAP.md Queue A, slice 4 (local attention, kernels B3/B4)",
+}
+
+
+def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.nn.Module:
+    """The denoiser for ``cfg``, on ``device``. ``use_pallas`` is not read:
+    on the card the conv blocks always launch the CUDA kernel."""
+    dev = resolve_device(device)
+    if cfg.bf16:
+        raise NotImplementedError(
+            "bf16 compute is not ported yet (ROADMAP.md Queue B, B1's bf16/wgmma variant); "
+            "the port computes in float32 only")
+    if cfg.architecture == "temporal":
+        return TemporalUnet(
+            transition_dim=cfg.input_dim, dim=cfg.channel_dim,
+            dim_mults=tuple(cfg.dim_mults), attention=cfg.attention,
+        ).to(dev)
+    if cfg.architecture in _NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {cfg.architecture!r} is not ported yet: {_NOT_PORTED[cfg.architecture]}")
+    raise ValueError(f"unknown architecture {cfg.architecture!r}")
+
+
+def build_schedule(cfg: DiffusionConfig, device: str | torch.device = "cuda") -> Schedule:
+    return make_schedule(
+        kind=cfg.schedule_type, timesteps=cfg.noise_steps,
+        beta_start=cfg.beta_start, beta_end=cfg.beta_end,
+        cosine_s=cfg.cosine_s, convention=cfg.convention, device=device,
+    )
+
+
+def build_experiment(cfg: ExperimentConfig, device: str | torch.device = "cuda"):
+    """-> (model, schedule), both on ``device``."""
+    return build_model(cfg.model, device), build_schedule(cfg.diffusion, device)

@@ -1,0 +1,186 @@
+"""Temporal 1-D U-Net denoiser (PyTorch).
+
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/temporal_unet.py``:
+
+- activations stay (B, H, C) channel-last, the model boundary and the conv
+  block kernel's layout; 1x1 convolutions are ``nn.Linear`` over channels,
+- Conv1dBlock = Conv(k=5) -> GroupNorm(8) -> Mish, one fused call
+  (``ops.conv_block_kernel.conv_gn_mish``: the CUDA kernel on the card, the
+  plain version on the CPU),
+- ResidualTemporalBlock adds a time-MLP bias between its two conv blocks,
+- optional per-resolution LinearAttention behind a channel LayerNorm,
+- Downsample: stride-2 conv k3; Upsample: transposed conv k4 s2,
+- fully convolutional over the horizon: any H divisible by
+  2**(len(dim_mults)-1).
+
+Submodules are created in the order flax numbers its auto-named children,
+so ``convert.temporal_unet_from_flax`` maps parameters by a fixed table:
+``res_blocks.i`` is ``ResidualTemporalBlock_i``, ``attentions.i`` is
+``PreNormResidualAttention_i``, ``downsamples.i`` is ``Conv_i``,
+``upsamples.i`` is ``ConvTranspose_i``, ``time_mlp.i`` is ``Dense_i``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv_block_kernel import conv_gn_mish
+from .embeddings import sinusoidal_pos_emb
+
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+class Conv1dBlock(nn.Module):
+    """Conv1d("same") -> GroupNorm -> Mish. ``weight`` is held in the
+    kernel's (k, Cin, Cout) layout, the flax kernel's own."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 5,
+                 n_groups: int = 8):
+        super().__init__()
+        self.n_groups = n_groups
+        self.weight = nn.Parameter(
+            torch.randn(kernel_size, in_channels, out_channels)
+            * (kernel_size * in_channels) ** -0.5
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        self.gn_weight = nn.Parameter(torch.ones(out_channels))
+        self.gn_bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x):  # (B, H, Cin) -> (B, H, Cout)
+        return conv_gn_mish(x, self.weight, self.bias, self.gn_weight, self.gn_bias,
+                            self.n_groups)
+
+
+class LinearAttention(nn.Module):
+    """Softmax-kernel linear attention: keys softmaxed over the horizon, a
+    (d x d) context per head, then queried."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
+        self.to_out = nn.Linear(hidden, dim)
+
+    def forward(self, x):  # (B, H, C)
+        B, H, _ = x.shape
+        qkv = self.to_qkv(x).reshape(B, H, 3, self.heads, self.dim_head)
+        q, k, v = qkv.unbind(2)  # (B, H, h, d)
+        q = q * self.dim_head ** -0.5
+        k = k.softmax(dim=1)  # over the horizon
+        context = torch.einsum("bnhd,bnhe->bhde", k, v)
+        out = torch.einsum("bhde,bnhd->bnhe", context, q)
+        return self.to_out(out.reshape(B, H, self.heads * self.dim_head))
+
+
+class PreNormResidualAttention(nn.Module):
+    """x + LinearAttention(LayerNorm_channels(x)), biased variance, eps 1e-5."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.g = nn.Parameter(torch.ones(1, 1, dim))
+        self.b = nn.Parameter(torch.zeros(1, 1, dim))
+        self.attn = LinearAttention(dim, heads, dim_head)
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+        normed = (x - mean) / torch.sqrt(var + 1e-5) * self.g + self.b
+        return x + self.attn(normed)
+
+
+class ResidualTemporalBlock(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, embed_dim: int,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.blocks = nn.ModuleList([
+            Conv1dBlock(in_channels, out_channels, kernel_size),
+            Conv1dBlock(out_channels, out_channels, kernel_size),
+        ])
+        self.time_dense = nn.Linear(embed_dim, out_channels)
+        self.residual = (nn.Linear(in_channels, out_channels)
+                         if in_channels != out_channels else nn.Identity())
+
+    def forward(self, x, t_emb):  # x: (B, H, C), t_emb: (B, E)
+        h = self.blocks[0](x) + self.time_dense(mish(t_emb))[:, None, :]
+        h = self.blocks[1](h)
+        return h + self.residual(x)
+
+
+class TemporalUnet(nn.Module):
+    def __init__(self, transition_dim: int, dim: int = 128,
+                 dim_mults: Sequence[int] = (1, 2, 4, 8), attention: bool = False):
+        super().__init__()
+        dims = [dim * m for m in dim_mults]
+        self.down_factor = 2 ** (len(dims) - 1)
+        self.dim = dim
+        self.attention = attention
+        self.time_mlp = nn.ModuleList([nn.Linear(dim, dim * 4), nn.Linear(dim * 4, dim)])
+
+        res, attn = [], []
+        c = transition_dim
+        for d in dims:                                   # down path
+            res += [ResidualTemporalBlock(c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            attn.append(d)
+            c = d
+        res += [ResidualTemporalBlock(c, c, dim), ResidualTemporalBlock(c, c, dim)]
+        attn.append(c)                                   # mid
+        for d in reversed(dims[:-1]):                    # up path
+            res += [ResidualTemporalBlock(2 * c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            attn.append(d)
+            c = d
+        self.res_blocks = nn.ModuleList(res)
+        self.attentions = nn.ModuleList(
+            [PreNormResidualAttention(a) for a in attn] if attention else [])
+        self.downsamples = nn.ModuleList(
+            [nn.Conv1d(d, d, 3, stride=2, padding=1) for d in dims[:-1]])
+        self.upsamples = nn.ModuleList(
+            [nn.ConvTranspose1d(d, d, 4, stride=2, padding=1) for d in reversed(dims[:-1])])
+        self.final_block = Conv1dBlock(dim, dim, kernel_size=5)
+        self.final_conv = nn.Linear(dim, transition_dim)
+
+    def forward(self, x, time, y=None):
+        """x: (B, H, transition_dim), time: (B,) -> (B, H, transition_dim).
+        ``y`` (class label) is accepted and ignored, like the JAX model."""
+        del y
+        if x.shape[1] % self.down_factor:
+            raise ValueError(f"horizon {x.shape[1]} must be divisible by {self.down_factor}")
+        t = sinusoidal_pos_emb(time, self.dim)
+        t = self.time_mlp[1](mish(self.time_mlp[0](t)))
+
+        res = iter(self.res_blocks)
+        attn = iter(self.attentions)
+        x = x.to(torch.float32)
+        skips = []
+        n_down = len(self.downsamples)
+        for i in range(n_down + 1):
+            x = next(res)(x, t)
+            x = next(res)(x, t)
+            if self.attention:
+                x = next(attn)(x)
+            skips.append(x)
+            if i < n_down:
+                x = self.downsamples[i](x.transpose(1, 2)).transpose(1, 2)
+
+        x = next(res)(x, t)
+        if self.attention:
+            x = next(attn)(x)
+        x = next(res)(x, t)
+
+        # one iteration per down-sampled resolution, each ending in an
+        # upsample; the full-resolution skip stays unused (as in the reference)
+        for up in self.upsamples:
+            x = torch.cat([x, skips.pop()], dim=-1)
+            x = next(res)(x, t)
+            x = next(res)(x, t)
+            if self.attention:
+                x = next(attn)(x)
+            x = up(x.transpose(1, 2)).transpose(1, 2)
+
+        x = self.final_block(x)
+        return self.final_conv(x)

@@ -1,0 +1,67 @@
+"""The port stands alone: no module of it, and not chip_smoke.py, imports
+JAX, flax, optax, orbax or the JAX package; and its entry points refuse to
+drift to the CPU when no CUDA device is present."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from deepmimic_diffusion_mujoco_tpu_torch import factory
+from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, schedules
+from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig, ModelConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "deepmimic_diffusion_mujoco_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepmimic_diffusion_mujoco_tpu"}
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _temporal_cfg():
+    return ExperimentConfig.from_dict({"model": {"architecture": "temporal", "channel_dim": 16}})
+
+
+ENTRY_POINTS = {
+    "build_experiment": lambda tmp: factory.build_experiment(_temporal_cfg()),
+    "make_schedule": lambda tmp: schedules.make_schedule(),
+    "holding_box": lambda tmp: conditioning.holding_box(),
+    "load_run": lambda tmp: cli.load_run(str(tmp)),
+    "cli_main": lambda tmp: cli.main(["--run", str(tmp)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_cuda(tmp_path, name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name](tmp_path)
+
+
+def test_bf16_config_is_refused():
+    with pytest.raises(NotImplementedError, match="bf16"):
+        factory.build_model(ModelConfig(architecture="temporal", bf16=True), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["transformer", "decoder", "local_attention"])
+def test_unported_architectures_name_their_slice(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        factory.build_model(ModelConfig(architecture=arch), device="cpu")
