@@ -1,0 +1,149 @@
+"""Training CLI of the PyTorch port.
+
+    python -m deepmimic_diffusion_mujoco_tpu_torch.cli.train \
+        --config cfg.json --data data/motions --steps 5000 --out experiments/run1 \
+        [--resume] [--set train.lr=1e-4 ...] [--device cuda]
+
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/cli/train.py`` with the
+same flags plus ``--device`` (default ``cuda``; it raises if no card is
+present). The run directory gets ``config.json``, checkpoints
+(``checkpoints/state_<step>.pt``, ``best_model.pt``, each with its JSON
+sidecar; see ``train/checkpoint.py``) and ``training_metrics.json``, which
+the port's ``cli/sample.py`` reads back.
+
+As in the JAX CLI, ``train.gradient_accumulate_every = k`` averages k
+micro-batches of ``train.batch_size`` per optimizer update, and the EMA
+gates count micro-steps (``train/state.py``). Only the temporal U-Net with
+the stack-A ("diffuser") loss is ported; the other architectures, losses
+and the loss-aware timestep sampler raise ``NotImplementedError`` naming
+their ROADMAP.md slice. The port trains on one device (the JAX CLI's data
+mesh is ROADMAP slice 6).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+import torch
+
+from .. import factory
+from ..data.datasets import MotionDataset
+from ..device import resolve_device
+from ..diffusion import process
+from ..train.checkpoint import Checkpointer
+from ..train.config import ExperimentConfig
+from ..train.loop import STACK_B_SLICE, Trainer, TrainerConfig, make_loss_fn
+from ..train.state import EMAConfig, TrainState, make_optimizer
+
+
+def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: bool = False,
+                  device: str | torch.device = "cuda") -> Trainer:
+    """``resume=True`` restores the latest periodic checkpoint in
+    ``out_dir``."""
+    dev = resolve_device(device)
+    if cfg.train.timestep_sampler == "loss_aware":
+        raise NotImplementedError(
+            f"timestep_sampler='loss_aware' is not ported yet: {STACK_B_SLICE}")
+    if cfg.diffusion.loss != "diffuser":
+        raise NotImplementedError(
+            f"diffusion.loss={cfg.diffusion.loss!r} is not ported yet: {STACK_B_SLICE}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.train.seed)
+        model, sched = factory.build_experiment(cfg, dev)
+    ds = MotionDataset.from_path(
+        cfg.data.path,
+        include_velocity=cfg.data.include_velocity,
+        augment=cfg.data.augment,
+        replicas=cfg.data.replicas,
+        horizon_multiple=cfg.data.horizon_multiple,
+        max_files=cfg.data.max_files,
+    )
+    t = cfg.train
+    opt, lr_sched = make_optimizer(
+        model.parameters(), t.optimizer_type, lr=t.lr, weight_decay=t.weight_decay,
+        betas=tuple(t.betas), schedule=t.scheduler_type, num_train_steps=t.num_train_steps,
+    )
+    state = TrainState(model, opt, lr_sched, EMAConfig(t.ema_decay, t.ema_start, t.ema_every),
+                       accum=t.gradient_accumulate_every)
+    weights = process.diffuser_loss_weights(
+        ds.horizon, cfg.model.input_dim, cfg.diffusion.action_weight,
+        cfg.diffusion.loss_discount, device=dev,
+    )
+    loss_fn = make_loss_fn(sched, model, kind="diffuser",
+                           predict_epsilon=not cfg.diffusion.predict_x0,
+                           weights=weights, loss_kind=cfg.diffusion.loss_kind)
+
+    ckpt = None
+    if out_dir:
+        ckpt = Checkpointer(os.path.join(out_dir, "checkpoints"), metadata=dataclasses.asdict(cfg))
+        if resume and ckpt.latest_step() is not None:
+            payload, _ = ckpt.restore(map_location=dev)
+            state.load(payload)
+            print(f"resumed from step {state.step}")
+    return Trainer(
+        state, loss_fn, ds,
+        TrainerConfig(
+            num_train_steps=t.num_train_steps,
+            batch_size=t.batch_size,
+            gradient_accumulate_every=t.gradient_accumulate_every,
+            log_every=t.log_every,
+            save_every=t.save_every,
+            seed=t.seed,
+            scan_chunk=t.scan_chunk,
+            class_balanced=t.class_balanced,
+        ),
+        checkpointer=ckpt,
+        num_timesteps=sched.num_timesteps,
+    )
+
+
+def main(argv=None) -> Trainer:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--config", help="ExperimentConfig JSON")
+    p.add_argument("--data", help="clip file or directory override")
+    p.add_argument("--architecture", help="model override")
+    p.add_argument("--steps", type=int)
+    p.add_argument("--batch-size", type=int)
+    p.add_argument("--out", default="experiments/run")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint in --out")
+    p.add_argument("--set", nargs="*", default=[],
+                   help="dotted overrides, e.g. train.lr=1e-4")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+    args = p.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    # float32 throughout: no TF32 in cuDNN's convolutions or cuBLAS's matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ExperimentConfig.load(args.config) if args.config else ExperimentConfig()
+    if args.data:
+        cfg = cfg.override({"data.path": args.data})
+    if args.architecture:
+        cfg = cfg.override({"model.architecture": args.architecture})
+    if args.steps:
+        cfg = cfg.override({"train.num_train_steps": args.steps})
+    if args.batch_size:
+        cfg = cfg.override({"train.batch_size": args.batch_size})
+    for ov in args.set:
+        key, _, val = ov.partition("=")
+        try:
+            parsed = json.loads(val)
+        except json.JSONDecodeError:
+            parsed = val  # bare string, e.g. data.augment=replicate
+        cfg = cfg.override({key: parsed})
+
+    os.makedirs(args.out, exist_ok=True)
+    cfg.save(os.path.join(args.out, "config.json"))
+    trainer = build_trainer(cfg, args.out, resume=args.resume, device=dev)
+    trainer.train()
+    trainer.save_metrics(os.path.join(args.out, "training_metrics.json"))
+    print(f"done: best loss {trainer.best_loss:.6f} @ step {trainer.best_step}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Forward/reverse diffusion formulas on tensors: the sampling half of
-``deepmimic_diffusion_mujoco_tpu/diffusion/process.py`` (the losses come
-with the training slice).
+``deepmimic_diffusion_mujoco_tpu/diffusion/process.py`` and its stack-A
+losses (the v4, kl, x0 and angle-velocity losses come with stack B).
 
 Every function is shape-polymorphic over (B, ...) trajectories and takes
 the Schedule as an argument; ``t`` is a (B,) integer tensor.
@@ -104,3 +104,62 @@ def posterior_step(sched: Schedule, x_t, t, x0_hat, noise):
     mean, _, log_var = q_posterior(sched, x0_hat, x_t, t)
     nonzero = (t > 0).to(x_t.dtype).reshape((-1,) + (1,) * (x_t.ndim - 1))
     return mean + nonzero * torch.exp(0.5 * log_var) * noise
+
+
+# ---------------------------------------------------------------------------
+# Stack-A loss (Diffuser's weighted p_losses)
+# ---------------------------------------------------------------------------
+
+
+def diffuser_loss_weights(
+    horizon: int,
+    transition_dim: int,
+    action_weight: float = 1.0,
+    discount: float = 1.0,
+    weights_dict: dict | None = None,
+    device: str | torch.device = "cpu",
+) -> torch.Tensor:
+    """(H, D) per-element loss weights: discount**h per frame (normalised to
+    mean 1), ``action_weight`` on frame 0, ``weights_dict`` {dim: factor}
+    applied at the given dims."""
+    dim_weights = torch.ones(transition_dim, dtype=torch.float32)
+    for ind, w in (weights_dict or {}).items():
+        dim_weights[ind] *= w
+    discounts = discount ** torch.arange(horizon, dtype=torch.float32)
+    discounts = discounts / discounts.mean()
+    weights = discounts[:, None] * dim_weights[None, :]
+    weights[0, :] = action_weight
+    return weights.to(device)
+
+
+def weighted_loss(pred, target, weights, kind: str = "l2"):
+    """Weighted L1/L2 and the frame-0 diagnostic ``a0_loss``.
+    -> (scalar loss, {"a0_loss": scalar})."""
+    err = (pred - target).abs() if kind == "l1" else (pred - target) ** 2
+    loss = (err * weights).mean()
+    a0_loss = (err[:, 0, :] / weights[0, :]).mean()
+    return loss, {"a0_loss": a0_loss}
+
+
+def diffuser_p_losses(
+    sched: Schedule,
+    model_fn,
+    x0: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    weights: torch.Tensor,
+    predict_epsilon: bool = True,
+    loss_kind: str = "l2",
+    conditioning_fn=None,
+):
+    """Stack-A p_losses for timesteps ``t`` and Gaussian ``noise`` drawn by
+    the caller: conditioning is applied to BOTH the noised input and the
+    reconstruction (a training-time quirk of stack A)."""
+    x_noisy = q_sample(sched, x0, t, noise)
+    if conditioning_fn is not None:
+        x_noisy = conditioning_fn(x_noisy)
+    x_recon = model_fn(x_noisy, t)
+    if conditioning_fn is not None:
+        x_recon = conditioning_fn(x_recon)
+    target = noise if predict_epsilon else x0
+    return weighted_loss(x_recon, target, weights, loss_kind)

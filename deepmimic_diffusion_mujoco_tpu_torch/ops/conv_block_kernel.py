@@ -13,8 +13,13 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
   it). It takes CUDA tensors only and raises on anything it does not take.
   ``conv_gn_mish_cuda.launches`` counts its launches.
 - ``conv_gn_mish``: the autograd entry the model calls. Its forward launches
-  the kernel for CUDA tensors and runs the plain version for CPU tensors;
-  its backward recomputes through the plain version.
+  the kernel for CUDA tensors and runs the plain version for CPU tensors.
+  Its backward recomputes the pre-norm conv output (as the JAX kernel's
+  custom VJP recomputes), backpropagates through GroupNorm, the affine and
+  Mish in plain PyTorch, and takes the conv's dW from
+  ``ops/conv_weight_grad.py`` (the B2 kernel for CUDA tensors); dx is the
+  transposed conv of the pre-norm gradient (a library call, as XLA's conv
+  computes it in the JAX package).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_weight_grad import conv1d_weight_grad
 
 KERNEL_SIZES = (1, 3, 5, 7, 9)
 MAX_GROUP_CHANNELS = 256  # kMaxGroupChannels in csrc/conv_gn_mish.cu
@@ -32,8 +38,16 @@ MAX_GROUP_CHANNELS = 256  # kMaxGroupChannels in csrc/conv_gn_mish.cu
 def conv_gn_mish_plain(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
     """Channel-last conv + bias -> GroupNorm (two-pass statistics) ->
     affine -> Mish, in plain PyTorch."""
+    return _gn_affine_mish(_conv(x, w, b), gamma, beta, groups, eps)
+
+
+def _conv(x, w, b):
+    """Channel-last "same" conv + bias: (B, H, Cin) -> (B, H, Cout)."""
     k = w.shape[0]
-    out = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, padding=k // 2).transpose(1, 2)
+    return F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, padding=k // 2).transpose(1, 2)
+
+
+def _gn_affine_mish(out, gamma, beta, groups: int, eps: float):
     B, H, C = out.shape
     g = out.reshape(B, H, groups, C // groups)
     mean = g.mean(dim=(1, 3), keepdim=True)
@@ -121,16 +135,25 @@ class _ConvGnMish(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
+        x, w, b, gamma, beta = ctx.saved_tensors
+        need_x, need_w, need_b, need_gamma, need_beta = ctx.needs_input_grad[:5]
+        k = w.shape[0]
+        pre = _conv(x, w, b).detach().requires_grad_()
         with torch.enable_grad():
-            out = conv_gn_mish_plain(*inputs, ctx.groups, ctx.eps)
-            grads = iter(torch.autograd.grad(out, wanted, grad))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs) + (None, None)
+            affine = [t.detach().requires_grad_() for t in (gamma, beta)]
+            out = _gn_affine_mish(pre, *affine, ctx.groups, ctx.eps)
+            g, dgamma, dbeta = torch.autograd.grad(out, [pre, *affine], grad)
+        g = g.contiguous()
+        dx = (torch.nn.grad.conv1d_input(x.transpose(1, 2).shape, w.permute(2, 1, 0),
+                                         g.transpose(1, 2), padding=k // 2).transpose(1, 2)
+              if need_x else None)
+        dw = conv1d_weight_grad(x, g, k) if need_w else None
+        db = g.sum((0, 1)) if need_b else None
+        return (dx, dw, db, dgamma if need_gamma else None,
+                dbeta if need_beta else None, None, None)
 
 
 def conv_gn_mish(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
-    """Fused Conv1d + GroupNorm + Mish with gradients (recomputed through the
-    plain version, as the JAX kernel's custom VJP does)."""
+    """Fused Conv1d + GroupNorm + Mish with gradients (dW from the B2
+    kernel on the card)."""
     return _ConvGnMish.apply(x.contiguous(), w.contiguous(), b, gamma, beta, groups, eps)

@@ -2,10 +2,15 @@
 
 The JAX package writes orbax directories, which cannot be read without JAX.
 The port writes ``<directory>/<name>.pt`` (``torch.save`` of
-``{"step", "params", "ema_params"}``, params as state dicts) and, beside it,
-the same sidecar ``<name>.json`` metadata: ``step``, ``git_rev`` and, for
-the best model, ``loss`` and ``best_loss``. Names are ``state_<step>`` for
-periodic saves and ``best_model``.
+``{"step", "params", "ema_params"}``, params as state dicts, plus
+``"opt_state"`` in periodic saves: the optimizer's and the LR schedule's
+state dicts and the gradient accumulator, which ``--resume`` continues
+from) and, beside it, the same
+sidecar ``<name>.json`` metadata: ``step``, ``git_rev`` and, for the best
+model, ``loss`` and ``best_loss``. Names are ``state_<step>`` for periodic
+saves and ``best_model``; ``step`` counts micro-steps, as the JAX
+package's ``TrainState.step`` does under gradient accumulation. The best
+model serves inference and carries no optimizer state.
 """
 from __future__ import annotations
 
@@ -39,8 +44,10 @@ class Checkpointer:
     # -- save ------------------------------------------------------------
 
     def _save_at(self, name: str, step: int, params: dict, ema_params: dict,
-                 extra_meta: dict):
+                 extra_meta: dict, opt_state: dict | None = None):
         payload = {"step": int(step), "params": params, "ema_params": ema_params}
+        if opt_state is not None:
+            payload["opt_state"] = opt_state
         path = os.path.join(self.directory, name + ".pt")
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
@@ -48,8 +55,8 @@ class Checkpointer:
         with open(os.path.join(self.directory, name + ".json"), "w") as f:
             json.dump(meta, f, indent=2)
 
-    def save(self, step: int, params: dict, ema_params: dict):
-        self._save_at(f"state_{int(step)}", step, params, ema_params, {})
+    def save(self, step: int, params: dict, ema_params: dict, opt_state: dict | None = None):
+        self._save_at(f"state_{int(step)}", step, params, ema_params, {}, opt_state)
 
     def save_best(self, step: int, params: dict, ema_params: dict, loss: float):
         # "loss" is the reference's checkpoint-filename field, "best_loss"

@@ -1,0 +1,167 @@
+"""Training loop: one eager update step, batches fed from the host.
+
+Counterpart of the stack-A parts of
+``deepmimic_diffusion_mujoco_tpu/train/loop.py``: ``make_loss_fn(kind=
+"diffuser")``, the train step (loss, backward, optimizer, EMA) and
+``Trainer.train``'s per-step loop with its log records, best-model window
+and periodic saves, and ``save_metrics`` (the same
+``training_metrics.json``).
+
+The JAX package's ``lax.scan`` chunking (``_train_scanned``,
+``make_train_many``) has no counterpart: ``TrainerConfig.scan_chunk`` is
+read and ignored, and every step runs through the per-step loop, which
+tracks the best model exactly as the scanned path does (the post-update
+state of the lowest-loss micro-step at or after optimizer step
+``int(n * (1 - best_window_frac))``). Timesteps and noise come from a
+``torch.Generator`` on the device (``Trainer.draw``), so they differ from
+the JAX package's draws; tests inject the same ones into both.
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..diffusion import process
+from ..diffusion.schedules import Schedule
+from .state import TrainState
+
+STACK_B_SLICE = "ROADMAP.md Queue A, slice 3 (stack-B losses, label drop, loss-aware sampler)"
+
+
+def make_loss_fn(
+    sched: Schedule,
+    model: torch.nn.Module,
+    kind: str = "diffuser",
+    *,
+    predict_epsilon: bool = True,
+    weights: torch.Tensor | None = None,
+    loss_kind: str = "l2",
+    conditioning_fn=None,
+) -> Callable:
+    """The per-batch loss ``loss_fn(x0, t, noise) -> (loss, info)``.
+    ``kind="diffuser"`` is stack A's weighted p_losses; the stack-B kinds
+    raise ``NotImplementedError``."""
+    if kind != "diffuser":
+        raise NotImplementedError(f"loss kind {kind!r} is not ported yet: {STACK_B_SLICE}")
+
+    def loss_fn(x0, t, noise):
+        return process.diffuser_p_losses(
+            sched, model, x0, t, noise, weights,
+            predict_epsilon=predict_epsilon, loss_kind=loss_kind,
+            conditioning_fn=conditioning_fn,
+        )
+
+    return loss_fn
+
+
+def train_step(state: TrainState, loss_fn: Callable, x0, t, noise):
+    """loss -> backward -> optimizer (every ``accum`` micro-steps) -> EMA.
+    -> (loss, info), detached."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, info = loss_fn(x0, t, noise)
+    loss.backward()
+    state.apply_gradients()
+    return loss.detach(), {k: v.detach() for k, v in info.items()}
+
+
+@dataclass
+class TrainerConfig:
+    num_train_steps: int = 5000
+    batch_size: int = 64
+    gradient_accumulate_every: int = 1
+    log_every: int = 100
+    save_every: int | None = None
+    best_window_frac: float = 0.15   # best-model tracking window
+    seed: int = 0
+    scan_chunk: int = 1              # read and ignored: no scanned loop here
+    class_balanced: bool = False
+
+
+class Trainer:
+    """Feeds batches, logs, checkpoints. ``dataset`` exposes
+    ``.epochs(batch_size, seed, class_balanced=...)`` (data/datasets.py);
+    each numpy batch is copied to the model's device."""
+
+    def __init__(self, state: TrainState, loss_fn: Callable, dataset,
+                 config: TrainerConfig = TrainerConfig(), checkpointer=None,
+                 log_fn=print, num_timesteps: int = 1000):
+        self.state = state
+        self.loss_fn = loss_fn
+        self.dataset = dataset
+        self.config = config
+        self.checkpointer = checkpointer
+        self.log_fn = log_fn
+        self.num_timesteps = num_timesteps
+        self.device = next(state.model.parameters()).device
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.metrics: list[dict] = []
+        self.best_loss = float("inf")
+        self.best_step = -1
+
+    def draw(self, x0: torch.Tensor):
+        """Timesteps (B,) uniform in [0, T) and Gaussian noise like x0."""
+        t = torch.randint(0, self.num_timesteps, (x0.shape[0],), generator=self.generator,
+                          device=self.device)
+        noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        return t, noise
+
+    def _save(self):
+        st = self.state
+        self.checkpointer.save(st.step, st.model.state_dict(), st.ema_params,
+                               st.opt_state_dict())
+
+    def train(self, num_steps: int | None = None) -> TrainState:
+        cfg = self.config
+        n = num_steps if num_steps is not None else cfg.num_train_steps
+        accum = max(1, cfg.gradient_accumulate_every)
+        batches = self.dataset.epochs(cfg.batch_size, seed=cfg.seed,
+                                      class_balanced=cfg.class_balanced)
+        best_from = int(n * (1.0 - cfg.best_window_frac))
+        self.state.model.train()
+        t0 = time.time()
+        last_saved = 0
+        for i in range(n * accum):
+            x0 = torch.from_numpy(next(batches).trajectories)
+            if self.device.type == "cuda":
+                x0 = x0.pin_memory()  # so that the copy does not wait for the device
+            x0 = x0.to(self.device, non_blocking=True)
+            t, noise = self.draw(x0)
+            loss, info = train_step(self.state, self.loss_fn, x0, t, noise)
+            # state.step counts micro-steps; report/compare in optimizer steps
+            opt_step = self.state.step // accum
+            if (i + 1) % cfg.log_every == 0:
+                loss_v = float(loss)
+                dt = time.time() - t0
+                rec = {"step": opt_step, "loss": loss_v, "steps_per_s": (i + 1) / dt,
+                       **{k: float(v) for k, v in info.items() if v.dim() == 0}}
+                self.metrics.append(rec)
+                self.log_fn(f"step {opt_step}: loss {loss_v:.6f} "
+                            f"({rec['steps_per_s']:.1f} steps/s)")
+            # best model: every micro-step inside the final window
+            if opt_step >= best_from:
+                loss_v = float(loss)
+                if loss_v < self.best_loss:
+                    self.best_loss = loss_v
+                    self.best_step = opt_step
+                    if self.checkpointer is not None:
+                        self.checkpointer.save_best(self.state.step, self.state.model.state_dict(),
+                                                    self.state.ema_params, loss_v)
+            if (cfg.save_every and self.checkpointer is not None
+                    and opt_step // cfg.save_every > last_saved // cfg.save_every):
+                last_saved = opt_step
+                self._save()
+        if self.checkpointer is not None:
+            self._save()
+        return self.state
+
+    def save_metrics(self, path: str):
+        """training_metrics.json: the log records, best loss and step."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({"metrics": self.metrics, "best_loss": self.best_loss,
+                       "best_step": self.best_step}, f, indent=2)

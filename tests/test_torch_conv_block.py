@@ -2,7 +2,8 @@
 
 The plain PyTorch version is held against both the jnp reference and the
 Pallas kernel run through the Pallas interpreter (the JAX package's own
-CPU route for it); the autograd entry's gradients against ``jax.grad``.
+CPU route for it); the autograd entry's gradients (its backward takes dW
+from ``ops/conv_weight_grad.py``) against ``jax.grad``.
 """
 import jax
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import torch
 from deepmimic_diffusion_mujoco_tpu.ops.pallas import conv_block_kernel as CK
 from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as TK
+from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as TW
 
 torch.set_num_threads(2)
 
@@ -80,6 +82,16 @@ def test_autograd_entry_uses_plain_version_on_cpu():
     assert TK.conv_gn_mish_cuda.launches == launches
 
 
+def test_backward_counts_no_launch_on_cpu():
+    """On CPU tensors the backward's dW comes from B2's plain version: no
+    launch of either kernel is counted."""
+    tensors = [torch.from_numpy(a).requires_grad_() for a in _inputs(16, 64, seed=5)]
+    counts = TK.conv_gn_mish_cuda.launches, TW.conv1d_weight_grad_cuda.launches
+    TK.conv_gn_mish(*tensors, GROUPS).square().sum().backward()
+    assert all(t.grad is not None for t in tensors)
+    assert (TK.conv_gn_mish_cuda.launches, TW.conv1d_weight_grad_cuda.launches) == counts
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     tensors = list(map(torch.from_numpy, _inputs(16, 35)))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
@@ -105,3 +117,16 @@ def test_missing_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def test_warm_build_dir_without_logs(tmp_path, monkeypatch):
+    """Libraries already in the build directory are used as they are, with
+    no compiler and no log beside them (chip_smoke.py reports no ptxas
+    lines for them instead of failing)."""
+    import chip_smoke
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))  # no nvcc
+    for name in chip_smoke.SOURCES:
+        _build.library_path(name).write_bytes(b"")
+    assert chip_smoke.build_all() == {name: None for name in chip_smoke.SOURCES}

@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as TK
+from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as TW
+
+WGRAD_TOL = 1e-5  # of max |dW|: f32 sums over up to B*H = 10,240 rows in another order
 
 
 @pytest.fixture
@@ -64,3 +67,79 @@ def test_conv_gn_mish_kernel_refuses_bad_inputs(cuda):
         TK.conv_gn_mish_cuda(x.double(), w, b, b + 1, b, 4)
     with pytest.raises(ValueError, match="kernel size"):
         TK.conv_gn_mish_cuda(x, torch.randn(4, 16, 12, device=cuda), b, b + 1, b, 4)
+
+
+def _wgrad_inputs(cuda, B, H, Cin, Cout, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(B, H, Cin, generator=g, device=cuda),
+            torch.randn(B, H, Cout, generator=g, device=cuda))
+
+
+def _assert_wgrad_close(out, ref):
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    err = (out - ref).abs().max().item()
+    assert err <= WGRAD_TOL * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [
+    (32, 160, 35, 128, 5), (32, 80, 512, 128, 5), (32, 20, 2048, 512, 5), (32, 20, 1024, 1024, 5),
+    (3, 21, 37, 24, 3), (2, 5, 8, 16, 1), (1, 200, 70, 130, 9), (4, 7, 64, 64, 7), (1, 1, 4, 4, 5),
+])
+def test_conv1d_weight_grad_kernel_matches_plain(cuda, B, H, Cin, Cout, k):
+    x, dy = _wgrad_inputs(cuda, B, H, Cin, Cout)
+    launches = TW.conv1d_weight_grad_cuda.launches
+    out = TW.conv1d_weight_grad_cuda(x, dy, k)
+    torch.cuda.synchronize()
+    assert TW.conv1d_weight_grad_cuda.launches == launches + 1
+    _assert_wgrad_close(out, TW.conv1d_weight_grad_plain(x, dy, k))
+    # the partial sums are added in a fixed order: bit-identical on a rerun
+    assert torch.equal(out, TW.conv1d_weight_grad_cuda(x, dy, k))
+
+
+@pytest.mark.cuda
+def test_conv1d_weight_grad_kernel_takes_unaligned_rows(cuda):
+    """x that does not start on 16 bytes goes through the scalar copies."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4 * 40 * 64 + 1, generator=g, device=cuda)[1:].view(4, 40, 64)
+    dy = torch.randn(4, 40, 128, generator=g, device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _assert_wgrad_close(TW.conv1d_weight_grad_cuda(x, dy, 5), TW.conv1d_weight_grad_plain(x, dy, 5))
+
+
+@pytest.mark.cuda
+def test_conv1d_weight_grad_kernel_refuses_bad_inputs(cuda):
+    x, dy = _wgrad_inputs(cuda, 2, 8, 16, 12)
+    with pytest.raises(ValueError, match="kernel size"):
+        TW.conv1d_weight_grad_cuda(x, dy, 4)
+    with pytest.raises(ValueError, match="float32"):
+        TW.conv1d_weight_grad_cuda(x.double(), dy.double(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        TW.conv1d_weight_grad_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dy, 5)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        TW.conv1d_weight_grad_cuda(x.cpu(), dy, 5)
+
+
+@pytest.mark.cuda
+def test_conv_block_backward_takes_dw_from_the_kernel(cuda):
+    """The autograd entry on the card (B1 forward, B2 dW) against autograd
+    through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, H, Cin, Cout = 4, 40, 35, 128
+    args = [torch.randn(B, H, Cin, generator=g, device=cuda),
+            torch.randn(5, Cin, Cout, generator=g, device=cuda) * (5 * Cin) ** -0.5,
+            0.1 * torch.randn(Cout, generator=g, device=cuda),
+            1 + 0.1 * torch.randn(Cout, generator=g, device=cuda),
+            0.1 * torch.randn(Cout, generator=g, device=cuda)]
+    cot = torch.randn(B, H, Cout, generator=g, device=cuda)
+    grads = []
+    for fn in (TK.conv_gn_mish, TK.conv_gn_mish_plain):
+        leaves = [a.clone().requires_grad_() for a in args]
+        launches = TW.conv1d_weight_grad_cuda.launches
+        (fn(*leaves, 8) * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in leaves])
+        expected = launches + (1 if fn is TK.conv_gn_mish else 0)
+        assert TW.conv1d_weight_grad_cuda.launches == expected
+    for ours, ref in zip(*grads):
+        assert (ours - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

@@ -9,6 +9,7 @@ import torch
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, schedules
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig, ModelConfig
 
@@ -45,6 +46,8 @@ ENTRY_POINTS = {
     "holding_box": lambda tmp: conditioning.holding_box(),
     "load_run": lambda tmp: cli.load_run(str(tmp)),
     "cli_main": lambda tmp: cli.main(["--run", str(tmp)]),
+    "train_main": lambda tmp: train_cli.main(["--out", str(tmp)]),
+    "build_trainer": lambda tmp: train_cli.build_trainer(_temporal_cfg()),
 }
 
 
