@@ -5,9 +5,9 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: both CUDA sources (B1 csrc/conv_gn_mish.cu, B2
-   csrc/conv1d_weight_grad.cu), compiled in parallel with nvcc, with
-   ptxas's register and spill lines.
+2. build: the three CUDA sources (B1 csrc/conv_gn_mish.cu, B2
+   csrc/conv1d_weight_grad.cu, B3 and B4 csrc/local_attention.cu), compiled
+   in parallel with nvcc, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
    the dim-128 U-Net gives it on the main paths: B1 at B 16 for serving
    (H 64 and H 48, plus level 0 at H 192) and at B 32 for a training
@@ -36,6 +36,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    kernel time per step by name, the host operators with the most CPU time
    and the device's busy share (torch.profiler over 10 steps), and peak
    device memory.
+8. local-attention kernels: B3 (``fused_qkv_local_attention``) against its
+   plain version at every shape the requests below give it (B 16 x H 128,
+   B 4 x H 1024, B 4 x H 120), each also with a prefix key mask and with a
+   key mask and a dropout keep mask; B4 (``local_attention_heads``) at
+   B 16 x H 128 and B 4 x H 1024. Max error, and per-launch times of the
+   kernel, the plain version and the composition yardstick (rotary, then
+   one ``scaled_dot_product_attention`` with the band mask), beside the
+   card's bound for the same work.
+9. local-attention serve: a run directory written from the user config
+   experiments/localattn5k_r3/config.json (dim 512, depth 6, 8 heads of 64,
+   window 16, 4 residual streams, v4 sampler, T 1000, x0 prediction) with
+   seeded random weights, answered by ``cli.sample.main``: B 16 x H 128
+   x T 1000 with holding_box, then B 4 x H 1024 and B 4 x H 120 from a
+   max_seq_len 1024, T 100 copy. B3's count is set to 0 before each
+   request and must be depth x model calls after it. Then a timed v4 chain,
+   one LocalTransformer forward with B3 against the same forward through
+   the plain version at H 128 and H 1024, B4 driven through its front door
+   ``windowed_attention`` on one layer's projections (held against B3),
+   and the serving profile over 50 steps.
 
 Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -63,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
@@ -70,10 +90,13 @@ from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.sampling import sample_loop
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.schedules import make_schedule
 from deepmimic_diffusion_mujoco_tpu_torch.models import temporal_unet
+from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
 from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
 from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
+from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
+from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
 from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
@@ -81,7 +104,8 @@ from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
 ROOT = Path(__file__).resolve().parent
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
 CARTWHEEL = ROOT / "data" / "motions" / "humanoid3d_cartwheel.txt"
-SOURCES = ("conv_gn_mish", "conv1d_weight_grad")
+LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
+SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention")
 
 B, H, D, DIM, T, K, GROUPS = 16, 64, 35, 128, 1000, 5, 8
 TRAIN_B, TRAIN_H, ACCUM, TRAIN_STEPS = 32, 160, 2, 30
@@ -91,6 +115,11 @@ FORWARD_TOL = 1e-3       # |U-Net(kernel) - U-Net(plain)| after 33 blocks
 GRAD_TOL = 1e-3          # per parameter: |grad(kernels) - grad(plain)| / max|grad(plain)|
 LOSS_TOL = 1e-5          # |loss(kernels) - loss(plain)| / loss(plain)
 BOX_ZERO, BOX_ELBOW = [13, 14, 15, 17, 18, 19], [16, 20]
+LA_B, LA_H, LA_SMALL_B, LA_LONG, LA_PAD, LA_T_SHORT = 16, 128, 4, 1024, 120, 100
+ATTN_TOL = 1e-4          # B3, B4: |kernel - plain| per element, f32 sums in another order
+LA_FORWARD_TOL = 1e-3    # |LocalTransformer(B3) - LocalTransformer(plain)| after 6 layers
+COMP_TOL = 1e-3          # the composition yardstick against the plain version
+KEEP_PROB = 0.7          # 1 - attn_dropout of the user config
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -164,6 +193,8 @@ def build_all():
 def reset_counts():
     CB.conv_gn_mish_cuda.launches = 0
     CW.conv1d_weight_grad_cuda.launches = 0
+    FA.fused_qkv_local_attention_cuda.launches = 0
+    LH.local_attention_heads_cuda.launches = 0
 
 
 def counts():
@@ -335,8 +366,9 @@ def check_motions(paths, frames, num):
             raise RuntimeError(f"{p}: holding_box dims not clamped")
 
 
-def request(run_dir, out_dir, frames, num=B):
-    """One CLI request; -> (paths, seconds, conv_gn_mish launches)."""
+def request(run_dir, out_dir, frames, num=B, kernel=CB.conv_gn_mish_cuda):
+    """One CLI request, every count set to 0 just before it; -> (paths,
+    seconds, launches of ``kernel`` in the request)."""
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints every saved path
@@ -344,7 +376,7 @@ def request(run_dir, out_dir, frames, num=B):
                           "--conditioner", "holding_box", "--out", out_dir, "--device", "cuda"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = CB.conv_gn_mish_cuda.launches
+    launches = kernel.launches
     check_motions(paths, frames, num)
     return paths, seconds, launches
 
@@ -597,6 +629,319 @@ def train_profile_phase(dev, seed, steps=10):
     return result
 
 
+# ---------------------------------------------------------------------------
+# The local-attention transformer (B3, B4)
+
+
+def rotary_tables(pos, dh, dev):
+    """cos and sin (len(pos), dh) of the absolute-position rotary."""
+    ang = torch.from_numpy(pos.astype(np.float32)[:, None] * FA.rotary_freqs(dh)[None, :]).to(dev)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rotate(x, table):
+    cos, sin = table
+    x1, x2 = x.chunk(2, dim=-1)
+    return x * cos + torch.cat([-x2, x1], dim=-1) * sin
+
+
+def band_mask(n, w, causal, dev):
+    """(n, n) bool, True where query i may attend key j (SDPA's convention)."""
+    i = np.arange(n)
+    bad = FA.window_mask(i[:, None], i[None, :], w, 1, 0 if causal else 1, causal, True, False)
+    return torch.from_numpy(~bad).to(dev)
+
+
+def attention_work(n, n_keys, w, causal, lengths):
+    """(attended (query, key) pairs of one head summed over the batch, query
+    rows with every key masked) for the real query rows [0, n), keys [0,
+    n_keys) and per-sequence key lengths."""
+    i, j = np.arange(n)[:, None], np.arange(n_keys)[None, :]
+    ok = ~FA.window_mask(i, j, w, 1, 0 if causal else 1, causal, True, False)
+    pairs = empty = 0
+    for ln in lengths:
+        per_row = (ok & (j < ln)).sum(axis=1)
+        pairs += int(per_row.sum())
+        empty += int((per_row == 0).sum())
+    return pairs, empty
+
+
+def b3_composition(qkv, h, dh, w, tables, mask):
+    """The same function from library calls: the plain rotary on the padded
+    q and k, then one scaled_dot_product_attention with the band mask."""
+    B, N, _ = qkv.shape
+    Np = mask.shape[0]
+    x = F.pad(qkv, (0, 0, 0, Np - N)).view(B, Np, 3, h, dh).permute(2, 0, 3, 1, 4)
+    out = F.scaled_dot_product_attention(rotate(x[0], tables[0]), rotate(x[1], tables[1]), x[2],
+                                         attn_mask=mask)
+    return out.transpose(1, 2).reshape(B, Np, h * dh)[:, :N]
+
+
+def b3_rows(dev, timer, peaks, mcfg):
+    """B3 against its plain version at the requests' shapes, each without
+    masks, with prefix key lengths (down to 3, so some rows have every key
+    masked), and with those and a dropout keep mask."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    for batch, n in ((LA_B, LA_H), (LA_SMALL_B, LA_LONG), (LA_SMALL_B, LA_PAD)):
+        p = FA.plan(n, w, causal)
+        Np, K = p["Np"], p["K"]
+        qkv = torch.randn(batch, n, 3 * h * dh, generator=g, device=dev)
+        lengths = np.linspace(n, 3, batch).round().astype(int).tolist()
+        km = (torch.arange(n, device=dev)[None, :]
+              < torch.tensor(lengths, device=dev)[:, None]).to(torch.float32)
+        keep = FA.dropout_keep_mask(g, KEEP_PROB, batch, n, h, w, causal)
+        tables = (rotary_tables(np.arange(Np) + lf * w, dh, dev), rotary_tables(np.arange(Np), dh, dev))
+        mask = band_mask(Np, w, causal, dev)
+        for masks, kmask, kp_mask in (("none", None, None), ("lengths", km, None),
+                                      ("lengths+keep", km, keep)):
+            kp = KEEP_PROB if kp_mask is not None else 1.0
+            args = (qkv, h, dh, w, causal, True, True, kmask, kp_mask, kp)
+            out = FA.fused_qkv_local_attention_cuda(*args)
+            ref = FA.fused_qkv_local_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            if not (err <= ATTN_TOL and torch.isfinite(out).all()):
+                raise RuntimeError(f"fused_qkv_local_attention kernel disagrees at B {batch}, "
+                                   f"N {n}, {masks}: max abs err {err}")
+            row = {"B": batch, "N": n, "Np": Np, "K": K, "masks": masks,
+                   "lengths": lengths if kmask is not None else None, "max_abs_err": err,
+                   "ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args)),
+                   "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args))}
+            if masks == "none":
+                comp_err = (b3_composition(qkv, h, dh, w, tables, mask) - ref).abs().max().item()
+                if not comp_err <= COMP_TOL:
+                    raise RuntimeError(f"the composition yardstick computes another function: "
+                                       f"{comp_err}")
+                row["composition_ms"] = timer(lambda: b3_composition(qkv, h, dh, w, tables, mask))
+                row["composition_max_abs_err"] = comp_err
+            pairs, empty = attention_work(n, Np, w, causal,
+                                          lengths if kmask is not None else [Np] * batch)
+            flops = h * (4.0 * dh * pairs + 2.0 * dh * K * empty) + 6.0 * batch * n * h * dh
+            nbytes = 4.0 * (4 * batch * n * h * dh + (batch * Np * h * K if kp_mask is not None
+                                                      else 0) + (batch if kmask is not None else 0))
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peaks)
+            row.update(pairs_per_head=pairs, rows_all_masked=empty, gflop=flops / 1e9,
+                       mbytes=nbytes / 1e6)
+            rows.append(row)
+            emit({"phase": "kernel", "name": "fused_qkv_local_attention", **row})
+    return rows
+
+
+def b4_rows(dev, timer, peaks, mcfg):
+    """B4 against its plain version at (B·h, N, dh) of the two aligned
+    requests, with the composition yardstick."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(6)
+    for batch, n in ((LA_B, LA_H), (LA_SMALL_B, LA_LONG)):
+        q, k, v = (torch.randn(batch, h, n, dh, generator=g, device=dev) for _ in range(3))
+        out = LH.local_attention_heads_cuda(q, k, v, w, causal)
+        ref = LH.local_attention_heads_plain(q, k, v, w, causal)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not (err <= ATTN_TOL and torch.isfinite(out).all()):
+            raise RuntimeError(f"local_attention_heads kernel disagrees at B {batch}, N {n}: "
+                               f"max abs err {err}")
+        qt, kt = rotary_tables(np.arange(n) + lf * w, dh, dev), rotary_tables(np.arange(n), dh, dev)
+        mask = band_mask(n, w, causal, dev)
+
+        def composition():
+            return F.scaled_dot_product_attention(rotate(q, qt), rotate(k, kt), v, attn_mask=mask)
+
+        comp_err = (composition() - ref).abs().max().item()
+        if not comp_err <= COMP_TOL:
+            raise RuntimeError(f"the composition yardstick computes another function: {comp_err}")
+        pairs, _ = attention_work(n, n, w, causal, [n] * batch)
+        flops = h * 4.0 * dh * pairs + 6.0 * batch * h * n * dh
+        bound_ms, bound_by = bound(flops, 16.0 * batch * h * n * dh, peaks)
+        rows.append({"B": batch, "heads": h, "N": n, "dh": dh, "max_abs_err": err,
+                     "ms": timer(lambda: LH.local_attention_heads_cuda(q, k, v, w, causal)),
+                     "plain_ms": timer(lambda: LH.local_attention_heads_plain(q, k, v, w, causal)),
+                     "composition_ms": timer(composition), "composition_max_abs_err": comp_err,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9})
+        emit({"phase": "kernel", "name": "local_attention_heads", **rows[-1]})
+    return rows
+
+
+def write_la_run(run_dir, cfg, seed):
+    """config.json and a checkpoint of seeded random weights; the
+    hyper-connections' dynamic weights are made non-zero so that their
+    path carries values."""
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    torch.manual_seed(seed)
+    model = factory.build_model(cfg.model, device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("dynamic_alpha_fn", "dynamic_beta_fn")):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    sd = model.state_dict()
+    Checkpointer(os.path.join(run_dir, "checkpoints")).save_best(0, sd, sd, loss=0.0)
+
+
+@contextlib.contextmanager
+def counted_forwards():
+    """Count LocalTransformer forward calls: -> a list, one entry per call."""
+    calls, real = [], LocalTransformer.forward
+
+    def forward(self, *a, **k):
+        calls.append(1)
+        return real(self, *a, **k)
+
+    LocalTransformer.forward = forward
+    try:
+        yield calls
+    finally:
+        LocalTransformer.forward = real
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every LocalMHA through B3's plain version."""
+    real = FA.fused_qkv_local_attention_cuda
+    FA.fused_qkv_local_attention_cuda = FA.fused_qkv_local_attention_plain
+    try:
+        yield
+    finally:
+        FA.fused_qkv_local_attention_cuda = real
+
+
+def load_model(run_dir, dev):
+    _, model, sched, payload, _ = cli.load_run(run_dir, device=dev)
+    model.load_state_dict(payload["params"])
+    return model.eval(), sched
+
+
+def heads_path(models, mcfg, dev):
+    """B4's own path: one layer's q, k, v at each request's shape through
+    the front door ``windowed_attention`` (the per-head kernel where N is a
+    multiple of 128, the bucketed local_attention at H 120), held against
+    B3 on the same projections. -> (B4 launches, max abs err per H)."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    with torch.inference_mode():
+        for model, batch, n in models:
+            mha = model.attn[0]
+            x = torch.randn(batch, n, mcfg.latent_dim, generator=g, device=dev)
+            qkv = mha.to_qkv(mha.norm(x))
+            cases.append((n, qkv, FA.fused_qkv_local_attention(qkv, h, dh, w, causal)))
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = []
+        for n, qkv, _ in cases:
+            q, k, v = qkv.view(qkv.shape[0], n, 3, h, dh).permute(2, 0, 3, 1, 4)
+            outs.append(LH.windowed_attention(q, k, v, w, causal=causal))
+        torch.cuda.synchronize()
+        launches = LH.local_attention_heads_cuda.launches
+    errs = {}
+    for (n, qkv, ctx), out in zip(cases, outs):
+        err = (out.transpose(1, 2).reshape(ctx.shape) - ctx).abs().max().item()
+        if not err <= ATTN_TOL:
+            raise RuntimeError(f"windowed_attention at H {n} differs from B3 by {err}")
+        errs[f"h{n}"] = err
+    return launches, errs
+
+
+def la_serve_phase(dev, timer, args, tmp, cfg):
+    """The local-attention serving path: three CLI requests, the timed
+    chain, the kernel-vs-plain forwards, B4's front door and the profile."""
+    mcfg = cfg.model
+    D_la, depth = mcfg.input_dim, mcfg.depth
+    if cfg.diffusion.mode != "v4":
+        raise RuntimeError(f"{LA_CONFIG} samples with {cfg.diffusion.mode!r}, expected v4")
+    run, run_long = os.path.join(tmp, "la_run"), os.path.join(tmp, "la_run_long")
+    long_cfg = cfg.override({"model.max_seq_len": LA_LONG, "diffusion.noise_steps": LA_T_SHORT})
+    write_la_run(run, cfg, args.seed)
+    write_la_run(run_long, long_cfg, args.seed)
+    requests = []
+    for run_dir, c, num, frames in ((run, cfg, LA_B, LA_H), (run_long, long_cfg, LA_SMALL_B, LA_LONG),
+                                    (run_long, long_cfg, LA_SMALL_B, LA_PAD)):
+        with counted_forwards() as calls:
+            _, seconds, launches = request(run_dir, os.path.join(tmp, f"la_h{frames}"), frames, num,
+                                           kernel=FA.fused_qkv_local_attention_cuda)
+        # v4 runs the model at t = T-1 .. 1
+        steps = c.diffusion.noise_steps - 1
+        if len(calls) != steps or launches != depth * steps:
+            raise RuntimeError(f"the H {frames} request ran {len(calls)} forwards and launched "
+                               f"fused_qkv_local_attention {launches} times, expected {steps} and "
+                               f"{depth} x {steps}")
+        requests.append({"frames": frames, "num": num, "T": c.diffusion.noise_steps,
+                         "forwards": len(calls), "seconds": seconds,
+                         "fused_qkv_local_attention_launches": launches})
+    emit({"phase": "main_path", "path": "la_serve", "requests": requests})
+
+    model, sched = load_model(run, dev)
+    model_long, _ = load_model(run_long, dev)
+    cond = conditioning.holding_box(D_la, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sample_loop(sched, model, (LA_B, LA_H, D_la), torch.Generator(device=dev).manual_seed(
+        args.seed), mode="v4", predict_epsilon=False, conditioning_fn=cond)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    if out.trajectories.shape != (LA_B, LA_H, D_la) or not torch.isfinite(out.trajectories).all():
+        raise RuntimeError("v4 chain output")
+    chain = {"seconds": chain_s, "samples_per_s": LA_B / chain_s,
+             "fused_qkv_local_attention_launches": FA.fused_qkv_local_attention_cuda.launches}
+
+    gx = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    forwards = {}
+    for m, batch, n in ((model, LA_B, LA_H), (model_long, LA_SMALL_B, LA_LONG)):
+        x = torch.randn(batch, n, D_la, generator=gx, device=dev)
+        t = torch.randint(0, sched.num_timesteps, (batch,), generator=gx, device=dev)
+
+        def fwd(m=m, x=x, t=t):
+            with torch.inference_mode():
+                return m(x, t)
+
+        out_k = fwd()
+        with plain_attention():
+            out_p = fwd()
+            plain_ms = timer(fwd, reps=10)
+        err = (out_k - out_p).abs().max().item()
+        if not (err <= LA_FORWARD_TOL and torch.isfinite(out_k).all()):
+            raise RuntimeError(f"LocalTransformer forward at H {n} with B3 differs from plain "
+                               f"by {err}")
+        forwards[f"h{n}"] = {"B": batch, "max_abs_err_kernel_vs_plain": err,
+                             "ms": timer(fwd, reps=10), "plain_attention_ms": plain_ms}
+    b4_launches, b4_errs = heads_path([(model, LA_B, LA_H), (model_long, LA_SMALL_B, LA_LONG),
+                                       (model_long, LA_SMALL_B, LA_PAD)], mcfg, dev)
+    if b4_launches != 2:
+        raise RuntimeError(f"windowed_attention launched local_attention_heads {b4_launches} "
+                           "times, expected 2 (H 128 and H 1024; H 120 is bucketed)")
+    emit({"phase": "chains", "path": "la_serve", "v4_T1000": chain, "forward": forwards,
+          "heads_path": {"local_attention_heads_launches": b4_launches,
+                         "max_abs_err_vs_b3": b4_errs}})
+
+    steps = 50
+
+    def window():
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        sample_loop(sched, model, (LA_B, LA_H, D_la), gen, mode="v4", predict_epsilon=False,
+                    conditioning_fn=cond, t_start=steps + 1)
+        torch.cuda.synchronize()
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device_ms, top, host_ops = device_time_by_kernel(window, steps)
+    profile = {"device_ms_per_step": device_ms, "wall_ms_per_step": wall_ms,
+               "device_busy_share": device_ms / wall_ms if device_ms else None,
+               "top_kernels": top, "top_host_ops": host_ops}
+    emit({"phase": "profile", "path": "la_serve", **profile})
+    return {"requests": requests, "v4_T1000": chain, "forward": forwards,
+            "heads_path": {"launches": b4_launches, "max_abs_err_vs_b3": b4_errs},
+            "profile": profile}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -638,12 +983,18 @@ def main(argv=None) -> int:
     train_rows = b1_rows(dev, timer, {TRAIN_H: shape_counts[TRAIN_H]}, peaks, TRAIN_B)
     wgrad_rows = b2_rows(dev, timer, shape_counts[TRAIN_H], peaks, TRAIN_B)
 
+    la_cfg = ExperimentConfig.load(str(LA_CONFIG))
+    b3 = b3_rows(dev, timer, peaks, la_cfg.model)
+    b4 = b4_rows(dev, timer, peaks, la_cfg.model)
+
     result = {"kernel_rows": {"conv_gn_mish_serve": serve_rows,
                               "conv_gn_mish_train": train_rows,
-                              "conv1d_weight_grad_train": wgrad_rows}}
+                              "conv1d_weight_grad_train": wgrad_rows,
+                              "fused_qkv_local_attention": b3, "local_attention_heads": b4}}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         result["serve"] = serve_phase(dev, timer, args, tmp, shape_counts, peaks)
+        result["la_serve"] = la_serve_phase(dev, timer, args, tmp, la_cfg)
         result["train"] = train_phase(args, tmp, per_step)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -688,6 +1039,36 @@ def main(argv=None) -> int:
         else "bytes",
         "library_ms": per_launch_sum(wgrad_rows, "library_ms", "per_micro_step"),
         "launches_per_micro_step": per_step,
+    }]
+    # B3 and B4: per launch at the serving shape (B 16, H 128, no masks)
+    b3_main, b4_main = b3[0], b4[0]
+    la_requests = result["la_serve"]["requests"]
+    kernels += [{
+        "name": "fused_qkv_local_attention", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/fused_local_attention.py:284",
+        "launches": la_requests[0]["fused_qkv_local_attention_launches"],
+        "launches_requests": [r["fused_qkv_local_attention_launches"] for r in la_requests],
+        "max_abs_err": max(r["max_abs_err"] for r in b3),
+        "ms": b3_main["ms"], "plain_ms": b3_main["plain_ms"], "bound_ms": b3_main["bound_ms"],
+        "bound_by": b3_main["bound_by"], "library_ms": None,
+        "composition_ms": b3_main["composition_ms"],
+        "shape": {"B": LA_B, "N": LA_H, "heads": la_cfg.model.n_heads,
+                  "dim_head": la_cfg.model.dim_head, "window": la_cfg.model.window_size},
+    }, {
+        "name": "local_attention_heads", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/local_attention_kernel.py:113",
+        # its own path: the front door windowed_attention (B4 is not on the serving path)
+        "launches": result["la_serve"]["heads_path"]["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in b4),
+        "ms": b4_main["ms"], "plain_ms": b4_main["plain_ms"], "bound_ms": b4_main["bound_ms"],
+        "bound_by": b4_main["bound_by"], "library_ms": None,
+        "composition_ms": b4_main["composition_ms"],
+        "shape": {"B": LA_B, "heads": la_cfg.model.n_heads, "N": LA_H,
+                  "dim_head": la_cfg.model.dim_head},
     }]
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:

@@ -10,7 +10,9 @@ same flags plus ``--device`` (default ``cuda``; it raises if no card is
 present). The run directory holds the JAX package's ``config.json`` and the
 port's checkpoints (``checkpoints/best_model.pt`` or ``state_<step>.pt``,
 see ``train/checkpoint.py``). Motions are saved with exactly 35 qpos dims,
-one ``.npy`` per sample.
+one ``.npy`` per sample. The run's ``model.architecture`` may be
+``temporal`` or ``local_attention``; for the latter ``--frames`` may not
+exceed ``model.max_seq_len``, the rows of its learned position table.
 """
 from __future__ import annotations
 

@@ -43,6 +43,10 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
     """``resume=True`` restores the latest periodic checkpoint in
     ``out_dir``."""
     dev = resolve_device(device)
+    if cfg.model.architecture == "local_attention":
+        raise NotImplementedError(
+            "training the local-attention transformer is not ported yet: ROADMAP.md Queue A, "
+            "local attention: LocalTransformer training")
     if cfg.train.timestep_sampler == "loss_aware":
         raise NotImplementedError(
             f"timestep_sampler='loss_aware' is not ported yet: {STACK_B_SLICE}")

@@ -26,6 +26,26 @@ Conv1dBlock_0/...                                        final_block....        
 Flax's ``ConvTranspose(4, stride 2, "SAME")`` equals
 ``torch.nn.ConvTranspose1d(C, C, 4, stride=2, padding=1)`` only with the
 kernel flipped along k (flax does not flip, a true transposed conv does).
+
+``local_transformer_from_flax`` does the same for the JAX LocalTransformer
+(``models.local_attention.LocalTransformer``):
+
+=================================================  ====================================  =========
+flax path                                          torch key                             transform
+=================================================  ====================================  =========
+pose_embed, time_embed_{0,1}, final_layer          same name .{weight,bias}              kernel.T
+pos_emb                                            pos_emb                               none
+class_embed/embedding                              class_embed.weight                    none
+dynamic_pos_bias/Dense_i                           dynamic_pos_bias.dense.i              kernel.T
+hc_{attn,ff}_i/<param>, .../norm/scale             hc_{attn,ff}.i.<param>, .norm.scale   none
+attn_i/LayerNorm_0/{scale,bias}                    attn.i.norm.{weight,bias}             none
+attn_i/Dense_0, Dense_1 (no bias)                  attn.i.to_qkv, attn.i.to_out          kernel.T
+ff_i/LayerNorm_0, Dense_0, Dense_1                 ff.i.norm, ff.i.proj_in, ff.i.proj_out as above
+LayerNorm_0/{scale,bias}                           norm.{weight,bias}                    none
+=================================================  ====================================  =========
+
+The hyper-connection parameters keep flax's shapes (``dynamic_alpha_fn``
+is (D, S+1), used as ``normed @ W``), so they need no transpose.
 """
 from __future__ import annotations
 
@@ -106,3 +126,42 @@ def temporal_unet_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]"
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+_NORM = {"scale": "weight", "bias": "bias"}
+
+# (pattern over the flax path, torch key template, transform of a Dense kernel)
+_LOCAL_TABLE = [
+    (r"(pose_embed|time_embed_0|time_embed_1|final_layer)/(kernel|bias)", "{0}.{leaf}", _DENSE),
+    (r"(pos_emb)", "{0}", _SAME),
+    (r"class_embed/(embedding)", "class_embed.weight", _SAME),
+    (r"dynamic_pos_bias/Dense_(\d+)/(kernel|bias)", "dynamic_pos_bias.dense.{0}.{leaf}", _DENSE),
+    (r"hc_(attn|ff)_(\d+)/norm/(scale)", "hc_{0}.{1}.norm.scale", _SAME),
+    (r"hc_(attn|ff)_(\d+)/(\w+)", "hc_{0}.{1}.{2}", _SAME),
+    (r"attn_(\d+)/LayerNorm_0/(scale|bias)", "attn.{0}.norm.{norm}", _SAME),
+    (r"attn_(\d+)/Dense_0/(kernel)", "attn.{0}.to_qkv.weight", _DENSE),
+    (r"attn_(\d+)/Dense_1/(kernel)", "attn.{0}.to_out.weight", _DENSE),
+    (r"ff_(\d+)/LayerNorm_0/(scale|bias)", "ff.{0}.norm.{norm}", _SAME),
+    (r"ff_(\d+)/Dense_0/(kernel)", "ff.{0}.proj_in.weight", _DENSE),
+    (r"ff_(\d+)/Dense_1/(kernel)", "ff.{0}.proj_out.weight", _DENSE),
+    (r"LayerNorm_0/(scale|bias)", "norm.{norm}", _SAME),
+]
+
+
+def local_transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax LocalTransformer param tree to the port's state dict."""
+    tree = params_np.get("params", params_np)
+    out = OrderedDict()
+    for path, arr in _flatten(tree).items():
+        for pattern, template, fn in _LOCAL_TABLE:
+            m = re.fullmatch(pattern, path)
+            if not m:
+                continue
+            leaf = m.groups()[-1]
+            key = template.format(*m.groups(), leaf=_LEAF.get(leaf, leaf),
+                                  norm=_NORM.get(leaf, leaf))
+            out[key] = _tensor(fn(arr) if leaf == "kernel" else arr)
+            break
+        else:
+            raise KeyError(f"no mapping for flax parameter {path!r}")
+    return out

@@ -1,8 +1,9 @@
 """Build models and schedules from an ExperimentConfig.
 
 Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``. The port has
-the temporal U-Net so far; the other architectures and bf16 compute raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+the temporal U-Net and the local-attention transformer so far; the other
+architectures and bf16 compute raise ``NotImplementedError`` naming the
+ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -10,19 +11,20 @@ import torch
 
 from .device import resolve_device
 from .diffusion.schedules import Schedule, make_schedule
+from .models.local_attention import LocalTransformer
 from .models.temporal_unet import TemporalUnet
 from .train.config import DiffusionConfig, ExperimentConfig, ModelConfig
 
 _NOT_PORTED = {
-    "transformer": "ROADMAP.md Queue A, slice 3 (stack-B transformer)",
-    "decoder": "ROADMAP.md Queue A, slice 3 (stack-B transformer decoder)",
-    "local_attention": "ROADMAP.md Queue A, slice 4 (local attention, kernels B3/B4)",
+    "transformer": "ROADMAP.md Queue A, slice 4 (stack-B transformer)",
+    "decoder": "ROADMAP.md Queue A, slice 4 (stack-B transformer decoder)",
 }
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.nn.Module:
     """The denoiser for ``cfg``, on ``device``. ``use_pallas`` is not read:
-    on the card the conv blocks always launch the CUDA kernel."""
+    on the card the conv blocks always launch the CUDA kernel, and every
+    local attention call the kernel's semantics cover launches B3."""
     dev = resolve_device(device)
     if cfg.bf16:
         raise NotImplementedError(
@@ -32,6 +34,16 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.
         return TemporalUnet(
             transition_dim=cfg.input_dim, dim=cfg.channel_dim,
             dim_mults=tuple(cfg.dim_mults), attention=cfg.attention,
+        ).to(dev)
+    if cfg.architecture == "local_attention":
+        return LocalTransformer(
+            input_dim=cfg.input_dim, max_seq_len=cfg.max_seq_len, dim=cfg.latent_dim,
+            depth=cfg.depth, heads=cfg.n_heads, dim_head=cfg.dim_head,
+            window_size=cfg.window_size, causal=cfg.causal, use_xpos=cfg.use_xpos,
+            num_residual_streams=cfg.num_residual_streams, attn_dropout=cfg.attn_dropout,
+            ff_dropout=cfg.ff_dropout, use_dynamic_pos_bias=cfg.use_dynamic_pos_bias,
+            use_global_attn=cfg.use_global_attn,
+            global_attn_layers=tuple(cfg.global_attn_layers), num_classes=cfg.num_classes,
         ).to(dev)
     if cfg.architecture in _NOT_PORTED:
         raise NotImplementedError(

@@ -1,0 +1,297 @@
+"""Windowed (block-local) attention transformer denoiser (PyTorch).
+
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/local_attention.py``:
+
+- ``local_attention``: the plain bucketed windowed attention over
+  (B, h, N, dh) tensors: look-around neighbourhoods, exact-window and causal
+  masks, rotary at neighbourhood-relative positions with optional xpos,
+  autopad, key masks, a DynamicPositionBias table, the trained-window mask
+  override and attention dropout from an explicit ``torch.Generator``;
+- ``LocalMHA``: pre-norm local multi-head attention. Its attention core is
+  ``ops.fused_local_attention.fused_qkv_local_attention`` (the CUDA kernel on
+  the card, its plain version on the CPU) whenever the kernel's semantics
+  cover the call: no window override, no bias table, rotary on, xpos off and
+  a chunk plan for N. Every other call takes ``local_attention``;
+- ``GEGLUFeedForward``, ``DynamicPositionBias`` and ``LocalTransformer``
+  with hyper-connection residual streams.
+
+Serving only: dropout in training mode, the global-attention inserts and the
+KV-cache decode raise ``NotImplementedError`` naming their ROADMAP.md item.
+Norms use flax's eps 1e-6 and GELU is flax's tanh approximation, so
+``convert.local_transformer_from_flax`` weights reproduce the JAX model.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import fused_local_attention as FK
+from . import hyper_connections as hc_lib
+from .embeddings import apply_rotary, mdm_timestep_embedding, rotary_angles, xpos_scale
+
+NEG_INF = -1e9
+EPS = 1e-6  # flax LayerNorm / RMSNorm
+_TRAINING = "ROADMAP.md Queue A, local attention: LocalTransformer training"
+
+
+def _look_around(bx: torch.Tensor, backward: int, forward: int, pad_value: float = 0.0):
+    """(..., nw, w, d) -> (..., nw, (backward+forward+1)*w, d): window i's
+    neighbourhood is windows [i-backward, i+forward], out-of-range windows
+    filled with ``pad_value``."""
+    nw = bx.shape[-3]
+    padded = F.pad(bx, (0, 0, 0, 0, backward, forward), value=pad_value)
+    return torch.cat([padded[..., i:i + nw, :, :] for i in range(backward + forward + 1)],
+                     dim=-2)
+
+
+def local_attention(q, k, v, window_size: int, *, causal: bool = False,
+                    look_backward: int = 1, look_forward: int | None = None,
+                    exact_windowsize: bool = True, use_rotary: bool = True,
+                    use_xpos: bool = False, xpos_scale_base: float | None = None,
+                    key_mask=None, scale: float | None = None,
+                    mask_window_size: int | None = None, bias_table=None,
+                    attn_dropout: float = 0.0, generator: torch.Generator | None = None):
+    """Windowed attention over (B, h, N, dh) tensors, bucketed. Dropout on the
+    attention probabilities needs ``generator``. ``mask_window_size`` is the
+    trained window when ``window_size`` overrides it."""
+    if look_forward is None:
+        look_forward = 0 if causal else 1
+    B, h, N, dh = q.shape
+    w = window_size
+    dev = q.device
+    pad = (-N) % w
+    if pad:  # autopad: pad keys are valid zero keys
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        if key_mask is not None:
+            key_mask = F.pad(key_mask.to(torch.float32), (0, pad))
+    n = N + pad
+    nw = n // w
+    scale = dh ** -0.5 if scale is None else scale
+
+    bq = q.reshape(B, h, nw, w, dh) * scale
+    bk = _look_around(k.reshape(B, h, nw, w, dh), look_backward, look_forward)
+    bv = _look_around(v.reshape(B, h, nw, w, dh), look_backward, look_forward)
+    jw = (look_backward + look_forward + 1) * w
+
+    if use_rotary:
+        # neighbourhood positions [0, jw); queries sit at the last w of them
+        ang = rotary_angles(jw, dh, device=dev).to(q.dtype)
+        if use_xpos:
+            sb = xpos_scale_base if xpos_scale_base is not None else w // 2
+            sc = xpos_scale(jw, dh, sb, device=dev).to(q.dtype)
+            sc2 = torch.cat([sc, sc], dim=-1)
+            bq = apply_rotary(bq, ang[-w:]) * sc2[-w:]
+            bk = apply_rotary(bk, ang) * sc2 ** -1
+        else:
+            bq = apply_rotary(bq, ang[-w:])
+            bk = apply_rotary(bk, ang)
+
+    # positions for masking, sentinel -1 for out-of-range windows (numpy)
+    t_pos = np.arange(n).reshape(nw, w)
+    padded = np.concatenate([np.full((look_backward, w), -1, np.int64), t_pos,
+                             np.full((look_forward, w), -1, np.int64)], axis=0)
+    j_pos = np.concatenate([padded[i:i + nw] for i in range(look_backward + look_forward + 1)],
+                           axis=-1)  # (nw, jw)
+    ti, tj = t_pos[:, :, None], j_pos[:, None, :]
+    neg = tj < 0
+    mw = mask_window_size if mask_window_size is not None else w
+    if causal:
+        bad = ti < tj
+        if exact_windowsize:
+            bad |= ti > tj + mw * look_backward
+    elif exact_windowsize:
+        bad = (tj - mw * look_forward > ti) | (ti > tj + mw * look_backward)
+    else:
+        bad = np.zeros_like(neg)
+    mask = torch.from_numpy(bad | neg).to(dev)[None, None]  # (1, 1, nw, w, jw)
+
+    sim = torch.einsum("bhnie,bhnje->bhnij", bq, bk)
+    if bias_table is not None:
+        # bias_table (n_dist, h) indexed by |i - j|
+        dist = np.minimum(np.abs(ti - tj), bias_table.shape[0] - 1)
+        bias = bias_table[torch.from_numpy(dist).to(dev)]           # (nw, w, jw, h)
+        sim = sim + bias.movedim(-1, 0)[None]
+    sim = sim.masked_fill(mask, NEG_INF)
+    if key_mask is not None:
+        km = _look_around(key_mask.to(torch.float32).reshape(B, nw, w, 1), look_backward,
+                          look_forward, pad_value=0.0)[..., 0]       # (B, nw, jw)
+        sim = sim.masked_fill(km[:, None, :, None, :] <= 0, NEG_INF)
+    attn = sim.softmax(dim=-1)
+    if attn_dropout > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout needs a torch.Generator")
+        keep = torch.rand(attn.shape, generator=generator, device=generator.device).to(dev)
+        attn = attn * (keep < 1.0 - attn_dropout) / (1.0 - attn_dropout)
+    out = torch.einsum("bhnij,bhnje->bhnie", attn, bv)
+    return out.reshape(B, h, n, dh)[:, :, :N]
+
+
+class LocalMHA(nn.Module):
+    """Pre-norm local multi-head attention."""
+
+    def __init__(self, dim: int, window_size: int, heads: int = 8, dim_head: int = 64,
+                 causal: bool = False, exact_windowsize: bool = True, use_xpos: bool = False,
+                 xpos_scale_base: float | None = None, use_rotary: bool = True,
+                 attn_dropout: float = 0.0):
+        super().__init__()
+        self.window_size, self.heads, self.dim_head = window_size, heads, dim_head
+        self.causal, self.exact_windowsize = causal, exact_windowsize
+        self.use_xpos, self.xpos_scale_base, self.use_rotary = use_xpos, xpos_scale_base, use_rotary
+        self.attn_dropout = attn_dropout
+        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.to_qkv = nn.Linear(dim, 3 * heads * dim_head, bias=False)
+        self.to_out = nn.Linear(heads * dim_head, dim, bias=False)
+
+    def uses_kernel(self, N: int, window_size: int | None = None, bias_table=None) -> bool:
+        """Whether a call at length N goes through the fused attention entry."""
+        return (window_size is None and bias_table is None and self.use_rotary
+                and not self.use_xpos
+                and FK.supports(N, self.window_size, self.use_xpos, self.causal))
+
+    def forward(self, x, key_mask=None, window_size=None, bias_table=None):
+        if self.training and self.attn_dropout > 0.0:
+            raise NotImplementedError(f"attention dropout in training mode: {_TRAINING}")
+        B, N, _ = x.shape
+        h, dh = self.heads, self.dim_head
+        qkv = self.to_qkv(self.norm(x))
+        if self.uses_kernel(N, window_size, bias_table):
+            out = FK.fused_qkv_local_attention(qkv, h, dh, self.window_size, self.causal,
+                                               self.exact_windowsize, True, key_mask)
+        else:
+            q, k, v = qkv.reshape(B, N, 3, h, dh).permute(2, 0, 3, 1, 4)  # (B, h, N, dh) each
+            out = local_attention(
+                q, k, v, window_size if window_size is not None else self.window_size,
+                causal=self.causal, exact_windowsize=self.exact_windowsize,
+                use_rotary=self.use_rotary, use_xpos=self.use_xpos,
+                # the xpos scale base is anchored to the trained window
+                xpos_scale_base=(self.xpos_scale_base if self.xpos_scale_base is not None
+                                 else self.window_size // 2),
+                key_mask=key_mask, mask_window_size=self.window_size, bias_table=bias_table,
+            ).transpose(1, 2).reshape(B, N, h * dh)
+        return self.to_out(out)
+
+
+class GEGLUFeedForward(nn.Module):
+    """Pre-norm GEGLU MLP: inner = int(dim * mult * 2/3), gated by GELU (tanh)."""
+
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+        super().__init__()
+        inner = int(dim * mult * 2 / 3)
+        self.dropout = dropout
+        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.proj_in = nn.Linear(dim, 2 * inner, bias=False)
+        self.proj_out = nn.Linear(inner, dim, bias=False)
+
+    def forward(self, x):
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(f"feed-forward dropout in training mode: {_TRAINING}")
+        a, g = self.proj_in(self.norm(x)).chunk(2, dim=-1)
+        return self.proj_out(a * F.gelu(g, approximate="tanh"))
+
+
+class DynamicPositionBias(nn.Module):
+    """Relative-distance MLP bias: Linear(1->dim) SiLU Linear(dim->dim) SiLU
+    Linear(dim->heads) on integer distances -> (n_dist, heads)."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.dense = nn.ModuleList([nn.Linear(1, dim), nn.Linear(dim, dim), nn.Linear(dim, heads)])
+
+    def forward(self, n_dist: int):
+        d = torch.arange(n_dist, dtype=torch.float32, device=self.dense[0].weight.device)[:, None]
+        h = F.silu(self.dense[0](d))
+        h = F.silu(self.dense[1](h))
+        return self.dense[2](h)
+
+
+class LocalTransformer(nn.Module):
+    """Stack-B local-attention denoiser: (B, N, input_dim), (B,) time,
+    optional (B,) class labels -> (B, N, input_dim). Submodule names follow
+    flax's, see ``convert.local_transformer_from_flax``."""
+
+    def __init__(self, input_dim: int, max_seq_len: int = 128, dim: int = 512, depth: int = 6,
+                 heads: int = 8, dim_head: int = 64, window_size: int = 16,
+                 causal: bool = False, ff_mult: int = 4, use_xpos: bool = False,
+                 num_classes: int = 0, num_residual_streams: int = 4,
+                 attn_dropout: float = 0.0, ff_dropout: float = 0.0,
+                 use_dynamic_pos_bias: bool = False, use_global_attn: bool = False,
+                 global_attn_layers: tuple = ()):
+        super().__init__()
+        if use_global_attn:
+            raise NotImplementedError(
+                "use_global_attn (GlobalMHA inserts) is not ported yet: "
+                "ROADMAP.md Queue A, local attention: GlobalMHA")
+        del global_attn_layers
+        self.input_dim, self.max_seq_len, self.dim = input_dim, max_seq_len, dim
+        self.depth, self.window_size = depth, window_size
+        self.num_classes = num_classes
+        self.num_residual_streams = num_residual_streams
+        self.use_dynamic_pos_bias = use_dynamic_pos_bias
+        self.pose_embed = nn.Linear(input_dim, dim)
+        self.time_embed_0 = nn.Linear(dim, dim)
+        self.time_embed_1 = nn.Linear(dim, dim)
+        self.pos_emb = nn.Parameter(torch.randn(max_seq_len, dim))
+        self.class_embed = nn.Embedding(num_classes + 1, dim) if num_classes > 0 else None
+        self.dynamic_pos_bias = (DynamicPositionBias(dim // 2, heads)
+                                 if use_dynamic_pos_bias else None)
+        self.attn = nn.ModuleList([
+            LocalMHA(dim, window_size, heads, dim_head, causal=causal, use_xpos=use_xpos,
+                     use_rotary=not use_dynamic_pos_bias, attn_dropout=attn_dropout)
+            for _ in range(depth)])
+        self.ff = nn.ModuleList([GEGLUFeedForward(dim, ff_mult, ff_dropout) for _ in range(depth)])
+        S = num_residual_streams
+        if S > 1:
+            # width connections of the attention / FF branches: layer indices 2i, 2i+1
+            self.hc_attn = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i)
+                                          for i in range(depth)])
+            self.hc_ff = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i + 1)
+                                        for i in range(depth)])
+        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.final_layer = nn.Linear(dim, input_dim)
+
+    def forward(self, x, time=None, y=None, mask=None, window_size=None, cache=None,
+                decode_pos=None):
+        if cache is not None or decode_pos is not None:
+            raise NotImplementedError(
+                "the KV-cache incremental decode is not ported yet: "
+                "ROADMAP.md Queue A, local attention: KV-cache decode")
+        B, N, _ = x.shape
+        if N > self.max_seq_len:
+            raise ValueError(
+                f"horizon {N} exceeds max_seq_len {self.max_seq_len}: the learned position "
+                f"table has {self.max_seq_len} rows (the JAX model fails the same way), so "
+                "frames cannot exceed the config's model.max_seq_len")
+        h = self.pose_embed(x.to(torch.float32))
+        if time is not None:
+            t = mdm_timestep_embedding(time, self.dim)
+            h = h + self.time_embed_1(F.silu(self.time_embed_0(t)))[:, None, :]
+        h = h + self.pos_emb[None, :N]
+        if self.class_embed is not None:
+            if y is None:
+                y = torch.full((B,), self.num_classes, dtype=torch.long, device=x.device)
+            h = h + self.class_embed(y.long().clamp(0, self.num_classes))[:, None, :]
+
+        bias_table = None
+        if self.dynamic_pos_bias is not None:
+            # every distance a look-around neighbourhood of the runtime window can give
+            bias_table = self.dynamic_pos_bias(2 * (window_size or self.window_size))
+
+        use_hc = self.num_residual_streams > 1
+        if use_hc:
+            h = hc_lib.expand_streams(h, self.num_residual_streams)
+        for i in range(self.depth):
+            mha, ff = self.attn[i], self.ff[i]
+            if use_hc:
+                hin, res, beta = self.hc_attn[i](h)
+                out = mha(hin, key_mask=mask, window_size=window_size, bias_table=bias_table)
+                h = hc_lib.depth_connection(out, res, beta)
+                hin, res, beta = self.hc_ff[i](h)
+                h = hc_lib.depth_connection(ff(hin), res, beta)
+            else:
+                h = h + mha(h, key_mask=mask, window_size=window_size, bias_table=bias_table)
+                h = h + ff(h)
+        if use_hc:
+            h = hc_lib.reduce_streams(h)
+        return self.final_layer(self.norm(h))

@@ -1,0 +1,335 @@
+"""Windowed look-around attention over all heads, straight from the QKV
+projection: the local-attention transformer's attention core.
+
+Replaces the TPU kernel ``deepmimic_diffusion_mujoco_tpu/ops/pallas/
+fused_local_attention.py:fused_qkv_local_attention``. Layout is the JAX
+package's: qkv (B, N, 3*h*dh) as the QKV Dense emits it, context
+(B, N, h*dh) as the out-projection takes it.
+
+The semantics are the TPU kernel's chunk plan (``plan``): N is padded to a
+multiple of the window (pad keys are valid zero keys); a padded length up to
+256 is one chunk attending to itself, a longer one (a multiple of 128) runs
+in 128-row chunks whose keys are the chunk plus P rows on each side, the
+edge slices clamped and masked. Rotary runs at absolute positions (queries
+shifted by look_forward * w). Masked scores are a finite -1e9 and the
+softmax spans the chunk's K keys, so a query whose keys are all masked
+(possible only with ``key_mask``) gets the mean of V over those K rows.
+
+- ``fused_qkv_local_attention_plain``: the plain PyTorch version, a
+  transcription of the chunk semantics. The CPU path, the backward, and the
+  oracle the CUDA kernel is held against.
+- ``fused_qkv_local_attention_cuda``: the hand-written kernel
+  (``csrc/local_attention.cu``; its header states the design and what
+  bounds it). CUDA tensors only; ``.launches`` counts its launches.
+- ``fused_qkv_local_attention``: the autograd entry the model calls. Its
+  forward launches the kernel for CUDA tensors and runs the plain version
+  for CPU tensors; its backward differentiates the plain version with the
+  same masks and keep bits.
+
+``key_mask`` (B, N), > 0 marking valid frames, must be PREFIX-valid (valid
+frames first, padding at the end, as jagged batches are): the kernel takes
+per-sequence lengths. ``DMDM_CHECK_MASKS=1`` checks that on every call.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -1e9
+CHUNK = 128
+MAX_SINGLE = 256  # largest padded length run as one chunk
+HEAD_DIMS = (16, 32, 64, 128)  # head widths csrc/local_attention.cu is built for
+
+CHECK_MASKS = os.environ.get("DMDM_CHECK_MASKS", "0") == "1"
+
+
+def plan(N: int, w: int, causal: bool) -> dict | None:
+    """The chunk plan for sequence length N and window w, or None where the
+    kernel's semantics do not cover the shape."""
+    if w > CHUNK:
+        return None
+    lb, lf = 1, (0 if causal else 1)
+    Np = -(-N // w) * w  # autopad to a window multiple
+    if Np % 8:
+        return None
+    nc = Np // CHUNK
+    if Np % CHUNK == 0 and nc > 1:
+        if max(lb, lf) * w > CHUNK:
+            return None
+        P = w if CHUNK % w == 0 else CHUNK
+        return {"Np": Np, "C": CHUNK, "nc": nc, "P": P, "K": CHUNK + 2 * P}
+    if Np <= MAX_SINGLE:
+        return {"Np": Np, "C": Np, "nc": 1, "P": 0, "K": Np}
+    return None
+
+
+def supports(N: int, window_size: int, use_xpos: bool, causal: bool = False) -> bool:
+    return not use_xpos and plan(N, window_size, causal) is not None
+
+
+def dropout_keep_mask(generator: torch.Generator, keep_prob: float, batch: int, N: int,
+                      heads: int, window_size: int, causal: bool = False,
+                      dtype=torch.float32):
+    """Kernel-layout attention-dropout keep mask (B, Np, h*K): one
+    Bernoulli(keep_prob) draw per (query, head, chunk key), on the
+    generator's device."""
+    p = plan(N, window_size, causal)
+    if p is None:
+        return None
+    shape = (batch, p["Np"], heads * p["K"])
+    return (torch.rand(shape, generator=generator, device=generator.device)
+            < keep_prob).to(dtype)
+
+
+def window_mask(ti, tj, w, lb, lf, causal, exact, invalid):
+    """True where query position ti may not see key position tj (numpy)."""
+    wi, wj = ti // w, tj // w
+    bad = (wj < wi - lb) | (wj > wi + lf) | invalid
+    if causal:
+        bad = bad | (ti < tj)
+        if exact:
+            bad = bad | (ti > tj + w * lb)
+    elif exact:
+        bad = bad | (tj - w * lf > ti) | (ti > tj + w * lb)
+    return bad
+
+
+def chunk_index_sets(p: dict):
+    """(nc, K) key-row indices of each chunk and (nc, 1, K) flags of the
+    clamped edge slices, which are masked."""
+    Np, C, nc, P, K = (p[k] for k in ("Np", "C", "nc", "P", "K"))
+    if P == 0:  # the single plan: the chunk attends to itself
+        return np.arange(Np)[None, :], np.zeros((1, 1, K), bool)
+    seg = (np.arange(K) >= P).astype(int) + (np.arange(K) >= P + C).astype(int)
+    rows, invs = [], []
+    for c in range(nc):
+        ps = max(c * C - P, 0)
+        ns = min((c + 1) * C, Np - P)
+        rows.append(np.concatenate([np.arange(ps, ps + P), np.arange(c * C, (c + 1) * C),
+                                    np.arange(ns, ns + P)]))
+        invs.append(((seg == 0) & (c == 0)) | ((seg == 2) & (c == nc - 1)))
+    return np.stack(rows), np.stack(invs)[:, None, :]
+
+
+def rotary_freqs(dh: int) -> np.ndarray:
+    """(dh,) float32 inverse frequencies, each half repeated: the table the
+    kernel and the plain version both use."""
+    inv = 1.0 / (10000.0 ** (np.arange(0, dh, 2, dtype=np.float32) / dh))
+    return np.concatenate([inv, inv]).astype(np.float32)
+
+
+def rot_abs(x: torch.Tensor, pos: np.ndarray, dh: int) -> torch.Tensor:
+    """Rotary at absolute positions. x (B, Np, h, dh), pos (Np,) numpy."""
+    ang = torch.from_numpy(pos.astype(np.float32)[:, None] * rotary_freqs(dh)[None, :]).to(x.device)
+    cos, sin = torch.cos(ang)[None, :, None, :], torch.sin(ang)[None, :, None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2:]
+    return x * cos + torch.cat([-x2, x1], dim=-1) * sin
+
+
+def chunked_attention(q, k, v, p: dict, window_size: int, causal: bool, exact_windowsize: bool,
+                      use_rotary: bool, key_mask=None, dropout_keep=None, keep_prob: float = 1.0):
+    """The chunk semantics over padded (B, Np, h, dh) float32 q, k, v ->
+    (B, Np, h, dh). ``key_mask`` (B, Np) float, ``dropout_keep`` (B, Np, h*K)."""
+    B, Np, h, dh = q.shape
+    w, lb, lf = window_size, 1, (0 if causal else 1)
+    C, nc, K = p["C"], p["nc"], p["K"]
+    dev = q.device
+    q = q * (dh ** -0.5)
+    if use_rotary:
+        q = rot_abs(q, np.arange(Np) + lf * w, dh)
+        k = rot_abs(k, np.arange(Np), dh)
+    idx, invalid = chunk_index_sets(p)
+    i_pos = np.arange(Np).reshape(nc, C)[:, :, None]
+    bad = window_mask(i_pos, idx[:, None, :], w, lb, lf, causal, exact_windowsize, invalid)
+    flat = torch.from_numpy(idx.reshape(-1)).to(dev)
+    qb = q.reshape(B, nc, C, h, dh)
+    ksel = k[:, flat].reshape(B, nc, K, h, dh)
+    vsel = v[:, flat].reshape(B, nc, K, h, dh)
+    sim = torch.einsum("bnqhd,bnkhd->bnhqk", qb, ksel)
+    sim = sim.masked_fill(torch.from_numpy(bad).to(dev)[None, :, None], NEG_INF)
+    if key_mask is not None:
+        kmsel = key_mask[:, flat].reshape(B, nc, K)
+        sim = sim.masked_fill(kmsel[:, :, None, None, :] <= 0, NEG_INF)
+    attn = sim.softmax(dim=-1)
+    if dropout_keep is not None:
+        kp = dropout_keep.reshape(B, nc, C, h, K).to(torch.float32)
+        attn = attn * kp.movedim(3, 2) * (1.0 / keep_prob)
+    return torch.einsum("bnhqk,bnkhd->bnqhd", attn, vsel).reshape(B, Np, h, dh)
+
+
+def fused_qkv_local_attention_plain(qkv, heads: int, dim_head: int, window_size: int,
+                                    causal: bool = False, exact_windowsize: bool = True,
+                                    use_rotary: bool = True, key_mask=None, dropout_keep=None,
+                                    keep_prob: float = 1.0):
+    """The chunk semantics in plain PyTorch: (B, N, 3*h*dh) -> (B, N, h*dh)."""
+    B, N, _ = qkv.shape
+    h, dh = heads, dim_head
+    p = plan(N, window_size, causal)
+    if p is None:
+        raise ValueError(f"no chunk plan for N {N}, window {window_size}; "
+                         "gate callers with supports()")
+    pad = p["Np"] - N
+    x = torch.nn.functional.pad(qkv, (0, 0, 0, pad)).reshape(B, p["Np"], 3, h, dh)
+    x = x.to(torch.float32)
+    if key_mask is not None:
+        key_mask = torch.nn.functional.pad((key_mask > 0).to(torch.float32), (0, pad))
+    out = chunked_attention(x[:, :, 0], x[:, :, 1], x[:, :, 2], p, window_size, causal,
+                            exact_windowsize, use_rotary, key_mask, dropout_keep, keep_prob)
+    return out.reshape(B, p["Np"], h * dh)[:, :N].to(qkv.dtype)
+
+
+def key_lengths(key_mask: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 count of valid frames per sequence; with CHECK_MASKS, raise
+    unless the mask is prefix-valid."""
+    valid = key_mask > 0
+    lengths = valid.sum(dim=1, dtype=torch.int32)
+    if CHECK_MASKS:
+        expected = torch.arange(key_mask.shape[1], device=key_mask.device)[None, :] < lengths[:, None]
+        if not torch.equal(valid, expected):
+            raise ValueError(
+                "fused_qkv_local_attention: key_mask is not prefix-valid (valid frames must "
+                "form a contiguous prefix per sequence); such masks need the bucketed "
+                "local_attention")
+    return lengths
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/local_attention.cu)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("local_attention")
+    if lib.fused_qkv_local_attention_f32.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_qkv_local_attention_f32.argtypes = [
+            vp, vp, vp, vp, vp,        # qkv, lengths, keep, freqs, out
+            i, i, i, i, i,             # B, N, Np, heads, dim_head
+            i, i, i, i,                # window, causal, exact, use_rotary
+            i, i, i,                   # C, P, K
+            ctypes.c_float, vp]        # 1 / keep_prob, stream
+        lib.fused_qkv_local_attention_f32.restype = i
+        lib.local_attention_heads_f32.argtypes = [
+            vp, vp, vp, vp, vp,        # q, k, v, freqs, out
+            i, i, i, i, i, i, i, vp]   # BH, N, dim_head, window, causal, exact, use_rotary, stream
+        lib.local_attention_heads_f32.restype = i
+        lib.local_attention_error_string.argtypes = [i]
+        lib.local_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_FREQS: dict = {}
+
+
+def device_freqs(dh: int, device: torch.device) -> torch.Tensor:
+    """The rotary table on ``device``, made once per (dh, device)."""
+    key = (dh, str(device))
+    if key not in _FREQS:
+        _FREQS[key] = torch.from_numpy(rotary_freqs(dh)).to(device)
+    return _FREQS[key]
+
+
+def check_cuda_f32(name: str, fn: str, t: torch.Tensor, device: torch.device):
+    if not t.is_cuda:
+        raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor")
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, the other operands on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes float32")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{fn}: {name} is not 16-byte aligned (the kernel reads float4)")
+
+
+def raise_on_error(lib, err: int, fn: str):
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + lib.local_attention_error_string(err).decode())
+
+
+def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: int,
+                                   causal: bool = False, exact_windowsize: bool = True,
+                                   use_rotary: bool = True, key_mask=None, dropout_keep=None,
+                                   keep_prob: float = 1.0):
+    """Launch the kernel on PyTorch's current stream (built on first use).
+    Raises on a tensor or shape the kernel does not take, and if the launch
+    is refused."""
+    fn = "fused_qkv_local_attention_cuda"
+    check_cuda_f32("qkv", fn, qkv, qkv.device)
+    if qkv.dim() != 3 or qkv.shape[2] != 3 * heads * dim_head:
+        raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} must be (B, N, 3*{heads}*{dim_head})")
+    if dim_head not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head width {dim_head} not in {HEAD_DIMS}")
+    B, N, _ = qkv.shape
+    p = plan(N, window_size, causal)
+    if p is None:
+        raise ValueError(f"{fn}: no chunk plan for N {N}, window {window_size}")
+    lengths = None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (B, N) or key_mask.device != qkv.device:
+            raise ValueError(f"{fn}: key_mask {tuple(key_mask.shape)} on {key_mask.device} "
+                             f"must be ({B}, {N}) on {qkv.device}")
+        lengths = key_lengths(key_mask)
+    if dropout_keep is not None:
+        check_cuda_f32("dropout_keep", fn, dropout_keep, qkv.device)
+        if tuple(dropout_keep.shape) != (B, p["Np"], heads * p["K"]):
+            raise ValueError(f"{fn}: dropout_keep {tuple(dropout_keep.shape)} must be "
+                             f"{(B, p['Np'], heads * p['K'])}; use dropout_keep_mask()")
+    lib = _library()
+    out = torch.empty((B, N, heads * dim_head), dtype=torch.float32, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(qkv.device):
+        err = lib.fused_qkv_local_attention_f32(
+            qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
+            None if dropout_keep is None else dropout_keep.data_ptr(),
+            device_freqs(dim_head, qkv.device).data_ptr(), out.data_ptr(),
+            B, N, p["Np"], heads, dim_head, window_size, int(causal), int(exact_windowsize),
+            int(use_rotary), p["C"], p["P"], p["K"], 1.0 / keep_prob,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    raise_on_error(lib, err, fn)
+    fused_qkv_local_attention_cuda.launches += 1
+    return out
+
+
+fused_qkv_local_attention_cuda.launches = 0
+
+
+class _FusedQkvLocalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, key_mask, dropout_keep, heads, dim_head, window_size, causal,
+                exact_windowsize, use_rotary, keep_prob):
+        ctx.args = (heads, dim_head, window_size, causal, exact_windowsize, use_rotary)
+        ctx.keep_prob = keep_prob
+        ctx.save_for_backward(qkv, key_mask, dropout_keep)
+        impl = fused_qkv_local_attention_cuda if qkv.is_cuda else fused_qkv_local_attention_plain
+        return impl(qkv, *ctx.args, key_mask, dropout_keep, keep_prob)
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, key_mask, dropout_keep = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            out = fused_qkv_local_attention_plain(x, *ctx.args, key_mask, dropout_keep,
+                                                  ctx.keep_prob)
+            (g,) = torch.autograd.grad(out, [x], grad)
+        return (g,) + (None,) * 9
+
+
+def fused_qkv_local_attention(qkv, heads: int, dim_head: int, window_size: int,
+                              causal: bool = False, exact_windowsize: bool = True,
+                              use_rotary: bool = True, key_mask=None, dropout_keep=None,
+                              keep_prob: float = 1.0):
+    """(B, N, 3*h*dh) -> (B, N, h*dh) with gradients: the kernel on the card,
+    the plain version on the CPU. Gate callers with ``supports``."""
+    if plan(qkv.shape[1], window_size, causal) is None:
+        raise ValueError(f"no chunk plan for N {qkv.shape[1]}, window {window_size}; "
+                         "gate callers with supports()")
+    return _FusedQkvLocalAttention.apply(qkv.contiguous(), key_mask, dropout_keep, heads,
+                                         dim_head, window_size, causal, exact_windowsize,
+                                         use_rotary, keep_prob)

@@ -30,7 +30,7 @@ from ..diffusion import process
 from ..diffusion.schedules import Schedule
 from .state import TrainState
 
-STACK_B_SLICE = "ROADMAP.md Queue A, slice 3 (stack-B losses, label drop, loss-aware sampler)"
+STACK_B_SLICE = "ROADMAP.md Queue A, slice 4 (stack-B losses, label drop, loss-aware sampler)"
 
 
 def make_loss_fn(

@@ -11,6 +11,8 @@ import torch
 
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as TK
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as TW
+from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as TA
+from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as TH
 
 WGRAD_TOL = 1e-5  # of max |dW|: f32 sums over up to B*H = 10,240 rows in another order
 
@@ -143,3 +145,132 @@ def test_conv_block_backward_takes_dw_from_the_kernel(cuda):
         assert TW.conv1d_weight_grad_cuda.launches == expected
     for ours, ref in zip(*grads):
         assert (ours - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+ATTN_TOL = 1e-4  # |kernel - plain|: f32 sums over at most 384 keys in another order
+
+
+def _qkv_inputs(cuda, B, N, h, dh, w, causal, lengths=None, keep_prob=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * h * dh, generator=g, device=cuda)
+    km = keep = None
+    if lengths is not None:
+        km = (torch.arange(N, device=cuda)[None, :]
+              < torch.tensor(lengths, device=cuda)[:, None]).float()
+    if keep_prob is not None:
+        keep = TA.dropout_keep_mask(g, keep_prob, B, N, h, w, causal)
+    return qkv, km, keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,dh,w,causal,exact", [
+    (16, 128, 8, 64, 16, False, True), (4, 1024, 8, 64, 16, False, True),
+    (4, 120, 8, 64, 16, False, True), (2, 40, 2, 32, 16, True, True),
+    (2, 384, 2, 16, 48, False, True), (2, 384, 2, 16, 48, False, False),
+    (1, 256, 2, 128, 64, True, True), (2, 256, 3, 64, 8, False, False),
+    (1, 256, 1, 64, 128, False, True),
+])
+@pytest.mark.parametrize("masks", ["none", "lengths", "lengths+keep"])
+def test_fused_qkv_local_attention_kernel_matches_plain(cuda, B, N, h, dh, w, causal, exact,
+                                                         masks):
+    lengths = [N - 3 * i * (N // 8) for i in range(B)] if masks != "none" else None
+    qkv, km, keep = _qkv_inputs(cuda, B, N, h, dh, w, causal, lengths,
+                                0.7 if masks == "lengths+keep" else None)
+    kp = 0.7 if keep is not None else 1.0
+    launches = TA.fused_qkv_local_attention_cuda.launches
+    out = TA.fused_qkv_local_attention_cuda(qkv, h, dh, w, causal, exact, True, km, keep, kp)
+    torch.cuda.synchronize()
+    assert TA.fused_qkv_local_attention_cuda.launches == launches + 1
+    ref = TA.fused_qkv_local_attention_plain(qkv, h, dh, w, causal, exact, True, km, keep, kp)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [48, 384])
+def test_fused_qkv_kernel_fully_masked_rows_take_the_chunk_mean(cuda, N):
+    """Rows whose keys are all masked get the mean of V over the chunk's K
+    key rows (pad and clamped duplicate rows included), with the keep mask."""
+    qkv, km, keep = _qkv_inputs(cuda, 2, N, 2, 32, 16, False, [N, 2], 0.5, seed=3)
+    for kp_mask, kp in ((None, 1.0), (keep, 0.5)):
+        out = TA.fused_qkv_local_attention_cuda(qkv, 2, 32, 16, False, True, True, km, kp_mask, kp)
+        ref = TA.fused_qkv_local_attention_plain(qkv, 2, 32, 16, False, True, True, km, kp_mask,
+                                                 kp)
+        assert (out - ref).abs().max().item() <= ATTN_TOL
+        assert out[1, 40:].abs().max().item() > 0  # the uniform rows are not zero
+
+
+@pytest.mark.cuda
+def test_fused_qkv_kernel_refuses_bad_inputs(cuda):
+    qkv = torch.randn(2, 64, 3 * 2 * 48, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        TA.fused_qkv_local_attention_cuda(qkv, 2, 48, 16)
+    with pytest.raises(ValueError, match="float32"):
+        TA.fused_qkv_local_attention_cuda(torch.randn(2, 64, 96, device=cuda).double(), 2, 16, 16)
+    with pytest.raises(ValueError, match="no chunk plan"):
+        TA.fused_qkv_local_attention_cuda(torch.randn(2, 300, 96, device=cuda), 2, 16, 16)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        TA.fused_qkv_local_attention_cuda(torch.randn(2, 64, 96), 2, 16, 16)
+    shifted = torch.randn(2 * 64 * 96 + 1, device=cuda)[1:].view(2, 64, 96)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TA.fused_qkv_local_attention_cuda(shifted, 2, 16, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,h,N,dh,w,causal", [
+    (16, 8, 128, 64, 16, False), (4, 8, 1024, 64, 16, False), (2, 3, 256, 32, 16, True),
+    (1, 2, 384, 16, 48, False), (1, 2, 256, 128, 128, True),
+])
+def test_local_attention_heads_kernel_matches_plain(cuda, B, h, N, dh, w, causal):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(B, h, N, dh, generator=g, device=cuda) for _ in range(3))
+    launches = TH.local_attention_heads_cuda.launches
+    out = TH.local_attention_heads_cuda(q, k, v, w, causal)
+    torch.cuda.synchronize()
+    assert TH.local_attention_heads_cuda.launches == launches + 1
+    ref = TH.local_attention_heads_plain(q, k, v, w, causal)
+    assert (out - ref).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_local_attention_autograd_entries_on_the_card(cuda):
+    """Both entries launch their kernel forward and backpropagate through
+    the plain version."""
+    qkv, km, _ = _qkv_inputs(cuda, 2, 128, 2, 32, 16, False, [128, 90])
+    cot = torch.randn(2, 128, 64, device=cuda)
+    grads = []
+    for fn in (TA.fused_qkv_local_attention, TA.fused_qkv_local_attention_plain):
+        x = qkv.clone().requires_grad_()
+        (fn(x, 2, 32, 16, False, True, True, km) * cot).sum().backward()
+        grads.append(x.grad)
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-4 * grads[1].abs().max().item()
+    q, k, v = (t.reshape(2, 128, 2, 32).transpose(1, 2).contiguous() for t in qkv.chunk(3, -1))
+    launches = TH.local_attention_heads_cuda.launches
+    out = TH.local_attention_heads(q.requires_grad_(), k, v, 16)
+    out.sum().backward()
+    assert TH.local_attention_heads_cuda.launches == launches + 1
+    assert torch.isfinite(q.grad).all()
+
+
+@pytest.mark.cuda
+def test_local_transformer_forward_launches_the_kernel(cuda):
+    from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
+
+    torch.manual_seed(0)
+    model = LocalTransformer(input_dim=69, max_seq_len=128, dim=64, depth=2, heads=4,
+                             dim_head=16, num_classes=3).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(3, 120, 69, generator=g, device=cuda)
+    t = torch.tensor([1, 500, 999], device=cuda)
+    launches = TA.fused_qkv_local_attention_cuda.launches
+    with torch.inference_mode():
+        out = model(x, t)
+    assert TA.fused_qkv_local_attention_cuda.launches == launches + 2
+    real = TA.fused_qkv_local_attention_cuda
+    TA.fused_qkv_local_attention_cuda = TA.fused_qkv_local_attention_plain
+    try:
+        with torch.inference_mode():
+            ref = model(x, t)
+    finally:
+        TA.fused_qkv_local_attention_cuda = real
+    assert (out - ref).abs().max().item() <= 1e-3

@@ -66,5 +66,29 @@ def test_bf16_config_is_refused():
 
 @pytest.mark.parametrize("arch", ["transformer", "decoder", "local_attention"])
 def test_unported_architectures_name_their_slice(arch):
+    if arch == "local_attention":  # ported: it builds on the CPU
+        model = factory.build_model(ModelConfig(architecture=arch, latent_dim=32, depth=1,
+                                                n_heads=2, dim_head=16), device="cpu")
+        assert type(model).__name__ == "LocalTransformer"
+        assert not any(p.is_cuda for p in model.parameters())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         factory.build_model(ModelConfig(architecture=arch), device="cpu")
+
+
+def _tiny_local(**kw):
+    return ModelConfig(architecture="local_attention", latent_dim=32, depth=1, n_heads=2,
+                       dim_head=16, causal=True, **kw)
+
+
+@pytest.mark.parametrize("case", ["global_attn", "decode_cache", "train_local_attention"])
+def test_unported_local_attention_options_name_roadmap(case):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if case == "global_attn":
+            factory.build_model(_tiny_local(use_global_attn=True), device="cpu")
+        elif case == "decode_cache":
+            model = factory.build_model(_tiny_local(), device="cpu")
+            model(torch.zeros(1, 1, 35), torch.zeros(1), cache=(), decode_pos=0)
+        else:
+            cfg = ExperimentConfig.from_dict({"model": {"architecture": "local_attention"}})
+            train_cli.build_trainer(cfg, device="cpu")

@@ -86,10 +86,10 @@ def test_sample_cli_answers_from_trained_run(run, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.timestep_sampler=loss_aware", "slice 3"),
-    ("diffusion.loss=v4", "slice 3"),
-    ("model.architecture=transformer", "slice 3"),
-    ("model.architecture=local_attention", "slice 4"),
+    ("train.timestep_sampler=loss_aware", "slice 4"),
+    ("diffusion.loss=v4", "slice 4"),
+    ("model.architecture=transformer", "slice 4"),
+    ("model.architecture=local_attention", "LocalTransformer training"),
 ])
 def test_unported_training_paths_raise(tmp_path, override, match):
     with pytest.raises(NotImplementedError, match=match):
