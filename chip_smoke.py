@@ -5,9 +5,10 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: the three CUDA sources (B1 csrc/conv_gn_mish.cu, B2
-   csrc/conv1d_weight_grad.cu, B3 and B4 csrc/local_attention.cu), compiled
-   in parallel with nvcc, with ptxas's register and spill lines.
+2. build: the four CUDA sources (B1 csrc/conv_gn_mish.cu, B2
+   csrc/conv1d_weight_grad.cu, B3 and B4 csrc/local_attention.cu, B5-B7
+   csrc/humanoid_dynamics.cu), compiled in parallel with nvcc, one process
+   each, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
    the dim-128 U-Net gives it on the main paths: B1 at B 16 for serving
    (H 64 and H 48, plus level 0 at H 192) and at B 32 for a training
@@ -55,6 +56,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the plain version at H 128 and H 1024, B4 driven through its front door
    ``windowed_attention`` on one layer's projections (held against B3),
    and the serving profile over 50 steps.
+10. physics kernels: B5 (the whole control step, 17 substeps, with and
+   without the fused reward), B6 (the whole rollout, T 3) and B7 (the
+   tracking reward) against their plain versions on the walk clip's frames
+   staggered over N 4096 envs, each targeting the next frame. Max error,
+   per-launch ms of the kernel and the plain version, and the bound from
+   the operations counted on one plain substep / reward at N 1 under a
+   TorchDispatchMode (each elementwise aten call one operation).
+11. physics, run after the U-Net serve phase: ``PhysicsTrackingEnv.rollout``
+   (walk clip, dt 1/30, substeps 17, contacts and limits on, fall height
+   0.3) of 20 steps at N 4096 and N 65536, one B6 launch each, env-steps/s
+   the best of 3; 20 ``step`` calls at N 4096 (20 B5 launches) held against
+   one rollout from the same state, and B7 through its front door
+   ``tracking_reward_fused`` on the stepped state; ``track_motions`` (horizon
+   15) on the 16 motions the H 64 request wrote and on the walk clip, as
+   ``cli/play.py --physics`` calls it (B5 launches = horizon x calls); a
+   profile of 20 ``step`` calls.
 
 Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -86,6 +103,7 @@ from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
+from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.sampling import sample_loop
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.schedules import make_schedule
@@ -97,6 +115,9 @@ from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
+from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+from deepmimic_diffusion_mujoco_tpu_torch.physics.env import PhysicsTrackingEnv, tracking_reward
+from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
 from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
@@ -105,7 +126,8 @@ ROOT = Path(__file__).resolve().parent
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
 CARTWHEEL = ROOT / "data" / "motions" / "humanoid3d_cartwheel.txt"
 LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
-SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention")
+WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
+SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention", "humanoid_dynamics")
 
 B, H, D, DIM, T, K, GROUPS = 16, 64, 35, 128, 1000, 5, 8
 TRAIN_B, TRAIN_H, ACCUM, TRAIN_STEPS = 32, 160, 2, 30
@@ -120,6 +142,15 @@ ATTN_TOL = 1e-4          # B3, B4: |kernel - plain| per element, f32 sums in ano
 LA_FORWARD_TOL = 1e-3    # |LocalTransformer(B3) - LocalTransformer(plain)| after 6 layers
 COMP_TOL = 1e-3          # the composition yardstick against the plain version
 KEEP_PROB = 0.7          # 1 - attn_dropout of the user config
+# B5-B7: one float32 thread per env through 17 substeps of stiff contact (30,000 N/m at
+# h = 1/510 s), where FMA contraction and another order of sums move the last bits
+STEP_QPOS_TOL = 1e-4     # |qpos(kernel) - qpos(plain)| after one control step
+STEP_QVEL_REL = 1e-2     # |qvel(kernel) - qvel(plain)| / max |qvel(plain)|
+REWARD_TOL = 1e-4        # |reward(kernel) - reward(plain)|, fused or in the rollout
+B7_TOL = 5e-5            # B7 against its plain version and env.tracking_reward
+SAME_CODE_TOL = 5e-5     # B6 against 20 chained B5 steps: the same device code
+PHYS_N, PHYS_BIG_N, PHYS_T, PHYS_KERNEL_T, SUBSTEPS, HORIZON = 4096, 65536, 20, 3, 17, 15
+NO_LIBRARY = "no single PyTorch call computes the humanoid's dynamics or its tracking reward"
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -178,7 +209,7 @@ class Timer:
 
 
 def build_all():
-    """Both sources compiled at once, one nvcc each; -> {name: ptxas lines,
+    """Every source compiled at once, one nvcc each; -> {name: ptxas lines,
     or None where the library was already built and its log is gone}."""
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
@@ -195,6 +226,9 @@ def reset_counts():
     CW.conv1d_weight_grad_cuda.launches = 0
     FA.fused_qkv_local_attention_cuda.launches = 0
     LH.local_attention_heads_cuda.launches = 0
+    DK.control_step_cuda.launches = 0
+    DK.rollout_cuda.launches = 0
+    DK.tracking_reward_cuda.launches = 0
 
 
 def counts():
@@ -942,6 +976,287 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
             "profile": profile}
 
 
+# ---------------------------------------------------------------------------
+# The humanoid physics (B5, B6, B7)
+
+
+LAYOUT_OPS = {"unbind", "stack", "select", "slice", "view", "unsqueeze", "squeeze", "expand",
+              "alias", "detach", "clone", "zeros", "ones_like", "zeros_like", "full_like",
+              "empty", "empty_like", "lift_fresh", "copy_", "cat", "t", "transpose"}
+
+
+def count_ops(fn):
+    """Elementwise arithmetic operations of ``fn()`` on size-1 tensors: every
+    aten call counts one, except those that only move or make data."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counting(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in LAYOUT_OPS:
+                Counting.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.inference_mode(), Counting():
+        fn()
+    return Counting.n
+
+
+def physics_op_counts():
+    """Operations per env: one substep, one reward, and the rollout step's
+    bookkeeping (freeze, fall, gate) beyond those two."""
+    clip = load_clip(str(WALK))
+    q = torch.tensor(clip.qpos[:1], dtype=torch.float32)
+    v = torch.tensor(clip.qvel[:1], dtype=torch.float32)
+    h = 1.0 / 30.0 / SUBSTEPS
+    substep = count_ops(lambda: DK.control_step_plain(q, v, q, h=h, substeps=1))
+    reward = count_ops(lambda: DK.tracking_reward_plain(q, v, q, v))
+    step = count_ops(lambda: DK.rollout_plain(q, v, q[None], v[None],
+                                              torch.zeros(1, dtype=torch.bool), h=h, substeps=1))
+    return {"substep": substep, "reward": reward, "rollout_bookkeeping": step - substep - reward}
+
+
+def time_plain(fn, reps=1):
+    """Per-call ms of a host-bound plain version: CUDA events around each of
+    ``reps`` calls made after one warm call; the median."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def staggered_walk(dev, n, steps=1):
+    """The walk clip's frames staggered over n envs (PhysicsTrackingEnv.reset),
+    each targeting the next ``steps`` frames: qpos, qvel (n, 35/34), targets
+    and reference velocities (steps, n, 35/34)."""
+    clip = load_clip(str(WALK))
+    nf = len(clip.qpos)
+    mot = torch.tensor(clip.qpos, dtype=torch.float32, device=dev)
+    vel = torch.tensor(clip.qvel, dtype=torch.float32, device=dev)
+    frame = (torch.arange(n, device=dev) * nf // n) % nf
+    frames = (frame[None] + 1 + torch.arange(steps, device=dev)[:, None]) % nf
+    return mot[frame], vel[frame], mot[frames], vel[frames]
+
+
+def step_errors(out, ref):
+    qmax = ref[1].abs().max().item()
+    errs = {"qpos": (out[0] - ref[0]).abs().max().item(),
+            "qvel": (out[1] - ref[1]).abs().max().item(), "max_abs_qvel": qmax}
+    ok = (errs["qpos"] <= STEP_QPOS_TOL and errs["qvel"] <= STEP_QVEL_REL * qmax
+          and all(torch.isfinite(t).all() for t in out))
+    if len(out) > 2:
+        errs["reward"] = (out[2] - ref[2]).abs().max().item()
+        ok = ok and errs["reward"] <= REWARD_TOL
+    return errs, ok
+
+
+def physics_kernel_rows(dev, timer, peaks, ops):
+    """B5 (with and without the fused reward) and B7 at N 4096, and B6 at
+    T 3, against their plain versions on the same inputs."""
+    N, T = PHYS_N, PHYS_KERNEL_T
+    qpos, qvel, tgts, rqvs = staggered_walk(dev, N, T)
+    kw = dict(h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS)
+    rows = {}
+    for name, rq in (("control_step", None), ("control_step_reward", rqvs[0])):
+        args = (qpos, qvel, tgts[0], rq)
+        out = DK.control_step_cuda(*args, **kw)
+        ref = DK.control_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        errs, ok = step_errors(out, ref)
+        if not ok:
+            raise RuntimeError(f"{name} kernel disagrees with its plain version at N {N}: {errs}")
+        n_ops = N * (SUBSTEPS * ops["substep"] + (ops["reward"] if rq is not None else 0))
+        nbytes = 4.0 * N * ((35 + 34 + 35 + 35 + 34) + (34 + 1 if rq is not None else 0))
+        bound_ms, bound_by = bound(n_ops, nbytes, peaks)
+        rows[name] = {"N": N, "substeps": SUBSTEPS, "max_abs_err": errs,
+                      "ms": timer(lambda: DK.control_step_cuda(*args, **kw), reps=10),
+                      "plain_ms": time_plain(lambda: DK.control_step_plain(*args, **kw)),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "operations": n_ops,
+                      "bytes": nbytes, "library_ms": None}
+        emit({"phase": "kernel", "name": name, **rows[name]})
+
+    done = torch.zeros(N, dtype=torch.bool, device=dev)
+    rargs = (qpos, qvel, tgts, rqvs, done)
+    rkw = dict(kw, fall_height=0.3)
+    out = DK.rollout_cuda(*rargs, **rkw)
+    ref = DK.rollout_plain(*rargs, **rkw)
+    torch.cuda.synchronize()
+    errs, ok = step_errors((out[0], out[1], out[2]), (ref[0], ref[1], ref[2]))
+    if not (ok and torch.equal(out[3], ref[3])):
+        raise RuntimeError(f"rollout kernel disagrees with its plain version: {errs}, done "
+                           f"{int(out[3].sum())} vs {int(ref[3].sum())}")
+    # the kernel skips the substeps of envs done before a step: count what
+    # this run's envs ran (done after a step = its reward gated to exactly 0)
+    active = [N] + [N - int((r == 0).sum()) for r in ref[2][:-1]]
+    n_ops = (sum(active) * SUBSTEPS * ops["substep"]
+             + T * N * (ops["reward"] + ops["rollout_bookkeeping"]))
+    nbytes = 4.0 * N * (2 * (35 + 34 + 1) + T * (35 + 34 + 1))
+    bound_ms, bound_by = bound(n_ops, nbytes, peaks)
+    rows["rollout"] = {"N": N, "T": T, "substeps": SUBSTEPS, "max_abs_err": errs,
+                       "done_after": int(out[3].sum()), "active_per_step": active,
+                       "ms": timer(lambda: DK.rollout_cuda(*rargs, **rkw), reps=10),
+                       "plain_ms": time_plain(lambda: DK.rollout_plain(*rargs, **rkw)),
+                       "bound_ms": bound_ms, "bound_by": bound_by, "operations": n_ops,
+                       "bytes": nbytes, "library_ms": None}
+    emit({"phase": "kernel", "name": "rollout", **rows["rollout"]})
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    ref_q = tgts[0] + 0.05 * torch.randn(tgts[0].shape, generator=g, device=dev)
+    bargs = (qpos, qvel, ref_q, rqvs[0])
+    out = DK.tracking_reward_cuda(*bargs)
+    err = (out - DK.tracking_reward_plain(*bargs)).abs().max().item()
+    err_env = (out - tracking_reward(*bargs)).abs().max().item()
+    if not (err <= B7_TOL and err_env <= B7_TOL and torch.isfinite(out).all()):
+        raise RuntimeError(f"tracking_reward kernel: {err} from its plain version, {err_env} "
+                           "from env.tracking_reward")
+    bound_ms, bound_by = bound(N * ops["reward"], 4.0 * N * (35 + 34 + 35 + 34 + 1), peaks)
+    rows["tracking_reward"] = {
+        "N": N, "max_abs_err": err, "max_abs_err_vs_env": err_env,
+        "ms": timer(lambda: DK.tracking_reward_cuda(*bargs)),
+        "plain_ms": time_plain(lambda: DK.tracking_reward_plain(*bargs), reps=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "operations": N * ops["reward"],
+        "library_ms": None}
+    emit({"phase": "kernel", "name": "tracking_reward", **rows["tracking_reward"]})
+    return rows
+
+
+@contextlib.contextmanager
+def plain_physics():
+    """B5 through its plain version."""
+    real = DK.control_step_cuda
+    DK.control_step_cuda = DK.control_step_plain
+    try:
+        yield
+    finally:
+        DK.control_step_cuda = real
+
+
+def physics_phase(dev, tmp):
+    """The physics path through its entry points: PhysicsTrackingEnv.rollout
+    (one B6 launch each) at N 4096 and 65536, 20 step calls (20 B5 launches)
+    held against one rollout from the same state, track_motions on the
+    served motions and the walk clip (B5 without the reward), and a profile
+    of the step loop."""
+    clip = load_clip(str(WALK))
+    env = PhysicsTrackingEnv(clip.qpos, clip.qvel, dt=1.0 / 30.0, substeps=SUBSTEPS,
+                             fall_height=0.3, device=dev)
+    result = {"rollout": {}}
+    for N in (PHYS_N, PHYS_BIG_N):
+        state = env.reset(N)
+        reset_counts()
+        final, rewards = env.rollout(state, PHYS_T)
+        torch.cuda.synchronize()
+        launches = DK.rollout_cuda.launches
+        if launches != 1 or rewards.shape != (PHYS_T, N) or not torch.isfinite(rewards).all():
+            raise RuntimeError(f"rollout at N {N}: {launches} B6 launches, rewards "
+                               f"{tuple(rewards.shape)}, finite {bool(torch.isfinite(rewards).all())}")
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            env.rollout(state, PHYS_T)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        result["rollout"][f"n{N}"] = {
+            "N": N, "T": PHYS_T, "rollout_launches": launches, "best_seconds": best,
+            "env_steps_per_s": N * PHYS_T / best, "reward_mean": rewards.mean().item(),
+            "done_frac": final.done.float().mean().item()}
+    emit({"phase": "main_path", "path": "physics_rollout", **result["rollout"]})
+
+    state = env.reset(PHYS_N)
+    reset_counts()
+    s, rs = state, []
+    for _ in range(PHYS_T):
+        s, r = env.step(s)
+        rs.append(r)
+    torch.cuda.synchronize()
+    b5 = DK.control_step_cuda.launches
+    final, rewards = env.rollout(state, PHYS_T)
+    torch.cuda.synchronize()
+    errs = {"rewards": (rewards - torch.stack(rs)).abs().max().item(),
+            "qpos": (final.qpos - s.qpos).abs().max().item()}
+    if not (b5 == PHYS_T and errs["rewards"] <= SAME_CODE_TOL and errs["qpos"] <= SAME_CODE_TOL
+            and torch.equal(final.done, s.done) and torch.equal(final.frame, s.frame)):
+        raise RuntimeError(f"{PHYS_T} steps ({b5} B5 launches) against one rollout: {errs}, done "
+                           f"equal {torch.equal(final.done, s.done)}")
+    # B7 through its front door on the last step's state, against the reward
+    # B5 fused into that step (equal where the env is not done)
+    nxt = s.frame
+    reset_counts()
+    r7 = DK.tracking_reward_fused(s.qpos, s.qvel, env.motion[nxt], env.vel[nxt])
+    torch.cuda.synchronize()
+    b7 = DK.tracking_reward_cuda.launches
+    live = ~s.done
+    errs["reward_front_door"] = (r7[live] - rs[-1][live]).abs().max().item()
+    if b7 != 1 or not errs["reward_front_door"] <= SAME_CODE_TOL:
+        raise RuntimeError(f"tracking_reward_fused: {b7} launches, {errs}")
+    result["steps_vs_rollout"] = {"N": PHYS_N, "steps": PHYS_T, "control_step_launches": b5,
+                                  "tracking_reward_launches": b7, "max_abs_err": errs,
+                                  "done_frac": s.done.float().mean().item()}
+    emit({"phase": "main_path", "path": "physics_steps", **result["steps_vs_rollout"]})
+
+    served = sorted(Path(tmp, "h64").glob("*.npy"))
+    motions = np.stack([np.load(p) for p in served])
+    if motions.shape != (B, H, D):
+        raise RuntimeError(f"served motions: {motions.shape}")
+    tracks = {}
+    reset_counts()
+    for name, m in (("served_unet_h64", motions), ("walk_clip", clip.qpos)):
+        res = track_motions(m, horizon=HORIZON, device=dev)
+        # NaN (a simulation that blew up) is written as null
+        tracks[name] = {k: (None if isinstance(v, float) and not np.isfinite(v) else v)
+                        for k, v in {"motions": 1 if np.ndim(m) == 2 else len(m),
+                                     "max_abs_qpos": float(np.abs(m).max()),
+                                     **res["summary"]}.items()}
+        tracks[name]["reward_mean"] = [r if np.isfinite(r) else None
+                                       for r in res["reward_mean"].tolist()]
+    launches = DK.control_step_cuda.launches
+    if launches != HORIZON * 2:
+        raise RuntimeError(f"track_motions launched B5 {launches} times, expected {HORIZON} x 2 "
+                           "calls")
+    if None in tracks["walk_clip"].values() or None in tracks["walk_clip"]["reward_mean"]:
+        raise RuntimeError(f"track_motions on the walk clip: {tracks['walk_clip']}")
+    # The random-weight U-Net's motions are not physical (|qpos| up to ~1e5):
+    # their simulation may blow up, as the JAX package's does. Hold the
+    # kernel's scores against the plain version's, NaN for NaN, over one step.
+    with plain_physics():
+        plain = track_motions(motions, horizon=1, device=dev)["reward_mean"]
+    kern = track_motions(motions, horizon=1, device=dev)["reward_mean"]
+    same_nan = bool((np.isnan(kern) == np.isnan(plain)).all())
+    fin = ~np.isnan(plain)
+    err = float(np.abs(kern[fin] - plain[fin]).max()) if fin.any() else 0.0
+    if not (same_nan and err <= REWARD_TOL):
+        raise RuntimeError(f"track_motions on the served motions: kernel {kern}, plain {plain}")
+    tracks["served_unet_h64"].update(nonfinite_after_one_step=int((~fin).sum()),
+                                     kernel_vs_plain_one_step_max_abs_err=err)
+    result["track_motions"] = {"horizon": HORIZON, "control_step_launches": launches, **tracks}
+    emit({"phase": "main_path", "path": "track_motions", **result["track_motions"]})
+
+    def window():
+        st = state
+        for _ in range(PHYS_T):
+            st, _ = env.step(st)
+        torch.cuda.synchronize()
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PHYS_T
+    device_ms, top, host_ops = device_time_by_kernel(window, PHYS_T)
+    result["profile"] = {"N": PHYS_N, "device_ms_per_step": device_ms, "wall_ms_per_step": wall_ms,
+                         "device_busy_share": device_ms / wall_ms if device_ms else None,
+                         "top_kernels": top, "top_host_ops": host_ops}
+    emit({"phase": "profile", "path": "physics_step", **result["profile"]})
+    return result
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -986,14 +1301,19 @@ def main(argv=None) -> int:
     la_cfg = ExperimentConfig.load(str(LA_CONFIG))
     b3 = b3_rows(dev, timer, peaks, la_cfg.model)
     b4 = b4_rows(dev, timer, peaks, la_cfg.model)
+    phys_ops = physics_op_counts()
+    emit({"phase": "physics_operations_per_env", **phys_ops})
+    phys = physics_kernel_rows(dev, timer, peaks, phys_ops)
 
     result = {"kernel_rows": {"conv_gn_mish_serve": serve_rows,
                               "conv_gn_mish_train": train_rows,
                               "conv1d_weight_grad_train": wgrad_rows,
-                              "fused_qkv_local_attention": b3, "local_attention_heads": b4}}
+                              "fused_qkv_local_attention": b3, "local_attention_heads": b4,
+                              "physics": phys, "physics_operations_per_env": phys_ops}}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         result["serve"] = serve_phase(dev, timer, args, tmp, shape_counts, peaks)
+        result["physics"] = physics_phase(dev, tmp)
         result["la_serve"] = la_serve_phase(dev, timer, args, tmp, la_cfg)
         result["train"] = train_phase(args, tmp, per_step)
     finally:
@@ -1070,6 +1390,32 @@ def main(argv=None) -> int:
         "shape": {"B": LA_B, "heads": la_cfg.model.n_heads, "N": LA_H,
                   "dim_head": la_cfg.model.dim_head},
     }]
+    # B5-B7: per launch at N 4096 (B6 at T 3 here; its main-path launch is T 20)
+    phys_path = result["physics"]
+    for name, row, source_line, launches, extra in (
+            ("control_step", phys["control_step_reward"], 561,
+             phys_path["steps_vs_rollout"]["control_step_launches"],
+             {"launches_track_motions": phys_path["track_motions"]["control_step_launches"],
+              "without_reward": {k: phys["control_step"][k]
+                                 for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}}),
+            ("rollout", phys["rollout"], 830,
+             phys_path["rollout"][f"n{PHYS_N}"]["rollout_launches"],
+             {"launches_n65536": phys_path["rollout"][f"n{PHYS_BIG_N}"]["rollout_launches"]}),
+            ("tracking_reward", phys["tracking_reward"], 937,
+             phys_path["steps_vs_rollout"]["tracking_reward_launches"],
+             {"launches_note": "not on a path (B5's and B6's fused epilogue): one launch through "
+                               "its front door tracking_reward_fused on the stepped state"})):
+        err = row["max_abs_err"]
+        kernels.append({
+            "name": name, "route": "cuda", "status": "ported; matches its plain version",
+            "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/humanoid_dynamics.cu",
+            "replaces": f"deepmimic_diffusion_mujoco_tpu/physics/dynamics_pallas.py:{source_line}",
+            "launches": launches,
+            "max_abs_err": max(v for k, v in err.items() if k != "max_abs_qvel")
+            if isinstance(err, dict) else err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
+            "shape": {k: row[k] for k in ("N", "T", "substeps") if k in row}, **extra})
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

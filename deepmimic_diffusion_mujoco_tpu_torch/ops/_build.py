@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 nvcc builds it in seconds into ``<repo>/.torch_ext/<name>-<hash>.so``; the
-hash covers the source and the flags, so an edited source is rebuilt. The
+hash covers the source, the ``csrc/*.h`` headers and the flags, so an
+edited source or header is rebuilt. The
 library is loaded with ctypes. A failed build raises with nvcc's output.
 """
 from __future__ import annotations
@@ -40,8 +41,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path; its hash covers the source, the headers beside it
+    and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.h"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

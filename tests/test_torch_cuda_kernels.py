@@ -6,6 +6,8 @@ only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -274,3 +276,137 @@ def test_local_transformer_forward_launches_the_kernel(cuda):
     finally:
         TA.fused_qkv_local_attention_cuda = real
     assert (out - ref).abs().max().item() <= 1e-3
+
+
+# B5-B7: the humanoid's control step, rollout and tracking reward. Tolerances:
+# f32 through 17 substeps of stiff contact (30,000 N/m at h = 1/510 s), where
+# FMA contraction and the order of sums differ from the plain version's.
+STEP_QPOS_TOL, STEP_QVEL_REL, REWARD_TOL = 1e-4, 1e-2, 1e-4
+WALK = str(Path(__file__).resolve().parents[1] / "data" / "motions" / "humanoid3d_walk.txt")
+
+
+def _walk_inputs(cuda, N, T=0):
+    import numpy as np
+
+    from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
+
+    clip = load_clip(WALK)
+    nf = len(clip.qpos)
+    mot = torch.tensor(clip.qpos, dtype=torch.float32, device=cuda)
+    vel = torch.tensor(clip.qvel, dtype=torch.float32, device=cuda)
+    i = torch.from_numpy(np.arange(N) * 7 % nf).to(cuda)
+    frames = (i[None] + 1 + torch.arange(max(T, 1), device=cuda)[:, None]) % nf
+    return mot[i], vel[i], mot[frames], vel[frames]
+
+
+def _assert_step_close(out, ref):
+    assert all(torch.isfinite(t).all() for t in out)
+    assert (out[0] - ref[0]).abs().max().item() <= STEP_QPOS_TOL
+    assert (out[1] - ref[1]).abs().max().item() <= STEP_QVEL_REL * ref[1].abs().max().item()
+    if len(out) == 3:
+        assert (out[2] - ref[2]).abs().max().item() <= REWARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,substeps", [(8, 17), (45, 17), (100, 3)])
+@pytest.mark.parametrize("reward", [False, True])
+def test_control_step_kernel_matches_plain(cuda, N, substeps, reward):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    qpos, qvel, tgt, rqv = _walk_inputs(cuda, N)
+    args = (qpos, qvel, tgt[0], rqv[0] if reward else None)
+    kw = dict(h=1 / 30 / 17, substeps=substeps)
+    launches = DK.control_step_cuda.launches
+    out = DK.control_step_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert DK.control_step_cuda.launches == launches + 1
+    assert len(out) == (3 if reward else 2)
+    _assert_step_close(out, DK.control_step_plain(*args, **kw))
+    assert torch.equal(DK.control_step(*args, **kw)[0], out[0])  # the dispatcher's kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 45])
+def test_rollout_kernel_matches_plain_and_steps(cuda, N):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    qpos, qvel, tgts, rqvs = _walk_inputs(cuda, N, T=3)
+    done = torch.zeros(N, dtype=torch.bool, device=cuda)
+    done[::3] = True
+    kw = dict(h=1 / 30 / 17, substeps=17, fall_height=0.3)
+    launches = DK.rollout_cuda.launches
+    qp, qv, rewards, dn = DK.rollout_cuda(qpos, qvel, tgts, rqvs, done, **kw)
+    torch.cuda.synchronize()
+    assert DK.rollout_cuda.launches == launches + 1
+    assert rewards.shape == (3, N) and dn.dtype == torch.bool
+    ref = DK.rollout_plain(qpos, qvel, tgts, rqvs, done, **kw)
+    _assert_step_close((qp, qv), ref[:2])
+    assert (rewards - ref[2]).abs().max().item() <= REWARD_TOL
+    assert torch.equal(dn, ref[3])
+    assert (rewards[:, ::3] == 0).all() and torch.equal(qp[::3], qpos[::3])
+    # the same device code as three chained B5 steps with the bookkeeping
+    s_qp, s_qv, s_dn = qpos, qvel, done
+    for t in range(3):
+        n_qp, n_qv, r = DK.control_step_cuda(s_qp, s_qv, tgts[t], rqvs[t], h=kw["h"], substeps=17)
+        s_qp = torch.where(s_dn[:, None], s_qp, n_qp)
+        s_qv = torch.where(s_dn[:, None], s_qv, n_qv)
+        s_dn = s_dn | (s_qp[:, 2] < 0.3)
+        assert (torch.where(s_dn, 0.0, r) - rewards[t]).abs().max().item() <= 5e-5
+    assert (s_qp - qp).abs().max().item() <= 5e-5 and torch.equal(s_dn, dn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 45])
+def test_tracking_reward_kernel_matches_plain(cuda, N):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+    from deepmimic_diffusion_mujoco_tpu_torch.physics.env import tracking_reward
+
+    qpos, qvel, tgt, rqv = _walk_inputs(cuda, N)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ref_q = tgt[0] + 0.05 * torch.randn(tgt[0].shape, generator=g, device=cuda)
+    launches = DK.tracking_reward_cuda.launches
+    out = DK.tracking_reward_cuda(qpos, qvel, ref_q, rqv[0])
+    torch.cuda.synchronize()
+    assert DK.tracking_reward_cuda.launches == launches + 1
+    assert (out - DK.tracking_reward_plain(qpos, qvel, ref_q, rqv[0])).abs().max().item() <= 5e-5
+    assert (out - tracking_reward(qpos, qvel, ref_q, rqv[0])).abs().max().item() <= 5e-5
+
+
+@pytest.mark.cuda
+def test_physics_kernels_refuse_bad_inputs(cuda):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    qpos, qvel, tgt, rqv = _walk_inputs(cuda, 8)
+    kw = dict(h=1 / 510, substeps=1)
+    with pytest.raises(ValueError, match="float32"):
+        DK.control_step_cuda(qpos.double(), qvel.double(), tgt[0].double(), **kw)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        DK.control_step_cuda(qpos.cpu(), qvel, tgt[0], **kw)
+    with pytest.raises(ValueError, match="float32"):
+        DK.tracking_reward_cuda(qpos.double(), qvel, tgt[0], rqv[0])
+    with pytest.raises(ValueError, match="expected"):
+        DK.rollout_cuda(qpos, qvel, tgt[:, :4], rqv, torch.zeros(8, device=cuda), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        DK.control_step_cuda(qpos, qvel, tgt[0].t().contiguous().t(), **kw)
+
+
+@pytest.mark.cuda
+def test_physics_env_launches_the_kernels(cuda):
+    from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+    from deepmimic_diffusion_mujoco_tpu_torch.physics.env import PhysicsTrackingEnv
+    from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
+
+    clip = load_clip(WALK)
+    env = PhysicsTrackingEnv(clip.qpos, clip.qvel)
+    state = env.reset(64)
+    b5, b6 = DK.control_step_cuda.launches, DK.rollout_cuda.launches
+    _, rewards = env.rollout(state, 4)
+    s = state
+    for _ in range(4):
+        s, r = env.step(s)
+    assert DK.rollout_cuda.launches == b6 + 1 and DK.control_step_cuda.launches == b5 + 4
+    assert (rewards[-1] - r).abs().max().item() <= 5e-5
+    res = track_motions(clip.qpos, horizon=3)
+    assert DK.control_step_cuda.launches == b5 + 7
+    assert res["reward_curve"].shape == (3,)

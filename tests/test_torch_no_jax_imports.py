@@ -4,6 +4,7 @@ drift to the CPU when no CUDA device is present."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -11,6 +12,9 @@ from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, schedules
+from deepmimic_diffusion_mujoco_tpu_torch.physics import env as physics_env
+from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics import DynamicsEnv
+from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig, ModelConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -48,6 +52,9 @@ ENTRY_POINTS = {
     "cli_main": lambda tmp: cli.main(["--run", str(tmp)]),
     "train_main": lambda tmp: train_cli.main(["--out", str(tmp)]),
     "build_trainer": lambda tmp: train_cli.build_trainer(_temporal_cfg()),
+    "PhysicsTrackingEnv": lambda tmp: physics_env.PhysicsTrackingEnv(np.zeros((4, 35))),
+    "KinematicEnv": lambda tmp: physics_env.KinematicEnv(np.zeros((4, 35))),
+    "track_motions": lambda tmp: track_motions(np.zeros((4, 35))),
 }
 
 
@@ -92,3 +99,16 @@ def test_unported_local_attention_options_name_roadmap(case):
         else:
             cfg = ExperimentConfig.from_dict({"model": {"architecture": "local_attention"}})
             train_cli.build_trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["aba", "lanes", "vmap"])
+def test_unported_dynamics_layouts_name_roadmap(layout):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DynamicsEnv(layout=layout)
+    assert DynamicsEnv(layout="pallas").layout == DynamicsEnv().layout == "pallas"
+
+
+def test_rollout_sharded_names_roadmap():
+    env = physics_env.PhysicsTrackingEnv(np.zeros((4, 35)), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        env.rollout_sharded(None, env.reset(2), 1)
