@@ -70,8 +70,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one rollout from the same state, and B7 through its front door
    ``tracking_reward_fused`` on the stepped state; ``track_motions`` (horizon
    15) on the 16 motions the H 64 request wrote and on the walk clip, as
-   ``cli/play.py --physics`` calls it (B5 launches = horizon x calls); a
-   profile of 20 ``step`` calls.
+   ``cli/play.py --physics`` calls it (B5 launches = horizon x calls), then
+   held against the plain B5 over 2 control steps at N 16 (walk-clip
+   windows) and N 1 (the walk clip), rewards finite; a profile of 20
+   ``step`` calls.
 
 Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -150,6 +152,7 @@ REWARD_TOL = 1e-4        # |reward(kernel) - reward(plain)|, fused or in the rol
 B7_TOL = 5e-5            # B7 against its plain version and env.tracking_reward
 SAME_CODE_TOL = 5e-5     # B6 against 20 chained B5 steps: the same device code
 PHYS_N, PHYS_BIG_N, PHYS_T, PHYS_KERNEL_T, SUBSTEPS, HORIZON = 4096, 65536, 20, 3, 17, 15
+TRACK_CHECK_HORIZON = 2  # track_motions with B5 against the plain B5 (about 7 s a plain step)
 NO_LIBRARY = "no single PyTorch call computes the humanoid's dynamics or its tracking reward"
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
@@ -254,14 +257,23 @@ def record_block_shapes(model, x, t):
 
 
 @contextlib.contextmanager
-def plain_kernels():
-    """Every conv block through the plain versions: B1's forward and B2's dW."""
-    real = CB.conv_gn_mish_cuda, CB.conv1d_weight_grad
-    CB.conv_gn_mish_cuda, CB.conv1d_weight_grad = CB.conv_gn_mish_plain, CW.conv1d_weight_grad_plain
+def swapped(module, **replacements):
+    """Inside the block each ``module.<name>`` is its replacement (a kernel's
+    plain version); the originals come back after it."""
+    real = {name: getattr(module, name) for name in replacements}
+    for name, value in replacements.items():
+        setattr(module, name, value)
     try:
         yield
     finally:
-        CB.conv_gn_mish_cuda, CB.conv1d_weight_grad = real
+        for name, value in real.items():
+            setattr(module, name, value)
+
+
+def plain_kernels():
+    """Every conv block through the plain versions: B1's forward and B2's dW."""
+    return swapped(CB, conv_gn_mish_cuda=CB.conv_gn_mish_plain,
+                   conv1d_weight_grad=CW.conv1d_weight_grad_plain)
 
 
 def forward_with_plain_blocks(model, x, t):
@@ -834,17 +846,6 @@ def counted_forwards():
         LocalTransformer.forward = real
 
 
-@contextlib.contextmanager
-def plain_attention():
-    """Every LocalMHA through B3's plain version."""
-    real = FA.fused_qkv_local_attention_cuda
-    FA.fused_qkv_local_attention_cuda = FA.fused_qkv_local_attention_plain
-    try:
-        yield
-    finally:
-        FA.fused_qkv_local_attention_cuda = real
-
-
 def load_model(run_dir, dev):
     _, model, sched, payload, _ = cli.load_run(run_dir, device=dev)
     model.load_state_dict(payload["params"])
@@ -936,7 +937,7 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
                 return m(x, t)
 
         out_k = fwd()
-        with plain_attention():
+        with swapped(FA, fused_qkv_local_attention_cuda=FA.fused_qkv_local_attention_plain):
             out_p = fwd()
             plain_ms = timer(fwd, reps=10)
         err = (out_k - out_p).abs().max().item()
@@ -1127,17 +1128,6 @@ def physics_kernel_rows(dev, timer, peaks, ops):
     return rows
 
 
-@contextlib.contextmanager
-def plain_physics():
-    """B5 through its plain version."""
-    real = DK.control_step_cuda
-    DK.control_step_cuda = DK.control_step_plain
-    try:
-        yield
-    finally:
-        DK.control_step_cuda = real
-
-
 def physics_phase(dev, tmp):
     """The physics path through its entry points: PhysicsTrackingEnv.rollout
     (one B6 launch each) at N 4096 and 65536, 20 step calls (20 B5 launches)
@@ -1222,20 +1212,30 @@ def physics_phase(dev, tmp):
                            "calls")
     if None in tracks["walk_clip"].values() or None in tracks["walk_clip"]["reward_mean"]:
         raise RuntimeError(f"track_motions on the walk clip: {tracks['walk_clip']}")
-    # The random-weight U-Net's motions are not physical (|qpos| up to ~1e5):
-    # their simulation may blow up, as the JAX package's does. Hold the
-    # kernel's scores against the plain version's, NaN for NaN, over one step.
-    with plain_physics():
-        plain = track_motions(motions, horizon=1, device=dev)["reward_mean"]
-    kern = track_motions(motions, horizon=1, device=dev)["reward_mean"]
-    same_nan = bool((np.isnan(kern) == np.isnan(plain)).all())
-    fin = ~np.isnan(plain)
-    err = float(np.abs(kern[fin] - plain[fin]).max()) if fin.any() else 0.0
-    if not (same_nan and err <= REWARD_TOL):
-        raise RuntimeError(f"track_motions on the served motions: kernel {kern}, plain {plain}")
-    tracks["served_unet_h64"].update(nonfinite_after_one_step=int((~fin).sum()),
-                                     kernel_vs_plain_one_step_max_abs_err=err)
-    result["track_motions"] = {"horizon": HORIZON, "control_step_launches": launches, **tracks}
+    # The random-weight U-Net's motions are not physical (|qpos| up to ~1e5) and
+    # their scores are not finite: that call counts B5's launches only. The
+    # kernel is held against its plain version at the path's own N (16
+    # motions of H frames, and the one walk clip) on walk-clip windows, each
+    # starting at its own frame, over TRACK_CHECK_HORIZON control steps.
+    n_clip = clip.qpos.shape[0]
+    windows = np.stack([clip.qpos[(i * n_clip // B + np.arange(H)) % n_clip] for i in range(B)])
+    checks = {}
+    for name, m in (("walk_windows_n16", windows), ("walk_clip_n1", clip.qpos)):
+        before = DK.control_step_cuda.launches
+        kern = track_motions(m, horizon=TRACK_CHECK_HORIZON, device=dev)
+        with swapped(DK, control_step_cuda=DK.control_step_plain):
+            plain = track_motions(m, horizon=TRACK_CHECK_HORIZON, device=dev)
+        b5 = DK.control_step_cuda.launches - before
+        errs_t = {k: float(np.abs(kern[k] - plain[k]).max()) for k in ("reward_mean", "reward_curve")}
+        finite = all(np.isfinite(r[k]).all() for r in (kern, plain)
+                     for k in ("reward_mean", "reward_curve"))
+        if not (b5 == TRACK_CHECK_HORIZON and finite and max(errs_t.values()) <= REWARD_TOL):
+            raise RuntimeError(f"track_motions {name}: {b5} B5 launches, kernel "
+                               f"{kern['reward_mean']}, plain {plain['reward_mean']}, finite {finite}")
+        checks[name] = {"motions": len(kern["reward_mean"]), "max_abs_err": errs_t,
+                        "reward_mean": kern["summary"]["physics_reward_mean"]}
+    result["track_motions"] = {"horizon": HORIZON, "control_step_launches": launches, **tracks,
+                               "kernel_vs_plain": {"horizon": TRACK_CHECK_HORIZON, **checks}}
     emit({"phase": "main_path", "path": "track_motions", **result["track_motions"]})
 
     def window():

@@ -32,12 +32,12 @@
 // Launches go on the caller's stream; each entry point returns
 // cudaGetLastError() of its launch.
 
+#include <cuda_runtime.h>
+
 #include "humanoid_tables.h"
 
-#ifndef HD
 #define HD __device__ __forceinline__
 #define HD_NOINLINE __device__ __noinline__
-#endif
 
 namespace hum {
 
@@ -628,13 +628,6 @@ HD_NOINLINE float tracking_reward(const float* qp, const float* qv, const float*
          0.15f * expf(-40.f * ee_err) + 0.1f * expf(-10.f * com_err);
 }
 
-}  // namespace hum
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-
-namespace hum {
-
 constexpr int THREADS = 32;
 
 HD void load(float* dst, const float* __restrict__ src, int n) {
@@ -749,4 +742,3 @@ const char* humanoid_dynamics_error_string(int err) {
 }
 
 }  // extern "C"
-#endif  // __CUDACC__
