@@ -10,8 +10,14 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
   is held against.
 - ``conv_gn_mish_cuda``: the hand-written CUDA kernel
   (``csrc/conv_gn_mish.cu``; its header states the design and what bounds
-  it). It takes CUDA tensors only and raises on anything it does not take.
-  ``conv_gn_mish_cuda.launches`` counts its launches.
+  it). It takes CUDA tensors only and raises on anything it does not take,
+  or on a plan the card cannot schedule. ``conv_gn_mish_cuda.launches``
+  counts its launches.
+- ``conv_plan``: the kernel's launch plan for one shape (cluster size,
+  batch rows per cluster, threads, slices, row tile, chunk, ring stages),
+  computed once per shape and cached; ``make_plan`` builds any other plan,
+  which ``conv_gn_mish_cuda(..., plan=...)`` runs (the card tests and
+  ``ops/conv_block_sweep.py`` do).
 - ``conv_gn_mish``: the autograd entry the model calls. Its forward launches
   the kernel for CUDA tensors and runs the plain version for CPU tensors.
   Its backward recomputes the pre-norm conv output (as the JAX kernel's
@@ -24,6 +30,8 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +40,21 @@ from . import _build
 from .conv_weight_grad import conv1d_weight_grad
 
 KERNEL_SIZES = (1, 3, 5, 7, 9)
-MAX_GROUP_CHANNELS = 256  # kMaxGroupChannels in csrc/conv_gn_mish.cu
+# Constants of csrc/conv_gn_mish.cu
+MAX_GROUP_CHANNELS = 256  # kMaxGroupChannels
+TM, TN = 8, 4             # kTM x kTN: a thread's output tile, rows x channels
+MAX_THREADS = 256         # kMaxThreads
+MAX_STAGES = 4            # kMaxStages
+MAX_ROWS = 4              # kMaxRows: batch rows per cluster
+CLUSTER_SIZES = (1, 2, 4, 8)
+MAX_SMEM = 227 * 1024     # kMaxSmem: a CTA's shared memory, dynamic and static
+# the statistics' slots, the group's bias / gamma / beta, the mbarriers
+STATIC_SMEM = 4 * (2 * MAX_ROWS + 3 * MAX_GROUP_CHANNELS) + 16 * MAX_STAGES
+# The plan's defaults (make_plan)
+STAGES = 3                # ring depth
+CHANNELS_PER_SLICE = 8    # input channels a slice takes from each chunk, at most
+DEEP_TILE_H = 40          # row tiles this short take two batch rows (and two ranks)
+DEEP_MIN_CIN = 256        # ... where each of the two ranks keeps 128+ input channels
 
 
 def conv_gn_mish_plain(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
@@ -57,15 +79,164 @@ def _gn_affine_mish(out, gamma, beta, groups: int, eps: float):
     return out * torch.tanh(F.softplus(out))
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """One launch plan (struct Plan in csrc/conv_gn_mish.cu) and what
+    follows from it for the shape it was made for."""
+    cluster: int   # CTAs per (R batch rows, group): rank r takes Cin[r Cin/C, (r+1) Cin/C)
+    rows: int      # R: batch rows per cluster, sharing every staged weight chunk
+    threads: int   # n_out * slices: every thread owns an output tile
+    slices: int    # ways each chunk's channels are split among the threads
+    tile_h: int    # output rows per tile, a multiple of TM
+    ck: int        # input channels per ring stage, a multiple of slices
+    stages: int    # ring depth
+    n_out: int     # threads of one slice: rows * (tile_h / TM) * (cgp / TN)
+    n_tiles: int   # row tiles covering H
+    smem_bytes: int  # dynamic shared memory per CTA
+    grid: int      # CTAs: ceil(B / rows) * groups * cluster
+    ints: object = dataclasses.field(compare=False, repr=False)  # ctypes int[7]
+    # (H, Cin, Cout, k, groups, vec, device index) -> clusters the card holds at once
+    checked: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def rank_channels(self, cin: int) -> list[tuple[int, int]]:
+        """[lo, hi) input channels of each cluster rank, as the kernel splits them."""
+        return [(cin * r // self.cluster, cin * (r + 1) // self.cluster)
+                for r in range(self.cluster)]
+
+
+def smem_bytes(H: int, cg: int, k: int, rows: int, threads: int, tile_h: int, slices: int,
+               ck: int, stages: int) -> int:
+    """Dynamic shared memory of one plan: layout() in csrc/conv_gn_mish.cu."""
+    cgp = _ceil(cg, TN) * TN
+    xs_row = tile_h - TM + _ceil(TM + k - 1, 4) * 4
+    stage = k * ck * cgp + ck * rows * xs_row
+    tile = rows * tile_h * cgp
+    ring = max(stages * stage, slices * tile if slices > 1 else 0, rows * threads)
+    return 4 * (ring + (2 if _ceil(H, tile_h) > 1 else 1) * tile)
+
+
+def make_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int,
+              cluster: int | None = None, rows: int | None = None, slices: int | None = None,
+              channels_per_slice: int | None = None, stages: int | None = None) -> ConvPlan:
+    """The plan for one shape; a keyword given fixes that choice. The
+    defaults follow the best of the plans ``ops/conv_block_sweep.py`` timed
+    at the U-Net's main-path shapes on an H100 (``PERF.md``).
+
+    - Row tile: the whole of H where a batch row's (H / TM) x (cgp / TN)
+      tiles fit MAX_THREADS, else equal tiles that do.
+    - Rows R and cluster C: 2 and 2 at the deep levels (row tiles of at
+      most DEEP_TILE_H rows, at least DEEP_MIN_CIN input channels, two
+      rows' tiles within MAX_THREADS): every staged weight chunk then serves
+      two batch rows, and two ranks split the channels, so the grid keeps
+      B x groups CTAs. Elsewhere 1 and 1: a tall tile already reuses each
+      weight enough, and few channels leave too little to split.
+    - Slices: the most (up to Cin, at least one warp's worth) that keep
+      threads = n_out * slices a whole number of warps, or simply the most.
+    - Chunk: ck = slices * channels per slice. Of the powers of two up to
+      CHANNELS_PER_SLICE that leave a rank two chunks or more (where it has
+      the channels) and fit a ring of STAGES stages in MAX_SMEM, the one
+      with the fewest chunks x (channels per slice + 1): zero-padded
+      channels cost FMAs, and each chunk costs about one channel's work in
+      waits. Fewer stages where none fits.
+    """
+    cg = Cout // groups
+    ntc = _ceil(cg, TN)
+    rg_all = _ceil(H, TM)
+    n_tiles = _ceil(rg_all, max(1, MAX_THREADS // ntc))
+    rg = _ceil(rg_all, n_tiles)
+    tile_h = rg * TM
+    deep = (B >= 2 and tile_h <= DEEP_TILE_H and Cin >= DEEP_MIN_CIN
+            and 2 * rg * ntc <= MAX_THREADS)
+    if rows is None:
+        rows = 2 if deep else 1
+    n_out = rows * rg * ntc
+    if not 1 <= rows <= MAX_ROWS or n_out > MAX_THREADS:
+        raise ValueError(f"conv_gn_mish_cuda: {rows} rows of {rg * ntc} output tiles each "
+                         f"exceed {MAX_THREADS} threads")
+    if cluster is None:
+        cluster = 2 if deep else 1
+    if cluster not in CLUSTER_SIZES or cluster > Cin:
+        raise ValueError(f"conv_gn_mish_cuda: cluster size {cluster} not in {CLUSTER_SIZES} "
+                         f"or above Cin {Cin}")
+    if slices is None:  # no more slices than channels, but at least one warp
+        most = min(MAX_THREADS // n_out, max(Cin, _ceil(32, n_out)))
+        slices = next((s for s in range(most, 0, -1) if n_out * s % 32 == 0), most)
+    threads = n_out * slices
+    if not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"conv_gn_mish_cuda: {threads} threads is no plan")
+    need = _ceil(_ceil(Cin, cluster), slices)  # channels per slice a rank needs
+    size = functools.partial(smem_bytes, H, cg, k, rows, threads, tile_h, slices)
+    best = None
+    for st in ((stages,) if stages else (STAGES, 2)):
+        choices = ((channels_per_slice,) if channels_per_slice else
+                   [c for c in (1, 2, 4, 8) if c <= min(CHANNELS_PER_SLICE, max(1, need // 2))])
+        fits = [c for c in choices if size(slices * c, st) <= MAX_SMEM - STATIC_SMEM]
+        if fits:  # the fewest channel-steps, a chunk's waits counted as one more
+            cps = min(fits, key=lambda c: _ceil(need, c) * (c + 1))
+            best = (slices * cps, st)
+            break
+    if best is None:
+        raise ValueError(f"conv_gn_mish_cuda: no plan fits {MAX_SMEM} bytes of shared memory "
+                         f"at H {H}, Cin {Cin}, {cg} channels per group, k {k}")
+    ck, st = best
+    fields = (cluster, rows, threads, slices, tile_h, ck, st)
+    return ConvPlan(*fields, n_out=n_out, n_tiles=n_tiles, smem_bytes=size(ck, st),
+                    grid=_ceil(B, rows) * groups * cluster, ints=(ctypes.c_int * 7)(*fields))
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int) -> ConvPlan:
+    """The cached plan for one shape."""
+    return make_plan(B, H, Cin, Cout, k, groups)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv_gn_mish")
     if lib.conv_gn_mish_f32.argtypes is None:
         lib.conv_gn_mish_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         lib.conv_gn_mish_f32.restype = ctypes.c_int
+        lib.conv_gn_mish_f32_plan_check.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        lib.conv_gn_mish_f32_plan_check.restype = ctypes.c_int
         lib.conv_gn_mish_error_string.argtypes = [ctypes.c_int]
         lib.conv_gn_mish_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def max_active_clusters(plan: ConvPlan, H: int, Cin: int, Cout: int, k: int, groups: int,
+                        vec: bool, device: torch.device) -> int:
+    """How many of the plan's clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters; with a cluster of 1, the CTAs it
+    holds), asked on the plan's first launch.
+    Raises, with the reason, if that is none, or if the kernel's shared
+    memory layout disagrees with smem_bytes()."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (H, Cin, Cout, k, groups, vec, index)
+    n = plan.checked.get(key)
+    if n is None:
+        lib = _library()
+        smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.conv_gn_mish_f32_plan_check(H, Cin, Cout, k, groups, plan.ints, int(vec),
+                                                  ctypes.byref(smem), ctypes.byref(clusters))
+        if err != 0:
+            raise RuntimeError(f"conv_gn_mish plan {plan} refused: "
+                               + lib.conv_gn_mish_error_string(err).decode())
+        if smem.value != plan.smem_bytes:
+            raise RuntimeError(f"conv_gn_mish plan {plan}: the kernel lays out {smem.value} "
+                               f"bytes of shared memory, the plan {plan.smem_bytes}")
+        if clusters.value < 1:
+            raise RuntimeError(
+                f"conv_gn_mish plan {plan} cannot be scheduled on this card: no cluster of "
+                f"{plan.cluster} CTAs x {plan.threads} threads x {plan.smem_bytes} bytes of "
+                f"shared memory fits (cudaOccupancyMaxActiveClusters is 0)")
+        n = plan.checked[key] = clusters.value
+    return n
 
 
 def _check_args(x, w, b, gamma, beta, groups: int):
@@ -97,10 +268,12 @@ def _check_args(x, w, b, gamma, beta, groups: int):
             raise ValueError(f"conv_gn_mish_cuda: {name} must be ({cout},)")
 
 
-def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
+def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
+                      plan: ConvPlan | None = None):
     """Launch the CUDA kernel on PyTorch's current stream (builds it on
-    first use). Raises on a tensor or shape the kernel does not take, and
-    if the launch is refused."""
+    first use) with ``plan``, by default the shape's cached ``conv_plan``.
+    Raises on a tensor or shape the kernel does not take, on a plan the card
+    cannot schedule, and if the launch is refused."""
     _check_args(x, w, b, gamma, beta, groups)
     lib = _library()
     B, H, cin = x.shape
@@ -108,10 +281,14 @@ def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
     out = torch.empty((B, H, cout), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = conv_plan(B, H, cin, cout, k, groups)
+    vec = (cout // groups) % 4 == 0 and w.data_ptr() % 16 == 0
+    max_active_clusters(plan, H, cin, cout, k, groups, vec, x.device)
     with torch.cuda.device(x.device):
         err = lib.conv_gn_mish_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), B, H, cin, cout, k, groups, eps,
+            out.data_ptr(), B, H, cin, cout, k, groups, eps, ctypes.addressof(plan.ints),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

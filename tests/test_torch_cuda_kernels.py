@@ -27,23 +27,66 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Cin,Cout,k", [
-    (16, 64, 35, 128, 5), (16, 8, 1024, 1024, 5), (3, 21, 37, 24, 3),
-    (2, 5, 8, 16, 1), (1, 200, 70, 2048, 9), (2, 100, 64, 512, 5), (4, 8, 2048, 512, 5),
-])
-def test_conv_gn_mish_kernel_matches_plain(cuda, B, H, Cin, Cout, k):
-    g = torch.Generator(device=cuda).manual_seed(0)
+def _conv_block_inputs(cuda, B, H, Cin, Cout, k, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(B, H, Cin, generator=g, device=cuda)
     w = torch.randn(k, Cin, Cout, generator=g, device=cuda) * (k * Cin) ** -0.5
     b, beta = (torch.randn(Cout, generator=g, device=cuda) * 0.1 for _ in range(2))
     gamma = 1 + 0.1 * torch.randn(Cout, generator=g, device=cuda)
+    return x, w, b, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [
+    (16, 64, 35, 128, 5), (16, 8, 1024, 1024, 5), (3, 21, 37, 24, 3),
+    (2, 5, 8, 16, 1), (1, 200, 70, 2048, 9), (2, 100, 64, 512, 5), (4, 8, 2048, 512, 5),
+    # default plans: one rank and row (training's H 160), two ranks and rows (training's
+    # H 20, and H 3), four row tiles
+    (32, 160, 128, 128, 5), (32, 20, 1024, 1024, 5), (2, 3, 256, 64, 7), (2, 100, 512, 2048, 5),
+])
+def test_conv_gn_mish_kernel_matches_plain(cuda, B, H, Cin, Cout, k):
+    args = _conv_block_inputs(cuda, B, H, Cin, Cout, k)
     launches = TK.conv_gn_mish_cuda.launches
-    out = TK.conv_gn_mish_cuda(x, w, b, gamma, beta, 8)
+    out = TK.conv_gn_mish_cuda(*args, 8)
     torch.cuda.synchronize()
     assert TK.conv_gn_mish_cuda.launches == launches + 1
-    ref = TK.conv_gn_mish_plain(x, w, b, gamma, beta, 8)
+    ref = TK.conv_gn_mish_plain(*args, 8)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [(16, 8, 1024, 1024, 5), (4, 20, 512, 512, 3),
+                                            (2, 100, 512, 2048, 5), (3, 48, 35, 24, 5)])
+def test_conv_gn_mish_kernel_takes_every_cluster_size(cuda, cluster, B, H, Cin, Cout, k):
+    args = _conv_block_inputs(cuda, B, H, Cin, Cout, k, seed=3)
+    plan = TK.make_plan(B, H, Cin, Cout, k, 8, cluster=cluster)
+    out = TK.conv_gn_mish_cuda(*args, 8, plan=plan)
+    torch.testing.assert_close(out, TK.conv_gn_mish_plain(*args, 8), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 4])
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [(5, 8, 512, 512, 5), (3, 20, 256, 128, 5)])
+def test_conv_gn_mish_kernel_takes_every_row_count(cuda, rows, B, H, Cin, Cout, k):
+    """R batch rows per cluster, the last block partly past B."""
+    args = _conv_block_inputs(cuda, B, H, Cin, Cout, k, seed=5)
+    plan = TK.make_plan(B, H, Cin, Cout, k, 8, rows=rows)
+    out = TK.conv_gn_mish_cuda(*args, 8, plan=plan)
+    torch.testing.assert_close(out, TK.conv_gn_mish_plain(*args, 8), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,k,cluster", [
+    (16, 8, 1024, 1024, 5, 2), (32, 20, 1024, 1024, 5, 2), (32, 160, 128, 128, 5, 4),
+    (2, 100, 512, 2048, 5, 8)])
+def test_conv_gn_mish_kernel_is_deterministic(cuda, B, H, Cin, Cout, k, cluster):
+    """Ranks' and slices' partial sums are added in a fixed order: two
+    launches give the same bits."""
+    args = _conv_block_inputs(cuda, B, H, Cin, Cout, k, seed=4)
+    plan = TK.make_plan(B, H, Cin, Cout, k, 8, cluster=cluster)
+    assert torch.equal(TK.conv_gn_mish_cuda(*args, 8, plan=plan),
+                       TK.conv_gn_mish_cuda(*args, 8, plan=plan))
 
 
 @pytest.mark.cuda
