@@ -48,7 +48,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    B 16 x H 128 and B 4 x H 1024. Max error, and per-launch times of the
    kernel, the plain version and the composition yardstick (rotary, then
    one ``scaled_dot_product_attention`` with the band mask), beside the
-   card's bound for the same work.
+   card's bound for the same work; each row carries its launch plan
+   (``attention_plan``) and its time over the composition's (the masked
+   rows over the same shape's unmasked composition).
 9. local-attention serve: a run directory written from the user config
    experiments/localattn5k_r3/config.json (dim 512, depth 6, 8 heads of 64,
    window 16, 4 residual streams, v4 sampler, T 1000, x0 prediction) with
@@ -780,6 +782,11 @@ def b3_composition(qkv, h, dh, w, tables, mask):
     return out.transpose(1, 2).reshape(B, Np, h * dh)[:, :N]
 
 
+def attention_plan_row(Np, C, P, w, causal, dh, batch_heads):
+    """B3's / B4's launch plan for a shape, as a JSON-ready dict."""
+    return dataclasses.asdict(FA.attention_plan(Np, C, P, w, causal, dh, batch_heads))
+
+
 def b3_rows(dev, timer, peaks, mcfg):
     """B3 against its plain version at the requests' shapes, each without
     masks, with prefix key lengths (down to 3, so some rows have every key
@@ -811,6 +818,7 @@ def b3_rows(dev, timer, peaks, mcfg):
                                    f"N {n}, {masks}: max abs err {err}")
             row = {"B": batch, "N": n, "Np": Np, "K": K, "masks": masks,
                    "lengths": lengths if kmask is not None else None, "max_abs_err": err,
+                   "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, batch * h),
                    "ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args)),
                    "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args))}
             if masks == "none":
@@ -818,8 +826,11 @@ def b3_rows(dev, timer, peaks, mcfg):
                 if not comp_err <= COMP_TOL:
                     raise RuntimeError(f"the composition yardstick computes another function: "
                                        f"{comp_err}")
-                row["composition_ms"] = timer(lambda: b3_composition(qkv, h, dh, w, tables, mask))
+                comp_ms = timer(lambda: b3_composition(qkv, h, dh, w, tables, mask))
+                row["composition_ms"] = comp_ms
                 row["composition_max_abs_err"] = comp_err
+            # the masked rows over the same shape's (unmasked) composition
+            row["composition_ratio"] = row["ms"] / comp_ms
             pairs, empty = attention_work(n, Np, w, causal,
                                           lengths if kmask is not None else [Np] * batch)
             flops = h * (4.0 * dh * pairs + 2.0 * dh * K * empty) + 6.0 * batch * n * h * dh
@@ -862,10 +873,12 @@ def b4_rows(dev, timer, peaks, mcfg):
         flops = h * 4.0 * dh * pairs + 6.0 * batch * h * n * dh
         bound_ms, bound_by = bound(flops, 16.0 * batch * h * n * dh, peaks)
         rows.append({"B": batch, "heads": h, "N": n, "dh": dh, "max_abs_err": err,
+                     "plan": attention_plan_row(n, LH.CHUNK, LH.CHUNK, w, causal, dh, batch * h),
                      "ms": timer(lambda: LH.local_attention_heads_cuda(q, k, v, w, causal)),
                      "plain_ms": timer(lambda: LH.local_attention_heads_plain(q, k, v, w, causal)),
                      "composition_ms": timer(composition), "composition_max_abs_err": comp_err,
                      "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9})
+        rows[-1]["composition_ratio"] = rows[-1]["ms"] / rows[-1]["composition_ms"]
         emit({"phase": "kernel", "name": "local_attention_heads", **rows[-1]})
     return rows
 

@@ -87,8 +87,9 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
-    # float32 throughout: no TF32 in cuDNN's convolutions
+    # float32 throughout: no TF32 in cuDNN's convolutions or cuBLAS's matmuls
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     cfg, model, sched, payload, _ = load_run(args.run, device=dev)
     model.load_state_dict(payload["ema_params"] if args.ema else payload["params"])
     model.eval()

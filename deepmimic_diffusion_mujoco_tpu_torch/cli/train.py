@@ -34,7 +34,7 @@ from ..device import resolve_device
 from ..diffusion import process
 from ..train.checkpoint import Checkpointer
 from ..train.config import ExperimentConfig
-from ..train.loop import STACK_B_SLICE, Trainer, TrainerConfig, make_loss_fn
+from ..train.loop import STACK_B_ITEM, Trainer, TrainerConfig, make_loss_fn
 from ..train.state import EMAConfig, TrainState, make_optimizer
 
 
@@ -49,10 +49,10 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
             "local attention: LocalTransformer training")
     if cfg.train.timestep_sampler == "loss_aware":
         raise NotImplementedError(
-            f"timestep_sampler='loss_aware' is not ported yet: {STACK_B_SLICE}")
+            f"timestep_sampler='loss_aware' is not ported yet: {STACK_B_ITEM}")
     if cfg.diffusion.loss != "diffuser":
         raise NotImplementedError(
-            f"diffusion.loss={cfg.diffusion.loss!r} is not ported yet: {STACK_B_SLICE}")
+            f"diffusion.loss={cfg.diffusion.loss!r} is not ported yet: {STACK_B_ITEM}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
         model, sched = factory.build_experiment(cfg, dev)

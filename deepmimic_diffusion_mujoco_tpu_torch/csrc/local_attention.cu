@@ -19,39 +19,57 @@
 // (queries at i + look_forward * w, keys at j), masks are the window /
 // exact / causal ones, and keys at or past the sequence's length are masked.
 //
-// Design. One block per (query tile of 32 rows, head, batch row). A query
-// tile sees only the key band its windows reach within its chunk, at most
-// 32 + 3w rows, and the block
-//   1. stages its queries (scaled, rotated) in shared memory;
-//   2. walks the band in tiles of 32 keys, stages each tile rotated, and
-//      writes the 32 x 32 scores into a shared score strip (masked -inf);
-//   3. takes each row's softmax over the strip (one warp per row), times the
-//      keep mask and 1/keep_prob where given;
-//   4. walks the band again with the value tiles and accumulates P V in
-//      registers, one query row and dh/4 dims per thread;
-//   5. only where some row has every key masked (possible only with key
-//      lengths): walks the chunk's K key rows with the value tiles and gives
-//      that row the mean of V over them, times the keep mask. That is the TPU
-//      kernel's softmax over a row of equal -1e9 scores.
-// Masked keys outside the band have weight exp(-1e9 - max) = 0 in the TPU
-// kernel too, so the band gives the same result for every other row.
-// The products read the staged rows as float4 (row stride dh + 4: 16-byte
-// aligned, and conflict-free with one row per lane), since shared-memory
-// loads, not FMAs, limit the scalar form.
-//
 // Bound on an H100 at the transformer's shapes (dh 64, w 16, h 8): a query
 // and head has 33 unmasked keys (|i - j| <= w), so the work is about
 // 4 * 33 * dh = 8.4 kflop against 1 KB of QKV read and context written:
-// 8 flops a byte, under the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so
-// the bound is set by bytes. The kernel does more than the bound counts: the
-// whole band (48-64 keys), rotary recomputed for each query tile that reads
-// a key row, and every product in f32 on the CUDA cores. Tensor cores
-// (wgmma, bf16), TMA and sharing one head's rotated keys across query tiles
-// are later work.
+// 8 flops a byte, under the f32 ridge of 67 TFLOP/s / 3.35 TB/s = 20, so the
+// bound is set by bytes (16.8 MB, 5.0 us at B 16 x H 128).
+//
+// Design. One block per (query slab of S rows within a chunk, head, batch
+// row); the launch plan (S, the staged key rows `cap`, the compute units) is
+// chosen in Python (ops/fused_local_attention.py `attention_plan`, from the
+// timings of ops/local_attention_sweep.py). A block
+//   1. stages its slab's Q, its key band's K (the rows the slab's windows
+//      reach within the chunk), the band's V and, with rotary, the cos/sin
+//      rows of Q's and K's positions from a table the wrapper caches, with
+//      16-byte cp.async from every thread: Q, K and the tables under one
+//      mbarrier, V under another, so the block waits on one memory round
+//      trip and V lands while Q K^T runs; rows past N are zeroed;
+//   2. once Q and K land, scales Q and rotates Q and K in place, each
+//      (row, pair of dims) once per block, then one block barrier;
+//   3. gives each warp RPW query rows and the keys their windows reach (at
+//      most RPW + 3w), walked a tile of keys at a time with the online
+//      softmax; a row's allowed keys are one interval (windows, exact and
+//      causal cuts, length), so a key's mask is two comparisons. On the
+//      tensor cores (RPW 16, 16-key tiles) Q K^T and P V are 3xTF32
+//      mma.sync.m16n8k8 (each operand split into two tf32 halves; f32
+//      accuracy, where plain TF32 would miss 1e-4), the score fragment
+//      serving as P V's A fragment. On the CUDA cores (RPW 8, 48-key tiles)
+//      a row's 4 lanes split each tile's keys and the output dims, the
+//      weights crossing between them by shuffles. Either way scores,
+//      softmax state and the context stay in registers until the lanes
+//      store the context rows. No block barrier after step 2;
+//   4. only where lengths are given and some row has every key masked:
+//      stages the chunk's K key rows of V a tile at a time (one more
+//      barrier a tile) and gives that row the mean of V over them, times
+//      the keep mask: the TPU kernel's softmax over K equal -1e9 scores.
+// Masked keys outside the band have weight exp(-1e9 - max) = 0 in the TPU
+// kernel too, so the band gives the same result for every other row. Where
+// a band does not fit in shared memory even at the smallest slab (dh 128
+// with w 128), the block stages it in segments of `cap` rows, the online
+// softmax carrying across them, with one barrier and one round trip each.
+// Shared-memory rows have a stride of dh + 4 floats, so the rows a warp
+// reads at once sit in different banks.
+//
+// What limits it at B 16 x H 128 (ops/local_attention_sweep.py's clock
+// stamps, H100): all blocks stage at once, so the load phase runs at the
+// card's bandwidth, and only then does any block compute; launch, the
+// mbarrier set-up and the rotation add a few microseconds of latency.
+// Overlapping one block's loads with another's compute is the next step.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrappers (ops/fused_local_attention.py, ops/local_attention_kernel.py)
-// validate shapes, dtypes and contiguity before they call in.
+// validate shapes, dtypes, contiguity and the plan before they call in.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,10 +77,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTQ = 32;  // query rows per block: one per lane
-constexpr int kTK = 32;  // key rows per staged tile
+constexpr int kMaxWarps = 8;
+constexpr int kMaxSmem = 232448;  // a block's shared memory, dynamic and static
+constexpr int kStaticSmem = 16;   // the two mbarriers
 
 struct Args {
   const float* q;        // element (row, d) of head y, batch z at
@@ -71,7 +88,7 @@ struct Args {
   float* out;            //   out + z * out_z + y * out_y + row * out_row + d
   const int* lengths;    // (batch,) valid keys per sequence, or null
   const float* keep;     // keep + z * keep_z + row * keep_row + y * K + kk, or null
-  const float* freqs;    // (dh,) rotary inverse frequencies, each half repeated
+  const float* rot;      // (positions, dh / 2, 2): cos, sin of pos * freq (with rotary)
   long long in_z, in_y, in_row;
   long long out_z, out_y, out_row;
   long long keep_z, keep_row;
@@ -83,8 +100,16 @@ struct Args {
   float inv_keep;        // 1 / keep_prob
 };
 
-// The key rows [lo, hi) that query rows [q0, q1) can see: their chunk's
-// key range cut to the windows they reach (look_backward 1).
+struct Plan {
+  int slab;  // S: query rows per block, a multiple of the rows per warp, at most kMaxWarps warps
+  int cap;   // K and V rows staged at once (the whole band unless it does not fit)
+};
+
+// Query rows a warp owns: 16 on the tensor cores (one m16 tile), 8 on the CUDA cores.
+__host__ __device__ constexpr int rows_per_warp(bool mma) { return mma ? 16 : 8; }
+
+// The key rows [lo, hi) that query rows [q0, q1) of one chunk can see: the
+// chunk's key range cut to the windows they reach (look_backward 1).
 __host__ __device__ inline void key_band(const Args& a, int q0, int q1, int* lo, int* hi) {
   const int c = q0 / a.C;
   int l = c * a.C - a.P;
@@ -98,63 +123,6 @@ __host__ __device__ inline void key_band(const Args& a, int q0, int q1, int* lo,
   *hi = h < a.Np ? h : a.Np;
 }
 
-__device__ __forceinline__ bool allowed(const Args& a, int i, int j) {
-  const int wi = i / a.w, wj = j / a.w;
-  if (wj < wi - 1 || wj > wi + a.lf) return false;
-  if (a.causal) {
-    if (i < j) return false;
-    if (a.exact && i > j + a.w) return false;
-  } else if (a.exact) {
-    if (j - a.w * a.lf > i || i > j + a.w) return false;
-  }
-  return true;
-}
-
-__host__ __device__ constexpr int row_stride(int dh) { return dh + 4; }  // 16-byte aligned
-
-// Stage rows [first, first + kRows) of one head of an operand (row r at
-// base + r * stride, dh contiguous floats) into dst (row stride
-// row_stride(DH)): times `mul` and, with `rotary`, rotated to position
-// row + shift; rows at or past `end` are zero. Every thread issues all its
-// float4 loads before it uses any, so a tile costs one memory round trip.
-template <int DH, int kRows>
-__device__ __forceinline__ void stage_rows(float* dst, const float* base, long long stride,
-                                           int first, int end, float mul, int shift,
-                                           const float* freq, bool rotary, int tid) {
-  constexpr int kVec = DH / 4;
-  constexpr int kItems = kRows * kVec;
-  constexpr int kPer = (kItems + kThreads - 1) / kThreads;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 x[kPer], y[kPer];
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int e = tid + u * kThreads, r = e / kVec, v = e % kVec;
-    const bool ok = e < kItems && first + r < end;
-    const float4* src = reinterpret_cast<const float4*>(base + (first + r) * stride);
-    x[u] = ok ? __ldg(src + v) : zero;
-    y[u] = ok && rotary ? __ldg(src + (v + kVec / 2) % kVec) : zero;  // the rotary partner
-  }
-#pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int e = tid + u * kThreads, r = e / kVec, v = e % kVec;
-    if (e >= kItems) continue;
-    float xs[4] = {x[u].x * mul, x[u].y * mul, x[u].z * mul, x[u].w * mul};
-    if (rotary) {
-      const float ys[4] = {y[u].x * mul, y[u].y * mul, y[u].z * mul, y[u].w * mul};
-      const float sign = 4 * v < DH / 2 ? -1.f : 1.f;
-      const float pos = static_cast<float>(first + r + shift);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float sn, cs;
-        sincosf(pos * freq[4 * v + c], &sn, &cs);
-        xs[c] = xs[c] * cs + sign * ys[c] * sn;
-      }
-    }
-    reinterpret_cast<float4*>(dst + r * row_stride(DH))[v] =
-        make_float4(xs[0], xs[1], xs[2], xs[3]);
-  }
-}
-
 // Key row of chunk key slot kk (0 <= kk < K): the previous chunk's last P
 // rows, the chunk, the next chunk's first P rows, clamped at the edges.
 __device__ __forceinline__ int chunk_key_row(const Args& a, int c, int kk) {
@@ -164,184 +132,481 @@ __device__ __forceinline__ int chunk_key_row(const Args& a, int c, int kk) {
   return min((c + 1) * a.C, a.Np - a.P) + kk - a.P - a.C;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n\t}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
 __device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
   return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-windowed_attention_kernel(const Args a, const int s_stride) {
-  constexpr int kQS = row_stride(DH);   // conflict-free for a row per lane
-  constexpr int kDPT = DH / kWarps;     // output dims per thread (a multiple of 4)
-  constexpr int kKPT = kTK / kWarps;    // scores per thread per key tile
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // kTQ x kQS
-  float* kvs = qs + kTQ * kQS;          // kTK x kQS
-  float* freq = kvs + kTK * kQS;        // DH
-  float* S = freq + DH;                 // kTQ x s_stride scores, then weights
-  __shared__ int fully_masked[kTQ];
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kTQ;
-  const int q1 = min(q0 + kTQ, a.Np);
+// Arrives on `bar` once every cp.async this thread has issued so far is done.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Stage rows [0, n) of one operand into dst (row stride DH + 4): row r from
+// src(r), or zeros where src(r) is null. Every thread copies 16-byte pieces
+// with cp.async and arrives on `bar` once its pieces land (one arrival a
+// thread). The zero rows are plain stores: a block barrier makes them
+// visible.
+template <int DH, typename Src>
+__device__ __forceinline__ void stage(float* dst, int n, Src src, uint64_t* bar, int tid,
+                                      int nthreads) {
+  constexpr int kVec = DH / 4;
+  for (int e = tid; e < n * kVec; e += nthreads) {
+    const int r = e / kVec, v = e % kVec;
+    const float* row = src(r);
+    float* d = dst + r * (DH + 4) + 4 * v;
+    if (row != nullptr)
+      copy16(d, row + 4 * v);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  mbar_arrive_on_copies(bar);
+}
+
+// Scale and, with `tab`, rotate staged rows [0, rows) in place: item (r, g)
+// is the four (dim, dim + DH/2) pairs 4g .. 4g + 3 of row r, so no two
+// threads touch one value; `tab` row r holds those pairs' (cos, sin) at row
+// r's position.
+template <int DH>
+__device__ __forceinline__ void rotate_rows(float* base, const float* tab, int rows, float mul,
+                                            int tid, int nthreads) {
+  constexpr int kItems = DH / 8;
+#pragma unroll 4
+  for (int e = tid; e < rows * kItems; e += nthreads) {
+    const int r = e / kItems, g = e % kItems;
+    float4* x1p = reinterpret_cast<float4*>(base + r * (DH + 4)) + g;
+    float4* x2p = x1p + kItems;
+    float x1[4] = {x1p->x * mul, x1p->y * mul, x1p->z * mul, x1p->w * mul};
+    float x2[4] = {x2p->x * mul, x2p->y * mul, x2p->z * mul, x2p->w * mul};
+    if (tab != nullptr) {
+      const float4* t = reinterpret_cast<const float4*>(tab + r * (DH + 4)) + 2 * g;
+      const float4 t01 = t[0], t23 = t[1];
+      const float cs[4] = {t01.x, t01.z, t23.x, t23.z}, sn[4] = {t01.y, t01.w, t23.y, t23.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float y1 = x1[c] * cs[c] - x2[c] * sn[c];
+        const float y2 = x2[c] * cs[c] + x1[c] * sn[c];
+        x1[c] = y1;
+        x2[c] = y2;
+      }
+    }
+    *x1p = make_float4(x1[0], x1[1], x1[2], x1[3]);
+    *x2p = make_float4(x2[0], x2[1], x2[2], x2[3]);
+  }
+}
+
+// o += p * row (this lane's dims of one staged row: float4s g * L + h)
+template <int DH, int L>
+__device__ __forceinline__ void accumulate(float* o, float p, const float* row, int h) {
+  const float4* v4 = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int g = 0; g < DH / (4 * L); ++g) {
+    const float4 vv = v4[g * L + h];
+    o[4 * g] = fmaf(p, vv.x, o[4 * g]);
+    o[4 * g + 1] = fmaf(p, vv.y, o[4 * g + 1]);
+    o[4 * g + 2] = fmaf(p, vv.z, o[4 * g + 2]);
+    o[4 * g + 3] = fmaf(p, vv.w, o[4 * g + 3]);
+  }
+}
+
+// The keys query row i may see form one interval [*jlo, *jhi): its windows,
+// the exact / causal cuts and the sequence's length (none past the slab).
+__device__ __forceinline__ void row_keys(const Args& a, int i, int len, int s1, int* jlo,
+                                         int* jhi) {
+  const int wi = i / a.w;
+  int lo = (wi - 1) * a.w, hi = (wi + a.lf + 1) * a.w;
+  if (a.causal) {
+    hi = min(hi, i + 1);
+    if (a.exact) lo = max(lo, i - a.w);
+  } else if (a.exact) {
+    lo = max(lo, i - a.w);
+    hi = min(hi, i + a.w * a.lf + 1);
+  }
+  *jlo = lo;
+  *jhi = i < s1 ? min(hi, len) : lo;
+}
+
+// x as a tf32 pair: hi = tf32(x), lo = tf32(x - hi); hi * y + lo * y keeps
+// about 21 bits of x (3xTF32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t* hi, uint32_t* lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(*hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(*lo) : "f"(x - __uint_as_float(*hi)));
+}
+
+// c += a b on the tensor cores, m16n8k8, tf32 in, f32 out
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b to about f32 accuracy: a and b given as (hi, lo) tf32 pairs, the
+// small products first
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
+                                           const uint32_t* b_hi, const uint32_t* b_lo) {
+  mma_tf32(c, a_lo, b_hi);
+  mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
+}
+
+// The A fragment (rows g and g + 8, dims k0 + t and k0 + t + 4) of a warp's
+// 16 staged query rows from `qrow` (row g), as tf32 (hi, lo) pairs.
+template <int DH>
+__device__ __forceinline__ void q_fragment(const float* qrow, int k0, int t, uint32_t* hi,
+                                           uint32_t* lo) {
+  split_tf32(qrow[k0 + t], &hi[0], &lo[0]);
+  split_tf32(qrow[8 * (DH + 4) + k0 + t], &hi[1], &lo[1]);
+  split_tf32(qrow[k0 + t + 4], &hi[2], &lo[2]);
+  split_tf32(qrow[8 * (DH + 4) + k0 + t + 4], &hi[3], &lo[3]);
+}
+
+// DH: head width; MMA: the products on the tensor cores (3xTF32 m16n8k8,
+// 16 query rows a warp, 16-key tiles), else on the CUDA cores (8 rows a
+// warp, 48-key tiles: a warp's whole band at w 16).
+//
+// CUDA cores: a row's L = 4 lanes split each tile's keys (lane h of the row
+// takes keys t0 + L m + h) and the output dims (float4s g L + h).
+// Tensor cores: the warp's 16 rows are one m16 tile; lane (g, t) = (lane /
+// 4, lane % 4) holds rows g and g + 8 of the fragments: scores of keys
+// t0 + 8 n + 2 t and + 1, outputs of dims 8 d + 2 t and + 1. P V reads a
+// k-step's keys 2t and 2t + 1 as its logical keys t and t + 4, so the score
+// fragment is P V's A fragment as it stands.
+template <int DH, bool MMA>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+windowed_attention_kernel(const Args a, const Plan p) {
+  constexpr int kStride = DH + 4;
+  constexpr int RPW = rows_per_warp(MMA);
+  constexpr int TILE = MMA ? 16 : 48;        // keys per tile
+  constexpr int L = 32 / RPW;
+  constexpr int KPL = TILE / L;              // CUDA cores: keys per lane per tile
+  constexpr int R = MMA ? 2 : 1;             // query rows per lane
+  constexpr int kOut = MMA ? DH / 2 : DH / L;  // output values per lane
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t bars[2];  // 0: Q and K landed, 1: V landed
+  float* qs = reinterpret_cast<float*>(smem4);  // S x kStride
+  float* ks = qs + p.slab * kStride;            // cap x kStride
+  float* vs = ks + p.cap * kStride;             // cap x kStride
+  // with rotary: the (cos, sin) rows of the queries' and the keys' positions
+  float* qt = vs + p.cap * kStride;             // S x kStride
+  float* kt = qt + p.slab * kStride;            // cap x kStride
+
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int spc = (a.C + p.slab - 1) / p.slab;  // slabs per chunk
+  const int c = blockIdx.x / spc;
+  const int s0 = c * a.C + (blockIdx.x % spc) * p.slab;
+  const int s1 = min(min(s0 + p.slab, (c + 1) * a.C), a.Np);
   const int head = blockIdx.y, z = blockIdx.z;
   const long long in_base = z * a.in_z + head * a.in_y;
   const float* qb = a.q + in_base;
   const float* kb = a.k + in_base;
   const float* vb = a.v + in_base;
-  const int c = q0 / a.C;
   const int len = a.lengths != nullptr ? a.lengths[z] : a.Np;
-  int lo, hi;
-  key_band(a, q0, q1, &lo, &hi);
+  int blo, bhi;
+  key_band(a, s0, s1, &blo, &bhi);
 
-  for (int d = tid; d < DH; d += kThreads) freq[d] = a.freqs[d];
-  if (tid < kTQ) fully_masked[tid] = 0;
-  __syncthreads();
+  // this lane's query rows and key share; its warp's key band
+  const int h = MMA ? lane & 3 : lane / RPW;   // MMA: t
+  const int r = MMA ? lane >> 2 : lane % RPW;  // MMA: g
+  const int q0 = s0 + warp * RPW;
+  const bool active = q0 < s1;
+  int wlo = 0, whi = 0;
+  if (active) key_band(a, q0, min(q0 + RPW, s1), &wlo, &whi);
+  int rows[R], jlo[R], jhi[R];
+  const float* keep_row[R];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    rows[u] = q0 + r + 8 * u;
+    row_keys(a, rows[u], len, s1, &jlo[u], &jhi[u]);
+    keep_row[u] = a.keep != nullptr && rows[u] < s1
+                      ? a.keep + z * a.keep_z + rows[u] * a.keep_row + head * a.K
+                      : nullptr;
+  }
+  const int slot0 = a.P - c * a.C;  // chunk key slot of key row j: j + slot0
 
-  // 1. queries, scaled then rotated to i + lf * w; rows past N are zero
-  stage_rows<DH, kTQ>(qs, qb, a.in_row, q0, a.N, a.scale, a.lf * a.w, freq, a.rotary, tid);
-
-  // 2. scores over the band, tile by tile; lane = query row
-  const int i = q0 + lane;
-  const float4* q4 = reinterpret_cast<const float4*>(qs + lane * kQS);
-  for (int t0 = lo; t0 < hi; t0 += kTK) {
-    __syncthreads();
-    stage_rows<DH, kTK>(kvs, kb, a.in_row, t0, min(hi, a.N), 1.f, 0, freq, a.rotary, tid);
-    __syncthreads();
-    float acc[kKPT];
-#pragma unroll
-    for (int m = 0; m < kKPT; ++m) acc[m] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 qv = q4[d4];
-#pragma unroll
-      for (int m = 0; m < kKPT; ++m)
-        acc[m] = dot4(qv, reinterpret_cast<const float4*>(kvs + (warp + kWarps * m) * kQS)[d4],
-                      acc[m]);
-    }
-#pragma unroll
-    for (int m = 0; m < kKPT; ++m) {
-      const int j = t0 + warp + kWarps * m;
-      const bool ok = i < q1 && j < hi && j < len && allowed(a, i, j);
-      S[lane * s_stride + (j - lo)] = ok ? acc[m] : -INFINITY;
-    }
+  if (tid == 0) {  // each thread arrives once a stage: Q, K (and their tables); V
+    mbar_init(&bars[0], (a.rotary ? 4 : 2) * nthreads);
+    mbar_init(&bars[1], nthreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  // 3. row softmax over the band (a warp per row), times the keep mask
-  const int nb = hi - lo;
-  for (int r = warp; r < kTQ; r += kWarps) {
-    float* row = S + r * s_stride;
-    float mx = -INFINITY;
-    for (int col = lane; col < nb; col += 32) mx = fmaxf(mx, row[col]);
+  float o[kOut];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (mx == -INFINITY) {  // every key masked (or a row past Np)
-      if (lane == 0) fully_masked[r] = 1;
-      for (int col = lane; col < nb; col += 32) row[col] = 0.f;
-      continue;
-    }
-    float sum = 0.f;
-    for (int col = lane; col < nb; col += 32) {
-      const float e = expf(row[col] - mx);
-      row[col] = e;
-      sum += e;
-    }
+  for (int e = 0; e < kOut; ++e) o[e] = 0.f;
+  // MMA at DH <= 64: this lane's Q fragments (hi, lo), split once and kept
+  constexpr bool kKeepQ = MMA && DH <= 64;
+  uint32_t qh[kKeepQ ? DH / 8 : 1][4], ql[kKeepQ ? DH / 8 : 1][4];
+  // each row's running max, and this lane's share of its sum
+  float m[R], l[R];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const int qi = q0 + r;
-    const float* keep_row =
-        a.keep != nullptr ? a.keep + z * a.keep_z + qi * a.keep_row + head * a.K : nullptr;
-    for (int col = lane; col < nb; col += 32) {
-      float p = row[col] / sum;
-      if (keep_row != nullptr) p = p * keep_row[lo + col - c * a.C + a.P] * a.inv_keep;
-      row[col] = p;
-    }
-  }
+  for (int u = 0; u < R; ++u) m[u] = -INFINITY, l[u] = 0.f;
 
-  // 4. P V over the band; lane = query row, warp = a slice of dims
-  float o[kDPT];
-#pragma unroll
-  for (int e = 0; e < kDPT; ++e) o[e] = 0.f;
-  const int d0 = warp * kDPT;
-  for (int t0 = lo; t0 < hi; t0 += kTK) {
+  int phase = 0;  // bars[1] phases so far
+  for (int lo = blo; lo < bhi; lo += p.cap, ++phase) {
+    const int hi = min(lo + p.cap, bhi);
+    if (lo > blo) __syncthreads();  // every warp is done with the previous segment's rows
+    // 1. one round trip: Q and K under bars[0], V under bars[1]
+    const int nq = lo == blo ? s1 - s0 : 0;
+    stage<DH>(qs, nq, [&](int rr) -> const float* {
+      return s0 + rr < a.N ? qb + (long long)(s0 + rr) * a.in_row : nullptr;
+    }, &bars[0], tid, nthreads);
+    stage<DH>(ks, hi - lo, [&](int rr) -> const float* {
+      return lo + rr < a.N ? kb + (long long)(lo + rr) * a.in_row : nullptr;
+    }, &bars[0], tid, nthreads);
+    stage<DH>(vs, hi - lo, [&](int rr) -> const float* {
+      return lo + rr < a.N ? vb + (long long)(lo + rr) * a.in_row : nullptr;
+    }, &bars[1], tid, nthreads);
+    const int qpos = s0 + a.lf * a.w;
+    if (a.rotary) {
+      stage<DH>(qt, nq, [&](int rr) -> const float* {
+        return s0 + rr < a.N ? a.rot + (long long)(qpos + rr) * DH : nullptr;
+      }, &bars[0], tid, nthreads);
+      stage<DH>(kt, hi - lo, [&](int rr) -> const float* {
+        return lo + rr < a.N ? a.rot + (long long)(lo + rr) * DH : nullptr;
+      }, &bars[0], tid, nthreads);
+    }
+    mbar_wait(&bars[0], phase & 1);
+
+    // 2. scale Q, rotate Q and K (the zero rows stay zero), then the one barrier
+    const int q_real = max(0, min(s0 + nq, a.N) - s0);
+    if (q_real > 0) rotate_rows<DH>(qs, a.rotary ? qt : nullptr, q_real, a.scale, tid, nthreads);
+    if (a.rotary) rotate_rows<DH>(ks, kt, max(0, min(hi, a.N) - lo), 1.f, tid, nthreads);
     __syncthreads();
-    stage_rows<DH, kTK>(kvs, vb, a.in_row, t0, min(hi, a.N), 1.f, 0, freq, false, tid);
-    __syncthreads();
-    const int nk = min(kTK, hi - t0);
-    const float* prow = S + lane * s_stride + (t0 - lo);
-    for (int kk = 0; kk < nk; ++kk) {
-      const float p = prow[kk];
-      const float4* v4 = reinterpret_cast<const float4*>(kvs + kk * kQS + d0);
+
+    if constexpr (kKeepQ) {
+      if (lo == blo) {
 #pragma unroll
-      for (int e = 0; e < kDPT / 4; ++e) {
-        const float4 v = v4[e];
-        o[4 * e] = fmaf(p, v.x, o[4 * e]);
-        o[4 * e + 1] = fmaf(p, v.y, o[4 * e + 1]);
-        o[4 * e + 2] = fmaf(p, v.z, o[4 * e + 2]);
-        o[4 * e + 3] = fmaf(p, v.w, o[4 * e + 3]);
+        for (int k0 = 0; k0 < DH; k0 += 8)
+          q_fragment<DH>(qs + (q0 + r - s0) * kStride, k0, h, qh[k0 / 8], ql[k0 / 8]);
       }
     }
-  }
 
-  // 5. rows whose keys are all masked (only with key lengths): the TPU
-  // softmax is uniform over the chunk's K key rows, so they take the mean of
-  // V over those rows (times the keep mask), accumulated tile by tile as in 4.
-  __syncthreads();
-  const bool masked_row = i < a.N && fully_masked[lane];
-  if (__syncthreads_or(masked_row)) {
-    const float* keep_row =
-        a.keep != nullptr ? a.keep + z * a.keep_z + i * a.keep_row + head * a.K : nullptr;
-    const float inv_k = 1.f / static_cast<float>(a.K);
-    if (masked_row) {
+    // 3. this warp's keys in this segment, a tile at a time
+    const int t_beg = max(wlo, lo), t_end = min(whi, hi);
+    int j_end[R];
 #pragma unroll
-      for (int e = 0; e < kDPT; ++e) o[e] = 0.f;
-    }
-    for (int t0 = 0; t0 < a.K; t0 += kTK) {
-      __syncthreads();
-      for (int e = tid; e < kTK * DH; e += kThreads) {
-        const int r = e / DH, d = e % DH, j = t0 + r < a.K ? chunk_key_row(a, c, t0 + r) : a.N;
-        kvs[r * kQS + d] = j < a.N ? vb[j * a.in_row + d] : 0.f;
+    for (int u = 0; u < R; ++u) j_end[u] = min(jhi[u], t_end);
+    bool v_landed = false;
+    for (int t0 = t_beg; t0 < t_end; t0 += TILE) {
+      float s[MMA ? 8 : KPL];  // MMA: key n-tile n, row u, key 2t + e at s[4n + 2u + e]
+      if constexpr (MMA) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[e] = 0.f;
+        // the two n-tiles' key rows (clamped into the segment)
+        const float* krow0 = ks + (min(t0 + r, t_end - 1) - lo) * kStride;
+        const float* krow1 = ks + (min(t0 + 8 + r, t_end - 1) - lo) * kStride;
+#pragma unroll
+        for (int k0 = 0; k0 < DH; k0 += 8) {
+          uint32_t ah_[4], al_[4], bh[2], bl[2];
+          if constexpr (!kKeepQ) q_fragment<DH>(qs + (q0 + r - s0) * kStride, k0, h, ah_, al_);
+          const uint32_t* ah = kKeepQ ? qh[kKeepQ ? k0 / 8 : 0] : ah_;
+          const uint32_t* al = kKeepQ ? ql[kKeepQ ? k0 / 8 : 0] : al_;
+          split_tf32(krow0[k0 + h], &bh[0], &bl[0]);
+          split_tf32(krow0[k0 + h + 4], &bh[1], &bl[1]);
+          mma_3xtf32(s, ah, al, bh, bl);
+          split_tf32(krow1[k0 + h], &bh[0], &bl[0]);
+          split_tf32(krow1[k0 + h + 4], &bh[1], &bl[1]);
+          mma_3xtf32(s + 4, ah, al, bh, bl);
+        }
+      } else {
+        int krow[KPL];  // staged row of each key (in float4s), clamped into the segment
+#pragma unroll
+        for (int mm = 0; mm < KPL; ++mm) {
+          s[mm] = 0.f;
+          krow[mm] = (min(t0 + L * mm + h, t_end - 1) - lo) * (kStride / 4);
+        }
+        const float4* q4 = reinterpret_cast<const float4*>(qs + (rows[0] - s0) * kStride);
+        const float4* k4 = reinterpret_cast<const float4*>(ks);
+#pragma unroll 8
+        for (int d4 = 0; d4 < DH / 4; ++d4) {
+          const float4 qv = q4[d4];
+#pragma unroll
+          for (int mm = 0; mm < KPL; ++mm) s[mm] = dot4(qv, k4[krow[mm] + d4], s[mm]);
+        }
       }
-      __syncthreads();
-      if (!masked_row) continue;
-      const int nk = min(kTK, a.K - t0);
-      for (int kk = 0; kk < nk; ++kk) {
-        const float p = keep_row != nullptr ? inv_k * keep_row[t0 + kk] * a.inv_keep : inv_k;
-        const float4* v4 = reinterpret_cast<const float4*>(kvs + kk * kQS + d0);
+      // score e's key and row (u)
+      auto key_of = [&](int e) {
+        return MMA ? t0 + 8 * (e >> 2) + 2 * h + (e & 1) : t0 + L * e + h;
+      };
+      auto row_of = [&](int e) { return MMA ? (e >> 1) & 1 : 0; };
+      constexpr int kS = MMA ? 8 : KPL;
+      float tmax[R];
 #pragma unroll
-        for (int e = 0; e < kDPT / 4; ++e) {
-          const float4 v = v4[e];
-          o[4 * e] = fmaf(p, v.x, o[4 * e]);
-          o[4 * e + 1] = fmaf(p, v.y, o[4 * e + 1]);
-          o[4 * e + 2] = fmaf(p, v.z, o[4 * e + 2]);
-          o[4 * e + 3] = fmaf(p, v.w, o[4 * e + 3]);
+      for (int u = 0; u < R; ++u) tmax[u] = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < kS; ++e) {
+        const int j = key_of(e), u = row_of(e);
+        s[e] = j >= jlo[u] && j < j_end[u] ? s[e] : -INFINITY;
+        tmax[u] = fmaxf(tmax[u], s[e]);
+      }
+      float corr[R], m_use[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        // the row's other lanes: L lanes RPW apart, or the 4 lanes of a quad
+#pragma unroll
+        for (int off = MMA ? 1 : RPW; off < (MMA ? 4 : 32); off <<= 1)
+          tmax[u] = fmaxf(tmax[u], __shfl_xor_sync(0xffffffffu, tmax[u], off));
+        const float m_new = fmaxf(m[u], tmax[u]);
+        m_use[u] = m_new == -INFINITY ? 0.f : m_new;
+        corr[u] = expf(m[u] - m_use[u]);  // 0 while the row has no unmasked key
+        m[u] = m_new;
+        l[u] *= corr[u];
+      }
+#pragma unroll
+      for (int e = 0; e < kS; ++e) {
+        const int u = row_of(e);
+        s[e] = expf(s[e] - m_use[u]);
+        l[u] += s[e];
+      }
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) o[e] *= corr[MMA ? (e >> 1) & 1 : 0];
+#pragma unroll
+      for (int e = 0; e < kS; ++e) {
+        const int j = key_of(e), u = row_of(e);
+        if (keep_row[u] != nullptr && j < t_end) s[e] *= keep_row[u][j + slot0] * a.inv_keep;
+      }
+      if (!v_landed) {
+        mbar_wait(&bars[1], phase & 1);
+        v_landed = true;
+      }
+      if constexpr (MMA) {
+#pragma unroll
+        for (int k8 = 0; k8 < 2; ++k8) {  // keys t0 + 8 k8 + (2t, 2t + 1) as logical t, t + 4
+          uint32_t ah[4], al[4];
+          split_tf32(s[4 * k8], &ah[0], &al[0]);
+          split_tf32(s[4 * k8 + 2], &ah[1], &al[1]);
+          split_tf32(s[4 * k8 + 1], &ah[2], &al[2]);
+          split_tf32(s[4 * k8 + 3], &ah[3], &al[3]);
+          const float* vrow0 = vs + (min(t0 + 8 * k8 + 2 * h, t_end - 1) - lo) * kStride;
+          const float* vrow1 = vs + (min(t0 + 8 * k8 + 2 * h + 1, t_end - 1) - lo) * kStride;
+#pragma unroll
+          for (int d = 0; d < DH / 8; ++d) {
+            uint32_t bh[2], bl[2];
+            split_tf32(vrow0[8 * d + r], &bh[0], &bl[0]);
+            split_tf32(vrow1[8 * d + r], &bh[1], &bl[1]);
+            mma_3xtf32(o + 4 * d, ah, al, bh, bl);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < TILE; ++kk) {
+          const float pk = __shfl_sync(0xffffffffu, s[kk / L], r + RPW * (kk % L));
+          accumulate<DH, L>(o, pk, vs + (min(t0 + kk, t_end - 1) - lo) * kStride, h);
         }
       }
     }
+    mbar_wait(&bars[1], phase & 1);  // no copy is in flight past the segment
   }
-  if (i < a.N) {
-    float* out_row = a.out + z * a.out_z + head * a.out_y + (long long)i * a.out_row + d0;
 #pragma unroll
-    for (int e = 0; e < kDPT; ++e) out_row[e] = o[e];
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int off = MMA ? 1 : RPW; off < (MMA ? 4 : 32); off <<= 1)
+      l[u] += __shfl_xor_sync(0xffffffffu, l[u], off);
+
+  // 4. rows whose keys are all masked (only with key lengths): the mean of V
+  // over the chunk's K key rows, times the keep mask, V staged a tile at a time
+  bool masked[R], any_masked = false;
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    masked[u] = active && m[u] == -INFINITY && rows[u] < min(s1, a.N);
+    any_masked = any_masked || masked[u];
+  }
+  if (a.lengths != nullptr) {
+    if (__syncthreads_or(any_masked)) {
+      const float inv_k = 1.f / static_cast<float>(a.K);
+#pragma unroll
+      for (int e = 0; e < kOut; ++e)
+        if (masked[MMA ? (e >> 1) & 1 : 0]) o[e] = 0.f;
+      for (int t0 = 0; t0 < a.K; t0 += p.cap, ++phase) {
+        if (t0 > 0) __syncthreads();
+        const int nt = min(p.cap, a.K - t0);
+        stage<DH>(vs, nt, [&](int rr) -> const float* {
+          const int j = chunk_key_row(a, c, t0 + rr);
+          return j < a.N ? vb + (long long)j * a.in_row : nullptr;
+        }, &bars[1], tid, nthreads);
+        mbar_wait(&bars[1], phase & 1);
+        __syncthreads();  // the zero rows are written
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          if (!masked[u]) continue;
+          for (int kk = 0; kk < nt; ++kk) {
+            const float wgt = keep_row[u] != nullptr ? inv_k * keep_row[u][t0 + kk] * a.inv_keep
+                                                     : inv_k;
+            const float* vrow = vs + kk * kStride;
+            if constexpr (MMA) {
+#pragma unroll
+              for (int d = 0; d < DH / 8; ++d) {
+                o[4 * d + 2 * u] = fmaf(wgt, vrow[8 * d + 2 * h], o[4 * d + 2 * u]);
+                o[4 * d + 2 * u + 1] = fmaf(wgt, vrow[8 * d + 2 * h + 1], o[4 * d + 2 * u + 1]);
+              }
+            } else {
+              accumulate<DH, L>(o, wgt, vrow, h);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+        if (masked[u]) l[u] = 1.f;
+    }
+  }
+
+  // 5. the context rows
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    if (!(active && rows[u] < min(s1, a.N))) continue;
+    float* out_row = a.out + z * a.out_z + head * a.out_y + (long long)rows[u] * a.out_row;
+    const float inv_l = 1.f / l[u];
+    if constexpr (MMA) {
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d)
+        reinterpret_cast<float2*>(out_row + 8 * d + 2 * h)[0] =
+            make_float2(o[4 * d + 2 * u] * inv_l, o[4 * d + 2 * u + 1] * inv_l);
+    } else {
+#pragma unroll
+      for (int g = 0; g < kOut / 4; ++g)
+        reinterpret_cast<float4*>(out_row)[g * L + h] =
+            make_float4(o[4 * g] * inv_l, o[4 * g + 1] * inv_l, o[4 * g + 2] * inv_l,
+                        o[4 * g + 3] * inv_l);
+    }
   }
 }
 
-int max_band(const Args& a) {
-  int most = 0;
-  for (int q0 = 0; q0 < a.Np; q0 += kTQ) {
-    int lo, hi;
-    key_band(a, q0, q0 + kTQ < a.Np ? q0 + kTQ : a.Np, &lo, &hi);
-    if (hi - lo > most) most = hi - lo;
-  }
-  return most;
+// Q, K and V rows, and with rotary the (cos, sin) rows of Q's and K's positions
+size_t smem_bytes(int dh, const Plan& p, bool rotary) {
+  return sizeof(float) * (size_t)((p.slab + 2 * p.cap) + (rotary ? p.slab + p.cap : 0)) *
+         (dh + 4);
 }
 
-template <int DH>
-int launch_as(const Args& a, dim3 grid, cudaStream_t stream) {
-  const int s_stride = (max_band(a) + kTK - 1) / kTK * kTK + 1;  // odd: no bank conflicts
-  const size_t smem =
-      sizeof(float) * (size_t)((kTQ + kTK) * row_stride(DH) + DH + kTQ * s_stride);
+template <int DH, bool MMA>
+int launch_as(const Args& a, const Plan& p, dim3 grid, cudaStream_t stream) {
+  const size_t smem = smem_bytes(DH, p, a.rotary);
   // Dynamic shared memory allowed so far, per device: the attribute applies
   // to the current device only.
   constexpr int kMaxDevices = 64;
@@ -351,36 +616,48 @@ int launch_as(const Args& a, dim3 grid, cudaStream_t stream) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (!(dev < kMaxDevices && smem <= configured[dev])) {
-      e = cudaFuncSetAttribute(windowed_attention_kernel<DH>,
+      e = cudaFuncSetAttribute(windowed_attention_kernel<DH, MMA>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
       if (dev < kMaxDevices) configured[dev] = smem;
     }
   }
-  windowed_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(a, s_stride);
+  windowed_attention_kernel<DH, MMA>
+      <<<grid, p.slab / rows_per_warp(MMA) * 32, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
-int launch(const Args& a, int dh, dim3 grid, cudaStream_t stream) {
-  if (a.N <= 0 || a.Np < a.N || a.w <= 0 || a.C <= 0 || (a.C % kTQ != 0 && a.C != a.Np))
+template <int DH>
+int launch_dh(const Args& a, const Plan& p, int mma, dim3 grid, cudaStream_t stream) {
+  return mma ? launch_as<DH, true>(a, p, grid, stream) : launch_as<DH, false>(a, p, grid, stream);
+}
+
+int launch(const Args& a, int dh, const Plan& p, int mma, int batch, int heads,
+           cudaStream_t stream) {
+  const int rpw = rows_per_warp(mma);
+  if (a.N <= 0 || a.Np < a.N || a.w <= 0 || a.C <= 0 || a.Np % a.C != 0 || p.cap <= 0 ||
+      p.slab <= 0 || p.slab % rpw != 0 || p.slab / rpw > kMaxWarps ||
+      (a.rotary && a.rot == nullptr) ||
+      smem_bytes(dh, p, a.rotary) + kStaticSmem > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
+  const dim3 grid(a.Np / a.C * ((a.C + p.slab - 1) / p.slab), heads, batch);
   switch (dh) {
-    case 16: return launch_as<16>(a, grid, stream);
-    case 32: return launch_as<32>(a, grid, stream);
-    case 64: return launch_as<64>(a, grid, stream);
-    case 128: return launch_as<128>(a, grid, stream);
+    case 16: return launch_dh<16>(a, p, mma, grid, stream);
+    case 32: return launch_dh<32>(a, p, mma, grid, stream);
+    case 64: return launch_dh<64>(a, p, mma, grid, stream);
+    case 128: return launch_dh<128>(a, p, mma, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-Args common(int dh, int window, int causal, int exact, int rotary, const float* freqs) {
+Args common(int dh, int window, int causal, int exact, int rotary, const float* rot) {
   Args a = {};
   a.w = window;
   a.lf = causal ? 0 : 1;
   a.causal = causal;
   a.exact = exact;
   a.rotary = rotary;
-  a.freqs = freqs;
+  a.rot = rot;
   a.scale = static_cast<float>(pow(static_cast<double>(dh), -0.5));
   a.inv_keep = 1.f;
   return a;
@@ -390,14 +667,16 @@ Args common(int dh, int window, int causal, int exact, int rotary, const float* 
 
 extern "C" {
 
-// B3. Returns 0 on success, else a cudaError_t value (cudaErrorInvalidValue
-// for a head width or plan the kernel does not take).
+// B3. `rot` is the (Np + lf * w, dh / 2, 2) cos/sin table (unused without
+// rotary); slab, cap and mma (the products on the tensor cores) are the
+// launch plan. Returns 0 on success, else a cudaError_t value
+// (cudaErrorInvalidValue for a head width or plan the kernel does not take).
 int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const float* keep,
-                                  const float* freqs, float* out, int B, int N, int Np,
-                                  int heads, int dim_head, int window, int causal, int exact,
-                                  int rotary, int C, int P, int K, float inv_keep_prob,
-                                  void* stream) {
-  Args a = common(dim_head, window, causal, exact, rotary, freqs);
+                                  const float* rot, float* out, int B, int N, int Np, int heads,
+                                  int dim_head, int window, int causal, int exact, int rotary,
+                                  int C, int P, int K, float inv_keep_prob, int slab, int cap,
+                                  int mma, void* stream) {
+  Args a = common(dim_head, window, causal, exact, rotary, rot);
   const long long hd = (long long)heads * dim_head;
   a.q = qkv;
   a.k = qkv + hd;
@@ -419,16 +698,15 @@ int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const fl
   a.P = P;
   a.K = K;
   a.inv_keep = inv_keep_prob;
-  const dim3 grid((Np + kTQ - 1) / kTQ, heads, B);
-  return launch(a, dim_head, grid, static_cast<cudaStream_t>(stream));
+  return launch(a, dim_head, Plan{slab, cap}, mma, B, heads, static_cast<cudaStream_t>(stream));
 }
 
 // B4: 128-row chunks, keys the three whole blocks around each (N % 128 == 0).
-int local_attention_heads_f32(const float* q, const float* k, const float* v,
-                              const float* freqs, float* out, int BH, int N, int dim_head,
-                              int window, int causal, int exact, int rotary, void* stream) {
+int local_attention_heads_f32(const float* q, const float* k, const float* v, const float* rot,
+                              float* out, int BH, int N, int dim_head, int window, int causal,
+                              int exact, int rotary, int slab, int cap, int mma, void* stream) {
   if (N % 128 != 0) return (int)cudaErrorInvalidValue;
-  Args a = common(dim_head, window, causal, exact, rotary, freqs);
+  Args a = common(dim_head, window, causal, exact, rotary, rot);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -439,8 +717,7 @@ int local_attention_heads_f32(const float* q, const float* k, const float* v,
   a.N = a.Np = N;
   a.C = a.P = 128;
   a.K = 3 * 128;
-  const dim3 grid(N / kTQ, 1, BH);
-  return launch(a, dim_head, grid, static_cast<cudaStream_t>(stream));
+  return launch(a, dim_head, Plan{slab, cap}, mma, BH, 1, static_cast<cudaStream_t>(stream));
 }
 
 const char* local_attention_error_string(int code) {

@@ -16,8 +16,8 @@ from .models.temporal_unet import TemporalUnet
 from .train.config import DiffusionConfig, ExperimentConfig, ModelConfig
 
 _NOT_PORTED = {
-    "transformer": "ROADMAP.md Queue A, slice 4 (stack-B transformer)",
-    "decoder": "ROADMAP.md Queue A, slice 4 (stack-B transformer decoder)",
+    "transformer": "ROADMAP.md Queue A, stack-B modeling and training (the transformer)",
+    "decoder": "ROADMAP.md Queue A, models/transformer_decoder.py (the stack-B decoder)",
 }
 
 

@@ -40,25 +40,28 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, source: Path | None = None) -> Path:
     """The library's path; its hash covers the source, the headers beside it
     and the flags."""
-    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    source = CSRC / f"{name}.cu" if source is None else source
+    parts = [source.read_bytes()]
     parts += [h.read_bytes() for h in sorted(CSRC.glob("*.h"))]
     digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless it is built already; returns the
-    shared library's path. The compiler's output (registers, shared memory,
-    spills) is kept beside it in ``<so>.log``."""
-    so = library_path(name)
+def build(name: str, source: Path | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (or ``source``, a library named ``name``)
+    unless it is built already; returns the shared library's path. The
+    compiler's output (registers, shared memory, spills) is kept beside it
+    in ``<so>.log``."""
+    source = CSRC / f"{name}.cu" if source is None else Path(source)
+    so = library_path(name, source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     Path(str(so) + ".log").write_text(proc.stdout)
     if proc.returncode != 0:

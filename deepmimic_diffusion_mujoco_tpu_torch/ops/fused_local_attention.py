@@ -21,6 +21,10 @@ softmax spans the chunk's K keys, so a query whose keys are all masked
 - ``fused_qkv_local_attention_cuda``: the hand-written kernel
   (``csrc/local_attention.cu``; its header states the design and what
   bounds it). CUDA tensors only; ``.launches`` counts its launches.
+- ``attention_plan``: the kernel's launch plan for one shape (query rows
+  per block, key rows staged at once, tensor or CUDA cores), cached per
+  shape; ``launch_plan=`` runs any other (the card
+  tests and ``ops/local_attention_sweep.py`` do).
 - ``fused_qkv_local_attention``: the autograd entry the model calls. Its
   forward launches the kernel for CUDA tensors and runs the plain version
   for CPU tensors; its backward differentiates the plain version with the
@@ -33,6 +37,8 @@ per-sequence lengths. ``DMDM_CHECK_MASKS=1`` checks that on every call.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -117,8 +123,8 @@ def chunk_index_sets(p: dict):
 
 
 def rotary_freqs(dh: int) -> np.ndarray:
-    """(dh,) float32 inverse frequencies, each half repeated: the table the
-    kernel and the plain version both use."""
+    """(dh,) float32 inverse frequencies, each half repeated: the plain
+    version's, and those of the kernel's cos/sin table (``device_rotary_table``)."""
     inv = 1.0 / (10000.0 ** (np.arange(0, dh, 2, dtype=np.float32) / dh))
     return np.concatenate([inv, inv]).astype(np.float32)
 
@@ -203,34 +209,156 @@ def key_lengths(key_mask: torch.Tensor) -> torch.Tensor:
 
 
 def _library() -> ctypes.CDLL:
-    lib = _build.load("local_attention")
+    return bind(_build.load("local_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' argument types on a loaded library."""
     if lib.fused_qkv_local_attention_f32.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_qkv_local_attention_f32.argtypes = [
-            vp, vp, vp, vp, vp,        # qkv, lengths, keep, freqs, out
+            vp, vp, vp, vp, vp,        # qkv, lengths, keep, rotary table, out
             i, i, i, i, i,             # B, N, Np, heads, dim_head
             i, i, i, i,                # window, causal, exact, use_rotary
             i, i, i,                   # C, P, K
-            ctypes.c_float, vp]        # 1 / keep_prob, stream
+            ctypes.c_float,            # 1 / keep_prob
+            i, i, i, vp]               # slab, cap, tensor cores, stream
         lib.fused_qkv_local_attention_f32.restype = i
         lib.local_attention_heads_f32.argtypes = [
-            vp, vp, vp, vp, vp,        # q, k, v, freqs, out
-            i, i, i, i, i, i, i, vp]   # BH, N, dim_head, window, causal, exact, use_rotary, stream
+            vp, vp, vp, vp, vp,        # q, k, v, rotary table, out
+            i, i, i, i, i, i, i,       # BH, N, dim_head, window, causal, exact, use_rotary
+            i, i, i, vp]               # slab, cap, tensor cores, stream
         lib.local_attention_heads_f32.restype = i
         lib.local_attention_error_string.argtypes = [i]
         lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-_FREQS: dict = {}
+# Constants of csrc/local_attention.cu
+MAX_WARPS = 8               # kMaxWarps: warps per block
+SMEM_LIMIT = 232448 - 16    # kMaxSmem less the two mbarriers
+# The plan's defaults (attention_plan)
+MIN_BLOCKS = 128            # blocks a launch should have: about one per SM of an H100
 
 
-def device_freqs(dh: int, device: torch.device) -> torch.Tensor:
-    """The rotary table on ``device``, made once per (dh, device)."""
-    key = (dh, str(device))
-    if key not in _FREQS:
-        _FREQS[key] = torch.from_numpy(rotary_freqs(dh)).to(device)
-    return _FREQS[key]
+def rows_per_warp(mma: bool) -> int:
+    """Query rows a warp owns: rows_per_warp() in csrc/local_attention.cu."""
+    return 16 if mma else 8
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnPlan:
+    """One launch plan (struct Plan and the MMA template argument in
+    csrc/local_attention.cu) and what follows from it for its shape."""
+    slab: int        # S: query rows per block, within one chunk
+    cap: int         # K and V rows staged at once
+    mma: bool        # products on the tensor cores (3xTF32), else the CUDA cores
+    band: int        # most key rows one slab's windows reach
+    segments: int    # most staging rounds a block takes: ceil(band / cap)
+    blocks: int      # blocks per (head, batch row)
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def key_band(q0: int, q1: int, w: int, causal: bool, C: int, P: int, Np: int):
+    """[lo, hi) key rows that query rows [q0, q1) of one chunk can see:
+    key_band() in csrc/local_attention.cu."""
+    lf = 0 if causal else 1
+    c = q0 // C
+    lo = max(c * C - P, (q0 // w - 1) * w, 0)
+    wh = ((q1 - 1) // w + lf + 1) * w
+    if causal:
+        wh = min(wh, q1)
+    return lo, min((c + 1) * C + P, wh, Np)
+
+
+def slab_rows(Np: int, C: int, slab: int):
+    """[s0, s1) query rows of each block, in grid order: the slabs of each
+    chunk, the last one of a chunk cut at the chunk's end."""
+    return [(s0, min(s0 + slab, c * C + C, Np))
+            for c in range(Np // C) for s0 in range(c * C, (c + 1) * C, slab)]
+
+
+def smem_bytes(dh: int, slab: int, cap: int, rotary: bool) -> int:
+    """Q, K and V rows, and with rotary the (cos, sin) rows of Q's and K's
+    positions: smem_bytes() in csrc/local_attention.cu."""
+    return 4 * (slab + 2 * cap + (slab + cap if rotary else 0)) * (dh + 4)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(Np: int, C: int, P: int, w: int, causal: bool, dh: int,
+                   batch_heads: int | None = None, rotary: bool = True, slab: int | None = None,
+                   cap: int | None = None, mma: bool | None = None) -> AttnPlan:
+    """The plan for one shape; ``batch_heads`` is the launch's (batch row,
+    head) pairs, and a keyword given fixes that choice. The defaults follow
+    the best of the plans ``ops/local_attention_sweep.py`` timed on an H100
+    at the served shapes (``PERF.md``).
+
+    - Units and slab S: the tensor cores with slabs of 128 or 64 rows where
+      that still gives MIN_BLOCKS blocks, else the CUDA cores with the
+      largest slab of 64, 32, 16 or 8 rows that does (the smallest where
+      none does). S is at most the chunk rounded up to whole warps and at
+      most MAX_WARPS warps, halved while the slab and its whole key band do
+      not fit in shared memory.
+    - cap: the most key rows any slab's windows reach, so that each block
+      stages its band in one round; where that does not fit even at the
+      smallest slab, the most that does (the band then comes in segments)."""
+    default_slab = slab is None
+    if default_slab:
+        slab, default_mma = _default_units(Np, C, batch_heads)
+        mma = default_mma if mma is None else mma
+    mma = bool(mma)
+    rpw = rows_per_warp(mma)
+    if default_slab:
+        slab = min(slab, MAX_WARPS * rpw, -(-min(C, Np) // rpw) * rpw)
+        while slab > rpw and smem_bytes(dh, slab, _band(Np, C, P, w, causal, slab),
+                                        rotary) > SMEM_LIMIT:
+            slab //= 2
+    if slab % rpw or not rpw <= slab <= MAX_WARPS * rpw:
+        raise ValueError(f"slab {slab} must be a multiple of {rpw} up to {MAX_WARPS * rpw}")
+    band = _band(Np, C, P, w, causal, slab)
+    fits = (SMEM_LIMIT // (4 * (dh + 4)) - slab * (2 if rotary else 1)) // (3 if rotary else 2)
+    if cap is None:
+        cap = min(band, fits)
+    if not 0 < cap <= fits:
+        raise ValueError(f"cap {cap} rows: between 1 and {fits} fit beside slab {slab} "
+                         f"at dh {dh}")
+    return AttnPlan(slab=slab, cap=cap, mma=mma, band=band, segments=-(-band // cap),
+                    blocks=len(slab_rows(Np, C, slab)),
+                    smem_bytes=smem_bytes(dh, slab, cap, rotary))
+
+
+def _default_units(Np, C, batch_heads):
+    """(slab, tensor cores?) of the default plan: see ``attention_plan``."""
+    def blocks(slab):
+        return len(slab_rows(Np, C, slab)) * (batch_heads or MIN_BLOCKS)
+
+    for slab in (128, 64):
+        if blocks(slab) >= MIN_BLOCKS:
+            return slab, True
+    for slab in (64, 32, 16):
+        if blocks(slab) >= MIN_BLOCKS:
+            return slab, False
+    return 8, False
+
+
+def _band(Np, C, P, w, causal, slab):
+    return max(hi - lo for lo, hi in (key_band(s0, s1, w, causal, C, P, Np)
+                                      for s0, s1 in slab_rows(Np, C, slab)))
+
+
+_TABLES: dict = {}
+
+
+def device_rotary_table(positions: int, dh: int, device: torch.device) -> torch.Tensor:
+    """(positions, dh / 2, 2) cos and sin of the f32 angles pos * freq, as
+    ``rot_abs`` takes them, on ``device``; made once per (positions, dh,
+    device)."""
+    key = (positions, dh, str(device))
+    if key not in _TABLES:
+        ang = torch.from_numpy(np.arange(positions, dtype=np.float32)[:, None]
+                               * rotary_freqs(dh)[None, : dh // 2]).to(device)
+        _TABLES[key] = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1).contiguous()
+    return _TABLES[key]
 
 
 def check_cuda_f32(name: str, fn: str, t: torch.Tensor, device: torch.device):
@@ -255,8 +383,10 @@ def raise_on_error(lib, err: int, fn: str):
 def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: int,
                                    causal: bool = False, exact_windowsize: bool = True,
                                    use_rotary: bool = True, key_mask=None, dropout_keep=None,
-                                   keep_prob: float = 1.0):
-    """Launch the kernel on PyTorch's current stream (built on first use).
+                                   keep_prob: float = 1.0,
+                                   launch_plan: AttnPlan | None = None):
+    """Launch the kernel on PyTorch's current stream (built on first use),
+    with ``launch_plan`` or ``attention_plan``'s default for the shape.
     Raises on a tensor or shape the kernel does not take, and if the launch
     is refused."""
     fn = "fused_qkv_local_attention_cuda"
@@ -280,17 +410,22 @@ def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: 
         if tuple(dropout_keep.shape) != (B, p["Np"], heads * p["K"]):
             raise ValueError(f"{fn}: dropout_keep {tuple(dropout_keep.shape)} must be "
                              f"{(B, p['Np'], heads * p['K'])}; use dropout_keep_mask()")
+    lp = launch_plan or attention_plan(p["Np"], p["C"], p["P"], window_size, causal, dim_head,
+                                       B * heads, use_rotary)
     lib = _library()
     out = torch.empty((B, N, heads * dim_head), dtype=torch.float32, device=qkv.device)
     if out.numel() == 0:
         return out
+    lf = 0 if causal else 1
     with torch.cuda.device(qkv.device):
+        table = (device_rotary_table(p["Np"] + lf * window_size, dim_head, qkv.device)
+                 if use_rotary else None)
         err = lib.fused_qkv_local_attention_f32(
             qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
             None if dropout_keep is None else dropout_keep.data_ptr(),
-            device_freqs(dim_head, qkv.device).data_ptr(), out.data_ptr(),
-            B, N, p["Np"], heads, dim_head, window_size, int(causal), int(exact_windowsize),
-            int(use_rotary), p["C"], p["P"], p["K"], 1.0 / keep_prob,
+            None if table is None else table.data_ptr(), out.data_ptr(), B, N, p["Np"], heads,
+            dim_head, window_size, int(causal), int(exact_windowsize), int(use_rotary), p["C"],
+            p["P"], p["K"], 1.0 / keep_prob, lp.slab, lp.cap, int(lp.mma),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, err, fn)
     fused_qkv_local_attention_cuda.launches += 1

@@ -56,8 +56,10 @@ def local_attention_heads_plain(q, k, v, window_size: int, causal: bool = False,
 
 
 def local_attention_heads_cuda(q, k, v, window_size: int, causal: bool = False,
-                               exact_windowsize: bool = True, use_rotary: bool = True):
-    """Launch the kernel on PyTorch's current stream (built on first use).
+                               exact_windowsize: bool = True, use_rotary: bool = True,
+                               launch_plan: FK.AttnPlan | None = None):
+    """Launch the kernel on PyTorch's current stream (built on first use),
+    with ``launch_plan`` or ``FK.attention_plan``'s default for these blocks.
     Raises on a tensor or shape the kernel does not take, and if the launch
     is refused."""
     fn = "local_attention_heads_cuda"
@@ -72,15 +74,20 @@ def local_attention_heads_cuda(q, k, v, window_size: int, causal: bool = False,
     if not supports(N, window_size, causal):
         raise ValueError(f"{fn}: N {N} with window {window_size} needs N % {CHUNK} == 0, "
                          f"N % w == 0 and w <= {CHUNK}")
+    lp = launch_plan or FK.attention_plan(N, CHUNK, CHUNK, window_size, causal, dh, B * h,
+                                          use_rotary)
     lib = FK._library()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    lf = 0 if causal else 1
     with torch.cuda.device(q.device):
+        table = FK.device_rotary_table(N + lf * window_size, dh, q.device) if use_rotary else None
         err = lib.local_attention_heads_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), FK.device_freqs(dh, q.device).data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if table is None else table.data_ptr(),
             out.data_ptr(), B * h, N, dh, window_size, int(causal), int(exact_windowsize),
-            int(use_rotary), torch.cuda.current_stream(q.device).cuda_stream)
+            int(use_rotary), lp.slab, lp.cap, int(lp.mma),
+            torch.cuda.current_stream(q.device).cuda_stream)
     FK.raise_on_error(lib, err, fn)
     local_attention_heads_cuda.launches += 1
     return out

@@ -30,7 +30,8 @@ from ..diffusion import process
 from ..diffusion.schedules import Schedule
 from .state import TrainState
 
-STACK_B_SLICE = "ROADMAP.md Queue A, slice 4 (stack-B losses, label drop, loss-aware sampler)"
+STACK_B_ITEM = ("ROADMAP.md Queue A, stack-B modeling and training (stack-B losses, label drop, "
+                "loss-aware sampler)")
 
 
 def make_loss_fn(
@@ -47,7 +48,7 @@ def make_loss_fn(
     ``kind="diffuser"`` is stack A's weighted p_losses; the stack-B kinds
     raise ``NotImplementedError``."""
     if kind != "diffuser":
-        raise NotImplementedError(f"loss kind {kind!r} is not ported yet: {STACK_B_SLICE}")
+        raise NotImplementedError(f"loss kind {kind!r} is not ported yet: {STACK_B_ITEM}")
 
     def loss_fn(x0, t, noise):
         return process.diffuser_p_losses(

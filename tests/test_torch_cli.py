@@ -60,6 +60,18 @@ def test_sample_cli_holding_box(tmp_path, frames):
     _check_box(paths, frames)
 
 
+def test_sample_cli_turns_tf32_off(tmp_path, monkeypatch):
+    """The sample CLI computes in float32: TF32 off in cuDNN and in cuBLAS's
+    matmuls, whatever the caller had set."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    run = _make_run(tmp_path)
+    cli.main(["--run", str(run), "--num", "1", "--frames", "16", "--conditioner",
+              "holding_box", "--out", str(tmp_path / "out"), "--device", "cpu"])
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
 def test_sample_cli_is_seeded_and_reads_ema(tmp_path):
     run = _make_run(tmp_path, clip_denoised=True)
     base = ["--run", str(run), "--num", "1", "--device", "cpu", "--seed", "3"]

@@ -246,6 +246,47 @@ def test_fused_qkv_kernel_fully_masked_rows_take_the_chunk_mean(cuda, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h,dh,w,causal,plan", [
+    (2, 384, 2, 16, 48, False, dict(slab=32, mma=False)),  # slab edges off the window grid
+    (2, 384, 2, 16, 48, False, dict(slab=64, mma=True)),
+    (2, 384, 2, 32, 48, True, dict(slab=128, mma=True)),
+    (4, 120, 2, 64, 16, False, dict(slab=8, mma=False)),
+    (2, 1024, 2, 64, 16, False, dict(slab=16, mma=True)),
+    (16, 128, 8, 64, 16, False, dict(slab=64, mma=False)),
+    (1, 256, 2, 64, 128, False, dict(slab=64, mma=False, cap=40)),  # the band in segments
+    (1, 256, 2, 128, 64, True, dict(slab=16, mma=True, cap=24)),
+    (1, 256, 2, 128, 64, False, dict(slab=16, mma=True, cap=40)),
+])
+@pytest.mark.parametrize("masks", ["none", "lengths+keep"])
+def test_fused_qkv_kernel_takes_every_plan(cuda, B, N, h, dh, w, causal, plan, masks):
+    lengths = [N - 3 * i * (N // 8) for i in range(B)] if masks != "none" else None
+    qkv, km, keep = _qkv_inputs(cuda, B, N, h, dh, w, causal, lengths,
+                                0.7 if masks == "lengths+keep" else None)
+    kp = 0.7 if keep is not None else 1.0
+    p = TA.plan(N, w, causal)
+    launch_plan = TA.attention_plan(p["Np"], p["C"], p["P"], w, causal, dh, **plan)
+    assert ("cap" in plan) == (launch_plan.segments > 1)
+    out = TA.fused_qkv_local_attention_cuda(qkv, h, dh, w, causal, True, True, km, keep, kp,
+                                            launch_plan=launch_plan)
+    ref = TA.fused_qkv_local_attention_plain(qkv, h, dh, w, causal, True, True, km, keep, kp)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+def test_attention_kernels_are_deterministic(cuda):
+    """Two launches on the same inputs give the same bits."""
+    qkv, km, keep = _qkv_inputs(cuda, 16, 128, 8, 64, 16, False, [128, 100, 7, 3] * 4, 0.7)
+    outs = [TA.fused_qkv_local_attention_cuda(qkv, 8, 64, 16, False, True, True, km, keep, 0.7)
+            for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(4, 8, 1024, 64, generator=g, device=cuda) for _ in range(3))
+    outs = [TH.local_attention_heads_cuda(q, k, v, 16) for _ in range(2)]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
 def test_fused_qkv_kernel_refuses_bad_inputs(cuda):
     qkv = torch.randn(2, 64, 3 * 2 * 48, device=cuda)
     with pytest.raises(ValueError, match="head width"):
@@ -274,6 +315,18 @@ def test_local_attention_heads_kernel_matches_plain(cuda, B, h, N, dh, w, causal
     torch.cuda.synchronize()
     assert TH.local_attention_heads_cuda.launches == launches + 1
     ref = TH.local_attention_heads_plain(q, k, v, w, causal)
+    assert (out - ref).abs().max().item() <= ATTN_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [dict(slab=32, mma=False), dict(slab=16, mma=True, cap=50),
+                                  dict(slab=128, mma=True), dict(slab=8, mma=False)])
+def test_local_attention_heads_kernel_takes_every_plan(cuda, plan):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(2, 2, 384, 32, generator=g, device=cuda) for _ in range(3))
+    launch_plan = TA.attention_plan(384, TH.CHUNK, TH.CHUNK, 48, False, 32, **plan)
+    out = TH.local_attention_heads_cuda(q, k, v, 48, launch_plan=launch_plan)
+    ref = TH.local_attention_heads_plain(q, k, v, 48)
     assert (out - ref).abs().max().item() <= ATTN_TOL
 
 

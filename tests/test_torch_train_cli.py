@@ -86,9 +86,9 @@ def test_sample_cli_answers_from_trained_run(run, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.timestep_sampler=loss_aware", "slice 4"),
-    ("diffusion.loss=v4", "slice 4"),
-    ("model.architecture=transformer", "slice 4"),
+    ("train.timestep_sampler=loss_aware", "stack-B modeling and training"),
+    ("diffusion.loss=v4", "stack-B modeling and training"),
+    ("model.architecture=transformer", "stack-B modeling and training"),
     ("model.architecture=local_attention", "LocalTransformer training"),
 ])
 def test_unported_training_paths_raise(tmp_path, override, match):
