@@ -68,18 +68,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    staggered over N 4096 envs, each targeting the next frame. Max error,
    per-launch ms of the kernel and the plain version, and the bound from
    the operations counted on one plain substep / reward at N 1 under a
-   TorchDispatchMode (each elementwise aten call one operation).
+   TorchDispatchMode (each elementwise aten call one operation). Each row
+   carries its launch plan (``dynamics_plan``: lanes per env, envs per
+   block) and its entry kernel's registers and spill bytes from ptxas.
 11. physics, run after the U-Net serve phase: ``PhysicsTrackingEnv.rollout``
    (walk clip, dt 1/30, substeps 17, contacts and limits on, fall height
    0.3) of 20 steps at N 4096 and N 65536, one B6 launch each, env-steps/s
-   the best of 3; 20 ``step`` calls at N 4096 (20 B5 launches) held against
+   the best of 3, with 120 envs of each (start, middle, end) held against
+   one plain T-20 rollout; 20 ``step`` calls at N 4096 (20 B5 launches) held against
    one rollout from the same state, and B7 through its front door
    ``tracking_reward_fused`` on the stepped state; ``track_motions`` (horizon
    15) on the 16 motions the H 64 request wrote and on the walk clip, as
    ``cli/play.py --physics`` calls it (B5 launches = horizon x calls), then
    held against the plain B5 over 2 control steps at N 16 (walk-clip
    windows) and N 1 (the walk clip), rewards finite; a profile of 20
-   ``step`` calls.
+   ``step`` calls, and the host microseconds of one B5 wrapper call and of
+   one ``step`` call with the card held busy.
 
 Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -124,6 +128,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
 from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics_sweep import log_of
 from deepmimic_diffusion_mujoco_tpu_torch.physics.env import PhysicsTrackingEnv, tracking_reward
 from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
 from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
@@ -152,8 +157,8 @@ COMP_TOL = 1e-3          # the composition yardstick against the plain version
 WARM_S = 2.0             # seconds of f32 matrix products before the first timed kernel
 RETIME_TOL = 0.2         # B1's first shape, timed again after the others: |last - first| / first
 KEEP_PROB = 0.7          # 1 - attn_dropout of the user config
-# B5-B7: one float32 thread per env through 17 substeps of stiff contact (30,000 N/m at
-# h = 1/510 s), where FMA contraction and another order of sums move the last bits
+# B5-B7: float32 through 17 substeps of stiff contact (30,000 N/m at h = 1/510 s), where
+# FMA contraction and another order of sums move the last bits
 STEP_QPOS_TOL = 1e-4     # |qpos(kernel) - qpos(plain)| after one control step
 STEP_QVEL_REL = 1e-2     # |qvel(kernel) - qvel(plain)| / max |qvel(plain)|
 REWARD_TOL = 1e-4        # |reward(kernel) - reward(plain)|, fused or in the rollout
@@ -161,6 +166,7 @@ B7_TOL = 5e-5            # B7 against its plain version and env.tracking_reward
 SAME_CODE_TOL = 5e-5     # B6 against 20 chained B5 steps: the same device code
 PHYS_N, PHYS_BIG_N, PHYS_T, PHYS_KERNEL_T, SUBSTEPS, HORIZON = 4096, 65536, 20, 3, 17, 15
 TRACK_CHECK_HORIZON = 2  # track_motions with B5 against the plain B5 (about 7 s a plain step)
+MAIN_CHECK_ENVS = 40     # B6's main-path rollouts: 3 x 40 envs each held against plain
 NO_LIBRARY = "no single PyTorch call computes the humanoid's dynamics or its tracking reward"
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
@@ -1128,12 +1134,31 @@ def step_errors(out, ref):
     return errs, ok
 
 
+def dynamics_ptxas():
+    """Registers, stack and spill bytes of each B5-B7 entry kernel at each
+    lane count, from the build's ptxas log: {"control_step_L8": {...}, ...}."""
+    out = {}
+    for fn, info in log_of(_build.library_path("humanoid_dynamics")).items():
+        for kind in ("control_step", "rollout", "reward"):
+            for lanes in DK.LANE_COUNTS:
+                if f"{kind}_kernelILi{lanes}E" in fn:
+                    out[f"{kind}_L{lanes}"] = info
+    return out
+
+
+def plan_row(N, kind, ptxas):
+    """The launch plan of a B5-B7 launch at N, with its entry's ptxas line."""
+    plan = DK.dynamics_plan(N)
+    return {"plan": dataclasses.asdict(plan), "ptxas": ptxas.get(f"{kind}_L{plan.lanes}")}
+
+
 def physics_kernel_rows(dev, timer, peaks, ops):
     """B5 (with and without the fused reward) and B7 at N 4096, and B6 at
     T 3, against their plain versions on the same inputs."""
     N, T = PHYS_N, PHYS_KERNEL_T
     qpos, qvel, tgts, rqvs = staggered_walk(dev, N, T)
     kw = dict(h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS)
+    ptxas = dynamics_ptxas()
     rows = {}
     for name, rq in (("control_step", None), ("control_step_reward", rqvs[0])):
         args = (qpos, qvel, tgts[0], rq)
@@ -1150,7 +1175,7 @@ def physics_kernel_rows(dev, timer, peaks, ops):
                       "ms": timer(lambda: DK.control_step_cuda(*args, **kw), reps=10),
                       "plain_ms": time_plain(lambda: DK.control_step_plain(*args, **kw)),
                       "bound_ms": bound_ms, "bound_by": bound_by, "operations": n_ops,
-                      "bytes": nbytes, "library_ms": None}
+                      "bytes": nbytes, "library_ms": None, **plan_row(N, "control_step", ptxas)}
         emit({"phase": "kernel", "name": name, **rows[name]})
 
     done = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -1175,7 +1200,7 @@ def physics_kernel_rows(dev, timer, peaks, ops):
                        "ms": timer(lambda: DK.rollout_cuda(*rargs, **rkw), reps=10),
                        "plain_ms": time_plain(lambda: DK.rollout_plain(*rargs, **rkw)),
                        "bound_ms": bound_ms, "bound_by": bound_by, "operations": n_ops,
-                       "bytes": nbytes, "library_ms": None}
+                       "bytes": nbytes, "library_ms": None, **plan_row(N, "rollout", ptxas)}
     emit({"phase": "kernel", "name": "rollout", **rows["rollout"]})
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1193,9 +1218,62 @@ def physics_kernel_rows(dev, timer, peaks, ops):
         "ms": timer(lambda: DK.tracking_reward_cuda(*bargs)),
         "plain_ms": time_plain(lambda: DK.tracking_reward_plain(*bargs), reps=3),
         "bound_ms": bound_ms, "bound_by": bound_by, "operations": N * ops["reward"],
-        "library_ms": None}
+        "library_ms": None, **plan_row(N, "reward", ptxas)}
     emit({"phase": "kernel", "name": "tracking_reward", **rows["tracking_reward"]})
     return rows
+
+
+def sampled_rollout(env, state, final, rewards):
+    """Envs at the start, the middle and the end of a main-path rollout: their
+    inputs (as ``PhysicsTrackingEnv.rollout`` makes them) and the kernel's
+    results."""
+    N = state.qpos.shape[0]
+    k = MAIN_CHECK_ENVS
+    idx = torch.cat([torch.arange(k), N // 2 - k // 2 + torch.arange(k), N - k + torch.arange(k)])
+    idx = idx.to(state.qpos.device)
+    frames = (state.frame[None, idx] + 1
+              + torch.arange(PHYS_T, device=idx.device)[:, None]) % env.num_frames
+    inputs = (state.qpos[idx], state.qvel[idx], env.motion[frames], env.vel[frames],
+              state.done[idx])
+    return inputs, (final.qpos[idx], final.qvel[idx], rewards[:, idx], final.done[idx])
+
+
+def rollouts_vs_plain(held):
+    """The sampled envs of every main-path rollout through one plain T-20
+    rollout (envs are independent): errors within the step tolerances."""
+    inputs = [torch.cat([h[0][i] for h in held], dim=1 if i in (2, 3) else 0) for i in range(5)]
+    out = [torch.cat([h[1][i] for h in held], dim=1 if i == 2 else 0) for i in range(4)]
+    ref = DK.rollout_plain(*inputs, h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS, fall_height=0.3)
+    errs, ok = step_errors(out[:3], ref[:3])
+    if not (ok and torch.equal(out[3], ref[3])):
+        raise RuntimeError(f"main-path rollouts disagree with the plain version: {errs}, done "
+                           f"{int(out[3].sum())} vs {int(ref[3].sum())}")
+    return {"envs": int(inputs[0].shape[0]), "T": PHYS_T, "max_abs_err": errs,
+            "done": int(out[3].sum())}
+
+
+def step_host_us(env, state, reps=30, rounds=3):
+    """Host microseconds per B5 wrapper call and per ``env.step`` at N 4096,
+    the best of ``rounds`` loops, the card held busy so that no call waits
+    (few enough calls that the launch queue does not fill)."""
+    nxt = (state.frame + 1) % env.num_frames
+    args = (state.qpos, state.qvel, env.motion[nxt], env.vel[nxt])
+    kw = env.engine.kernel_args()
+    out = {}
+    for name, fn in (("wrapper_host_us", lambda: DK.control_step_cuda(*args, **kw)),
+                     ("step_host_us", lambda: env.step(state))):
+        fn()
+        best = float("inf")
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(0.05 * 2e9))  # ~50 ms at ~2 GHz, longer than the loop
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / reps * 1e6)
+        out[name] = best
+        torch.cuda.synchronize()
+    return out
 
 
 def physics_phase(dev, tmp, ops, peaks):
@@ -1209,12 +1287,15 @@ def physics_phase(dev, tmp, ops, peaks):
     env = PhysicsTrackingEnv(clip.qpos, clip.qvel, dt=1.0 / 30.0, substeps=SUBSTEPS,
                              fall_height=0.3, device=dev)
     result = {"rollout": {}}
+    ptxas = dynamics_ptxas()
+    held = []  # (inputs, kernel outputs) of sampled envs of each main-path rollout
     for N in (PHYS_N, PHYS_BIG_N):
         state = env.reset(N)
         reset_counts()
         final, rewards = env.rollout(state, PHYS_T)
         torch.cuda.synchronize()
         launches = DK.rollout_cuda.launches
+        held.append(sampled_rollout(env, state, final, rewards))
         if launches != 1 or rewards.shape != (PHYS_T, N) or not torch.isfinite(rewards).all():
             raise RuntimeError(f"rollout at N {N}: {launches} B6 launches, rewards "
                                f"{tuple(rewards.shape)}, finite {bool(torch.isfinite(rewards).all())}")
@@ -1233,7 +1314,8 @@ def physics_phase(dev, tmp, ops, peaks):
             "N": N, "T": PHYS_T, "rollout_launches": launches, "best_seconds": best,
             "env_steps_per_s": N * PHYS_T / best, "reward_mean": rewards.mean().item(),
             "done_frac": final.done.float().mean().item(), "operations": n_ops,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, **plan_row(N, "rollout", ptxas)}
+    result["rollout"]["vs_plain"] = rollouts_vs_plain(held)
     emit({"phase": "main_path", "path": "physics_rollout", **result["rollout"]})
 
     state = env.reset(PHYS_N)
@@ -1328,7 +1410,8 @@ def physics_phase(dev, tmp, ops, peaks):
     device_ms, top, host_ops = device_time_by_kernel(window, PHYS_T)
     result["profile"] = {"N": PHYS_N, "device_ms_per_step": device_ms, "wall_ms_per_step": wall_ms,
                          "device_busy_share": device_ms / wall_ms if device_ms else None,
-                         "top_kernels": top, "top_host_ops": host_ops}
+                         "top_kernels": top, "top_host_ops": host_ops,
+                         **step_host_us(env, state), **plan_row(PHYS_N, "control_step", ptxas)}
     emit({"phase": "profile", "path": "physics_step", **result["profile"]})
     return result
 
@@ -1481,12 +1564,17 @@ def main(argv=None) -> int:
              phys_path["steps_vs_rollout"]["control_step_launches"],
              {"launches_track_motions": phys_path["track_motions"]["control_step_launches"],
               "without_reward": {k: phys["control_step"][k]
-                                 for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}}),
+                                 for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+              "host_wrapper_us": phys_path["profile"]["wrapper_host_us"]}),
             ("rollout", phys["rollout"], 830,
              phys_path["rollout"][f"n{PHYS_N}"]["rollout_launches"],
              {"launches_n65536": phys_path["rollout"][f"n{PHYS_BIG_N}"]["rollout_launches"],
               "main_path_bound_ms": {f"n{n}": phys_path["rollout"][f"n{n}"]["bound_ms"]
-                                     for n in (PHYS_N, PHYS_BIG_N)}}),
+                                     for n in (PHYS_N, PHYS_BIG_N)},
+              "main_path_seconds": {f"n{n}": phys_path["rollout"][f"n{n}"]["best_seconds"]
+                                    for n in (PHYS_N, PHYS_BIG_N)},
+              "main_path_plans": {f"n{n}": phys_path["rollout"][f"n{n}"]["plan"]
+                                  for n in (PHYS_N, PHYS_BIG_N)}}),
             ("tracking_reward", phys["tracking_reward"], 937,
              phys_path["steps_vs_rollout"]["tracking_reward_launches"],
              {"launches_note": "not on a path (B5's and B6's fused epilogue): one launch through "
@@ -1501,7 +1589,8 @@ def main(argv=None) -> int:
             if isinstance(err, dict) else err,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
-            "shape": {k: row[k] for k in ("N", "T", "substeps") if k in row}, **extra})
+            "shape": {k: row[k] for k in ("N", "T", "substeps") if k in row},
+            "plan": row["plan"], "ptxas": row["ptxas"], **extra})
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -3,9 +3,12 @@
 Replaces the TPU kernels of ``deepmimic_diffusion_mujoco_tpu/physics/
 dynamics_pallas.py``: `control_step_pallas` (B5), `rollout_pallas` (B6) and
 `tracking_reward_pallas` (B7). All three are entry points of one CUDA
-source, ``csrc/humanoid_dynamics.cu``, one thread per env; its static
-tables come from ``csrc/humanoid_tables.h``, which `tables_header()`
-writes from the port's own tables.
+source, ``csrc/humanoid_dynamics.cu``, which spreads one env over a group
+of 8 or 16 lanes of a warp; its static tables, and which lane does what
+(`chains`, `chain_tables`, `lane_items`), come from
+``csrc/humanoid_tables.h``, which `tables_header()` writes from the
+port's own tables. `dynamics_plan(N)` is the launch plan (lanes per env,
+envs per block, shared memory).
 
 - Plain versions: `control_step_components`, `tracking_reward_components`
   and `_rollout_env_step` are 1:1 transcriptions of the JAX component form
@@ -18,13 +21,15 @@ writes from the port's own tables.
 - CUDA wrappers: `control_step_cuda` (B5, with or without the fused
   reward), `rollout_cuda` (B6) and `tracking_reward_cuda` (B7) take CUDA
   float32 tensors in the public layout and raise on anything else; each
-  counts its launches in `.launches`.
+  takes an optional ``plan=`` and counts its launches in `.launches`.
 - Dispatchers `control_step`, `rollout` and `tracking_reward_fused`: the
   kernel for CUDA tensors, the plain version for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -636,7 +641,7 @@ def _f32(x) -> str:
     return f"{float(np.float32(x))!r}f".replace("inf", "INFINITY")
 
 
-def _arr(name: str, values, ctype: str = "float") -> str:
+def _arr(name: str, values, ctype: str = "float", device: bool = False) -> str:
     a = np.asarray(values)
     dims = "".join(f"[{n}]" for n in a.shape)
 
@@ -645,30 +650,222 @@ def _arr(name: str, values, ctype: str = "float") -> str:
             return _f32(v) if ctype == "float" else str(int(v))
         return "{" + ", ".join(fmt(x) for x in v) + "}"
 
+    if device:
+        return f"__device__ const {ctype} {name}{dims} = {fmt(a)};"
     return f"  static constexpr {ctype} {name}{dims} = {fmt(a)};"
+
+
+# The lane groups. The kernels spread one env over a group of L lanes of a
+# warp. Five lanes walk the tree's root-to-leaf paths (``chains``); every
+# lane takes a fixed share of the bodies (inertia, contacts, body force) and
+# of the reward's joints, end effectors and geoms (``lane_items``).
+LANE_COUNTS = (8, 16)
+N_CHAIN_SLOTS = 7
+# LPT weights (float operations, roughly) of one item on a lane
+_COST_BODY, _COST_CONTACT = 190, 30
+_COST_JOINT = {3: 6, 1: 3}
+_COST_EE, _COST_GEOM = 2, 2
+
+
+def chains():
+    """The tree's root-to-leaf paths of links, one per leaf in leaf order:
+    [(link, owned), ...]. A link is owned by the path that goes on from it
+    through the lowest-numbered child at every fork below it, so
+    every link has exactly one owner; the others walk it again to reach
+    their own links (the arms walk the chest's three links)."""
+    children = {i: [] for i in range(-1, NJ)}
+    for i in range(NJ):
+        children[int(LINK_PARENT[i])].append(i)
+    out = []
+
+    def walk(link, path):
+        path = path + [link]
+        if not children[link]:
+            lowest = [path[m + 1] == min(children[path[m]]) for m in range(len(path) - 1)]
+            out.append([(li, all(lowest[k:])) for k, li in enumerate(path)])
+        for c in children[link]:
+            walk(c, path)
+
+    for root in children[-1]:
+        walk(root, [])
+    out.sort(key=lambda ch: ch[-1][0])
+    return out
+
+
+def _link_body():
+    first, body = _first_links(), [0] * NJ
+    for b in range(1, NB):
+        for k in range(len(BODIES[b].joints)):
+            body[first[b] + k] = b
+    return body
+
+
+def _first_links():
+    first, li = [], 0
+    for b in BODIES:
+        first.append(li)
+        li += len(b.joints)
+    return first
+
+
+def chain_tables():
+    """Per (chain, slot): link (-1 past the leaf), owned, the body that
+    starts at the slot (-1), the body whose last link it is (-1), the hinge
+    axis, the anchor's x (the anchors lie on the body's x axis) and the
+    offset of the body that starts there; per chain, its first owned slot
+    and the chains whose first owned link hangs from each link (joins)."""
+    ch = chains()
+    first_link = _first_links()
+    body_of = _link_body()
+    R, K = len(ch), N_CHAIN_SLOTS
+    if max(len(c) for c in ch) > K:
+        raise ValueError("a root-to-leaf path is longer than the chain slots")
+    link = -np.ones((R, K), np.int64)
+    owned = np.zeros((R, K), np.int64)
+    start = -np.ones((R, K), np.int64)
+    carrier = -np.ones((R, K), np.int64)
+    axis = np.zeros((R, K, 3))
+    anchor = np.zeros((R, K))
+    offset = np.zeros((R, K, 3))
+    for r, path in enumerate(ch):
+        for k, (li, own) in enumerate(path):
+            b = body_of[li]
+            if np.any(JOINT_ANCHOR[li][1:] != 0):
+                raise ValueError(f"link {li}: the kernels take anchors on the body's x axis")
+            link[r, k], owned[r, k] = li, int(own)
+            axis[r, k], anchor[r, k] = JOINT_AXIS[li], JOINT_ANCHOR[li][0]
+            if first_link[b] == li:
+                start[r, k] = b
+                offset[r, k] = BODIES[b].offset
+                prev = 0 if k == 0 else body_of[path[k - 1][0]]
+                if BODY_INDEX[BODIES[b].parent] != prev:
+                    raise ValueError(f"body {b} does not hang from the body before it")
+            carrier[r, k] = LINK_CARRIER[li]
+    first_owned = [int(np.argmax(owned[r])) for r in range(R)]
+    # join[link] = chains whose first owned link hangs from link (root: -1),
+    # in descending order of that first link: the order the plain version
+    # adds children into their parent
+    joins = {}
+    for r in range(R):
+        li = int(link[r, first_owned[r]])
+        joins.setdefault(int(LINK_PARENT[li]), []).append((li, r))
+    joins = {p: [r for _, r in sorted(v, reverse=True)] for p, v in joins.items()}
+    inner = [p for p in joins if p >= 0]
+    if len(inner) != 1:
+        raise ValueError(f"the kernels take one join below the root, the tree has {inner}")
+    jl = inner[0]
+    owner = [r for r in range(R) for k in range(K) if link[r, k] == jl and owned[r, k]][0]
+    slot = [k for k in range(K) if link[owner, k] == jl][0]
+    # the owner's own chain continues through the join: its child comes last
+    join_roles = [r for r in joins[jl] if r != owner]
+    return dict(link=link, owned=owned, start=start, carrier=carrier, axis=axis,
+                anchor=anchor, offset=offset, first_owned=first_owned, join_link=jl,
+                join_owner=owner, join_slot=slot, join_roles=join_roles,
+                root_roles=joins[-1])
+
+
+def _lpt(costs, lanes):
+    """Items (index, cost) onto lanes, longest first, each to the least
+    loaded lane (the lowest on ties) -> per-lane lists in item order."""
+    load = [0] * lanes
+    out = [[] for _ in range(lanes)]
+    for i, c in sorted(costs, key=lambda ic: (-ic[1], ic[0])):
+        j = min(range(lanes), key=lambda j: (load[j], j))
+        load[j] += c
+        out[j].append(i)
+    return [sorted(x) for x in out]
+
+
+def lane_items(lanes: int):
+    """Per lane: the contact points whose records it computes in a substep
+    (point c on lane c mod L, the rule the kernel applies), the bodies it
+    owns (inertia, its points' forces and damping added in point order,
+    body force), and the reward's joints, end effectors and geoms."""
+    if lanes not in LANE_COUNTS:
+        raise ValueError(f"{lanes} lanes per env: the kernels take {LANE_COUNTS}")
+    ncont = np.bincount(_CBODY, minlength=NB)
+    bodies = _lpt([(b, _COST_BODY + _COST_CONTACT * int(ncont[b])) for b in range(NB)], lanes)
+    dof = [DOF_DEF[j] for j in BODY_JOINTS]
+    items = ([(("j", j), _COST_JOINT[dof[j]]) for j in range(len(dof))]
+             + [(("e", e), _COST_EE) for e in range(len(_EE_BODIES))]
+             + [(("g", g), _COST_GEOM) for g in range(len(_GEOMS))])
+    reward = _lpt([(k, c) for k, (_, c) in enumerate(items)], lanes)
+    kinds = [[items[k][0] for k in lst] for lst in reward]
+    pick = lambda t: [[i for kind, i in lane if kind == t] for lane in kinds]  # noqa: E731
+    return {"contacts": [list(range(lane, NC, lanes)) for lane in range(lanes)],
+            "bodies": bodies, "joints": pick("j"), "ees": pick("e"), "geoms": pick("g")}
+
+
+def _lists(name: str, lists) -> str:
+    width = max(1, max(len(x) for x in lists))
+    return _arr(name, [x + [-1] * (width - len(x)) for x in lists], "int", device=True)
+
+
+# Per-env shared memory of the kernels: the floats of ``struct Slot`` in
+# csrc/humanoid_dynamics.cu (the source static_asserts the size).
+NROLES = len(chains())
+# Slot::work: each contact point's record (8), later each link's IA S (6) and
+# each chain's contribution to its parent (33)
+WORK_FLOATS = max(8 * NC, 6 * NJ + 33 * NROLES)
+SLOT_FLOATS = (2 * NQ + 2 * NV + 2 * NB * 7 + 2 * NB * 6 + NJ * 2 + NJ * 6 + NB * 6 + NB * 21
+               + WORK_FLOATS + 12 + max(LANE_COUNTS) * 9)
 
 
 def tables_header() -> str:
     """The text of ``csrc/humanoid_tables.h``: the port's static tables as
     constexpr data (float32 values of the same numbers the plain version
-    uses). The committed header must equal this text."""
-    first_link, n_links, li = [], [], 0
-    for b in BODIES:
-        first_link.append(li)
-        n_links.append(len(b.joints))
-        li += len(b.joints)
+    uses), and the lane groups' tables as ``__device__`` arrays. The
+    committed header must equal this text."""
     joint_qpos = [QPOS_JOINT_SLICES[j].start for j in BODY_JOINTS]
     joint_dof = [DOF_DEF[j] for j in BODY_JOINTS]
+    ct = chain_tables()
+    ncont = np.bincount(_CBODY, minlength=NB)
     scal = [
         ("NB", NB), ("NJ", NJ), ("NQ", NQ), ("NV", NV), ("NC", NC),
-        ("NEE", len(_EE_BODIES)), ("NG", len(_GEOMS)), ("NJOINTS", len(BODY_JOINTS)),
+        ("NEE", len(_EE_BODIES)), ("NROLES", NROLES), ("NSLOTS", N_CHAIN_SLOTS),
+        ("MAX_LANES", max(LANE_COUNTS)), ("MAX_BODY_CONTACTS", int(ncont.max())),
+        ("WORK_FLOATS", WORK_FLOATS), ("SLOT_FLOATS", SLOT_FLOATS),
+        ("JOIN_LINK", ct["join_link"]), ("JOIN_SLOT", ct["join_slot"]),
     ]
     floats = [
-        ("GRAVITY", GRAVITY), ("JOINT_ARMATURE", JOINT_ARMATURE),
-        ("JOINT_DAMPING", JOINT_DAMPING), ("JOINT_STIFFNESS", JOINT_STIFFNESS),
+        ("GRAVITY", GRAVITY), ("JOINT_DAMPING", JOINT_DAMPING), ("JOINT_STIFFNESS", JOINT_STIFFNESS),
         ("STIFFNESS", STIFFNESS), ("DAMPING", DAMPING), ("MU", MU),
         ("V_REG2", V_REG * V_REG), ("LIMIT_K", LIMIT_K), ("LIMIT_C", LIMIT_C),
     ]
+    lanes = {L: lane_items(L) for L in LANE_COUNTS}
+    dev = [
+        _arr("CH_LINK", ct["link"], "int", device=True),
+        _arr("CH_OWNED", ct["owned"], "int", device=True),
+        _arr("CH_START", ct["start"], "int", device=True),
+        _arr("CH_CARRIER", ct["carrier"], "int", device=True),
+        _arr("CH_AXIS", ct["axis"], device=True),
+        _arr("CH_ANCHOR_X", ct["anchor"], device=True),
+        _arr("CH_OFFSET", ct["offset"], device=True),
+        _arr("CH_FIRST_OWNED", ct["first_owned"], "int", device=True),
+        _arr("D_LIMIT_LO", _LO, device=True),
+        _arr("D_LIMIT_HI", _HI, device=True),
+        _arr("D_BODY_MASS", _MASS, device=True),
+        _arr("D_BODY_COM", _COM, device=True),
+        _arr("D_BODY_INERTIA", [[I[k][k] for k in range(3)] for I in _IB], device=True),
+        _arr("D_BODY_CONTACT0", np.concatenate([[0], np.cumsum(ncont)[:-1]]), "int",
+             device=True),
+        _arr("D_BODY_NCONTACT", ncont, "int", device=True),
+        _arr("D_CONTACT_BODY", _CBODY, "int", device=True),
+        _arr("D_CONTACT_POINT", _CPOINT, device=True),
+        _arr("D_CONTACT_RADIUS", _CRAD, device=True),
+        _arr("D_JOINT_QPOS", joint_qpos, "int", device=True),
+        _arr("D_JOINT_DOF", joint_dof, "int", device=True),
+        _arr("D_JOINT_WEIGHT", _JW, device=True),
+        _arr("D_EE_BODY", [b for b, _ in _EE_BODIES], "int", device=True),
+        _arr("D_EE_POINT", [pt for _, pt in _EE_BODIES], device=True),
+        _arr("D_GEOM_BODY", [b for b, _, _ in _GEOMS], "int", device=True),
+        _arr("D_GEOM_COM", [c for _, c, _ in _GEOMS], device=True),
+        _arr("D_GEOM_MASS_FRAC", [gm / TOTAL_MASS for _, _, gm in _GEOMS], device=True),
+    ]
+    for L, it in lanes.items():
+        dev += [_lists(f"BODIES_L{L}", it["bodies"]), _lists(f"JOINTS_L{L}", it["joints"]),
+                _lists(f"EES_L{L}", it["ees"]), _lists(f"GEOMS_L{L}", it["geoms"])]
+    slot_anchor = [int(np.any(ct["anchor"][:, k] != 0)) for k in range(N_CHAIN_SLOTS)]
     lines = [
         "// The humanoid's static tables for csrc/humanoid_dynamics.cu.",
         "// Generated by deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics_kernel.tables_header()",
@@ -682,35 +879,18 @@ def tables_header() -> str:
         *[f"constexpr float {n} = {_f32(v)};" for n, v in floats],
         "",
         "struct Tables {",
-        _arr("BODY_MASS", _MASS),
-        _arr("BODY_COM", _COM),
-        _arr("BODY_INERTIA", _IB),
-        _arr("BODY_PARENT", [-1] + [BODY_INDEX[b.parent] for b in BODIES[1:]], "int"),
-        _arr("BODY_OFFSET", [b.offset for b in BODIES]),
-        _arr("BODY_FIRST_LINK", first_link, "int"),
-        _arr("BODY_NLINKS", n_links, "int"),
-        _arr("BODY_LAST_LINK", [-1] + [_BODY_LAST_LINK[b] for b in range(1, NB)], "int"),
-        _arr("JOINT_AXIS", JOINT_AXIS),
-        _arr("JOINT_ANCHOR", JOINT_ANCHOR),
-        _arr("PD_KP", _KP),
-        _arr("PD_KD", _KD),
-        _arr("LIMIT_LO", _LO),
-        _arr("LIMIT_HI", _HI),
-        _arr("LINK_PARENT", LINK_PARENT, "int"),
-        _arr("LINK_CARRIER", LINK_CARRIER, "int"),
-        _arr("CONTACT_BODY", _CBODY, "int"),
-        _arr("CONTACT_POINT", _CPOINT),
-        _arr("CONTACT_RADIUS", _CRAD),
-        _arr("EE_BODY", [b for b, _ in _EE_BODIES], "int"),
-        _arr("EE_POINT", [pt for _, pt in _EE_BODIES]),
-        _arr("GEOM_BODY", [b for b, _, _ in _GEOMS], "int"),
-        _arr("GEOM_COM", [c for _, c, _ in _GEOMS]),
-        _arr("GEOM_MASS_FRAC", [gm / TOTAL_MASS for _, _, gm in _GEOMS]),
-        _arr("JOINT_QPOS", joint_qpos, "int"),
-        _arr("JOINT_DOF", joint_dof, "int"),
-        _arr("JOINT_WEIGHT", _JW),
         _arr("ACOS_COEF", _ACOS_COEF),
+        "  // the lane groups: the join chains (into JOIN_LINK, then into the root) in the",
+        "  // order the plain version adds them, and the slots where any chain has an anchor",
+        _arr("JOIN_ROLES", ct["join_roles"], "int"),
+        _arr("ROOT_ROLES", ct["root_roles"], "int"),
+        _arr("SLOT_HAS_ANCHOR", slot_anchor, "int"),
         "};",
+        "",
+        "// Tables the lane groups read with a lane-dependent index: per (chain, slot),",
+        "// per body, contact, joint, end effector and geom, and each lane's share",
+        "// (bodies, joints, end effectors, geoms; -1 pads) at each lane count.",
+        *dev,
         "",
         "}  // namespace hum",
         "",
@@ -733,7 +913,10 @@ class _StepParams(ctypes.Structure):
                 ("limits", ctypes.c_int)]
 
 
+@functools.lru_cache(maxsize=64)
 def _params(h, substeps, kp_scale, kd_scale, contacts, limits, fall_height=0.0):
+    """The launch constants for one set of arguments, made once (callers
+    only read them)."""
     p = _StepParams()
     p.h, p.half_h = float(h), 0.5 * float(h)
     for i in range(NJ):
@@ -745,22 +928,92 @@ def _params(h, substeps, kp_scale, kd_scale, contacts, limits, fall_height=0.0):
     return p
 
 
+# ---------------------------------------------------------------------------
+# Launch plan
+# ---------------------------------------------------------------------------
+
+MAX_THREADS = 256         # the kernels' __launch_bounds__
+SMEM_LIMIT = 232448       # an H100 block's shared memory
+PARAMS_BYTES = -(-ctypes.sizeof(_StepParams) // 16) * 16
+SLOT_BYTES = 4 * SLOT_FLOATS
+# Default plans (physics/dynamics_sweep.py on an H100, PERF.md): 16 lanes
+# while all the envs' warps fit on the card at once (the shorter chain wins),
+# else 8 lanes (16 lanes' registers hold 10 warps an SM, so N 4096 would run
+# in two waves, and capped at 128 registers they spill and run slower); 8-lane
+# envs in 256-thread blocks from N 4096 (one block an SM), else 64-thread
+# blocks.
+SMALL_N, LARGE_N = 2048, 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class DynPlan:
+    """lanes per env, envs per block, threads and blocks of the launch, and
+    its dynamic shared memory (the step constants and one Slot per env)."""
+    lanes: int
+    envs: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def dynamics_plan(N: int, lanes: int | None = None, envs: int | None = None) -> DynPlan:
+    """The launch plan of B5, B6 and B7 for N envs; a keyword given fixes
+    that choice. The defaults follow the plans ``physics/dynamics_sweep.py``
+    timed on an H100 (see SMALL_N, LARGE_N). Raises for a plan the card
+    cannot schedule."""
+    if N < 0:
+        raise ValueError(f"N {N} < 0")
+    if lanes is None:
+        lanes = 16 if N <= SMALL_N else 8
+    lanes = int(lanes)
+    if lanes not in LANE_COUNTS:
+        raise ValueError(f"{lanes} lanes per env: the kernels take {LANE_COUNTS}")
+    if envs is None:
+        envs = (256 if lanes == 8 and N >= LARGE_N else 64) // lanes
+    envs = int(envs)
+    threads = envs * lanes
+    if envs < 1 or threads % 32:
+        raise ValueError(f"{envs} envs of {lanes} lanes: a block must be whole warps")
+    if threads > MAX_THREADS:
+        raise ValueError(f"{threads} threads a block: the kernels take at most {MAX_THREADS}")
+    smem = PARAMS_BYTES + envs * SLOT_BYTES
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{smem} bytes of shared memory for {envs} envs: a block has "
+                         f"{SMEM_LIMIT}")
+    return DynPlan(lanes=lanes, envs=envs, threads=threads, blocks=-(-N // envs),
+                   smem_bytes=smem)
+
+
+def _plan_for(N, plan):
+    if plan is None:
+        return dynamics_plan(N)
+    if not isinstance(plan, DynPlan):
+        raise TypeError(f"plan must be a DynPlan, got {type(plan).__name__}")
+    return dynamics_plan(N, plan.lanes, plan.envs)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("humanoid_dynamics")
     if lib.humanoid_control_step_f32.argtypes is None:
-        vp, i = ctypes.c_void_p, ctypes.c_int
-        pp = ctypes.POINTER(_StepParams)
-        # qpos, qvel, target, ref_qvel (or null), qpos', qvel', reward (or null), N
-        lib.humanoid_control_step_f32.argtypes = [vp] * 7 + [i, pp, vp]
-        # qpos, qvel, done, targets, ref_qvels, qpos', qvel', done', rewards, N, T
-        lib.humanoid_rollout_f32.argtypes = [vp] * 9 + [i, i, pp, vp]
-        # qpos, qvel, ref_qpos, ref_qvel, reward, N
-        lib.humanoid_tracking_reward_f32.argtypes = [vp] * 5 + [i, vp]
-        for fn in (lib.humanoid_control_step_f32, lib.humanoid_rollout_f32,
-                   lib.humanoid_tracking_reward_f32):
-            fn.restype = i
-        lib.humanoid_dynamics_error_string.argtypes = [i]
-        lib.humanoid_dynamics_error_string.restype = ctypes.c_char_p
+        bind(lib)
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C interface's argument types on a loaded library."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    pp = ctypes.POINTER(_StepParams)
+    # qpos, qvel, target, ref_qvel (or null), qpos', qvel', reward (or null), N, lanes, envs
+    lib.humanoid_control_step_f32.argtypes = [vp] * 7 + [i, i, i, pp, vp]
+    # qpos, qvel, done, targets, ref_qvels, qpos', qvel', done', rewards, N, T, lanes, envs
+    lib.humanoid_rollout_f32.argtypes = [vp] * 9 + [i, i, i, i, pp, vp]
+    # qpos, qvel, ref_qpos, ref_qvel, reward, N, lanes, envs
+    lib.humanoid_tracking_reward_f32.argtypes = [vp] * 5 + [i, i, i, vp]
+    for fn in (lib.humanoid_control_step_f32, lib.humanoid_rollout_f32,
+               lib.humanoid_tracking_reward_f32):
+        fn.restype = i
+    lib.humanoid_dynamics_error_string.argtypes = [i]
+    lib.humanoid_dynamics_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -789,15 +1042,18 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def control_step_cuda(qpos, qvel, target, ref_qvel=None, *, h, substeps, kp_scale=1.0,
-                      kd_scale=1.0, contacts=True, limits=True):
+                      kd_scale=1.0, contacts=True, limits=True, plan: DynPlan | None = None):
     """B5 on PyTorch's current stream: (N, 35), (N, 34), (N, 35) [, (N, 34)]
-    CUDA float32 -> qpos', qvel' [, reward (N,)]. Raises on anything else."""
+    CUDA float32 -> qpos', qvel' [, reward (N,)]. ``plan`` (default
+    ``dynamics_plan(N)``) sets the lanes per env and envs per block. Raises
+    on anything else."""
     fn = "control_step_cuda"
     N = qpos.shape[0] if qpos.dim() == 2 else -1
     args = dict(qpos=(qpos, (N, NQ)), qvel=(qvel, (N, NV)), target=(target, (N, NQ)))
     if ref_qvel is not None:
         args["ref_qvel"] = (ref_qvel, (N, NV))
     _check(fn, qpos.device, **args)
+    pl = _plan_for(N, plan)
     lib = _library()
     qp_out, qv_out = torch.empty_like(qpos), torch.empty_like(qvel)
     reward = qpos.new_empty((N,)) if ref_qvel is not None else None
@@ -810,7 +1066,7 @@ def control_step_cuda(qpos, qvel, target, ref_qvel=None, *, h, substeps, kp_scal
             ref_qvel.data_ptr() if ref_qvel is not None else None,
             qp_out.data_ptr(), qv_out.data_ptr(),
             reward.data_ptr() if reward is not None else None,
-            N, ctypes.byref(p), _stream(qpos))
+            N, pl.lanes, pl.envs, ctypes.byref(p), _stream(qpos))
     _raise_on_error(lib, err, fn)
     control_step_cuda.launches += 1
     return (qp_out, qv_out) if reward is None else (qp_out, qv_out, reward)
@@ -820,7 +1076,8 @@ control_step_cuda.launches = 0
 
 
 def rollout_cuda(qpos, qvel, targets, ref_qvels, done, *, h, substeps, kp_scale=1.0,
-                 kd_scale=1.0, contacts=True, limits=True, fall_height=0.3):
+                 kd_scale=1.0, contacts=True, limits=True, fall_height=0.3,
+                 plan: DynPlan | None = None):
     """B6 on PyTorch's current stream: T control steps with done-freeze, fall
     detection and reward gating in one launch. (N, 35), (N, 34), (T, N, 35),
     (T, N, 34) CUDA float32 and (N,) done (any dtype, nonzero = done) ->
@@ -833,6 +1090,7 @@ def rollout_cuda(qpos, qvel, targets, ref_qvels, done, *, h, substeps, kp_scale=
                          f"{tuple(done.shape)} on {done.device}")
     _check(fn, qpos.device, qpos=(qpos, (N, NQ)), qvel=(qvel, (N, NV)),
            targets=(targets, (T, N, NQ)), ref_qvels=(ref_qvels, (T, N, NV)))
+    pl = _plan_for(N, plan)
     lib = _library()
     dn = done.to(torch.float32).contiguous()
     qp_out, qv_out, dn_out = torch.empty_like(qpos), torch.empty_like(qvel), torch.empty_like(dn)
@@ -844,7 +1102,7 @@ def rollout_cuda(qpos, qvel, targets, ref_qvels, done, *, h, substeps, kp_scale=
         err = lib.humanoid_rollout_f32(
             qpos.data_ptr(), qvel.data_ptr(), dn.data_ptr(), targets.data_ptr(),
             ref_qvels.data_ptr(), qp_out.data_ptr(), qv_out.data_ptr(), dn_out.data_ptr(),
-            rewards.data_ptr(), N, T, ctypes.byref(p), _stream(qpos))
+            rewards.data_ptr(), N, T, pl.lanes, pl.envs, ctypes.byref(p), _stream(qpos))
     _raise_on_error(lib, err, fn)
     rollout_cuda.launches += 1
     return qp_out, qv_out, rewards, dn_out > 0.5
@@ -853,13 +1111,15 @@ def rollout_cuda(qpos, qvel, targets, ref_qvels, done, *, h, substeps, kp_scale=
 rollout_cuda.launches = 0
 
 
-def tracking_reward_cuda(qpos, qvel, ref_qpos, ref_qvel):
+def tracking_reward_cuda(qpos, qvel, ref_qpos, ref_qvel, *, plan: DynPlan | None = None):
     """B7 on PyTorch's current stream: (N, 35), (N, 34), (N, 35), (N, 34)
-    CUDA float32 -> (N,) DeepMimic tracking reward."""
+    CUDA float32 -> (N,) DeepMimic tracking reward, on the same lane-group
+    code as B5's and B6's epilogue."""
     fn = "tracking_reward_cuda"
     N = qpos.shape[0] if qpos.dim() == 2 else -1
     _check(fn, qpos.device, qpos=(qpos, (N, NQ)), qvel=(qvel, (N, NV)),
            ref_qpos=(ref_qpos, (N, NQ)), ref_qvel=(ref_qvel, (N, NV)))
+    pl = _plan_for(N, plan)
     lib = _library()
     out = qpos.new_empty((N,))
     if N == 0:
@@ -867,7 +1127,7 @@ def tracking_reward_cuda(qpos, qvel, ref_qpos, ref_qvel):
     with torch.cuda.device(qpos.device):
         err = lib.humanoid_tracking_reward_f32(
             qpos.data_ptr(), qvel.data_ptr(), ref_qpos.data_ptr(), ref_qvel.data_ptr(),
-            out.data_ptr(), N, _stream(qpos))
+            out.data_ptr(), N, pl.lanes, pl.envs, _stream(qpos))
     _raise_on_error(lib, err, fn)
     tracking_reward_cuda.launches += 1
     return out

@@ -506,3 +506,102 @@ def test_physics_env_launches_the_kernels(cuda):
     res = track_motions(clip.qpos, horizon=3)
     assert DK.control_step_cuda.launches == b5 + 7
     assert res["reward_curve"].shape == (3,)
+
+
+# B5-B7 under every launch plan (lanes per env, envs per block) of
+# ``dynamics_plan``: ragged N, envs done before the rollout and envs that
+# fall during it in one warp, contacts and limits off, and reruns.
+_PLANS = [(lanes, threads // lanes) for lanes in (8, 16) for threads in (32, 64, 128, 256)]
+_PLAIN = {}
+
+
+def _plain_once(key, fn):
+    if key not in _PLAIN:
+        _PLAIN[key] = fn()
+    return _PLAIN[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,envs", _PLANS)
+@pytest.mark.parametrize("N", [1, 33, 4097])
+def test_control_step_every_plan_matches_plain(cuda, lanes, envs, N):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    qpos, qvel, tgt, rqv = _walk_inputs(cuda, N)
+    kw = dict(h=1 / 30 / 17, substeps=17)
+    plan = DK.dynamics_plan(N, lanes, envs)
+    out = DK.control_step_cuda(qpos, qvel, tgt[0], rqv[0], plan=plan, **kw)
+    torch.cuda.synchronize()
+    ref = _plain_once(("step", N), lambda: DK.control_step_plain(qpos, qvel, tgt[0], rqv[0], **kw))
+    _assert_step_close(out, ref)
+    r7 = DK.tracking_reward_cuda(qpos, qvel, tgt[0], rqv[0], plan=plan)
+    ref7 = _plain_once(("reward", N), lambda: DK.tracking_reward_plain(qpos, qvel, tgt[0], rqv[0]))
+    assert (r7 - ref7).abs().max().item() <= 5e-5
+
+
+def _falling_inputs(cuda, N, T):
+    """Walk-clip frames with every third env done before the rollout and
+    a fall height (FALL_HIGH) that some envs cross during the rollout and others do not."""
+    qpos, qvel, tgts, rqvs = _walk_inputs(cuda, N, T)
+    done = torch.zeros(N, dtype=torch.bool, device=cuda)
+    done[::3] = True
+    return qpos, qvel, tgts, rqvs, done
+
+
+# after their first step these envs' roots are at 0.889-0.912 m (no closer than 5e-4 to
+# this height), and they rise after: some cross it, some do not
+FALL_HIGH = 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,envs", _PLANS)
+def test_rollout_every_plan_with_done_and_falling_envs(cuda, lanes, envs):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    N, T = 45, 4
+    args = _falling_inputs(cuda, N, T)
+    kw = dict(h=1 / 30 / 17, substeps=17, fall_height=FALL_HIGH)
+    qp, qv, rewards, dn = DK.rollout_cuda(*args, plan=DK.dynamics_plan(N, lanes, envs), **kw)
+    torch.cuda.synchronize()
+    ref = _plain_once("falling", lambda: DK.rollout_plain(*args, **kw))
+    fell = dn & ~args[4]
+    assert fell.any() and (~dn).any()  # some envs fall during the rollout, some do not
+    _assert_step_close((qp, qv), ref[:2])
+    assert (rewards - ref[2]).abs().max().item() <= REWARD_TOL
+    assert torch.equal(dn, ref[3])
+    assert (rewards[:, ::3] == 0).all() and torch.equal(qp[::3], args[0][::3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("contacts,limits", [(False, False), (False, True), (True, False)])
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_control_step_switches_match_plain(cuda, contacts, limits, lanes):
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    N = 33
+    qpos, qvel, tgt, rqv = _walk_inputs(cuda, N)
+    kw = dict(h=1 / 30 / 17, substeps=17, contacts=contacts, limits=limits)
+    out = DK.control_step_cuda(qpos, qvel, tgt[0], rqv[0], plan=DK.dynamics_plan(N, lanes), **kw)
+    torch.cuda.synchronize()
+    ref = _plain_once(("switch", contacts, limits),
+                      lambda: DK.control_step_plain(qpos, qvel, tgt[0], rqv[0], **kw))
+    _assert_step_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,envs", _PLANS)
+def test_physics_kernels_are_deterministic(cuda, lanes, envs):
+    """Sums across lanes go in a fixed order: two launches give the same bits."""
+    from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+
+    N, T = 300, 3
+    args = _falling_inputs(cuda, N, T)
+    kw = dict(h=1 / 30 / 17, substeps=17, fall_height=FALL_HIGH,
+              plan=DK.dynamics_plan(N, lanes, envs))
+    a = DK.rollout_cuda(*args, **kw)
+    b = DK.rollout_cuda(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    kw.pop("fall_height")
+    a = DK.control_step_cuda(*args[:2], args[2][0], args[3][0], **kw)
+    b = DK.control_step_cuda(*args[:2], args[2][0], args[3][0], **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
