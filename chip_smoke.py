@@ -85,6 +85,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``step`` calls, and the host microseconds of one B5 wrapper call and of
    one ``step`` call with the card held busy.
 
+12. b_serve, stack B (no kernel; f32 with TF32 off): a run directory written from the user
+   config experiments/allclips12k_r5/config.json (D 69, latent 512, 8 heads, 4 adaLN layers,
+   FF 2048, 9 classes, v4 T 1000, x0 prediction, CFG 3.0) with seeded random weights,
+   answered by ``cli.sample.main`` at B 16 x H 168 with holding_box: with ``--class-id 0``
+   (each of the 999 steps one forward at 2B 32) and without a class (999 at B 16), the
+   forward calls counted; one forward at 2B 32 x H 168 with a padded key mask (one sample
+   all masked) held against the same weights in float64 on the CPU (B_FWD_TOL); the profile
+   of 50 CFG steps.
+13. b_train: two ``cli.train.main`` runs on the same config and the nine clips (H 160), B 64,
+   30 optimizer steps, dropout and label drop on, EMA, saves and logs firing: the config's x0
+   loss, then v4 with the loss-aware timestep sampler; one x0-loss gradient at B 16 (injected
+   t, noise and label-drop mask, dropout off) against float64 on the CPU (B_GRAD_TOL); ms per
+   optimizer step over 10 steps, busy share and peak memory.
+14. b_eval: ``cli.evaluate.main`` on the b_serve run against the walk clip (8 samples x H 64,
+   2 replications) and ``cli.cfg_eval.main`` (scales 0 and 3, 2 samples a class, H 64):
+   every metric finite.
+
 Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
 every phase's results to one JSON file. Timings use CUDA events with the
@@ -94,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -112,6 +130,8 @@ import torch
 import torch.nn.functional as F
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
+from deepmimic_diffusion_mujoco_tpu_torch.cli import cfg_eval as cfg_eval_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
@@ -122,6 +142,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.diffusion.schedules import make_schedu
 from deepmimic_diffusion_mujoco_tpu_torch.models import temporal_unet
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
 from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
+from deepmimic_diffusion_mujoco_tpu_torch.models.transformer import TransformerMotionModel
 from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
@@ -140,6 +161,8 @@ USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
 CARTWHEEL = ROOT / "data" / "motions" / "humanoid3d_cartwheel.txt"
 LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
 WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
+B_CONFIG = ROOT / "experiments" / "allclips12k_r5" / "config.json"
+MOTIONS = ROOT / "data" / "motions"
 SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention", "humanoid_dynamics")
 
 B, H, D, DIM, T, K, GROUPS = 16, 64, 35, 128, 1000, 5, 8
@@ -168,6 +191,13 @@ PHYS_N, PHYS_BIG_N, PHYS_T, PHYS_KERNEL_T, SUBSTEPS, HORIZON = 4096, 65536, 20, 
 TRACK_CHECK_HORIZON = 2  # track_motions with B5 against the plain B5 (about 7 s a plain step)
 MAIN_CHECK_ENVS = 40     # B6's main-path rollouts: 3 x 40 envs each held against plain
 NO_LIBRARY = "no single PyTorch call computes the humanoid's dynamics or its tracking reward"
+# Stack B (the MDM transformer, f32 with TF32 off, no kernel): serving B x H with CFG (2B
+# forwards), training B 64 on the nine clips (H 160), the gradient check on B_GRAD_B rows
+B_B, B_H, B_TRAIN_B, B_TRAIN_H, B_TRAIN_STEPS, B_GRAD_B = 16, 168, 64, 160, 30, 16
+B_FWD_TOL = 1e-4         # |forward or loss on the card - float64 on the CPU| / max |float64|
+B_GRAD_TOL = 1e-4        # per parameter: |grad(card) - grad(float64)| / max |grad(float64)|,
+B_GRAD_FLOOR = 1e-4      # the divisor at least this share of the largest gradient over all
+                         # parameters (the key bias's gradient is zero in exact arithmetic)
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -889,37 +919,51 @@ def b4_rows(dev, timer, peaks, mcfg):
     return rows
 
 
-def write_la_run(run_dir, cfg, seed):
-    """config.json and a checkpoint of seeded random weights; the
-    hyper-connections' dynamic weights are made non-zero so that their
-    path carries values."""
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
+def seeded_model(cfg, seed, live):
+    """The config's model on the CPU from a seeded init, with the parameters
+    ``live(name)`` picks (zero or near zero at init) drawn N(0, 0.02^2) so that
+    their paths carry values."""
     torch.manual_seed(seed)
     model = factory.build_model(cfg.model, device="cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(("dynamic_alpha_fn", "dynamic_beta_fn")):
+            if live(name):
                 p.copy_(0.02 * torch.randn(p.shape, generator=g))
-    sd = model.state_dict()
+    return model
+
+
+def write_model_run(run_dir, cfg, seed, live):
+    """config.json and a best-model checkpoint of ``seeded_model``."""
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "config.json"))
+    sd = seeded_model(cfg, seed, live).state_dict()
     Checkpointer(os.path.join(run_dir, "checkpoints")).save_best(0, sd, sd, loss=0.0)
 
 
+def hyper_connection_weights(name):
+    return name.endswith(("dynamic_alpha_fn", "dynamic_beta_fn"))
+
+
+def adaln_modulations(name):
+    return "adaln_mod" in name or "final_mod" in name
+
+
 @contextlib.contextmanager
-def counted_forwards():
-    """Count LocalTransformer forward calls: -> a list, one entry per call."""
-    calls, real = [], LocalTransformer.forward
+def counted_forwards(cls=LocalTransformer):
+    """Record the batch size of every ``cls.forward`` call: -> a list, one
+    entry per call."""
+    calls, real = [], cls.forward
 
-    def forward(self, *a, **k):
-        calls.append(1)
-        return real(self, *a, **k)
+    def forward(self, x, *a, **k):
+        calls.append(x.shape[0])
+        return real(self, x, *a, **k)
 
-    LocalTransformer.forward = forward
+    cls.forward = forward
     try:
         yield calls
     finally:
-        LocalTransformer.forward = real
+        cls.forward = real
 
 
 def load_model(run_dir, dev):
@@ -968,8 +1012,8 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
         raise RuntimeError(f"{LA_CONFIG} samples with {cfg.diffusion.mode!r}, expected v4")
     run, run_long = os.path.join(tmp, "la_run"), os.path.join(tmp, "la_run_long")
     long_cfg = cfg.override({"model.max_seq_len": LA_LONG, "diffusion.noise_steps": LA_T_SHORT})
-    write_la_run(run, cfg, args.seed)
-    write_la_run(run_long, long_cfg, args.seed)
+    write_model_run(run, cfg, args.seed, hyper_connection_weights)
+    write_model_run(run_long, long_cfg, args.seed, hyper_connection_weights)
     requests = []
     for run_dir, c, num, frames in ((run, cfg, LA_B, LA_H), (run_long, long_cfg, LA_SMALL_B, LA_LONG),
                                     (run_long, long_cfg, LA_SMALL_B, LA_PAD)):
@@ -1051,6 +1095,314 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
     return {"requests": requests, "v4_T1000": chain, "forward": forwards,
             "heads_path": {"launches": b4_launches, "max_abs_err_vs_b3": b4_errs},
             "profile": profile}
+
+
+# ---------------------------------------------------------------------------
+# Stack B: the MDM transformer (no kernel; plain PyTorch on the card)
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count."""
+    return {f"{mod.__name__.rsplit('.', 1)[-1]}.{fn.__name__}": fn.launches for mod, fn in (
+        (CB, CB.conv_gn_mish_cuda), (CW, CW.conv1d_weight_grad_cuda),
+        (FA, FA.fused_qkv_local_attention_cuda), (LH, LH.local_attention_heads_cuda),
+        (DK, DK.control_step_cuda), (DK, DK.rollout_cuda), (DK, DK.tracking_reward_cuda))}
+
+
+def b_reference_forward(model, dev, seed):
+    """One forward at 2B x H with a padded key mask (one sample all masked)
+    and labels, on the card in float32 against the same weights in float64
+    on the CPU. -> (max abs err / max |reference|, inputs)."""
+    g = torch.Generator().manual_seed(seed)
+    n = 2 * B_B
+    x = torch.randn(n, B_H, model.final_layer.out_features, generator=g)
+    t = torch.randint(0, T, (n,), generator=g)
+    y = torch.arange(n) % (model.num_classes + 1)
+    lengths = torch.randint(B_H // 4, B_H + 1, (n,), generator=g)
+    lengths[0], lengths[-1] = B_H, 0
+    mask = (torch.arange(B_H)[None, :] < lengths[:, None]).float()
+    with torch.inference_mode():
+        out = model(x.to(dev), t.to(dev), y.to(dev), mask.to(dev)).cpu().double()
+        ref = copy.deepcopy(model).cpu().double()(x.double(), t, y, mask.double())
+    if not torch.isfinite(out).all():
+        raise RuntimeError("stack-B forward on the card is not finite")
+    return ((out - ref).abs().max() / ref.abs().max()).item(), (x, t, y, mask)
+
+
+def b_serve_phase(dev, timer, args, tmp, cfg):
+    """The stack-B serving path: a class-conditioned CFG request and an
+    unconditioned one through ``cli.sample.main``, the card-against-float64
+    forward, and the serving profile."""
+    run = os.path.join(tmp, "b_run")
+    write_model_run(run, cfg, args.seed, adaln_modulations)
+    steps = cfg.diffusion.noise_steps - 1  # v4 runs the model at t = T-1 .. 1
+    requests = []
+    for class_id in (0, None):
+        extra = [] if class_id is None else ["--class-id", str(class_id)]
+        out_dir = os.path.join(tmp, f"b_serve_{class_id}")
+        reset_counts()
+        with counted_forwards(TransformerMotionModel) as calls, \
+                contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = cli.main(["--run", run, "--num", str(B_B), "--frames", str(B_H),
+                              "--conditioner", "holding_box", "--out", out_dir,
+                              "--device", str(dev), *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = kernel_counts()
+        batch = 2 * B_B if class_id is not None else B_B  # CFG: one 2B forward a step
+        if len(calls) != steps or set(calls) != {batch}:
+            raise RuntimeError(f"the class {class_id} request ran {len(calls)} forwards of "
+                               f"batch {sorted(set(calls))}, expected {steps} of {batch}")
+        check_motions(paths, B_H, B_B)
+        requests.append({"class_id": class_id, "cfg_scale": cfg.diffusion.cfg_scale
+                         if class_id is not None else None, "frames": B_H, "num": B_B,
+                         "T": cfg.diffusion.noise_steps, "forwards": len(calls),
+                         "forward_batch": batch, "seconds": seconds,
+                         "samples_per_s": B_B / seconds, "kernel_launches": launches})
+    emit({"phase": "main_path", "path": "b_serve", "requests": requests})
+
+    _, model, sched, payload, _ = cli.load_run(run, device=dev)
+    model.load_state_dict(payload["params"])
+    model.eval()
+    err, (x, t, y, mask) = b_reference_forward(model, dev, args.seed + 3)
+    if not err <= B_FWD_TOL:
+        raise RuntimeError(f"stack-B forward on the card differs from float64 by {err} "
+                           f"(relative), tolerance {B_FWD_TOL}")
+    x, t, y, mask = (a.to(dev) for a in (x, t, y, mask))
+    with torch.inference_mode():
+        fwd_ms = timer(lambda: model(x, t, y, mask), reps=10)
+
+    window_steps = min(50, steps)
+    y16 = torch.zeros(B_B, dtype=torch.long, device=dev)
+    uy = torch.full((B_B,), cfg.model.num_classes, dtype=torch.long, device=dev)
+    cond = conditioning.holding_box(cfg.model.input_dim, device=dev)
+
+    def window():
+        out = sample_loop(sched, model, (B_B, B_H, cfg.model.input_dim),
+                          torch.Generator(device=dev).manual_seed(args.seed), mode="v4",
+                          predict_epsilon=False, conditioning_fn=cond,
+                          cfg_scale=cfg.diffusion.cfg_scale, y=y16, uncond_y=uy,
+                          t_start=window_steps + 1).trajectories
+        torch.cuda.synchronize()
+        return out
+
+    x = window()  # the chain's own output: all 69 dims, not the 35 the CLI saves
+    if x.shape != (B_B, B_H, cfg.model.input_dim) or not torch.isfinite(x).all():
+        raise RuntimeError(f"stack-B CFG chain: shape {tuple(x.shape)}, finite "
+                           f"{bool(torch.isfinite(x).all())}")
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / window_steps
+    device_ms, top, host_ops = device_time_by_kernel(window, window_steps)
+    result = {"requests": requests, "forward_rel_err_vs_float64": err,
+              "forward_tolerance": B_FWD_TOL, "forward_ms": fwd_ms,
+              "forward_shape": {"B": 2 * B_B, "H": B_H, "all_masked_samples": 1},
+              "profile": {"device_ms_per_step": device_ms, "wall_ms_per_step": wall_ms,
+                          "device_busy_share": device_ms / wall_ms if device_ms else None,
+                          "top_kernels": top, "top_host_ops": host_ops}}
+    emit({"phase": "chains", "path": "b_serve",
+          **{k: v for k, v in result.items() if k != "profile"}})
+    emit({"phase": "profile", "path": "b_serve", **result["profile"]})
+    return result, run
+
+
+def b_train_args(run_dir, seed, dev, *extra):
+    return ["--config", str(B_CONFIG), "--data", str(MOTIONS), "--batch-size", str(B_TRAIN_B),
+            "--steps", str(B_TRAIN_STEPS), "--out", run_dir, "--device", str(dev), "--set",
+            "train.log_every=10", "train.save_every=15", "train.ema_start=20",
+            "train.ema_every=10", f"train.seed={seed}", *extra]
+
+
+def b_train_run(dev, run, seed, *extra):
+    """One ``cli.train.main`` run; -> its record (checks included)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_cli.main(b_train_args(run, seed, dev, *extra))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ckpts = Path(run) / "checkpoints"
+    saved = sorted(p.name for p in ckpts.glob("*.pt"))
+    for name in ("best_model.pt", "state_15.pt", f"state_{B_TRAIN_STEPS}.pt"):
+        if not (ckpts / name).exists():
+            raise RuntimeError(f"stack-B training wrote no {name}: {saved}")
+    metrics = json.loads((Path(run) / "training_metrics.json").read_text())
+    losses = [r["loss"] for r in metrics["metrics"]]
+    if (len(losses) != B_TRAIN_STEPS // 10 or not np.isfinite(losses).all()
+            or not np.isfinite(metrics["best_loss"])):
+        raise RuntimeError(f"stack-B training metrics: {metrics}")
+    if trainer.dataset.horizon != B_TRAIN_H or trainer.config.batch_size != B_TRAIN_B:
+        raise RuntimeError(f"stack-B training ran H {trainer.dataset.horizon}, "
+                           f"B {trainer.config.batch_size}")
+    ema_moved = any((trainer.state.ema_params[k] != v).any().item()
+                    for k, v in trainer.state.model.state_dict().items())
+    record = {"seconds": seconds, "optimizer_steps": B_TRAIN_STEPS, "batch": B_TRAIN_B,
+              "horizon": trainer.dataset.horizon, "variants": len(trainer.dataset),
+              "losses": losses, "best_loss": metrics["best_loss"],
+              "best_step": metrics["best_step"], "checkpoints": saved,
+              "ema_differs_from_params": ema_moved, "kernel_launches": kernel_counts()}
+    if not ema_moved:
+        raise RuntimeError("stack-B training left the EMA equal to the params")
+    sampler = trainer.sampler_state
+    if sampler is not None:
+        recorded = int(sampler.counts.sum())
+        if not (0 < recorded <= B_TRAIN_STEPS * B_TRAIN_B
+                and torch.isfinite(sampler.losses).all()):
+            raise RuntimeError(f"loss-aware sampler recorded {recorded} losses")
+        record["loss_aware_recorded"] = recorded
+    return record
+
+
+def b_grad_check(dev, cfg, seed):
+    """One x0-loss gradient (B_GRAD_B rows of the dataset at H 160, injected t,
+    noise and label-drop mask, dropout off) on the card in float32 against
+    the CPU in float64: every parameter's gradient and the loss. A ReLU
+    input within float32 rounding of 0 can take the other sign on the card,
+    which moves its row of the gradient by a whole token's share (about 1e-2
+    of the largest element); so the float64 run takes the card's sign there,
+    at a value of +-1e-30, and the phase reports how many it took."""
+    ds = MotionDataset.from_path(str(MOTIONS), include_velocity=True, augment="cyclic_rooted",
+                                 horizon_multiple=8).truncated(cfg.model.max_seq_len)
+    batch = next(ds.epochs(B_GRAD_B, seed=seed))
+    g = torch.Generator().manual_seed(seed)
+    x0 = torch.from_numpy(batch.trajectories)
+    t = torch.randint(0, cfg.diffusion.noise_steps, (B_GRAD_B,), generator=g)
+    noise = torch.randn(x0.shape, generator=g)
+    drop = torch.arange(B_GRAD_B) % 4 == 0
+    y, mask = torch.from_numpy(batch.motion_class).long(), torch.from_numpy(batch.mask)
+    model = seeded_model(cfg, seed, adaln_modulations)
+    signs, flips = [], []
+
+    def record(mod, inp, out):
+        signs.append((out > 0).cpu())
+
+    def follow(mod, inp, out):
+        card = signs[len(flips)].to(out.device)
+        flip = (out > 0) != card
+        flips.append(int(flip.sum()))
+        target = torch.where(card, 1e-30, -1e-30).to(out.dtype)
+        return torch.where(flip, target + (out - out.detach()), out)  # value target, slope 1
+
+    def grads(m, d, dtype, hook):
+        m = m.to(d, dtype).eval()
+        for layer in m.layers:
+            layer.ff.dense_0.register_forward_hook(hook)
+        sched = factory.build_schedule(cfg.diffusion, d)
+        loss_fn = make_loss_fn(sched, m, kind="x0", predict_epsilon=False,
+                               null_label=cfg.model.num_classes, use_mask=True)
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(x0.to(d, dtype), t.to(d), noise.to(d, dtype), y=y.to(d),
+                          mask=mask.to(d, dtype), drop=drop.to(d))
+        loss.backward()
+        return loss.item(), {k: p.grad.double().cpu() for k, p in m.named_parameters()}
+
+    loss_k, g_k = grads(copy.deepcopy(model), dev, torch.float32, record)
+    loss_r, g_r = grads(model, torch.device("cpu"), torch.float64, follow)
+    floor = B_GRAD_FLOOR * max(v.abs().max().item() for v in g_r.values())
+    rel = {k: ((g_k[k] - v).abs().max() / max(v.abs().max().item(), floor)).item()
+           for k, v in g_r.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    if not (rel[worst] <= B_GRAD_TOL and loss_rel <= B_FWD_TOL
+            and all(torch.isfinite(v).all() for v in g_k.values())):
+        raise RuntimeError(f"x0-loss gradient on the card against float64: loss rel err "
+                           f"{loss_rel}, {worst} rel err {rel[worst]} (tolerance {B_GRAD_TOL})")
+    return {"batch": B_GRAD_B, "H": x0.shape[1], "loss": loss_k, "loss_float64": loss_r,
+            "loss_rel_err": loss_rel, "params": len(rel), "max_grad_rel_err": rel[worst],
+            "worst_param": worst, "median_grad_rel_err": float(np.median(list(rel.values()))),
+            "tolerance": B_GRAD_TOL, "relu_inputs_given_the_card_sign": sum(flips),
+            "relu_inputs": sum(int(sg.numel()) for sg in signs)}
+
+
+def b_train_phase(dev, args, tmp, cfg, steps=10):
+    """The stack-B training path: two ``cli.train.main`` runs (the config's
+    x0 loss with dropout and label drop; then v4 with the loss-aware
+    sampler), the gradient check, and the training profile."""
+    runs = {"x0": b_train_run(dev, os.path.join(tmp, "b_train"), args.seed),
+            "v4_loss_aware": b_train_run(dev, os.path.join(tmp, "b_train_la"), args.seed,
+                                         "diffusion.loss=v4", "train.timestep_sampler=loss_aware")}
+    emit({"phase": "main_path", "path": "b_train", "runs": runs})
+    grad = b_grad_check(dev, cfg, args.seed)
+    emit({"phase": "grads", "path": "b_train", **grad})
+
+    trainer = train_cli.build_trainer(cfg.override({"data.path": str(MOTIONS),
+                                                    "train.seed": args.seed}), device=dev)
+    trainer.config = dataclasses.replace(trainer.config, log_every=10 ** 9,
+                                         best_window_frac=-1e6)
+
+    def window():
+        trainer.train(num_steps=steps)
+        torch.cuda.synchronize()
+
+    window()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, top, host = device_time_by_kernel(window, steps)
+    profile = {"ms_per_optimizer_step": wall_ms, "optimizer_steps_per_s": 1e3 / wall_ms,
+               "batch": trainer.config.batch_size, "horizon": trainer.dataset.horizon,
+               "device_ms_per_step": device_ms,
+               "device_busy_share": device_ms / wall_ms if device_ms else None,
+               "top_kernels": top, "top_host_ops": host, "peak_memory_bytes": peak}
+    emit({"phase": "profile", "path": "b_train", **profile})
+    return {"runs": runs, "grads": grad, "profile": profile}
+
+
+def b_eval_phase(dev, run):
+    """``cli.evaluate.main`` and ``cli.cfg_eval.main`` on the served run:
+    finite metrics of the expected keys (random weights: the scores
+    themselves mean nothing)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ev = evaluate_cli.main(["--run", run, "--gt", str(WALK), "--num", "8", "--reps", "2",
+                                "--frames", "64", "--device", str(dev)])
+    torch.cuda.synchronize()
+    ev_s = time.perf_counter() - t0
+    bad = [k for k, v in ev.items() if not np.isfinite([v["mean"], v["std"]]).all()]
+    if bad or len(ev) != 6:
+        raise RuntimeError(f"cli.evaluate: non-finite or missing metrics {bad}: {ev}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        report = cfg_eval_cli.main(["--run", run, "--scales", "0,3", "--num", "2",
+                                    "--frames", "64", "--data-dir", str(MOTIONS),
+                                    "--device", str(dev)])
+    torch.cuda.synchronize()
+    cfg_s = time.perf_counter() - t0
+    summary = {}
+    for s, r in report["scales"].items():
+        rows = r["per_class"].values()
+        vals = [r["class_accuracy"], r["mean_sifid_own"], r["mean_rmse_min"]]
+        vals += [v for row in rows for v in (row["sifid_own"], row["rmse_min"],
+                                             row["intra_div"])]
+        if len(r["per_class"]) != 9 or not np.isfinite(vals).all():
+            raise RuntimeError(f"cli.cfg_eval at scale {s}: {r}")
+        summary[s] = {k: r[k] for k in ("class_accuracy", "mean_sifid_own", "mean_rmse_min")}
+    # the SVD of one SiFID call in cfg_eval: (2, 690, 690), by cuSOLVER driver
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(2, 690, 6, device=dev, generator=g)
+    b = torch.randn(690, 150, device=dev, generator=g)
+    product = (b @ b.T / 149) @ (a @ a.transpose(1, 2) / 5)
+    svd_ms = {}
+    for driver in ("gesvd", None):
+        torch.linalg.svd(product, driver=driver)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            torch.linalg.svd(product, driver=driver)
+        torch.cuda.synchronize()
+        svd_ms[driver or "default"] = (time.perf_counter() - t0) / 5 * 1e3
+    result = {"evaluate": {"seconds": ev_s, "metrics": ev},
+              "cfg_eval": {"seconds": cfg_s, "scales": summary},
+              "sifid_svd_ms": svd_ms, "kernel_launches": kernel_counts()}
+    emit({"phase": "main_path", "path": "b_eval", **result})
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1829,10 @@ def main(argv=None) -> int:
         result["physics"] = physics_phase(dev, tmp, phys_ops, peaks)
         result["la_serve"] = la_serve_phase(dev, timer, args, tmp, la_cfg)
         result["train"] = train_phase(args, tmp, per_step)
+        b_cfg = ExperimentConfig.load(str(B_CONFIG))
+        result["b_serve"], b_run = b_serve_phase(dev, timer, args, tmp, b_cfg)
+        result["b_train"] = b_train_phase(dev, args, tmp, b_cfg)
+        result["b_eval"] = b_eval_phase(dev, b_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = grads_phase(dev, args.seed)

@@ -11,8 +11,12 @@ present). The run directory holds the JAX package's ``config.json`` and the
 port's checkpoints (``checkpoints/best_model.pt`` or ``state_<step>.pt``,
 see ``train/checkpoint.py``). Motions are saved with exactly 35 qpos dims,
 one ``.npy`` per sample. The run's ``model.architecture`` may be
-``temporal`` or ``local_attention``; for the latter ``--frames`` may not
-exceed ``model.max_seq_len``, the rows of its learned position table.
+``temporal``, ``transformer`` or ``local_attention``; for the two
+transformers ``--frames`` may not exceed ``model.max_seq_len``, the rows of
+their learned position tables. With ``--class-id`` on a class-conditional
+run, every step runs the conditional and the null-label branch as one
+2B-batch forward and lerps them by ``--cfg-scale`` (default: the config's
+``diffusion.cfg_scale``).
 """
 from __future__ import annotations
 

@@ -13,11 +13,15 @@ the port's ``cli/sample.py`` reads back.
 
 As in the JAX CLI, ``train.gradient_accumulate_every = k`` averages k
 micro-batches of ``train.batch_size`` per optimizer update, and the EMA
-gates count micro-steps (``train/state.py``). Only the temporal U-Net with
-the stack-A ("diffuser") loss is ported; the other architectures, losses
-and the loss-aware timestep sampler raise ``NotImplementedError`` naming
-their ROADMAP.md slice. The port trains on one device (the JAX CLI's data
-mesh is ROADMAP slice 6).
+gates count micro-steps (``train/state.py``). It trains the temporal U-Net
+and the MDM transformer (``architecture="transformer"``; the dataset is cut
+to ``model.max_seq_len`` frames, the rows of its position table) with
+every loss kind (``diffusion.loss``: diffuser, v4, x0, kl,
+angle_velocity), CFG label drop toward the null label ``num_classes``,
+dropout where the model has it, and ``train.timestep_sampler="loss_aware"``
+(v4 only, as in JAX). Training ``local_attention`` and ``decoder`` raises
+``NotImplementedError`` naming its ROADMAP.md item. The port trains on one
+device (the JAX CLI's data mesh is ROADMAP.md's parallel layer).
 """
 from __future__ import annotations
 
@@ -32,9 +36,10 @@ from .. import factory
 from ..data.datasets import MotionDataset
 from ..device import resolve_device
 from ..diffusion import process
+from ..diffusion.timestep_sampling import LossSecondMomentState
 from ..train.checkpoint import Checkpointer
 from ..train.config import ExperimentConfig
-from ..train.loop import STACK_B_ITEM, Trainer, TrainerConfig, make_loss_fn
+from ..train.loop import Trainer, TrainerConfig, make_loss_fn
 from ..train.state import EMAConfig, TrainState, make_optimizer
 
 
@@ -47,12 +52,8 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
         raise NotImplementedError(
             "training the local-attention transformer is not ported yet: ROADMAP.md Queue A, "
             "local attention: LocalTransformer training")
-    if cfg.train.timestep_sampler == "loss_aware":
-        raise NotImplementedError(
-            f"timestep_sampler='loss_aware' is not ported yet: {STACK_B_ITEM}")
-    if cfg.diffusion.loss != "diffuser":
-        raise NotImplementedError(
-            f"diffusion.loss={cfg.diffusion.loss!r} is not ported yet: {STACK_B_ITEM}")
+    if cfg.train.timestep_sampler == "loss_aware" and cfg.diffusion.loss != "v4":
+        raise ValueError("timestep_sampler=loss_aware requires diffusion.loss=v4")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
         model, sched = factory.build_experiment(cfg, dev)
@@ -64,6 +65,9 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
         horizon_multiple=cfg.data.horizon_multiple,
         max_files=cfg.data.max_files,
     )
+    if cfg.model.architecture != "temporal":
+        # a learned position table has max_seq_len rows: longer batches would fail
+        ds = ds.truncated(cfg.model.max_seq_len)
     t = cfg.train
     opt, lr_sched = make_optimizer(
         model.parameters(), t.optimizer_type, lr=t.lr, weight_decay=t.weight_decay,
@@ -71,13 +75,19 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
     )
     state = TrainState(model, opt, lr_sched, EMAConfig(t.ema_decay, t.ema_start, t.ema_every),
                        accum=t.gradient_accumulate_every)
-    weights = process.diffuser_loss_weights(
-        ds.horizon, cfg.model.input_dim, cfg.diffusion.action_weight,
-        cfg.diffusion.loss_discount, device=dev,
+    d = cfg.diffusion
+    weights = None
+    if d.loss == "diffuser":
+        weights = process.diffuser_loss_weights(
+            ds.horizon, cfg.model.input_dim, d.action_weight, d.loss_discount, device=dev)
+    loss_fn = make_loss_fn(
+        sched, model, kind=d.loss, predict_epsilon=not d.predict_x0,
+        weights=weights, loss_kind=d.loss_kind, label_drop_prob=t.label_drop_prob,
+        null_label=cfg.model.num_classes or None, smooth_loss_weight=d.smooth_loss_weight,
+        use_mask=d.loss in ("v4", "x0"),
+        # dropout is live in training where the architecture has it
+        dropout=cfg.model.architecture == "transformer" and cfg.model.dropout > 0,
     )
-    loss_fn = make_loss_fn(sched, model, kind="diffuser",
-                           predict_epsilon=not cfg.diffusion.predict_x0,
-                           weights=weights, loss_kind=cfg.diffusion.loss_kind)
 
     ckpt = None
     if out_dir:
@@ -100,6 +110,8 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
         ),
         checkpointer=ckpt,
         num_timesteps=sched.num_timesteps,
+        sampler_state=(LossSecondMomentState.create(sched.num_timesteps, device=dev)
+                       if t.timestep_sampler == "loss_aware" else None),
     )
 
 

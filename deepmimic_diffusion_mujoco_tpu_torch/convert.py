@@ -46,6 +46,28 @@ LayerNorm_0/{scale,bias}                           norm.{weight,bias}           
 
 The hyper-connection parameters keep flax's shapes (``dynamic_alpha_fn``
 is (D, S+1), used as ``normed @ W``), so they need no transpose.
+
+``transformer_from_flax`` does the same for the JAX TransformerMotionModel
+(``models.transformer.TransformerMotionModel``):
+
+=======================================================  ===============================  ==========================
+flax path                                                torch key                        transform
+=======================================================  ===============================  ==========================
+pose_embed, time_embed_{0,1}, class_embed_{0,1},         same name .{weight,bias}         kernel.T
+final_mod, final_layer
+position_embed                                           position_embed                   none
+class_embed/embedding                                    class_embed.weight               none
+layer_i/MultiHeadDotProductAttention_0/{query,key,value} layers.i.attn.<name>             kernel (D, h, dh) -> (D, D).T,
+                                                                                          bias (h, dh) -> (D,)
+layer_i/MultiHeadDotProductAttention_0/out               layers.i.attn.out                kernel (h, dh, D) -> (D, D).T
+layer_i/Dense_{0,1}                                      layers.i.ff.dense_{0,1}          kernel.T
+layer_i/LayerNorm_{0,1}/{scale,bias} (post-norm layers)  layers.i.norm_{0,1}.{weight,bias} none
+layer_i/adaln_mod                                        layers.i.adaln_mod               kernel.T
+=======================================================  ===============================  ==========================
+
+The flax projections' head axis is the outer one of the flattened feature
+axis (head-major), as the port's ``view(B, N, h, dh)`` reads it. The adaLN
+layers' and the final modulation's LayerNorms have no parameters.
 """
 from __future__ import annotations
 
@@ -125,7 +147,7 @@ def temporal_unet_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]"
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
 
 
 _NORM = {"scale": "weight", "bias": "bias"}
@@ -148,20 +170,54 @@ _LOCAL_TABLE = [
 ]
 
 
-def local_transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
-    """Map a flax LocalTransformer param tree to the port's state dict."""
+def _map_table(params_np: dict, table) -> "OrderedDict[str, torch.Tensor]":
+    """Map every flax leaf through the first ``table`` entry whose pattern
+    matches its path: (pattern, torch key template, transform of a kernel[,
+    transform of a bias]). Raises ``KeyError`` on a path no entry maps."""
     tree = params_np.get("params", params_np)
     out = OrderedDict()
     for path, arr in _flatten(tree).items():
-        for pattern, template, fn in _LOCAL_TABLE:
+        for pattern, template, fn, *bias_fn in table:
             m = re.fullmatch(pattern, path)
             if not m:
                 continue
             leaf = m.groups()[-1]
             key = template.format(*m.groups(), leaf=_LEAF.get(leaf, leaf),
                                   norm=_NORM.get(leaf, leaf))
-            out[key] = _tensor(fn(arr) if leaf == "kernel" else arr)
+            if leaf == "kernel":
+                arr = fn(arr)
+            elif leaf == "bias" and bias_fn:
+                arr = bias_fn[0](arr)
+            out[key] = _tensor(arr)
             break
         else:
             raise KeyError(f"no mapping for flax parameter {path!r}")
     return out
+
+
+def local_transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax LocalTransformer param tree to the port's state dict."""
+    return _map_table(params_np, _LOCAL_TABLE)
+
+
+_MHA = "MultiHeadDotProductAttention_0"
+
+# (pattern over the flax path, torch key template, transform of a kernel[, of a bias])
+_TRANSFORMER_TABLE = [
+    (r"(pose_embed|time_embed_[01]|class_embed_[01]|final_mod|final_layer)/(kernel|bias)",
+     "{0}.{leaf}", _DENSE),
+    (r"(position_embed)", "{0}", _SAME),
+    (r"class_embed/(embedding)", "class_embed.weight", _SAME),
+    (rf"layer_(\d+)/{_MHA}/(query|key|value)/(kernel|bias)", "layers.{0}.attn.{1}.{leaf}",
+     lambda a: a.reshape(a.shape[0], -1).T, lambda b: b.reshape(-1)),
+    (rf"layer_(\d+)/{_MHA}/(out)/(kernel|bias)", "layers.{0}.attn.{1}.{leaf}",
+     lambda a: a.reshape(-1, a.shape[-1]).T),
+    (r"layer_(\d+)/Dense_([01])/(kernel|bias)", "layers.{0}.ff.dense_{1}.{leaf}", _DENSE),
+    (r"layer_(\d+)/LayerNorm_([01])/(scale|bias)", "layers.{0}.norm_{1}.{norm}", _SAME),
+    (r"layer_(\d+)/(adaln_mod)/(kernel|bias)", "layers.{0}.{1}.{leaf}", _DENSE),
+]
+
+
+def transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax TransformerMotionModel param tree to the port's state dict."""
+    return _map_table(params_np, _TRANSFORMER_TABLE)

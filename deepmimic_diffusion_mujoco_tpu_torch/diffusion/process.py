@@ -1,9 +1,12 @@
-"""Forward/reverse diffusion formulas on tensors: the sampling half of
-``deepmimic_diffusion_mujoco_tpu/diffusion/process.py`` and its stack-A
-losses (the v4, kl, x0 and angle-velocity losses come with stack B).
+"""Forward/reverse diffusion formulas on tensors: the counterpart of
+``deepmimic_diffusion_mujoco_tpu/diffusion/process.py``, its sampling
+updates and every training loss (stack A's weighted p_losses, stack B's
+v4 / x0 / KL / angle-velocity losses and stack C's v loss).
 
 Every function is shape-polymorphic over (B, ...) trajectories and takes
-the Schedule as an argument; ``t`` is a (B,) integer tensor.
+the Schedule as an argument; ``t`` is a (B,) integer tensor. The training
+losses take their Gaussian ``noise`` from the caller (the JAX losses draw
+it from a key), so that tests can give both the same draw.
 """
 from __future__ import annotations
 
@@ -163,3 +166,88 @@ def diffuser_p_losses(
         x_recon = conditioning_fn(x_recon)
     target = noise if predict_epsilon else x0
     return weighted_loss(x_recon, target, weights, loss_kind)
+
+
+# ---------------------------------------------------------------------------
+# Stack-B and stack-C losses
+# ---------------------------------------------------------------------------
+
+
+def _masked_mean(err, mask):
+    """Mean of (B, H, D) ``err`` over the valid frames of a (B, H) mask."""
+    m = mask[..., None]
+    return (err * m).sum() / (m.sum() * err.shape[-1])
+
+
+def mse_loss(pred, target, mask=None):
+    """Plain MSE; with a (B, H) frame mask, the mean over valid frames."""
+    err = (pred - target) ** 2
+    return err.mean() if mask is None else _masked_mean(err, mask)
+
+
+def kl_divergence_loss(sched: Schedule, x0, x_t, x0_hat, t):
+    """KL(q(x_{t-1}|x_t, x0) || p(x_{t-1}|x_t, x0_hat)): both share the
+    posterior variance, so it is the scaled squared mean difference."""
+    mean_q, var, _ = q_posterior(sched, x0, x_t, t)
+    mean_p, _, _ = q_posterior(sched, x0_hat, x_t, t)
+    return (0.5 * (mean_q - mean_p) ** 2 / var.clamp(min=1e-20)).mean()
+
+
+def kl_training_loss(sched: Schedule, model_fn, x0, t, noise, predict_x0: bool = True):
+    """Loss kind "kl": noise x0, recover x0_hat from the model, and take
+    the posterior KL. -> (loss, {})."""
+    x_noisy = q_sample(sched, x0, t, noise)
+    pred = model_fn(x_noisy, t)
+    x0_hat = pred if predict_x0 else predict_start_from_noise(sched, x_noisy, t, pred)
+    return kl_divergence_loss(sched, x0, x_noisy, x0_hat, t), {}
+
+
+def angle_velocity_loss(sched: Schedule, model_fn, x0, t, noise,
+                        smooth_loss_weight: float = 0.1):
+    """The tuning model's loss: the model predicts noise; MSE of the
+    recovered x0 plus ``smooth_loss_weight`` x the MSE of its frame
+    differences."""
+    x_noisy = q_sample(sched, x0, t, noise)
+    x0_hat = predict_start_from_noise(sched, x_noisy, t, model_fn(x_noisy, t))
+    angle_loss = ((x0_hat - x0) ** 2).mean()
+    pred_vel = x0_hat[:, 1:] - x0_hat[:, :-1]
+    true_vel = x0[:, 1:] - x0[:, :-1]
+    velocity_loss = ((pred_vel - true_vel) ** 2).mean()
+    loss = angle_loss + smooth_loss_weight * velocity_loss
+    return loss, {"loss_angle": angle_loss, "loss_velocity": velocity_loss}
+
+
+def v_training_loss(sched: Schedule, model_fn, x0, t, noise, mask=None):
+    """Stack C's objective: MSE between the model output and the v target."""
+    x_noisy = q_sample(sched, x0, t, noise)
+    return mse_loss(model_fn(x_noisy, t), predict_v(sched, x0, t, noise), mask), {}
+
+
+def v4_training_loss(sched: Schedule, model_fn, x0, t, noise, predict_x0: bool = True,
+                     mask=None, t_weights=None, loss_space: str = "eps"):
+    """Stack B's loss. ``loss_space="eps"``: MSE in epsilon space (an
+    x0-predicting model's output is converted first); ``"x0"``: MSE on the
+    recovered x0 (MDM's "simple" objective, loss kind "x0").
+
+    Unweighted (``t_weights`` None) it is the global mean, masked over valid
+    frames with a (B, H) ``mask``; with (B,) importance weights from the
+    loss-aware sampler, the mean of per-sample means times the weights.
+    info["per_sample_loss"] (B,) is what that sampler records."""
+    x_noisy = q_sample(sched, x0, t, noise)
+    pred = model_fn(x_noisy, t)
+    if loss_space == "x0":
+        x0_hat = pred if predict_x0 else predict_start_from_noise(sched, x_noisy, t, pred)
+        err = (x0_hat - x0) ** 2
+    else:
+        eps_hat = predict_noise_from_start(sched, x_noisy, t, pred) if predict_x0 else pred
+        err = (eps_hat - noise) ** 2
+    if mask is None:
+        per_sample = err.mean(dim=tuple(range(1, err.ndim)))
+    else:
+        m = mask[..., None]
+        per_sample = (err * m).sum(dim=(1, 2)) / (m.sum(dim=(1, 2)) * err.shape[-1])
+    if t_weights is None:
+        loss = err.mean() if mask is None else _masked_mean(err, mask)
+    else:
+        loss = (per_sample * t_weights).mean()
+    return loss, {"per_sample_loss": per_sample}

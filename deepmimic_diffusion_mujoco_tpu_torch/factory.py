@@ -1,9 +1,9 @@
 """Build models and schedules from an ExperimentConfig.
 
 Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``. The port has
-the temporal U-Net and the local-attention transformer so far; the other
-architectures and bf16 compute raise ``NotImplementedError`` naming the
-ROADMAP.md item that brings them.
+the MDM transformer, the temporal U-Net and the local-attention
+transformer; the decoder and bf16 compute raise ``NotImplementedError``
+naming the ROADMAP.md item that brings them.
 """
 from __future__ import annotations
 
@@ -13,10 +13,10 @@ from .device import resolve_device
 from .diffusion.schedules import Schedule, make_schedule
 from .models.local_attention import LocalTransformer
 from .models.temporal_unet import TemporalUnet
+from .models.transformer import TransformerMotionModel
 from .train.config import DiffusionConfig, ExperimentConfig, ModelConfig
 
 _NOT_PORTED = {
-    "transformer": "ROADMAP.md Queue A, stack-B modeling and training (the transformer)",
     "decoder": "ROADMAP.md Queue A, models/transformer_decoder.py (the stack-B decoder)",
 }
 
@@ -30,6 +30,13 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.
         raise NotImplementedError(
             "bf16 compute is not ported yet (ROADMAP.md Queue B, B1's bf16/wgmma variant); "
             "the port computes in float32 only")
+    if cfg.architecture == "transformer":
+        return TransformerMotionModel(
+            input_dim=cfg.input_dim, latent_dim=cfg.latent_dim, n_heads=cfg.n_heads,
+            num_layers=cfg.num_layers, dropout=cfg.dropout,
+            dim_feedforward=cfg.dim_feedforward, max_sequence_length=cfg.max_seq_len,
+            num_classes=cfg.num_classes, conditioning=cfg.conditioning,
+        ).to(dev)
     if cfg.architecture == "temporal":
         return TemporalUnet(
             transition_dim=cfg.input_dim, dim=cfg.channel_dim,

@@ -1,10 +1,11 @@
 """Training loop: one eager update step, batches fed from the host.
 
-Counterpart of the stack-A parts of
-``deepmimic_diffusion_mujoco_tpu/train/loop.py``: ``make_loss_fn(kind=
-"diffuser")``, the train step (loss, backward, optimizer, EMA) and
-``Trainer.train``'s per-step loop with its log records, best-model window
-and periodic saves, and ``save_metrics`` (the same
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/train/loop.py``:
+``make_loss_fn`` for every loss kind (stack A's "diffuser", stack B's
+"v4", "x0" and "kl" with CFG label drop, "angle_velocity"), the train step
+(loss, backward, optimizer, EMA), the loss-aware timestep sampler's
+update, and ``Trainer.train``'s per-step loop with its log records,
+best-model window and periodic saves, and ``save_metrics`` (the same
 ``training_metrics.json``).
 
 The JAX package's ``lax.scan`` chunking (``_train_scanned``,
@@ -12,9 +13,10 @@ The JAX package's ``lax.scan`` chunking (``_train_scanned``,
 read and ignored, and every step runs through the per-step loop, which
 tracks the best model exactly as the scanned path does (the post-update
 state of the lowest-loss micro-step at or after optimizer step
-``int(n * (1 - best_window_frac))``). Timesteps and noise come from a
-``torch.Generator`` on the device (``Trainer.draw``), so they differ from
-the JAX package's draws; tests inject the same ones into both.
+``int(n * (1 - best_window_frac))``). Timesteps, noise, label-drop masks
+and dropout masks come from the trainer's ``torch.Generator`` on the
+device (``Trainer.draw``, the loss function's ``generator``), so they
+differ from the JAX package's draws; tests inject the same ones into both.
 """
 from __future__ import annotations
 
@@ -27,11 +29,11 @@ from typing import Callable
 import torch
 
 from ..diffusion import process
+from ..diffusion import timestep_sampling as ts
 from ..diffusion.schedules import Schedule
 from .state import TrainState
 
-STACK_B_ITEM = ("ROADMAP.md Queue A, stack-B modeling and training (stack-B losses, label drop, "
-                "loss-aware sampler)")
+LOSS_KINDS = ("diffuser", "v4", "x0", "kl", "angle_velocity")
 
 
 def make_loss_fn(
@@ -43,28 +45,66 @@ def make_loss_fn(
     weights: torch.Tensor | None = None,
     loss_kind: str = "l2",
     conditioning_fn=None,
+    label_drop_prob: float = 0.1,
+    null_label: int | None = None,
+    smooth_loss_weight: float = 0.1,
+    use_mask: bool = False,
+    dropout: bool = False,
 ) -> Callable:
-    """The per-batch loss ``loss_fn(x0, t, noise) -> (loss, info)``.
-    ``kind="diffuser"`` is stack A's weighted p_losses; the stack-B kinds
-    raise ``NotImplementedError``."""
-    if kind != "diffuser":
-        raise NotImplementedError(f"loss kind {kind!r} is not ported yet: {STACK_B_ITEM}")
+    """The per-batch loss ``loss_fn(x0, t, noise, *, y=None, mask=None,
+    t_weights=None, generator=None, drop=None) -> (loss, info)``.
 
-    def loss_fn(x0, t, noise):
-        return process.diffuser_p_losses(
-            sched, model, x0, t, noise, weights,
-            predict_epsilon=predict_epsilon, loss_kind=loss_kind,
-            conditioning_fn=conditioning_fn,
+    kind="diffuser": stack A's weighted p_losses (conditioning applied
+    inside); "v4": stack B's epsilon-space MSE; "x0": the same in x0 space;
+    "kl": the posterior KL; "angle_velocity": the tuning model's x0 +
+    velocity loss. For v4 / x0 / kl with labels ``y`` and a ``null_label``,
+    a Bernoulli(``label_drop_prob``) mask ``drop`` (drawn from
+    ``generator`` unless given) sends labels to the null label, which
+    trains CFG's unconditional branch. ``use_mask`` takes the (B, H) frame
+    mask into the v4 / x0 loss; ``t_weights`` are the loss-aware sampler's
+    importance weights. ``dropout=True`` hands ``generator`` to the model,
+    whose dropout then draws its keep masks from it."""
+    if kind not in LOSS_KINDS:
+        raise ValueError(f"unknown loss kind {kind!r}; expected one of {LOSS_KINDS}")
+
+    def loss_fn(x0, t, noise, *, y=None, mask=None, t_weights=None, generator=None, drop=None):
+        model_kw = {"generator": generator} if dropout else {}
+        if kind == "diffuser":
+            return process.diffuser_p_losses(
+                sched, model, x0, t, noise, weights,
+                predict_epsilon=predict_epsilon, loss_kind=loss_kind,
+                conditioning_fn=conditioning_fn,
+            )
+        if kind == "angle_velocity":
+            return process.angle_velocity_loss(
+                sched, lambda x, tt: model(x, tt, **model_kw), x0, t, noise,
+                smooth_loss_weight=smooth_loss_weight)
+        if y is not None and null_label is not None:
+            if drop is None:
+                drop = torch.rand(y.shape, generator=generator,
+                                  device=generator.device) < label_drop_prob
+            y = torch.where(drop, torch.full_like(y, null_label), y)
+
+        def model_fn(x, tt):
+            return model(x, tt, y, **model_kw)
+
+        if kind == "kl":
+            return process.kl_training_loss(sched, model_fn, x0, t, noise,
+                                            predict_x0=not predict_epsilon)
+        return process.v4_training_loss(
+            sched, model_fn, x0, t, noise, predict_x0=not predict_epsilon,
+            mask=mask if use_mask else None, t_weights=t_weights,
+            loss_space="x0" if kind == "x0" else "eps",
         )
 
     return loss_fn
 
 
-def train_step(state: TrainState, loss_fn: Callable, x0, t, noise):
+def train_step(state: TrainState, loss_fn: Callable, x0, t, noise, **loss_kw):
     """loss -> backward -> optimizer (every ``accum`` micro-steps) -> EMA.
     -> (loss, info), detached."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss, info = loss_fn(x0, t, noise)
+    loss, info = loss_fn(x0, t, noise, **loss_kw)
     loss.backward()
     state.apply_gradients()
     return loss.detach(), {k: v.detach() for k, v in info.items()}
@@ -86,12 +126,17 @@ class TrainerConfig:
 class Trainer:
     """Feeds batches, logs, checkpoints. ``dataset`` exposes
     ``.epochs(batch_size, seed, class_balanced=...)`` (data/datasets.py);
-    each numpy batch is copied to the model's device."""
+    each numpy batch is copied to the model's device. A
+    ``LossSecondMomentState`` as ``sampler_state`` turns on the loss-aware
+    timestep sampler: t is drawn from it, the loss is importance-weighted,
+    and each step's per-sample losses are recorded in it."""
 
     def __init__(self, state: TrainState, loss_fn: Callable, dataset,
                  config: TrainerConfig = TrainerConfig(), checkpointer=None,
-                 log_fn=print, num_timesteps: int = 1000):
+                 log_fn=print, num_timesteps: int = 1000,
+                 sampler_state: ts.LossSecondMomentState | None = None):
         self.state = state
+        self.sampler_state = sampler_state
         self.loss_fn = loss_fn
         self.dataset = dataset
         self.config = config
@@ -105,11 +150,20 @@ class Trainer:
         self.best_step = -1
 
     def draw(self, x0: torch.Tensor):
-        """Timesteps (B,) uniform in [0, T) and Gaussian noise like x0."""
-        t = torch.randint(0, self.num_timesteps, (x0.shape[0],), generator=self.generator,
-                          device=self.device)
+        """Timesteps (B,), uniform in [0, T) or from the loss-aware sampler,
+        and Gaussian noise like x0."""
+        if self.sampler_state is None:
+            t, _ = ts.uniform_timesteps(self.generator, x0.shape[0], self.num_timesteps)
+        else:
+            t, _ = ts.loss_aware_timesteps(self.sampler_state, self.generator, x0.shape[0])
         noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
         return t, noise
+
+    def _to_device(self, a):
+        a = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            a = a.pin_memory()  # so that the copy does not wait for the device
+        return a.to(self.device, non_blocking=True)
 
     def _save(self):
         st = self.state
@@ -127,12 +181,16 @@ class Trainer:
         t0 = time.time()
         last_saved = 0
         for i in range(n * accum):
-            x0 = torch.from_numpy(next(batches).trajectories)
-            if self.device.type == "cuda":
-                x0 = x0.pin_memory()  # so that the copy does not wait for the device
-            x0 = x0.to(self.device, non_blocking=True)
+            batch = next(batches)
+            x0, y, mask = (self._to_device(a) for a in
+                           (batch.trajectories, batch.motion_class, batch.mask))
             t, noise = self.draw(x0)
-            loss, info = train_step(self.state, self.loss_fn, x0, t, noise)
+            t_weights = (None if self.sampler_state is None
+                         else ts.importance_weights(self.sampler_state, t))
+            loss, info = train_step(self.state, self.loss_fn, x0, t, noise, y=y.long(),
+                                    mask=mask, t_weights=t_weights, generator=self.generator)
+            if self.sampler_state is not None:
+                ts.update_with_losses(self.sampler_state, t, info["per_sample_loss"])
             # state.step counts micro-steps; report/compare in optimizer steps
             opt_step = self.state.step // accum
             if (i + 1) % cfg.log_every == 0:

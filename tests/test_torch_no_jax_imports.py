@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
+from deepmimic_diffusion_mujoco_tpu_torch.cli import cfg_eval as cfg_eval_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, schedules
@@ -51,6 +53,8 @@ ENTRY_POINTS = {
     "load_run": lambda tmp: cli.load_run(str(tmp)),
     "cli_main": lambda tmp: cli.main(["--run", str(tmp)]),
     "train_main": lambda tmp: train_cli.main(["--out", str(tmp)]),
+    "evaluate_main": lambda tmp: evaluate_cli.main(["--run", str(tmp), "--gt", "x.txt"]),
+    "cfg_eval_main": lambda tmp: cfg_eval_cli.main(["--run", str(tmp)]),
     "build_trainer": lambda tmp: train_cli.build_trainer(_temporal_cfg()),
     "PhysicsTrackingEnv": lambda tmp: physics_env.PhysicsTrackingEnv(np.zeros((4, 35))),
     "KinematicEnv": lambda tmp: physics_env.KinematicEnv(np.zeros((4, 35))),
@@ -73,10 +77,12 @@ def test_bf16_config_is_refused():
 
 @pytest.mark.parametrize("arch", ["transformer", "decoder", "local_attention"])
 def test_unported_architectures_name_their_slice(arch):
-    if arch == "local_attention":  # ported: it builds on the CPU
+    if arch != "decoder":  # ported: they build on the CPU
         model = factory.build_model(ModelConfig(architecture=arch, latent_dim=32, depth=1,
-                                                n_heads=2, dim_head=16), device="cpu")
-        assert type(model).__name__ == "LocalTransformer"
+                                                num_layers=1, n_heads=2, dim_head=16),
+                                    device="cpu")
+        name = {"transformer": "TransformerMotionModel", "local_attention": "LocalTransformer"}
+        assert type(model).__name__ == name[arch]
         assert not any(p.is_cuda for p in model.parameters())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):

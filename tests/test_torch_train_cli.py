@@ -85,12 +85,12 @@ def test_sample_cli_answers_from_trained_run(run, tmp_path):
         assert (m[:, [16, 20]] == np.float32(1.57)).all()
 
 
-@pytest.mark.parametrize("override,match", [
-    ("train.timestep_sampler=loss_aware", "stack-B modeling and training"),
-    ("diffusion.loss=v4", "stack-B modeling and training"),
-    ("model.architecture=transformer", "stack-B modeling and training"),
-    ("model.architecture=local_attention", "LocalTransformer training"),
+@pytest.mark.parametrize("overrides,error,match", [
+    (["model.architecture=decoder"], NotImplementedError, "transformer_decoder.py"),
+    (["train.timestep_sampler=loss_aware", "diffusion.loss=x0"], ValueError,
+     "loss_aware requires diffusion.loss=v4"),
+    (["model.architecture=local_attention"], NotImplementedError, "LocalTransformer training"),
 ])
-def test_unported_training_paths_raise(tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _train(tmp_path, override)
+def test_unported_training_paths_raise(tmp_path, overrides, error, match):
+    with pytest.raises(error, match=match):
+        _train(tmp_path, *overrides)
