@@ -50,7 +50,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one ``scaled_dot_product_attention`` with the band mask), beside the
    card's bound for the same work; each row carries its launch plan
    (``attention_plan``) and its time over the composition's (the masked
-   rows over the same shape's unmasked composition).
+   rows over the same shape's unmasked composition); and at la_train's
+   B 64 x N 96 without masks and with the keep mask alone.
 9. local-attention serve: a run directory written from the user config
    experiments/localattn5k_r3/config.json (dim 512, depth 6, 8 heads of 64,
    window 16, 4 residual streams, v4 sampler, T 1000, x0 prediction) with
@@ -101,8 +102,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 14. b_eval: ``cli.evaluate.main`` on the b_serve run against the walk clip (8 samples x H 64,
    2 replications) and ``cli.cfg_eval.main`` (scales 0 and 3, 2 samples a class, H 64):
    every metric finite.
+15. guide, run after the serve phase: ``guided_sample_loop`` with the serve phase's dim-128 U-Net
+   run (posterior T 1000, B 16 x H 64, holding_box) and a seeded ``ValueFunction`` (dim 32,
+   mults 1, 2, 4, 8, over H 64, parameters frozen): B1's count set to 0 just before and read
+   just after, 33 + 20 per step, no B2; the final values sorted, the trajectories finite; one
+   ``value_gradients`` call and one ``value_diffusion_loss`` step's gradients (B1 and B2)
+   against the plain versions; B1's and B2's rows at the ValueFunction's 20 block shapes.
+16. la_train: ``cli.train.main`` on the user config experiments/localattn5k_r3/config.json
+   (full width, attention and feed-forward dropout 0.3, v4, B 64 x H 96 on dance_a), 30
+   optimizer steps with EMA, saves and logs firing: B3's count set to 0 just before and read
+   just after, 6 a micro-step, each launch with a keep mask; one B 64 step with B3 against the
+   same step through B3's plain version with the same keep masks (loss and every gradient);
+   ms per optimizer step, busy share and peak memory over 10 steps; one request answered from
+   the trained run (B 4 x H 96, 999 forwards).
+17. dec: ``cli.train.main`` on the user config experiments/decoder10k/config.json (dim 256, 4
+   heads, 4 layers, angle + velocity loss, walk H 32, B 64) for 30 steps, one ``cli.sample``
+   request from the run (v4 T 1000, B 16 x H 32, 999 forwards) and one forward against float64
+   on the CPU (B_FWD_TOL). No kernel lies on it.
 
-Then a line with the card's name and power limit, a ``{"kernels": [...]}``
+Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
 every phase's results to one JSON file. Timings use CUDA events with the
 50 MB L2 flushed before each timed launch; TF32 is off.
@@ -137,12 +155,21 @@ from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
 from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process
+from deepmimic_diffusion_mujoco_tpu_torch.diffusion.guidance import (
+    guided_sample_loop,
+    guided_step,
+    value_diffusion_loss,
+    value_gradients,
+)
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.sampling import sample_loop
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.schedules import make_schedule
 from deepmimic_diffusion_mujoco_tpu_torch.models import temporal_unet
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
-from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
+from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet, ValueFunction
 from deepmimic_diffusion_mujoco_tpu_torch.models.transformer import TransformerMotionModel
+from deepmimic_diffusion_mujoco_tpu_torch.models.transformer_decoder import (
+    TransformerDecoderMotionModel,
+)
 from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
@@ -160,6 +187,8 @@ ROOT = Path(__file__).resolve().parent
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
 CARTWHEEL = ROOT / "data" / "motions" / "humanoid3d_cartwheel.txt"
 LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
+LA_DATA = ROOT / "data" / "motions" / "humanoid3d_dance_a.txt"
+DEC_CONFIG = ROOT / "experiments" / "decoder10k" / "config.json"
 WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
 B_CONFIG = ROOT / "experiments" / "allclips12k_r5" / "config.json"
 MOTIONS = ROOT / "data" / "motions"
@@ -174,6 +203,7 @@ GRAD_TOL = 1e-3          # per parameter: |grad(kernels) - grad(plain)| / max|gr
 LOSS_TOL = 1e-5          # |loss(kernels) - loss(plain)| / loss(plain)
 BOX_ZERO, BOX_ELBOW = [13, 14, 15, 17, 18, 19], [16, 20]
 LA_B, LA_H, LA_SMALL_B, LA_LONG, LA_PAD, LA_T_SHORT = 16, 128, 4, 1024, 120, 100
+LA_TRAIN_B, LA_TRAIN_H, LA_TRAIN_STEPS = 64, 96, 30  # la_train: the user config on dance_a
 ATTN_TOL = 1e-4          # B3, B4: |kernel - plain| per element, f32 sums in another order
 LA_FORWARD_TOL = 1e-3    # |LocalTransformer(B3) - LocalTransformer(plain)| after 6 layers
 COMP_TOL = 1e-3          # the composition yardstick against the plain version
@@ -198,6 +228,8 @@ B_FWD_TOL = 1e-4         # |forward or loss on the card - float64 on the CPU| / 
 B_GRAD_TOL = 1e-4        # per parameter: |grad(card) - grad(float64)| / max |grad(float64)|,
 B_GRAD_FLOOR = 1e-4      # the divisor at least this share of the largest gradient over all
                          # parameters (the key bias's gradient is zero in exact arithmetic)
+DEC_TRAIN_B, DEC_H, DEC_STEPS = 64, 32, 30  # dec: the user config on the walk clip
+GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) over H 64
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -823,15 +855,23 @@ def attention_plan_row(Np, C, P, w, causal, dh, batch_heads):
     return dataclasses.asdict(FA.attention_plan(Np, C, P, w, causal, dh, batch_heads))
 
 
+SERVE_MASKS = ("none", "lengths", "lengths+keep")
+TRAIN_MASKS = ("none", "keep")
+
+
 def b3_rows(dev, timer, peaks, mcfg):
     """B3 against its plain version at the requests' shapes, each without
     masks, with prefix key lengths (down to 3, so some rows have every key
-    masked), and with those and a dropout keep mask."""
+    masked), and with those and a dropout keep mask; and at la_train's
+    shape (B 64 x N 96) without masks and with the keep mask alone, as a
+    training micro-step launches it."""
     h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
     lf = 0 if causal else 1
     rows = []
     g = torch.Generator(device=dev).manual_seed(5)
-    for batch, n in ((LA_B, LA_H), (LA_SMALL_B, LA_LONG), (LA_SMALL_B, LA_PAD)):
+    for batch, n, cases in ((LA_B, LA_H, SERVE_MASKS), (LA_SMALL_B, LA_LONG, SERVE_MASKS),
+                            (LA_SMALL_B, LA_PAD, SERVE_MASKS),
+                            (LA_TRAIN_B, LA_TRAIN_H, TRAIN_MASKS)):
         p = FA.plan(n, w, causal)
         Np, K = p["Np"], p["K"]
         qkv = torch.randn(batch, n, 3 * h * dh, generator=g, device=dev)
@@ -842,7 +882,9 @@ def b3_rows(dev, timer, peaks, mcfg):
         tables = (rotary_tables(np.arange(Np) + lf * w, dh, dev), rotary_tables(np.arange(Np), dh, dev))
         mask = band_mask(Np, w, causal, dev)
         for masks, kmask, kp_mask in (("none", None, None), ("lengths", km, None),
-                                      ("lengths+keep", km, keep)):
+                                      ("lengths+keep", km, keep), ("keep", None, keep)):
+            if masks not in cases:
+                continue
             kp = KEEP_PROB if kp_mask is not None else 1.0
             args = (qkv, h, dh, w, causal, True, True, kmask, kp_mask, kp)
             out = FA.fused_qkv_local_attention_cuda(*args)
@@ -1095,6 +1137,168 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
     return {"requests": requests, "v4_T1000": chain, "forward": forwards,
             "heads_path": {"launches": b4_launches, "max_abs_err_vs_b3": b4_errs},
             "profile": profile}
+
+
+@contextlib.contextmanager
+def keep_mask_launches():
+    """Record, for every B3 launch inside the block, whether it carried a
+    dropout keep mask: -> a list of bools. The wrapper still counts its own
+    launches: it adds to the count of the name it is reached by, the
+    recorder's inside the block, which is added to its own after."""
+    seen, real = [], FA.fused_qkv_local_attention_cuda
+
+    def recorder(qkv, *args, **kw):
+        keep = args[7] if len(args) > 7 else kw.get("dropout_keep")
+        seen.append(keep is not None)
+        return real(qkv, *args, **kw)
+
+    recorder.launches = 0
+    try:
+        with swapped(FA, fused_qkv_local_attention_cuda=recorder):
+            yield seen
+    finally:
+        real.launches += recorder.launches
+
+
+def la_batch(cfg, seed, dev):
+    """The first training batch of the config's dataset (dance_a, H 96) and
+    a (t, noise) draw, on the card."""
+    ds = MotionDataset.from_path(str(LA_DATA), include_velocity=cfg.data.include_velocity,
+                                 augment=cfg.data.augment, replicas=cfg.data.replicas,
+                                 horizon_multiple=cfg.data.horizon_multiple
+                                 ).truncated(cfg.model.max_seq_len)
+    x0 = torch.from_numpy(next(ds.epochs(LA_TRAIN_B, seed=seed)).trajectories).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randint(0, cfg.diffusion.noise_steps, (LA_TRAIN_B,), generator=g, device=dev)
+    return x0, t, torch.randn(x0.shape, generator=g, device=dev)
+
+
+def la_grad_check(dev, cfg, seed):
+    """One full B 64 v4 step of the config's model (dropout live) with B3
+    against the same step through B3's plain version, both with the same
+    keep masks (the generator reseeded before each): the loss and every
+    parameter's gradient relative to its largest element."""
+    x0, t, noise = la_batch(cfg, seed, dev)
+    torch.manual_seed(seed)
+    model = factory.build_model(cfg.model, dev).train()
+    loss_fn = make_loss_fn(factory.build_schedule(cfg.diffusion, dev), model, kind="v4",
+                           predict_epsilon=False, use_mask=True,
+                           dropout=train_cli.has_dropout(cfg.model))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(x0, t, noise, generator=torch.Generator(device=dev).manual_seed(seed))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    reset_counts()
+    with keep_mask_launches() as kept:
+        loss_k, grads_k = step()
+    launched = FA.fused_qkv_local_attention_cuda.launches
+    with swapped(FA, fused_qkv_local_attention_cuda=FA.fused_qkv_local_attention_plain):
+        loss_p, grads_p = step()
+    if launched != cfg.model.depth or not all(kept) or len(kept) != launched:
+        raise RuntimeError(f"the la_train grads step launched B3 {launched} times, keep masks "
+                           f"{kept}")
+    rel = {k: ((grads_k[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+           for k, g in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / loss_p
+    if not (loss_rel <= LOSS_TOL and rel[worst] <= GRAD_TOL
+            and all(torch.isfinite(g).all() for g in grads_k.values())):
+        raise RuntimeError(f"la_train step with B3 vs plain: loss rel err {loss_rel}, "
+                           f"{worst} grad rel err {rel[worst]}")
+    return {"batch": LA_TRAIN_B, "H": x0.shape[1], "loss_b3": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_rel, "params": len(rel), "max_grad_rel_err": rel[worst],
+            "worst_param": worst, "median_grad_rel_err": float(np.median(list(rel.values()))),
+            "b3_launches": launched, "tolerance": GRAD_TOL}
+
+
+def la_train_phase(dev, args, tmp, cfg, steps=10):
+    """The local-attention training path: ``cli.train.main`` on the user
+    config (dropout 0.3 live), B3's launches each with a keep mask; the
+    gradient check against plain attention with the same masks; ms per
+    optimizer step, busy share and peak memory; one request answered from
+    the trained run."""
+    run = os.path.join(tmp, "la_train")
+    depth = cfg.model.depth
+    t0 = time.perf_counter()
+    reset_counts()
+    with keep_mask_launches() as kept, contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_cli.main([
+            "--config", str(LA_CONFIG), "--data", str(LA_DATA), "--steps", str(LA_TRAIN_STEPS),
+            "--out", run, "--device", "cuda", "--set", "train.log_every=10",
+            "train.save_every=15", "train.ema_start=20", "train.ema_every=10",
+            f"train.seed={args.seed}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = FA.fused_qkv_local_attention_cuda.launches
+    micro = LA_TRAIN_STEPS * trainer.config.gradient_accumulate_every
+    if launches != depth * micro or len(kept) != launches or not all(kept):
+        raise RuntimeError(f"la_train launched B3 {launches} times ({sum(kept)} with a keep "
+                           f"mask), expected {depth} x {micro} micro-steps, all with one")
+    if (trainer.dataset.horizon, trainer.config.batch_size) != (LA_TRAIN_H, LA_TRAIN_B):
+        raise RuntimeError(f"la_train ran H {trainer.dataset.horizon}, "
+                           f"B {trainer.config.batch_size}")
+    ckpts = Path(run) / "checkpoints"
+    saved = sorted(p.name for p in ckpts.glob("*.pt"))
+    for name in ("best_model.pt", "state_15.pt", f"state_{LA_TRAIN_STEPS}.pt"):
+        if not (ckpts / name).exists():
+            raise RuntimeError(f"la_train wrote no {name}: {saved}")
+    metrics = json.loads((Path(run) / "training_metrics.json").read_text())
+    losses = [r["loss"] for r in metrics["metrics"]]
+    ema_moved = any((trainer.state.ema_params[k] != v).any().item()
+                    for k, v in trainer.state.model.state_dict().items())
+    if (len(losses) != LA_TRAIN_STEPS // 10 or not np.isfinite(losses).all()
+            or not np.isfinite(metrics["best_loss"]) or not ema_moved):
+        raise RuntimeError(f"la_train metrics {metrics}, EMA moved {ema_moved}")
+    result = {"seconds": seconds, "optimizer_steps": LA_TRAIN_STEPS, "batch": LA_TRAIN_B,
+              "horizon": trainer.dataset.horizon, "fused_qkv_local_attention_launches": launches,
+              "launches_with_keep_mask": sum(kept), "launches_per_micro_step": launches / micro,
+              "losses": losses, "best_loss": metrics["best_loss"],
+              "best_step": metrics["best_step"], "checkpoints": saved,
+              "ema_differs_from_params": ema_moved}
+    del trainer
+
+    result["grads"] = la_grad_check(dev, cfg, args.seed)
+
+    trainer = train_cli.build_trainer(cfg.override({"data.path": str(LA_DATA),
+                                                    "train.seed": args.seed}), device=dev)
+    trainer.config = dataclasses.replace(trainer.config, log_every=10 ** 9,
+                                         best_window_frac=-1e6)
+
+    def window():
+        trainer.train(num_steps=steps)
+        torch.cuda.synchronize()
+
+    window()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    device_ms, top, host = device_time_by_kernel(window, steps)
+    del trainer
+    p = FA.plan(LA_TRAIN_H, cfg.model.window_size, cfg.model.causal)
+    result["profile"] = {
+        "ms_per_optimizer_step": wall_ms, "optimizer_steps_per_s": 1e3 / wall_ms,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms if device_ms else None,
+        "top_kernels": top, "top_host_ops": host, "peak_memory_bytes": peak,
+        "keep_mask_bytes_per_layer": 4 * LA_TRAIN_B * p["Np"] * cfg.model.n_heads * p["K"]}
+
+    with counted_forwards() as calls:
+        _, s_req, l_req = request(run, os.path.join(tmp, "la_trained"), LA_TRAIN_H, num=4,
+                                  kernel=FA.fused_qkv_local_attention_cuda)
+    steps_T = cfg.diffusion.noise_steps - 1  # v4: t = T-1 .. 1
+    if len(calls) != steps_T or l_req != depth * steps_T:
+        raise RuntimeError(f"sampling the la_train run ran {len(calls)} forwards and launched "
+                           f"B3 {l_req} times")
+    result["sample_request"] = {"frames": LA_TRAIN_H, "num": 4, "seconds": s_req,
+                                "fused_qkv_local_attention_launches": l_req}
+    emit({"phase": "main_path", "path": "la_train", **result})
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1402,6 +1606,189 @@ def b_eval_phase(dev, run):
               "cfg_eval": {"seconds": cfg_s, "scales": summary},
               "sifid_svd_ms": svd_ms, "kernel_launches": kernel_counts()}
     emit({"phase": "main_path", "path": "b_eval", **result})
+    return result
+
+
+def dec_phase(dev, timer, args, tmp):
+    """The decoder (no kernel; f32 with TF32 off): ``cli.train.main`` on the
+    user config experiments/decoder10k (angle + velocity loss, walk H 32, B
+    64) for 30 steps, one ``cli.sample.main`` request answered from the run
+    (v4, T 1000, B 16 x H 32), and one forward on the card against the same
+    weights in float64 on the CPU."""
+    run = os.path.join(tmp, "dec")
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_cli.main([
+            "--config", str(DEC_CONFIG), "--data", str(WALK), "--steps", str(DEC_STEPS),
+            "--out", run, "--device", "cuda", "--set", "train.log_every=10",
+            "train.save_every=15", "train.ema_start=20", "train.ema_every=10",
+            f"train.seed={args.seed}"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if (trainer.dataset.horizon, trainer.config.batch_size) != (DEC_H, DEC_TRAIN_B):
+        raise RuntimeError(f"dec ran H {trainer.dataset.horizon}, B {trainer.config.batch_size}")
+    ckpts = Path(run) / "checkpoints"
+    saved = sorted(p.name for p in ckpts.glob("*.pt"))
+    for name in ("best_model.pt", "state_15.pt", f"state_{DEC_STEPS}.pt"):
+        if not (ckpts / name).exists():
+            raise RuntimeError(f"dec wrote no {name}: {saved}")
+    metrics = json.loads((Path(run) / "training_metrics.json").read_text())
+    recs = metrics["metrics"]
+    ema_moved = any((trainer.state.ema_params[k] != v).any().item()
+                    for k, v in trainer.state.model.state_dict().items())
+    if (len(recs) != DEC_STEPS // 10 or not ema_moved
+            or not all(np.isfinite([r["loss"], r["loss_angle"], r["loss_velocity"]]).all()
+                       for r in recs)):
+        raise RuntimeError(f"dec metrics {metrics}, EMA moved {ema_moved}")
+    result = {"seconds": seconds, "optimizer_steps": DEC_STEPS, "batch": DEC_TRAIN_B,
+              "horizon": DEC_H, "losses": [r["loss"] for r in recs],
+              "best_loss": metrics["best_loss"], "checkpoints": saved,
+              "ema_differs_from_params": ema_moved, "kernel_launches": kernel_counts()}
+    del trainer
+
+    with counted_forwards(TransformerDecoderMotionModel) as calls:
+        _, s_req, _ = request(run, os.path.join(tmp, "dec_req"), DEC_H, num=B)
+    cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+    if len(calls) != cfg.diffusion.noise_steps - 1 or set(calls) != {B}:
+        raise RuntimeError(f"the dec request ran {len(calls)} forwards of batch {set(calls)}")
+    result["sample_request"] = {"frames": DEC_H, "num": B, "T": cfg.diffusion.noise_steps,
+                                "forwards": len(calls), "seconds": s_req,
+                                "samples_per_s": B / s_req}
+
+    model, _ = load_model(run, dev)
+    g = torch.Generator().manual_seed(args.seed + 4)
+    x = torch.randn(B, DEC_H, cfg.model.input_dim, generator=g)
+    t = torch.randint(0, cfg.diffusion.noise_steps, (B,), generator=g)
+    with torch.inference_mode():
+        out = model(x.to(dev), t.to(dev)).cpu().double()
+        ref = copy.deepcopy(model).cpu().double()(x.double(), t)
+    err = ((out - ref).abs().max() / ref.abs().max()).item()
+    if not (err <= B_FWD_TOL and torch.isfinite(out).all()):
+        raise RuntimeError(f"decoder forward on the card differs from float64 by {err}")
+    xd, td = x.to(dev), t.to(dev)
+    with torch.inference_mode():
+        fwd_ms = timer(lambda: model(xd, td), reps=10)
+    result.update(forward_rel_err_vs_float64=err, forward_tolerance=B_FWD_TOL,
+                  forward_ms=fwd_ms)
+    emit({"phase": "main_path", "path": "dec", **result})
+    return result
+
+
+def guide_phase(dev, timer, args, tmp, peaks):
+    """Value guidance: ``guided_sample_loop`` with the serve phase's dim-128
+    U-Net run (posterior T 1000, B 16 x H 64, holding_box) and a seeded
+    ValueFunction (dim 32, mults 1, 2, 4, 8, over H 64, parameters frozen):
+    B1's launches (33 U-Net + 20 value blocks a step, no B2), the sorted
+    values and finite trajectories; one ``value_gradients`` call and one
+    ``value_diffusion_loss`` step's gradients (B1 and B2) against the plain
+    versions; the profile of 20 guided steps; B1's and B2's rows at the
+    ValueFunction's shapes."""
+    unet, sched = load_model(os.path.join(tmp, "serve_run"), dev)
+    torch.manual_seed(args.seed)
+    value = ValueFunction(D, H, dim=GUIDE_DIM).to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    x = torch.randn(B, H, D, generator=g, device=dev)
+    t = torch.randint(0, T, (B,), generator=g, device=dev)
+    shapes = Counter(record_block_shapes(value, x, t))
+    per_value, per_unet = sum(shapes.values()), 33
+    cond = conditioning.holding_box(D, device=dev)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, values = guided_sample_loop(sched, unet, value, (B, H, D),
+                                     torch.Generator(device=dev).manual_seed(args.seed),
+                                     conditioning_fn=cond)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    b1, b2 = counts()
+    traj = out.trajectories
+    if (b1, b2) != ((per_unet + per_value) * T, 0):
+        raise RuntimeError(f"guided sampling launched conv_gn_mish {b1} and conv1d_weight_grad "
+                           f"{b2} times, expected ({per_unet} + {per_value}) x {T} and 0")
+    if (traj.shape != (B, H, D) or not torch.isfinite(traj).all()
+            or not torch.isfinite(values).all() or not (values[:-1] >= values[1:]).all()):
+        raise RuntimeError(f"guided sampling: shape {tuple(traj.shape)}, values {values}")
+    result = {"seconds": seconds, "samples_per_s": B / seconds, "T": T, "B": B, "H": H,
+              "value_dim": GUIDE_DIM, "conv_gn_mish_launches": b1,
+              "conv_gn_mish_launches_per_step": b1 // T, "conv1d_weight_grad_launches": b2,
+              "values_sorted": values.tolist()}
+
+    reset_counts()
+    y_k, g_k = value_gradients(value, x, t)
+    torch.cuda.synchronize()
+    launched = counts()
+    with plain_kernels():
+        y_p, g_p = value_gradients(value, x, t)
+    y_err = (y_k - y_p).abs().max().item()
+    g_err = ((g_k - g_p).abs().max() / g_p.abs().max()).item()
+    if launched != (per_value, 0) or not (y_err <= FORWARD_TOL and g_err <= GRAD_TOL):
+        raise RuntimeError(f"value_gradients with B1 vs plain: launches {launched}, value err "
+                           f"{y_err}, grad rel err {g_err}")
+    result["value_gradients"] = {"conv_gn_mish_launches": launched[0], "value_max_abs_err": y_err,
+                                 "grad_rel_err": g_err}
+
+    trainable = copy.deepcopy(value).requires_grad_(True).train()
+    x0 = torch.randn(B, H, D, generator=g, device=dev)
+    target = torch.randn(B, generator=g, device=dev)
+    noise = torch.randn(B, H, D, generator=g, device=dev)
+
+    def step():
+        trainable.zero_grad(set_to_none=True)
+        loss, _ = value_diffusion_loss(sched, trainable, x0, target, t, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in trainable.named_parameters()}
+
+    reset_counts()
+    loss_k, grads_k = step()
+    launched = counts()
+    with plain_kernels():
+        loss_p, grads_p = step()
+    rel = {k: ((grads_k[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+           for k, v in grads_p.items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / loss_p
+    if launched != (per_value, per_value) or not (loss_rel <= LOSS_TOL
+                                                  and rel[worst] <= GRAD_TOL):
+        raise RuntimeError(f"value_diffusion_loss with B1, B2 vs plain: launches {launched}, "
+                           f"loss rel err {loss_rel}, {worst} grad rel err {rel[worst]}")
+    result["value_diffusion_loss"] = {
+        "launches": {"conv_gn_mish": launched[0], "conv1d_weight_grad": launched[1]},
+        "loss_rel_err": loss_rel, "max_grad_rel_err": rel[worst], "worst_param": worst}
+
+    n = min(20, T)
+
+    def window():
+        xs = traj
+        for i in range(n):
+            ts = torch.full((B,), T - 1 - i, dtype=torch.long, device=dev)
+            with torch.no_grad():
+                xs, _ = guided_step(sched, unet, value, xs, ts, noise, conditioning_fn=cond)
+        torch.cuda.synchronize()
+
+    window()
+    t0 = time.perf_counter()
+    window()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    device_ms, top, host_ops = device_time_by_kernel(window, n)
+    result["profile"] = {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+                         "device_busy_share": device_ms / wall_ms if device_ms else None,
+                         "top_kernels": top, "top_host_ops": host_ops}
+    emit({"phase": "profile", "path": "guide", **result["profile"]})
+    b1 = result["b1_rows"] = b1_rows(dev, timer, {H: shapes}, peaks, B)
+    b2 = result["b2_rows"] = b2_rows(dev, timer, shapes, peaks, B)
+    w = f"per_forward_h{H}"
+    result["value_function_kernels"] = {  # sums over one value forward's / step's 20 launches
+        "conv_gn_mish": {"max_abs_err": max(r["max_abs_err"] for r in b1),
+                         **{k: sum(r[k] * r[w] for r in b1)
+                            for k in ("ms", "plain_ms", "bound_ms", "composition_ms")}},
+        "conv1d_weight_grad": {"max_rel_err": max(r["max_rel_err"] for r in b2),
+                               **{k: sum(r[k] * r["per_micro_step"] for r in b2)
+                                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}}
+    emit({"phase": "main_path", "path": "guide",
+          **{k: v for k, v in result.items() if k not in ("profile", "b1_rows", "b2_rows")}})
     return result
 
 
@@ -1791,7 +2178,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ptxas = build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
     timer = Timer(dev)
     torch.manual_seed(args.seed)
@@ -1818,31 +2206,44 @@ def main(argv=None) -> int:
     emit({"phase": "physics_operations_per_env", **phys_ops})
     phys = physics_kernel_rows(dev, timer, peaks, phys_ops)
 
-    result = {"kernel_rows": {"conv_gn_mish_serve": serve_rows,
+    result = {"phase_seconds": {"build": build_s, "kernels": time.perf_counter() - t0 - build_s},
+              "kernel_rows": {"conv_gn_mish_serve": serve_rows,
                               "conv_gn_mish_train": train_rows,
                               "conv1d_weight_grad_train": wgrad_rows,
                               "fused_qkv_local_attention": b3, "local_attention_heads": b4,
                               "physics": phys, "physics_operations_per_env": phys_ops}}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds = result.setdefault("phase_seconds", {})[name] = time.perf_counter() - t0
+        emit({"phase": "phase_seconds", "name": name, "seconds": seconds})
+        return out
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        result["serve"] = serve_phase(dev, timer, args, tmp, shape_counts, peaks)
-        result["physics"] = physics_phase(dev, tmp, phys_ops, peaks)
-        result["la_serve"] = la_serve_phase(dev, timer, args, tmp, la_cfg)
-        result["train"] = train_phase(args, tmp, per_step)
+        result["serve"] = phase("serve", serve_phase, dev, timer, args, tmp, shape_counts, peaks)
+        result["guide"] = phase("guide", guide_phase, dev, timer, args, tmp, peaks)
+        result["physics"] = phase("physics", physics_phase, dev, tmp, phys_ops, peaks)
+        result["la_serve"] = phase("la_serve", la_serve_phase, dev, timer, args, tmp, la_cfg)
+        result["la_train"] = phase("la_train", la_train_phase, dev, args, tmp, la_cfg)
+        result["train"] = phase("train", train_phase, args, tmp, per_step)
         b_cfg = ExperimentConfig.load(str(B_CONFIG))
-        result["b_serve"], b_run = b_serve_phase(dev, timer, args, tmp, b_cfg)
-        result["b_train"] = b_train_phase(dev, args, tmp, b_cfg)
-        result["b_eval"] = b_eval_phase(dev, b_run)
+        result["b_serve"], b_run = phase("b_serve", b_serve_phase, dev, timer, args, tmp, b_cfg)
+        result["b_train"] = phase("b_train", b_train_phase, dev, args, tmp, b_cfg)
+        result["b_eval"] = phase("b_eval", b_eval_phase, dev, b_run)
+        result["dec"] = phase("dec", dec_phase, dev, timer, args, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    result["grads"] = grads_phase(dev, args.seed)
-    result["train_profile"] = train_profile_phase(dev, args.seed)
+    result["grads"] = phase("grads", grads_phase, dev, args.seed)
+    result["train_profile"] = phase("train_profile", train_profile_phase, dev, args.seed)
 
     def per_launch_sum(rows, key, weight):
         return sum(r[key] * r[weight] for r in rows)
 
     w_fwd = f"per_forward_h{TRAIN_H}"
     w_serve = f"per_forward_h{H}"
+    guide = result["guide"]
     kernels = [{
         "name": "conv_gn_mish", "route": "cuda", "status": "ported; matches its plain version",
         "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv_gn_mish.cu",
@@ -1866,6 +2267,9 @@ def main(argv=None) -> int:
         / per_launch_sum(serve_rows, "composition_ms", w_serve),
         "host_wrapper_us": result["serve"]["profile"]["conv_block_host"]["wrapper_us"],
         "launches_per_forward": per_step,
+        # value guidance: the U-Net's 33 and the ValueFunction's 20 launches a step
+        "launches_guide": guide["conv_gn_mish_launches"],
+        "value_function_forward": guide["value_function_kernels"]["conv_gn_mish"],
     }, {
         "name": "conv1d_weight_grad", "route": "cuda",
         "status": "ported; matches its plain version",
@@ -1882,9 +2286,13 @@ def main(argv=None) -> int:
         else "bytes",
         "library_ms": per_launch_sum(wgrad_rows, "library_ms", "per_micro_step"),
         "launches_per_micro_step": per_step,
+        # value training: one value_diffusion_loss step's 20 launches (B 16, H 64)
+        "launches_value_step": guide["value_diffusion_loss"]["launches"]["conv1d_weight_grad"],
+        "value_function_step": guide["value_function_kernels"]["conv1d_weight_grad"],
     }]
     # B3 and B4: per launch at the serving shape (B 16, H 128, no masks)
     b3_main, b4_main = b3[0], b4[0]
+    b3_train = next(r for r in b3 if r["masks"] == "keep")
     la_requests = result["la_serve"]["requests"]
     kernels += [{
         "name": "fused_qkv_local_attention", "route": "cuda",
@@ -1899,6 +2307,11 @@ def main(argv=None) -> int:
         "composition_ms": b3_main["composition_ms"],
         "shape": {"B": LA_B, "N": LA_H, "heads": la_cfg.model.n_heads,
                   "dim_head": la_cfg.model.dim_head, "window": la_cfg.model.window_size},
+        # training: 6 launches a micro-step, each with the dropout keep mask (B 64, N 96)
+        "launches_la_train": result["la_train"]["fused_qkv_local_attention_launches"],
+        "train_keep_mask": {k: b3_train[k] for k in ("B", "N", "max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "composition_ratio",
+                                                     "plan")},
     }, {
         "name": "local_attention_heads", "route": "cuda",
         "status": "ported; matches its plain version",

@@ -11,9 +11,9 @@ present). The run directory holds the JAX package's ``config.json`` and the
 port's checkpoints (``checkpoints/best_model.pt`` or ``state_<step>.pt``,
 see ``train/checkpoint.py``). Motions are saved with exactly 35 qpos dims,
 one ``.npy`` per sample. The run's ``model.architecture`` may be
-``temporal``, ``transformer`` or ``local_attention``; for the two
-transformers ``--frames`` may not exceed ``model.max_seq_len``, the rows of
-their learned position tables. With ``--class-id`` on a class-conditional
+``temporal``, ``transformer``, ``local_attention`` or ``decoder``; for the
+three transformers ``--frames`` may not exceed ``model.max_seq_len``, the
+rows of their learned position and query tables. With ``--class-id`` on a class-conditional
 run, every step runs the conditional and the null-label branch as one
 2B-batch forward and lerps them by ``--cfg-scale`` (default: the config's
 ``diffusion.cfg_scale``).

@@ -13,15 +13,20 @@ the port's ``cli/sample.py`` reads back.
 
 As in the JAX CLI, ``train.gradient_accumulate_every = k`` averages k
 micro-batches of ``train.batch_size`` per optimizer update, and the EMA
-gates count micro-steps (``train/state.py``). It trains the temporal U-Net
-and the MDM transformer (``architecture="transformer"``; the dataset is cut
-to ``model.max_seq_len`` frames, the rows of its position table) with
-every loss kind (``diffusion.loss``: diffuser, v4, x0, kl,
-angle_velocity), CFG label drop toward the null label ``num_classes``,
-dropout where the model has it, and ``train.timestep_sampler="loss_aware"``
-(v4 only, as in JAX). Training ``local_attention`` and ``decoder`` raises
-``NotImplementedError`` naming its ROADMAP.md item. The port trains on one
-device (the JAX CLI's data mesh is ROADMAP.md's parallel layer).
+gates count micro-steps (``train/state.py``). It trains every architecture
+of the port: the temporal U-Net, the MDM transformer
+(``architecture="transformer"``), the local-attention transformer
+(``local_attention``; its attention through B3 on the card, with the
+dropout keep mask) and the decoder (``decoder``); for the three
+transformers the dataset is cut to ``model.max_seq_len`` frames, the rows
+of their position tables. Every loss kind (``diffusion.loss``: diffuser,
+v4, x0, kl, angle_velocity), CFG label drop toward the null label
+``num_classes``, dropout where the config turns it on (as the JAX CLI's
+``has_dropout``: ``transformer`` with ``dropout``, ``local_attention`` with
+``attn_dropout`` or ``ff_dropout`` > 0), and
+``train.timestep_sampler="loss_aware"`` (v4 only, as in JAX). The port
+trains on one device (the JAX CLI's data mesh is ROADMAP.md's parallel
+layer).
 """
 from __future__ import annotations
 
@@ -43,15 +48,19 @@ from ..train.loop import Trainer, TrainerConfig, make_loss_fn
 from ..train.state import EMAConfig, TrainState, make_optimizer
 
 
+def has_dropout(m) -> bool:
+    """Whether dropout is live in training: the architectures that define
+    it, with a rate above 0 (the JAX CLI's ``has_dropout``)."""
+    return ((m.architecture == "transformer" and m.dropout > 0)
+            or (m.architecture == "local_attention"
+                and (m.attn_dropout > 0 or m.ff_dropout > 0)))
+
+
 def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: bool = False,
                   device: str | torch.device = "cuda") -> Trainer:
     """``resume=True`` restores the latest periodic checkpoint in
     ``out_dir``."""
     dev = resolve_device(device)
-    if cfg.model.architecture == "local_attention":
-        raise NotImplementedError(
-            "training the local-attention transformer is not ported yet: ROADMAP.md Queue A, "
-            "local attention: LocalTransformer training")
     if cfg.train.timestep_sampler == "loss_aware" and cfg.diffusion.loss != "v4":
         raise ValueError("timestep_sampler=loss_aware requires diffusion.loss=v4")
     with torch.random.fork_rng(devices=[]):
@@ -85,8 +94,7 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
         weights=weights, loss_kind=d.loss_kind, label_drop_prob=t.label_drop_prob,
         null_label=cfg.model.num_classes or None, smooth_loss_weight=d.smooth_loss_weight,
         use_mask=d.loss in ("v4", "x0"),
-        # dropout is live in training where the architecture has it
-        dropout=cfg.model.architecture == "transformer" and cfg.model.dropout > 0,
+        dropout=has_dropout(cfg.model),
     )
 
     ckpt = None

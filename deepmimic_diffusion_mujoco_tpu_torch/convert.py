@@ -68,6 +68,27 @@ layer_i/adaln_mod                                        layers.i.adaln_mod     
 The flax projections' head axis is the outer one of the flattened feature
 axis (head-major), as the port's ``view(B, N, h, dh)`` reads it. The adaLN
 layers' and the final modulation's LayerNorms have no parameters.
+
+``decoder_from_flax`` does the same for the JAX TransformerDecoderMotionModel
+(``models.transformer_decoder.TransformerDecoderMotionModel``):
+
+=======================================================  ====================================  ==========================
+flax path                                                torch key                             transform
+=======================================================  ====================================  ==========================
+input_process, embed_timestep_{0,1}, output_process      same name .{weight,bias}              kernel.T
+seq_queries                                              seq_queries                           none
+learned_time_embed/embedding                             learned_time_embed.weight             none
+{conv_local,spatial_attn}/Conv_j/{kernel,bias}           <name>.convs.j.{weight,bias}          kernel.transpose(2, 1, 0)
+dec_i/MultiHeadDotProductAttention_{0,1}/...             layers.i.{self,cross}_attn.<name>     as the MHA rows above
+dec_i/LayerNorm_j/{scale,bias}                           layers.i.norm_j.{weight,bias}         none
+dec_i/Dense_j/{kernel,bias}                              layers.i.dense_j.{weight,bias}        kernel.T
+=======================================================  ====================================  ==========================
+
+``value_function_from_flax`` does the same for the JAX ValueFunction
+(``models.temporal_unet.ValueFunction``): ``Dense_0``, ``Dense_1`` are
+``time_mlp.{0,1}``, ``Dense_2``, ``Dense_3`` are ``head.{0,1}`` (kernel.T),
+``Conv_i`` is ``downsamples.i`` (kernel.transpose(2, 1, 0)), and each
+``ResidualTemporalBlock_i`` maps as in the U-Net's table.
 """
 from __future__ import annotations
 
@@ -221,3 +242,50 @@ _TRANSFORMER_TABLE = [
 def transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
     """Map a flax TransformerMotionModel param tree to the port's state dict."""
     return _map_table(params_np, _TRANSFORMER_TABLE)
+
+
+_CONV = lambda a: a.transpose(2, 1, 0)  # flax (k, Cin, Cout) -> torch Conv1d (Cout, Cin, k)
+_HEADS = lambda a: a.reshape(a.shape[0], -1).T
+_HEADS_BIAS = lambda b: b.reshape(-1)
+_OUT = lambda a: a.reshape(-1, a.shape[-1]).T
+
+_DECODER_TABLE = [
+    (r"(input_process|embed_timestep_[01]|output_process)/(kernel|bias)", "{0}.{leaf}", _DENSE),
+    (r"(seq_queries)", "{0}", _SAME),
+    (r"learned_time_embed/(embedding)", "learned_time_embed.weight", _SAME),
+    (r"(conv_local|spatial_attn)/Conv_([01])/(kernel|bias)", "{0}.convs.{1}.{leaf}", _CONV),
+    (rf"dec_(\d+)/{_MHA}/(query|key|value)/(kernel|bias)", "layers.{0}.self_attn.{1}.{leaf}",
+     _HEADS, _HEADS_BIAS),
+    (rf"dec_(\d+)/{_MHA}/(out)/(kernel|bias)", "layers.{0}.self_attn.{1}.{leaf}", _OUT),
+    (r"dec_(\d+)/MultiHeadDotProductAttention_1/(query|key|value)/(kernel|bias)",
+     "layers.{0}.cross_attn.{1}.{leaf}", _HEADS, _HEADS_BIAS),
+    (r"dec_(\d+)/MultiHeadDotProductAttention_1/(out)/(kernel|bias)",
+     "layers.{0}.cross_attn.{1}.{leaf}", _OUT),
+    (r"dec_(\d+)/LayerNorm_([012])/(scale|bias)", "layers.{0}.norm_{1}.{norm}", _SAME),
+    (r"dec_(\d+)/Dense_([01])/(kernel|bias)", "layers.{0}.dense_{1}.{leaf}", _DENSE),
+]
+
+
+def decoder_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax TransformerDecoderMotionModel param tree to the port's state dict."""
+    return _map_table(params_np, _DECODER_TABLE)
+
+
+_RTB = r"ResidualTemporalBlock_(\d+)"
+_VALUE_TABLE = [
+    (r"Dense_([01])/(kernel|bias)", "time_mlp.{0}.{leaf}", _DENSE),
+    (r"Dense_2/(kernel|bias)", "head.0.{leaf}", _DENSE),
+    (r"Dense_3/(kernel|bias)", "head.1.{leaf}", _DENSE),
+    (r"Conv_(\d+)/(kernel|bias)", "downsamples.{0}.{leaf}", _CONV),
+    (_RTB + r"/Conv1dBlock_(\d+)/conv_(kernel)", "res_blocks.{0}.blocks.{1}.weight", _SAME),
+    (_RTB + r"/Conv1dBlock_(\d+)/conv_(bias)", "res_blocks.{0}.blocks.{1}.bias", _SAME),
+    (_RTB + r"/Conv1dBlock_(\d+)/gn_(scale)", "res_blocks.{0}.blocks.{1}.gn_weight", _SAME),
+    (_RTB + r"/Conv1dBlock_(\d+)/gn_(bias)", "res_blocks.{0}.blocks.{1}.gn_bias", _SAME),
+    (_RTB + r"/Dense_0/(kernel|bias)", "res_blocks.{0}.time_dense.{leaf}", _DENSE),
+    (_RTB + r"/Conv_0/(kernel|bias)", "res_blocks.{0}.residual.{leaf}", _CONV1X1),
+]
+
+
+def value_function_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Map a flax ValueFunction param tree to the port's state dict."""
+    return _map_table(params_np, _VALUE_TABLE)

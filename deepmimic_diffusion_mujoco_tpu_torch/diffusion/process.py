@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from .schedules import Schedule, extract
 
 
@@ -120,7 +121,7 @@ def diffuser_loss_weights(
     action_weight: float = 1.0,
     discount: float = 1.0,
     weights_dict: dict | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """(H, D) per-element loss weights: discount**h per frame (normalised to
     mean 1), ``action_weight`` on frame 0, ``weights_dict`` {dim: factor}
@@ -132,7 +133,7 @@ def diffuser_loss_weights(
     discounts = discounts / discounts.mean()
     weights = discounts[:, None] * dim_weights[None, :]
     weights[0, :] = action_weight
-    return weights.to(device)
+    return weights.to(resolve_device(device))
 
 
 def weighted_loss(pred, target, weights, kind: str = "l2"):

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import resolve_device
+
 
 def uniform_timesteps(generator: torch.Generator, batch: int, num_timesteps: int):
     """t ~ U{0..T-1} on the generator's device, weights 1."""
@@ -35,7 +37,8 @@ class LossSecondMomentState:
 
     @classmethod
     def create(cls, num_timesteps: int, history: int = 10,
-               device: str | torch.device = "cpu") -> "LossSecondMomentState":
+               device: str | torch.device = "cuda") -> "LossSecondMomentState":
+        device = resolve_device(device)
         return cls(losses=torch.zeros((num_timesteps, history), dtype=torch.float32,
                                       device=device),
                    counts=torch.zeros((num_timesteps,), dtype=torch.int64, device=device))

@@ -1,9 +1,9 @@
 """Build models and schedules from an ExperimentConfig.
 
-Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``. The port has
-the MDM transformer, the temporal U-Net and the local-attention
-transformer; the decoder and bf16 compute raise ``NotImplementedError``
-naming the ROADMAP.md item that brings them.
+Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``: the MDM
+transformer, the temporal U-Net, the local-attention transformer and the
+decoder. bf16 compute raises ``NotImplementedError`` naming the ROADMAP.md
+item that brings it.
 """
 from __future__ import annotations
 
@@ -14,11 +14,8 @@ from .diffusion.schedules import Schedule, make_schedule
 from .models.local_attention import LocalTransformer
 from .models.temporal_unet import TemporalUnet
 from .models.transformer import TransformerMotionModel
+from .models.transformer_decoder import TransformerDecoderMotionModel
 from .train.config import DiffusionConfig, ExperimentConfig, ModelConfig
-
-_NOT_PORTED = {
-    "decoder": "ROADMAP.md Queue A, models/transformer_decoder.py (the stack-B decoder)",
-}
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.nn.Module:
@@ -52,9 +49,11 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.
             use_global_attn=cfg.use_global_attn,
             global_attn_layers=tuple(cfg.global_attn_layers), num_classes=cfg.num_classes,
         ).to(dev)
-    if cfg.architecture in _NOT_PORTED:
-        raise NotImplementedError(
-            f"architecture {cfg.architecture!r} is not ported yet: {_NOT_PORTED[cfg.architecture]}")
+    if cfg.architecture == "decoder":
+        return TransformerDecoderMotionModel(
+            horizon=cfg.max_seq_len, transition_dim=cfg.input_dim, dim=cfg.latent_dim,
+            n_heads=cfg.n_heads, num_layers=cfg.num_layers,
+        ).to(dev)
     raise ValueError(f"unknown architecture {cfg.architecture!r}")
 
 

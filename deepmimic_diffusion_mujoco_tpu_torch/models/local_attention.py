@@ -15,10 +15,18 @@ Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/local_attention.py``:
 - ``GEGLUFeedForward``, ``DynamicPositionBias`` and ``LocalTransformer``
   with hyper-connection residual streams.
 
-Serving only: dropout in training mode, the global-attention inserts and the
-KV-cache decode raise ``NotImplementedError`` naming their ROADMAP.md item.
-Norms use flax's eps 1e-6 and GELU is flax's tanh approximation, so
-``convert.local_transformer_from_flax`` weights reproduce the JAX model.
+Dropout (training mode, ``attn_dropout`` / ``ff_dropout`` > 0) draws its
+keep masks from the ``generator`` passed to ``forward``, on the
+generator's device, in the order flax draws them: per layer, the
+attention's mask, then the feed-forward's. On the kernel route the
+attention's mask is the kernel-layout keep mask
+(``ops.fused_local_attention.dropout_keep_mask``) that B3 applies to its
+probabilities; the bucketed path drops its probabilities in its own
+layout, as the JAX package's jnp path does. The global-attention inserts
+and the KV-cache decode raise ``NotImplementedError`` naming their
+ROADMAP.md item. Norms use flax's eps 1e-6 and GELU is flax's tanh
+approximation, so ``convert.local_transformer_from_flax`` weights
+reproduce the JAX model.
 """
 from __future__ import annotations
 
@@ -30,10 +38,10 @@ import torch.nn.functional as F
 from ..ops import fused_local_attention as FK
 from . import hyper_connections as hc_lib
 from .embeddings import apply_rotary, mdm_timestep_embedding, rotary_angles, xpos_scale
+from .transformer import keep_mask
 
 NEG_INF = -1e9
 EPS = 1e-6  # flax LayerNorm / RMSNorm
-_TRAINING = "ROADMAP.md Queue A, local attention: LocalTransformer training"
 
 
 def _look_around(bx: torch.Tensor, backward: int, forward: int, pad_value: float = 0.0):
@@ -120,10 +128,8 @@ def local_attention(q, k, v, window_size: int, *, causal: bool = False,
         sim = sim.masked_fill(km[:, None, :, None, :] <= 0, NEG_INF)
     attn = sim.softmax(dim=-1)
     if attn_dropout > 0.0:
-        if generator is None:
-            raise ValueError("attention dropout needs a torch.Generator")
-        keep = torch.rand(attn.shape, generator=generator, device=generator.device).to(dev)
-        attn = attn * (keep < 1.0 - attn_dropout) / (1.0 - attn_dropout)
+        keep = keep_mask(attn.shape, 1.0 - attn_dropout, generator, dev)
+        attn = attn * keep / (1.0 - attn_dropout)
     out = torch.einsum("bhnij,bhnje->bhnie", attn, bv)
     return out.reshape(B, h, n, dh)[:, :, :N]
 
@@ -150,15 +156,21 @@ class LocalMHA(nn.Module):
                 and not self.use_xpos
                 and FK.supports(N, self.window_size, self.use_xpos, self.causal))
 
-    def forward(self, x, key_mask=None, window_size=None, bias_table=None):
-        if self.training and self.attn_dropout > 0.0:
-            raise NotImplementedError(f"attention dropout in training mode: {_TRAINING}")
+    def forward(self, x, key_mask=None, window_size=None, bias_table=None, generator=None):
         B, N, _ = x.shape
         h, dh = self.heads, self.dim_head
+        dropout = self.attn_dropout if self.training else 0.0
         qkv = self.to_qkv(self.norm(x))
         if self.uses_kernel(N, window_size, bias_table):
+            keep = None
+            if dropout > 0.0:
+                if generator is None:
+                    raise ValueError("attention dropout in training mode needs a torch.Generator")
+                keep = FK.dropout_keep_mask(generator, 1.0 - dropout, B, N, h, self.window_size,
+                                            self.causal)
             out = FK.fused_qkv_local_attention(qkv, h, dh, self.window_size, self.causal,
-                                               self.exact_windowsize, True, key_mask)
+                                               self.exact_windowsize, True, key_mask, keep,
+                                               1.0 - dropout)
         else:
             q, k, v = qkv.reshape(B, N, 3, h, dh).permute(2, 0, 3, 1, 4)  # (B, h, N, dh) each
             out = local_attention(
@@ -169,12 +181,14 @@ class LocalMHA(nn.Module):
                 xpos_scale_base=(self.xpos_scale_base if self.xpos_scale_base is not None
                                  else self.window_size // 2),
                 key_mask=key_mask, mask_window_size=self.window_size, bias_table=bias_table,
+                attn_dropout=dropout, generator=generator,
             ).transpose(1, 2).reshape(B, N, h * dh)
         return self.to_out(out)
 
 
 class GEGLUFeedForward(nn.Module):
-    """Pre-norm GEGLU MLP: inner = int(dim * mult * 2/3), gated by GELU (tanh)."""
+    """Pre-norm GEGLU MLP: inner = int(dim * mult * 2/3), gated by GELU
+    (tanh), with dropout between the gate and the down-projection."""
 
     def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
         super().__init__()
@@ -184,11 +198,14 @@ class GEGLUFeedForward(nn.Module):
         self.proj_in = nn.Linear(dim, 2 * inner, bias=False)
         self.proj_out = nn.Linear(inner, dim, bias=False)
 
-    def forward(self, x):
-        if self.training and self.dropout > 0.0:
-            raise NotImplementedError(f"feed-forward dropout in training mode: {_TRAINING}")
+    def forward(self, x, generator=None):
         a, g = self.proj_in(self.norm(x)).chunk(2, dim=-1)
-        return self.proj_out(a * F.gelu(g, approximate="tanh"))
+        h = a * F.gelu(g, approximate="tanh")
+        if self.training and self.dropout > 0.0:
+            keep_prob = 1.0 - self.dropout
+            keep = keep_mask(h.shape, keep_prob, generator, h.device)
+            h = torch.where(keep, h / keep_prob, torch.zeros_like(h))
+        return self.proj_out(h)
 
 
 class DynamicPositionBias(nn.Module):
@@ -252,7 +269,8 @@ class LocalTransformer(nn.Module):
         self.final_layer = nn.Linear(dim, input_dim)
 
     def forward(self, x, time=None, y=None, mask=None, window_size=None, cache=None,
-                decode_pos=None):
+                decode_pos=None, generator=None):
+        """``generator`` feeds the dropout keep masks in training mode."""
         if cache is not None or decode_pos is not None:
             raise NotImplementedError(
                 "the KV-cache incremental decode is not ported yet: "
@@ -285,13 +303,15 @@ class LocalTransformer(nn.Module):
             mha, ff = self.attn[i], self.ff[i]
             if use_hc:
                 hin, res, beta = self.hc_attn[i](h)
-                out = mha(hin, key_mask=mask, window_size=window_size, bias_table=bias_table)
+                out = mha(hin, key_mask=mask, window_size=window_size, bias_table=bias_table,
+                          generator=generator)
                 h = hc_lib.depth_connection(out, res, beta)
                 hin, res, beta = self.hc_ff[i](h)
-                h = hc_lib.depth_connection(ff(hin), res, beta)
+                h = hc_lib.depth_connection(ff(hin, generator), res, beta)
             else:
-                h = h + mha(h, key_mask=mask, window_size=window_size, bias_table=bias_table)
-                h = h + ff(h)
+                h = h + mha(h, key_mask=mask, window_size=window_size, bias_table=bias_table,
+                            generator=generator)
+                h = h + ff(h, generator)
         if use_hc:
             h = hc_lib.reduce_streams(h)
         return self.final_layer(self.norm(h))

@@ -18,6 +18,14 @@ so ``convert.temporal_unet_from_flax`` maps parameters by a fixed table:
 ``res_blocks.i`` is ``ResidualTemporalBlock_i``, ``attentions.i`` is
 ``PreNormResidualAttention_i``, ``downsamples.i`` is ``Conv_i``,
 ``upsamples.i`` is ``ConvTranspose_i``, ``time_mlp.i`` is ``Dense_i``.
+
+``ValueFunction`` is the U-Net's down path and mid blocks with stride-2
+downsamples, flattened into a Dense head over ``concat([x, t])``: one
+value per trajectory, which ``diffusion/guidance.py`` climbs. Its 20 conv
+blocks are the same fused call, so on the card each is the B1 kernel.
+Since the head's width depends on the horizon, the port builds it for one
+``horizon`` (flax infers it at init); ``convert.value_function_from_flax``
+maps its parameters.
 """
 from __future__ import annotations
 
@@ -184,3 +192,59 @@ class TemporalUnet(nn.Module):
 
         x = self.final_block(x)
         return self.final_conv(x)
+
+
+def _halved(h: int) -> int:
+    """Rows after a k3, stride-2, padding-1 conv."""
+    return (h + 1) // 2
+
+
+class ValueFunction(nn.Module):
+    """(B, horizon, transition_dim), (B,) time -> (B,) values (or (B,
+    out_dim)). Submodules in flax's numbering: ``time_mlp.i`` is
+    ``Dense_i``, ``res_blocks.i`` ``ResidualTemporalBlock_i``,
+    ``downsamples.i`` ``Conv_i`` and ``head.i`` ``Dense_{i+2}``."""
+
+    def __init__(self, transition_dim: int, horizon: int, dim: int = 32,
+                 dim_mults: Sequence[int] = (1, 2, 4, 8), out_dim: int = 1):
+        super().__init__()
+        dims = [dim * m for m in dim_mults]
+        self.dim, self.horizon, self.out_dim = dim, horizon, out_dim
+        self.time_mlp = nn.ModuleList([nn.Linear(dim, dim * 4), nn.Linear(dim * 4, dim)])
+        res, down = [], []
+        c, h = transition_dim, horizon
+        for i, d in enumerate(dims):
+            res += [ResidualTemporalBlock(c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            c = d
+            if i != len(dims) - 1:
+                down.append(nn.Conv1d(d, d, 3, stride=2, padding=1))
+                h = _halved(h)
+        for width in (dims[-1] // 2, dims[-1] // 4):  # the mid blocks, each halving H
+            res.append(ResidualTemporalBlock(c, width, dim))
+            down.append(nn.Conv1d(width, width, 3, stride=2, padding=1))
+            c, h = width, _halved(h)
+        self.res_blocks = nn.ModuleList(res)
+        self.downsamples = nn.ModuleList(down)
+        self.head = nn.ModuleList([nn.Linear(c * h + dim, dim * 2), nn.Linear(dim * 2, out_dim)])
+
+    def forward(self, x, time, y=None):
+        del y
+        if x.shape[1] != self.horizon:
+            raise ValueError(f"horizon {x.shape[1]}: this ValueFunction's head is built for "
+                             f"horizon {self.horizon}")
+        t = sinusoidal_pos_emb(time, self.dim)
+        t = self.time_mlp[1](mish(self.time_mlp[0](t)))
+        x = x.to(torch.float32)
+        res, down = iter(self.res_blocks), iter(self.downsamples)
+        n_levels = len(self.res_blocks) - 2
+        for i in range(0, n_levels, 2):
+            x = next(res)(x, t)
+            x = next(res)(x, t)
+            if i != n_levels - 2:
+                x = next(down)(x.transpose(1, 2)).transpose(1, 2)
+        for _ in range(2):  # mid
+            x = next(res)(x, t)
+            x = next(down)(x.transpose(1, 2)).transpose(1, 2)
+        h = mish(self.head[0](torch.cat([x.reshape(x.shape[0], -1), t], dim=-1)))
+        out = self.head[1](h)
+        return out[..., 0] if self.out_dim == 1 else out

@@ -72,31 +72,38 @@ def dense(d_in: int, d_out: int, zero: bool = False) -> nn.Linear:
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention over (B, N, D) with flax's MHA semantics."""
+    """Attention of (B, N, D) queries over (B, M, D) keys and values (the
+    queries themselves unless ``memory`` is given) with flax's MHA
+    semantics. ``key_mask`` (B, M) and ``attn_mask`` (N, M), True where a
+    query may attend a key, each fill masked logits with ``finfo.min``."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads, self.dropout = heads, dropout
         self.query, self.key, self.value, self.out = (dense(dim, dim) for _ in range(4))
 
-    def forward(self, x, key_mask=None, generator=None):
+    def forward(self, x, key_mask=None, generator=None, memory=None, attn_mask=None):
         B, N, D = x.shape
         h, dh = self.heads, D // self.heads
+        kv = x if memory is None else memory
+        M = kv.shape[1]
 
         def split(t):
-            return t.view(B, N, h, dh).transpose(1, 2)  # (B, h, N, dh)
+            return t.view(B, t.shape[1], h, dh).transpose(1, 2)  # (B, h, n, dh)
 
         q = split(self.query(x)) / math.sqrt(dh)
-        logits = q @ split(self.key(x)).transpose(-1, -2)  # (B, h, N, N)
+        logits = q @ split(self.key(kv)).transpose(-1, -2)  # (B, h, N, M)
+        big_neg = torch.finfo(torch.float32).min
         if key_mask is not None:
-            logits = logits.masked_fill(~key_mask[:, None, None, :],
-                                        torch.finfo(torch.float32).min)
+            logits = logits.masked_fill(~key_mask[:, None, None, :], big_neg)
+        if attn_mask is not None:
+            logits = logits.masked_fill(~attn_mask, big_neg)
         w = logits.softmax(dim=-1)
         if self.training and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
-            keep = keep_mask((1, 1, N, N), keep_prob, generator, x.device)
+            keep = keep_mask((1, 1, N, M), keep_prob, generator, x.device)
             w = w * (keep.to(w.dtype) / keep_prob)
-        ctx = (w @ split(self.value(x))).transpose(1, 2).reshape(B, N, D)
+        ctx = (w @ split(self.value(kv))).transpose(1, 2).reshape(B, N, D)
         return self.out(ctx)
 
 

@@ -71,7 +71,7 @@ def make_loss_fn(
         model_kw = {"generator": generator} if dropout else {}
         if kind == "diffuser":
             return process.diffuser_p_losses(
-                sched, model, x0, t, noise, weights,
+                sched, lambda x, tt: model(x, tt, **model_kw), x0, t, noise, weights,
                 predict_epsilon=predict_epsilon, loss_kind=loss_kind,
                 conditioning_fn=conditioning_fn,
             )

@@ -605,3 +605,101 @@ def test_physics_kernels_are_deterministic(cuda, lanes, envs):
     a = DK.control_step_cuda(*args[:2], args[2][0], args[3][0], **kw)
     b = DK.control_step_cuda(*args[:2], args[2][0], args[3][0], **kw)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_local_transformer_training_step_launches_b3_with_keep_masks(cuda):
+    """A training step of a small LocalTransformer with attention and
+    feed-forward dropout: one B3 launch a layer, each with the kernel-layout
+    keep mask drawn on the card, and the loss and gradients of the same step
+    through B3's plain version with the same masks (the generator reseeded)."""
+    from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
+
+    torch.manual_seed(0)
+    model = LocalTransformer(69, max_seq_len=128, dim=64, depth=2, heads=2, dim_head=32,
+                             window_size=16, attn_dropout=0.3, ff_dropout=0.3).to(cuda).train()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(8, 96, 69, generator=g, device=cuda)
+    t = torch.randint(0, 1000, (8,), generator=g, device=cuda)
+    seen = []
+    real = TA.fused_qkv_local_attention_cuda
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        out = model(x, t, generator=torch.Generator(device=cuda).manual_seed(2))
+        (out ** 2).mean().backward()
+        return out.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    def recorder(qkv, *args):
+        seen.append(args[7] is not None and args[7].is_cuda)
+        return real(qkv, *args)
+
+    recorder.launches = 0  # the wrapper counts on the name it is reached by
+    TA.fused_qkv_local_attention_cuda = recorder
+    try:
+        out_k, grads_k = step()
+    finally:
+        TA.fused_qkv_local_attention_cuda = real
+    assert recorder.launches == 2 and seen == [True, True]
+    TA.fused_qkv_local_attention_cuda = TA.fused_qkv_local_attention_plain
+    try:
+        out_p, grads_p = step()
+    finally:
+        TA.fused_qkv_local_attention_cuda = real
+    assert (out_k - out_p).abs().max().item() <= 1e-4
+    for k, gp in grads_p.items():
+        assert (grads_k[k] - gp).abs().max().item() <= 1e-3 * gp.abs().max().item(), k
+
+
+@pytest.mark.cuda
+def test_decoder_forward_on_the_card_matches_float64(cuda):
+    import copy
+
+    from deepmimic_diffusion_mujoco_tpu_torch.models.transformer_decoder import (
+        TransformerDecoderMotionModel,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = TransformerDecoderMotionModel(32, 69, dim=64, n_heads=4, num_layers=2).to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    x, t = torch.randn(4, 24, 69, generator=g), torch.randint(0, 1000, (4,), generator=g)
+    with torch.no_grad():
+        out = model(x.to(cuda), t.to(cuda)).cpu().double()
+        ref = copy.deepcopy(model).cpu().double()(x.double(), t)
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_value_function_launches_b1_and_b2_at_its_shapes(cuda):
+    """The ValueFunction (dim 32 over H 64, Cout down to 32 and H down to 4)
+    on the card: its 20 conv blocks launch B1; a frozen model's input
+    gradient takes no B2; a value-training step takes 20 B2 launches; each
+    against the plain versions."""
+    from deepmimic_diffusion_mujoco_tpu_torch.diffusion.guidance import value_gradients
+    from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import ValueFunction
+
+    torch.manual_seed(0)
+    value = ValueFunction(35, 64, dim=32).to(cuda).eval().requires_grad_(False)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(16, 64, 35, generator=g, device=cuda)
+    t = torch.randint(0, 1000, (16,), generator=g, device=cuda)
+    b1, b2 = TK.conv_gn_mish_cuda.launches, TW.conv1d_weight_grad_cuda.launches
+    y, dx = value_gradients(value, x, t)
+    torch.cuda.synchronize()
+    assert (TK.conv_gn_mish_cuda.launches - b1, TW.conv1d_weight_grad_cuda.launches - b2) == (20, 0)
+    real = TK.conv_gn_mish_cuda
+    TK.conv_gn_mish_cuda = TK.conv_gn_mish_plain
+    try:
+        y_p, dx_p = value_gradients(value, x, t)
+    finally:
+        TK.conv_gn_mish_cuda = real
+    assert (y - y_p).abs().max().item() <= 1e-3
+    assert (dx - dx_p).abs().max().item() <= 1e-3 * dx_p.abs().max().item()
+
+    value.requires_grad_(True)
+    b2 = TW.conv1d_weight_grad_cuda.launches
+    value(x, t).square().mean().backward()
+    torch.cuda.synchronize()
+    assert TW.conv1d_weight_grad_cuda.launches - b2 == 20
+    assert all(torch.isfinite(p.grad).all() for p in value.parameters())

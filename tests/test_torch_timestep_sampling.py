@@ -18,7 +18,7 @@ W_TOL = 1e-6
 
 def _states(batches):
     """Feed the same (t, losses) batches to both samplers; -> both states."""
-    js, ts = JTS.LossSecondMomentState.create(T, HIST), TTS.LossSecondMomentState.create(T, HIST)
+    js, ts = JTS.LossSecondMomentState.create(T, HIST), TTS.LossSecondMomentState.create(T, HIST, device="cpu")
     for t, losses in batches:
         js = JTS.update_with_losses(js, jnp.asarray(t), jnp.asarray(losses))
         TTS.update_with_losses(ts, torch.from_numpy(t), torch.from_numpy(losses))
@@ -37,7 +37,7 @@ def test_update_with_repeated_timesteps_matches_scan():
     falling out, exactly as the JAX scan records them."""
     first = (np.array([2, 2, 5, 2, 2, 5, 2, 0]), np.arange(1, 9, dtype=np.float32))
     batches = [first] + _batches(1, 6)
-    js, ts = JTS.LossSecondMomentState.create(T, HIST), TTS.LossSecondMomentState.create(T, HIST)
+    js, ts = JTS.LossSecondMomentState.create(T, HIST), TTS.LossSecondMomentState.create(T, HIST, device="cpu")
     for t, losses in batches:
         js = JTS.update_with_losses(js, jnp.asarray(t), jnp.asarray(losses))
         TTS.update_with_losses(ts, torch.from_numpy(t), torch.from_numpy(losses))
@@ -47,7 +47,7 @@ def test_update_with_repeated_timesteps_matches_scan():
 
 
 def test_update_over_a_device_axis_raises():
-    ts = TTS.LossSecondMomentState.create(T, HIST)
+    ts = TTS.LossSecondMomentState.create(T, HIST, device="cpu")
     with pytest.raises(NotImplementedError, match="parallel layer"):
         TTS.update_with_losses(ts, torch.zeros(2, dtype=torch.long), torch.ones(2), "data")
 

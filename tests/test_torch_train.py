@@ -45,7 +45,7 @@ def _t(a):
     (1.0, 1.0, None), (10.0, 0.9, {3: 2.0, 20: 0.5})])
 def test_diffuser_loss_weights_match(action_weight, discount, weights_dict):
     ref = JP.diffuser_loss_weights(H, D, action_weight, discount, weights_dict)
-    ours = TP.diffuser_loss_weights(H, D, action_weight, discount, weights_dict)
+    ours = TP.diffuser_loss_weights(H, D, action_weight, discount, weights_dict, device="cpu")
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=LOSS_TOL, atol=0)
 
 
