@@ -18,7 +18,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    matrix products), B1's shapes are all checked before any is timed, and
    B1's first shape is timed again last (within RETIME_TOL); each B1 row
    carries its launch plan (cluster size, batch rows per cluster, CTAs,
-   CTAs per SM the card holds) and its time over the composition's.
+   CTAs per SM the card holds) and its time over the composition's. Each
+   B2 row carries its plan (channel tile, rows per chunk, stages, cluster,
+   slices), its path (3xTF32) and, beside the f32 bound, the 3xTF32 bound;
+   where the plan splits the rows over a cluster, a second launch must give
+   the same bits.
 4. serve: a dim-128 run directory (config.json + a checkpoint from a seeded
    random init) answered through ``cli.sample.main`` (posterior T=1000,
    B 16, H 64, holding_box; then H 48), with B1's launch count set to 0
@@ -233,11 +237,12 @@ GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) ove
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
-# Published dense peaks: float32 outside the tensor cores, and HBM bandwidth.
-PEAKS = {  # substring of the device name -> (flop/s, bytes/s)
-    "H100 PCIe": (51.2e12, 2.0e12),
-    "H100 NVL": (60.0e12, 3.9e12),
-    "H100": (67.0e12, 3.35e12),  # SXM
+# Published dense peaks: float32 outside the tensor cores, HBM bandwidth, and
+# TF32 on the tensor cores (B2's second bound: three TF32 products per f32 one).
+PEAKS = {  # substring of the device name -> (flop/s, bytes/s, TF32 flop/s)
+    "H100 PCIe": (51.2e12, 2.0e12, 378e12),
+    "H100 NVL": (60.0e12, 3.9e12, 417.5e12),
+    "H100": (67.0e12, 3.35e12, 495e12),  # SXM
 }
 
 
@@ -445,14 +450,19 @@ def b1_rows(dev, timer, counts_by_h, peaks, batch, extra=()):
 
 def b2_rows(dev, timer, per_step, peaks, batch):
     """B2 against its plain version at every (H, Cin, Cout) of ``per_step``
-    (Counter of launches per micro-step) at ``batch``; the library yardstick
-    is cuDNN's weight gradient, ``torch.nn.grad.conv1d_weight``, on
-    channel-first copies made outside the timed call."""
+    (Counter of launches per micro-step) at ``batch``, with the shape's plan
+    and path; the library yardstick is cuDNN's weight gradient,
+    ``torch.nn.grad.conv1d_weight``, on channel-first copies made outside the
+    timed call. Where the plan splits the rows over a cluster, a second
+    launch must give the same bits. ``bound_ms`` is the float32 bound (CUDA
+    cores), ``bound_3xtf32_ms`` the same work as three TF32 products on the
+    tensor cores."""
     rows = []
     g = torch.Generator(device=dev).manual_seed(3)
     for (h, cin, cout), n in per_step.items():
         x = torch.randn(batch, h, cin, generator=g, device=dev)
         dy = torch.randn(batch, h, cout, generator=g, device=dev)
+        plan = CW.wgrad_plan(batch, h, cin, cout, K, CW.sm_count(x.device))
         out = CW.conv1d_weight_grad_cuda(x, dy, K)
         ref = CW.conv1d_weight_grad_plain(x, dy, K)
         xc, dyc = x.transpose(1, 2).contiguous(), dy.transpose(1, 2).contiguous()
@@ -470,19 +480,34 @@ def b2_rows(dev, timer, per_step, peaks, batch):
                                f"{cin}->{cout}: max abs err {err}, max |dW| {scale}")
         if not lib_err <= WGRAD_TOL * scale:
             raise RuntimeError(f"the library yardstick computes another function: {lib_err}")
+        identical = None
+        if plan.cluster > 1:
+            identical = torch.equal(out, CW.conv1d_weight_grad_cuda(x, dy, K))
+            if not identical:
+                raise RuntimeError(f"conv1d_weight_grad at B {batch}, H {h}, {cin}->{cout} "
+                                   f"(cluster {plan.cluster}): two launches differ")
         ms = timer(lambda: CW.conv1d_weight_grad_cuda(x, dy, K))
         plain_ms = timer(lambda: CW.conv1d_weight_grad_plain(x, dy, K))
         lib_ms = timer(library)
         flops = 2.0 * K * cin * cout * batch * h
-        bound_ms, bound_by = bound(flops, 4.0 * (batch * h * (cin + cout) + K * cin * cout), peaks)
+        nbytes = 4.0 * (batch * h * (cin + cout) + K * cin * cout)
+        bound_ms, bound_by = bound(flops, nbytes, peaks)
         rows.append({
             "B": batch, "H": h, "cin": cin, "cout": cout, "per_micro_step": n,
-            "splits": CW.split_count(batch, h, cin, cout, CW._sm_count(x.device)),
+            "plan": {"tci": plan.tci, "tco": plan.tco, "rows": plan.rows,
+                     "stages": plan.stages, "cluster": plan.cluster, "slices": plan.slices,
+                     "ctas": plan.grid, "threads": plan.threads},
+            "path": plan.path, "splits": plan.cluster, "bit_identical": identical,
             "max_abs_err": err, "max_rel_err": err / scale, "library_rel_err": lib_err / scale,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_3xtf32_ms": bound(flops, nbytes, (peaks[2] / 3, peaks[1]))[0],
+            "tflops": flops / ms / 1e9,
         })
         emit({"phase": "kernel", "name": "conv1d_weight_grad", **rows[-1]})
+    if not any(r["bit_identical"] for r in rows):
+        raise RuntimeError("conv1d_weight_grad: no shape's plan splits the rows over a cluster, "
+                           "so no launch was checked for determinism")
     return rows
 
 
@@ -1786,7 +1811,8 @@ def guide_phase(dev, timer, args, tmp, peaks):
                             for k in ("ms", "plain_ms", "bound_ms", "composition_ms")}},
         "conv1d_weight_grad": {"max_rel_err": max(r["max_rel_err"] for r in b2),
                                **{k: sum(r[k] * r["per_micro_step"] for r in b2)
-                                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}}
+                                  for k in ("ms", "plain_ms", "bound_ms", "bound_3xtf32_ms",
+                                            "library_ms")}}}
     emit({"phase": "main_path", "path": "guide",
           **{k: v for k, v in result.items() if k not in ("profile", "b1_rows", "b2_rows")}})
     return result
@@ -2174,7 +2200,8 @@ def main(argv=None) -> int:
     peak_key, peaks = peaks_for(kind)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "peaks_for": peak_key, "fp32_flops": peaks[0], "hbm_bytes_per_s": peaks[1]})
+          "peaks_for": peak_key, "fp32_flops": peaks[0], "hbm_bytes_per_s": peaks[1],
+          "tf32_flops": peaks[2]})
 
     t0 = time.perf_counter()
     ptxas = build_all()
@@ -2285,6 +2312,8 @@ def main(argv=None) -> int:
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in wgrad_rows)
         else "bytes",
         "library_ms": per_launch_sum(wgrad_rows, "library_ms", "per_micro_step"),
+        "bound_3xtf32_ms": per_launch_sum(wgrad_rows, "bound_3xtf32_ms", "per_micro_step"),
+        "paths": sorted({r["path"] for r in wgrad_rows + guide["b2_rows"]}),
         "launches_per_micro_step": per_step,
         # value training: one value_diffusion_loss step's 20 launches (B 16, H 64)
         "launches_value_step": guide["value_diffusion_loss"]["launches"]["conv1d_weight_grad"],

@@ -75,6 +75,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.h"
+
 namespace {
 
 constexpr int kMaxWarps = 8;
@@ -248,31 +250,6 @@ __device__ __forceinline__ void row_keys(const Args& a, int i, int len, int s1, 
   }
   *jlo = lo;
   *jhi = i < s1 ? min(hi, len) : lo;
-}
-
-// x as a tf32 pair: hi = tf32(x), lo = tf32(x - hi); hi * y + lo * y keeps
-// about 21 bits of x (3xTF32).
-__device__ __forceinline__ void split_tf32(float x, uint32_t* hi, uint32_t* lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(*hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(*lo) : "f"(x - __uint_as_float(*hi)));
-}
-
-// c += a b on the tensor cores, m16n8k8, tf32 in, f32 out
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b to about f32 accuracy: a and b given as (hi, lo) tf32 pairs, the
-// small products first
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           const uint32_t* b_hi, const uint32_t* b_lo) {
-  mma_tf32(c, a_lo, b_hi);
-  mma_tf32(c, a_hi, b_lo);
-  mma_tf32(c, a_hi, b_hi);
 }
 
 // The A fragment (rows g and g + 8, dims k0 + t and k0 + t + 4) of a warp's

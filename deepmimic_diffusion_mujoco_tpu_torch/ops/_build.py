@@ -51,8 +51,9 @@ def library_path(name: str, source: Path | None = None) -> Path:
 
 
 def build(name: str, source: Path | None = None) -> Path:
-    """Compile ``csrc/<name>.cu`` (or ``source``, a library named ``name``)
-    unless it is built already; returns the shared library's path. The
+    """Compile ``csrc/<name>.cu`` (or ``source``, a library named ``name``;
+    either finds the ``csrc/*.h`` headers) unless it is built already;
+    returns the shared library's path. The
     compiler's output (registers, shared memory, spills) is kept beside it
     in ``<so>.log``."""
     source = CSRC / f"{name}.cu" if source is None else Path(source)
@@ -61,7 +62,7 @@ def build(name: str, source: Path | None = None) -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(source)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     Path(str(so) + ".log").write_text(proc.stdout)
     if proc.returncode != 0:

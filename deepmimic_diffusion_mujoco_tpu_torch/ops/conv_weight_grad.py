@@ -16,12 +16,19 @@ dW (k, Cin, Cout) float32, with ``pad_l = (k - 1) // 2``:
   (``csrc/conv1d_weight_grad.cu``; its header states the design and what
   bounds it). It takes CUDA tensors only and raises on anything it does not
   take. ``conv1d_weight_grad_cuda.launches`` counts its launches.
+- ``wgrad_plan``: the kernel's launch plan for one shape (channel tile,
+  rows per chunk, ring stages, cluster size), cached;
+  ``make_wgrad_plan`` builds any other plan, which
+  ``conv1d_weight_grad_cuda(..., plan=...)`` runs (the card tests and
+  ``ops/conv_weight_grad_sweep.py`` do).
 - ``conv1d_weight_grad``: the kernel for CUDA tensors, the plain version
   for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -29,10 +36,25 @@ import torch.nn.functional as F
 from . import _build
 
 KERNEL_SIZES = (1, 3, 5, 7, 9)
-TILE = 64                    # kTileCi = kTileCo in csrc/conv1d_weight_grad.cu
-ROWS_PER_CHUNK = 20          # kRows there
-MIN_CHUNKS_PER_SPLIT = 4     # a split reads at least this many chunks
-BLOCKS_PER_SM = 2            # resident 256-thread blocks per SM the split count aims for
+# Constants of csrc/conv1d_weight_grad.cu
+WARP_CI, WARP_CO = 16, 32  # kWarpCi x kWarpCo: a warp's piece of the channel tile
+MAX_THREADS = 256          # kMaxThreads
+MAX_STAGES = 4             # kMaxStages
+PORTABLE_CLUSTER = 8       # kPortableCluster
+MAX_CLUSTER = 16           # kMaxCluster, with the non-portable cluster size
+MAX_SMEM = 227 * 1024      # kMaxSmem: a CTA's shared memory, dynamic and static
+STATIC_SMEM = 2 * MAX_STAGES * 8  # the ring's full and empty mbarriers
+PAD_COLS = 8               # kPadCols
+MAX_ROWS = 64              # kMaxRows: dy rows per chunk
+PATH = "3xtf32"            # the kernel's only path: 3xTF32 mma.sync on the tensor cores
+# The plan's defaults (make_wgrad_plan), fitted to ops/conv_weight_grad_sweep.py's
+# timings of every plan at the 26 main-path shapes on an H100 (PERF.md)
+SMALL_WORK = 1 << 26       # B H Cin Cout up to this: SMALL_TILE, clusters up to MAX_CLUSTER
+SMALL_TILE = (16, 64)
+TILES = ((64, 64), (32, 64), (32, 32), (16, 32))  # other shapes' tiles, widest first
+CLUSTER_CAP = 4            # their CTAs per tile, at most, ...
+LONG_ROWS = 5120           # ... unless B H reaches this
+WARPS = 4                  # warps a CTA's slices add up to, at most
 
 _SMS: dict[int, int] = {}
 
@@ -46,15 +68,157 @@ def conv1d_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch
     return torch.stack([xp[:, t:t + H].reshape(B * H, cin).T @ dy2 for t in range(k)])
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """One launch plan (struct Plan in csrc/conv1d_weight_grad.cu) and what
+    follows from it for the shape it was made for. Every split of the
+    reduction is a rank of one thread block cluster, added through
+    distributed shared memory: no plan has a workspace in device memory."""
+    tci: int       # input channels per tile, a multiple of WARP_CI
+    tco: int       # output channels per tile, a multiple of WARP_CO
+    rows: int      # dy rows per chunk (flattened (b, h) rows), a multiple of 8
+    stages: int    # ring depth
+    cluster: int   # CTAs per tile, each taking a contiguous range of chunks
+    slices: int    # warps per piece of the tile, taking every slices-th k-step of a chunk
+    R: int         # rows of the reduction: B * H
+    threads: int   # slices * (tci / WARP_CI) * (tco / WARP_CO) warps
+    tiles: int     # channel tiles: ceil(Cin / tci) * ceil(Cout / tco)
+    chunks: int    # ceil(R / rows)
+    smem_bytes: int  # dynamic shared memory per CTA
+    ints: object = dataclasses.field(compare=False, repr=False)  # ctypes int[6]
+    path = PATH
+
+    @property
+    def grid(self) -> int:
+        return self.tiles * self.cluster
+
+    def rank_chunks(self, rank: int) -> range:
+        """The chunks cluster rank ``rank`` reduces, as the kernel splits them."""
+        return range(self.chunks * rank // self.cluster,
+                     self.chunks * (rank + 1) // self.cluster)
+
+    def chunk_rows(self, c: int) -> range:
+        """The flattened (b, h) rows chunk ``c`` stages (rows past R are zeros)."""
+        return range(c * self.rows, min((c + 1) * self.rows, self.R))
+
+
+def smem_bytes(tci: int, tco: int, rows: int, stages: int, cluster: int, slices: int,
+               k: int) -> int:
+    """Dynamic shared memory of one plan: layout() in the kernel's source."""
+    stage = (rows + k - 1) * (tci + PAD_COLS) + rows * (tco + PAD_COLS)
+    part = k * tci * (tco + PAD_COLS) if cluster > 1 or slices > 1 else 0
+    return 4 * max(stages * stage, part)
+
+
+def make_wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
+                    tci: int | None = None, tco: int | None = None, rows: int | None = None,
+                    stages: int | None = None, cluster: int | None = None,
+                    slices: int | None = None) -> WgradPlan:
+    """The plan for one shape; a keyword given fixes that choice. The
+    defaults follow the best plans ``ops/conv_weight_grad_sweep.py`` timed
+    at the main-path shapes on an H100 (``PERF.md``):
+
+    - Tile and cluster cap. Up to SMALL_WORK (B H Cin Cout) the narrow
+      SMALL_TILE and clusters of up to MAX_CLUSTER CTAs: the work is a few
+      microseconds, spread as wide as it goes. Above it the widest of TILES
+      whose tiles x cap reach one CTA per SM (else the narrowest), with a
+      cap of CLUSTER_CAP CTAs per tile, or MAX_CLUSTER from LONG_ROWS rows
+      on: each rank's partial tile costs a write and a read of shared
+      memory, so a cluster pays off only where the rows are many.
+    - Cluster: a power of two up to the cap, doubled while the grid stays
+      within one CTA per SM and each rank keeps two k-steps or more.
+    - Rows per chunk: a rank's share of the rows rounded up to 8, at most
+      MAX_ROWS (the tensor cores' round-toward-zero chain).
+    - Slices: doubled while the CTA stays within WARPS warps and each slice
+      keeps two k-steps of a chunk.
+    - Stages: a rank's chunks, at most MAX_STAGES (all loads in flight at
+      once where they fit), fewer where shared memory runs out.
+    """
+    R = B * H
+    cap = MAX_CLUSTER
+    if tci is None or tco is None:
+        if R * Cin * Cout <= SMALL_WORK:
+            options = (SMALL_TILE,)
+        else:
+            options = TILES
+            cap = MAX_CLUSTER if R >= LONG_ROWS else CLUSTER_CAP
+        for i, (ti, to) in enumerate(options):
+            ti = min(tci or ti, _ceil(Cin, WARP_CI) * WARP_CI)
+            to = min(tco or to, _ceil(Cout, WARP_CO) * WARP_CO)
+            if _ceil(Cin, ti) * _ceil(Cout, to) * cap >= sms or i == len(options) - 1:
+                break
+        tci, tco = tci or ti, tco or to
+    if tci <= 0 or tci % WARP_CI or tco <= 0 or tco % WARP_CO:
+        raise ValueError(f"conv1d_weight_grad_cuda: tile {tci} x {tco} is not a multiple of "
+                         f"{WARP_CI} x {WARP_CO}")
+    pieces = (tci // WARP_CI) * (tco // WARP_CO)  # warps of one slice
+    tiles = _ceil(Cin, tci) * _ceil(Cout, tco)
+    if cluster is None:
+        cluster = 1
+        while cluster < cap and 2 * tiles * cluster <= sms and 16 * cluster <= R:
+            cluster *= 2
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"conv1d_weight_grad_cuda: cluster size {cluster} not in "
+                         f"1..{MAX_CLUSTER}")
+    if rows is None:
+        rows = min(MAX_ROWS, _ceil(_ceil(R, cluster), 8) * 8)
+    if rows <= 0 or rows % 8 or rows > MAX_ROWS:
+        raise ValueError(f"conv1d_weight_grad_cuda: {rows} rows per chunk is not a multiple "
+                         f"of 8 up to {MAX_ROWS}")
+    if slices is None:
+        slices = 1
+        while 2 * pieces * slices <= WARPS and 16 * slices <= rows:
+            slices *= 2
+    threads = slices * pieces * 32
+    if slices < 1 or threads > MAX_THREADS:
+        raise ValueError(f"conv1d_weight_grad_cuda: {slices} slices of a {tci} x {tco} tile "
+                         f"take {threads} threads, more than {MAX_THREADS}")
+    chunks = _ceil(R, rows)
+    size = functools.partial(smem_bytes, tci, tco, rows, cluster=cluster, slices=slices, k=k)
+    if stages is None:
+        stages = min(MAX_STAGES, max(1, _ceil(chunks, cluster)))
+        while stages > 1 and size(stages) + STATIC_SMEM > MAX_SMEM:
+            stages -= 1
+    if not 1 <= stages <= MAX_STAGES or size(stages) + STATIC_SMEM > MAX_SMEM:
+        raise ValueError(f"conv1d_weight_grad_cuda: {stages} stages of {tci} x {tco} x "
+                         f"{rows} rows do not fit {MAX_SMEM} bytes of shared memory")
+    fields = (tci, tco, rows, stages, cluster, slices)
+    return WgradPlan(*fields, R=R, threads=threads, tiles=tiles, chunks=chunks,
+                     smem_bytes=size(stages), ints=(ctypes.c_int * 6)(*fields))
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int) -> WgradPlan:
+    """The cached plan for one shape on a card of ``sms`` SMs."""
+    return make_wgrad_plan(B, H, Cin, Cout, k, sms)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv1d_weight_grad")
     if lib.conv1d_weight_grad_f32.argtypes is None:
-        lib.conv1d_weight_grad_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        lib.conv1d_weight_grad_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.conv1d_weight_grad_f32.restype = ctypes.c_int
+        lib.conv1d_weight_grad_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.conv1d_weight_grad_smem_bytes.restype = ctypes.c_int
         lib.conv1d_weight_grad_error_string.argtypes = [ctypes.c_int]
         lib.conv1d_weight_grad_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _check_layout(plan: WgradPlan, k: int) -> None:
+    """Raises once per plan if the kernel refuses it or lays out another
+    amount of shared memory than ``plan.smem_bytes``."""
+    n = _library().conv1d_weight_grad_smem_bytes(k, plan.ints)
+    if n != plan.smem_bytes:
+        raise RuntimeError(f"conv1d_weight_grad plan {plan} at k {k}: the kernel lays out "
+                           f"{n} bytes of shared memory (-1: refused), the plan "
+                           f"{plan.smem_bytes}")
 
 
 def _check_args(x, dy, k: int):
@@ -78,26 +242,18 @@ def _check_args(x, dy, k: int):
         raise ValueError(f"conv1d_weight_grad_cuda: kernel size {k} not in {KERNEL_SIZES}")
 
 
-def split_count(B: int, H: int, cin: int, cout: int, sms: int) -> int:
-    """Ways the B*H reduction is split across blocks: enough blocks to fill
-    the SMs when the (Cin, Cout) tiles are few, each split reading at least
-    MIN_CHUNKS_PER_SPLIT chunks."""
-    tiles = -(-cin // TILE) * -(-cout // TILE)
-    chunks = B * -(-H // ROWS_PER_CHUNK)
-    return max(1, min(BLOCKS_PER_SM * sms // tiles, chunks // MIN_CHUNKS_PER_SPLIT))
-
-
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _SMS:
         _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return _SMS[index]
 
 
-def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int,
+                            plan: WgradPlan | None = None) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream (builds it on first
-    use). Raises on a tensor or shape the kernel does not take, and if the
-    launch is refused."""
+    use), under ``plan`` or the shape's ``wgrad_plan``. Raises on a tensor,
+    shape or plan the kernel does not take, and if the launch is refused."""
     _check_args(x, dy, k)
     lib = _library()
     B, H, cin = x.shape
@@ -105,13 +261,15 @@ def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.
     out = torch.empty((k, cin, cout), dtype=torch.float32, device=x.device)
     if B * H == 0:
         return out.zero_()
-    splits = split_count(B, H, cin, cout, _sm_count(x.device))
-    ws = (torch.empty((splits, k, cin, cout), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    if plan is None:
+        plan = wgrad_plan(B, H, cin, cout, k, sm_count(x.device))
+    elif plan.R != B * H:
+        raise ValueError(f"conv1d_weight_grad_cuda: plan made for {plan.R} rows, x has {B * H}")
+    _check_layout(plan, k)
     with torch.cuda.device(x.device):
         err = lib.conv1d_weight_grad_f32(
-            x.data_ptr(), dy.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
-            B, H, cin, cout, k, splits, torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), dy.data_ptr(), out.data_ptr(), B, H, cin, cout, k, plan.ints,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError("conv1d_weight_grad kernel launch failed: "

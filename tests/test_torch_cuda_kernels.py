@@ -140,8 +140,41 @@ def test_conv1d_weight_grad_kernel_matches_plain(cuda, B, H, Cin, Cout, k):
     torch.cuda.synchronize()
     assert TW.conv1d_weight_grad_cuda.launches == launches + 1
     _assert_wgrad_close(out, TW.conv1d_weight_grad_plain(x, dy, k))
-    # the partial sums are added in a fixed order: bit-identical on a rerun
+    # split reductions add in a fixed order: bit-identical on a rerun
     assert torch.equal(out, TW.conv1d_weight_grad_cuda(x, dy, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,slices", [(1, 1), (1, 2), (2, 1), (16, 1), (4, 3)])
+@pytest.mark.parametrize("B,H,Cin,Cout,tci,tco,rows", [
+    (16, 4, 35, 64, 16, 64, 24), (16, 64, 35, 32, 32, 32, 32), (32, 160, 35, 128, 32, 32, 64),
+    (4, 33, 70, 96, 16, 32, 24),
+])
+def test_conv1d_weight_grad_kernel_takes_every_plan(cuda, cluster, slices, B, H, Cin, Cout,
+                                                    tci, tco, rows):
+    """Every kind of plan: one CTA a tile, or a cluster of 2, 4 or 16 (the
+    non-portable size), with one warp a piece of the tile or 2-3 slices
+    splitting its k-steps, at H 4, 64 and 160 with Cin 35, and at ragged
+    rows and channels; clusters with more CTAs than chunks leave some ranks
+    without rows."""
+    x, dy = _wgrad_inputs(cuda, B, H, Cin, Cout, seed=cluster)
+    plan = TW.make_wgrad_plan(B, H, Cin, Cout, 5, TW.sm_count(cuda), tci=tci, tco=tco,
+                              rows=rows, cluster=cluster, slices=slices)
+    assert plan.path == "3xtf32" and (plan.cluster, plan.slices) == (cluster, slices)
+    out = TW.conv1d_weight_grad_cuda(x, dy, 5, plan=plan)
+    torch.cuda.synchronize()
+    _assert_wgrad_close(out, TW.conv1d_weight_grad_plain(x, dy, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,cluster", [(32, 160, 128, 128, 16), (16, 8, 256, 256, 8)])
+def test_conv1d_weight_grad_kernel_is_deterministic(cuda, B, H, Cin, Cout, cluster):
+    """Split over a cluster, the ranks' partial tiles add in rank order:
+    two launches give the same bits."""
+    x, dy = _wgrad_inputs(cuda, B, H, Cin, Cout)
+    plan = TW.make_wgrad_plan(B, H, Cin, Cout, 5, TW.sm_count(cuda), cluster=cluster)
+    first = TW.conv1d_weight_grad_cuda(x, dy, 5, plan=plan)
+    assert torch.equal(first, TW.conv1d_weight_grad_cuda(x, dy, 5, plan=plan))
 
 
 @pytest.mark.cuda
@@ -165,6 +198,8 @@ def test_conv1d_weight_grad_kernel_refuses_bad_inputs(cuda):
         TW.conv1d_weight_grad_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dy, 5)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         TW.conv1d_weight_grad_cuda(x.cpu(), dy, 5)
+    with pytest.raises(ValueError, match="plan made for"):
+        TW.conv1d_weight_grad_cuda(x, dy, 5, plan=TW.wgrad_plan(2, 9, 16, 12, 5, 132))
 
 
 @pytest.mark.cuda
