@@ -104,7 +104,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    t, noise and label-drop mask, dropout off) against float64 on the CPU (B_GRAD_TOL); ms per
    optimizer step over 10 steps, busy share and peak memory.
 14. b_eval: ``cli.evaluate.main`` on the b_serve run against the walk clip (8 samples x H 64,
-   2 replications) and ``cli.cfg_eval.main`` (scales 0 and 3, 2 samples a class, H 64):
+   2 replications) and ``cli.cfg_eval.main`` (scale 3, 2 samples a class, H 64; the
+   unconditional branch runs in b_serve's plain request):
    every metric finite.
 15. guide, run after the serve phase: ``guided_sample_loop`` with the serve phase's dim-128 U-Net
    run (posterior T 1000, B 16 x H 64, holding_box) and a seeded ``ValueFunction`` (dim 32,
@@ -122,7 +123,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 17. dec: ``cli.train.main`` on the user config experiments/decoder10k/config.json (dim 256, 4
    heads, 4 layers, angle + velocity loss, walk H 32, B 64) for 30 steps, one ``cli.sample``
    request from the run (v4 T 1000, B 16 x H 32, 999 forwards) and one forward against float64
-   on the CPU (B_FWD_TOL). No kernel lies on it.
+   on the CPU (B_FWD_TOL). No kernel lies on it. (It logs every 10 steps with the loss terms:
+   ``train.scan_chunk=1``; the train, la_train and b_train runs log once per scan_chunk as the
+   JAX trainer does, and each run's logged steps are checked.)
+18. workflows, run after the train, b_serve and physics phases on their run directories:
+   ``cli.workflows.main`` runs the seven workflows (editing, start-with-motion, short- and
+   long-projection, inbetween, blend, steer) on the train phase's dim-128 run (posterior
+   T 1000, B 16), each with B1's count set to 0 just before and read just after (33 x the
+   U-Net forwards counted, B2 0), its motions finite and its conditioned frames and dims
+   exact; ``cli.compare.main`` over that run and the b_serve run (walk clip ground truth,
+   H 32, CFG on class 0): both architectures, finite SiFID and inter-diversity, a best loss;
+   ``cli.sweep.main`` over two learning rates (the user config on the walk clip, 10 steps
+   each; B1 and B2 33 a micro-step) and its three summary files; ``softrender.render_motion``
+   on a workflow motion (its forward kinematics on the card within FK_TOL of the CPU's on the
+   walk clip) into ``VideoSaver``; ``cli.play.main --physics --video`` (B5 once a control
+   step) where mujoco imports, else a line that says so; and the port's end-to-end walk at
+   20 steps (its play step through the software renderer where mujoco does not import).
 
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -153,9 +169,13 @@ import torch.nn.functional as F
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import cfg_eval as cfg_eval_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import compare as compare_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import play as play_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import sweep as sweep_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import workflows as workflows_cli
 from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
 from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process
@@ -167,6 +187,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.diffusion.guidance import (
 )
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.sampling import sample_loop
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.schedules import make_schedule
+from deepmimic_diffusion_mujoco_tpu_torch.examples import end_to_end_walk
 from deepmimic_diffusion_mujoco_tpu_torch.models import temporal_unet
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
 from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet, ValueFunction
@@ -182,7 +203,9 @@ from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as L
 from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
 from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics_sweep import log_of
 from deepmimic_diffusion_mujoco_tpu_torch.physics.env import PhysicsTrackingEnv, tracking_reward
+from deepmimic_diffusion_mujoco_tpu_torch.physics import softrender
 from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
+from deepmimic_diffusion_mujoco_tpu_torch.physics.video import VideoSaver
 from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
@@ -194,6 +217,7 @@ LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
 LA_DATA = ROOT / "data" / "motions" / "humanoid3d_dance_a.txt"
 DEC_CONFIG = ROOT / "experiments" / "decoder10k" / "config.json"
 WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
+BACKFLIP = ROOT / "data" / "motions" / "humanoid3d_backflip.txt"
 B_CONFIG = ROOT / "experiments" / "allclips12k_r5" / "config.json"
 MOTIONS = ROOT / "data" / "motions"
 SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention", "humanoid_dynamics")
@@ -234,6 +258,10 @@ B_GRAD_FLOOR = 1e-4      # the divisor at least this share of the largest gradie
                          # parameters (the key bias's gradient is zero in exact arithmetic)
 DEC_TRAIN_B, DEC_H, DEC_STEPS = 64, 32, 30  # dec: the user config on the walk clip
 GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) over H 64
+# workflows: --num where the horizon allows; compare at the walk clip's 39 frames cut to a
+# multiple of 8 (the U-Net's), on CMP_NUM samples a run; a two-point sweep of SWEEP_STEPS
+WF_NUM, CMP_NUM, CMP_FRAMES, SWEEP_STEPS, PLAY_HORIZON, WALK_STEPS = 16, 8, 32, 10, 15, 20
+FK_TOL = 1e-5            # body poses: forward kinematics on the card against the CPU
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -261,6 +289,18 @@ def bound(flops, nbytes, peaks):
     """(bound ms, what bounds it) for work of ``flops`` and ``nbytes``."""
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def log_steps(micro, accum, chunk, log_every=10):
+    """The optimizer steps of training_metrics.json's records, as the JAX
+    trainer writes them: with scan_chunk > 1 one record per chunk of
+    micro-steps and one for a ragged tail, else one every log_every."""
+    if chunk > 1:
+        ends = list(range(chunk, micro + 1, chunk))
+        ends += [micro] if not ends or ends[-1] != micro else []
+    else:
+        ends = list(range(log_every, micro + 1, log_every))
+    return [e // accum for e in ends]
 
 
 class Timer:
@@ -728,10 +768,12 @@ def train_phase(args, tmp, per_step):
             raise RuntimeError(f"training wrote no {name}: {saved}")
     metrics = json.loads((Path(run) / "training_metrics.json").read_text())
     losses = [r["loss"] for r in metrics["metrics"]]
-    if (len(losses) != micro // 10 or not np.isfinite(losses).all()
-            or not np.isfinite(metrics["best_loss"]) or metrics["best_step"] < 25):
-        raise RuntimeError(f"training metrics: {metrics}")
     cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+    # the user config's scan_chunk 50: records at micro-steps 50 and 60
+    logged = log_steps(micro, ACCUM, cfg.train.scan_chunk)
+    if ([r["step"] for r in metrics["metrics"]] != logged or not np.isfinite(losses).all()
+            or not np.isfinite(metrics["best_loss"]) or metrics["best_step"] < 25):
+        raise RuntimeError(f"training metrics: {metrics}, expected records at steps {logged}")
     ema_moved = any((trainer.state.ema_params[k] != v).any().item()
                     for k, v in trainer.state.model.state_dict().items())
     result = {"seconds": seconds, "micro_steps": micro, "optimizer_steps": TRAIN_STEPS,
@@ -1275,9 +1317,11 @@ def la_train_phase(dev, args, tmp, cfg, steps=10):
     losses = [r["loss"] for r in metrics["metrics"]]
     ema_moved = any((trainer.state.ema_params[k] != v).any().item()
                     for k, v in trainer.state.model.state_dict().items())
-    if (len(losses) != LA_TRAIN_STEPS // 10 or not np.isfinite(losses).all()
+    logged = log_steps(micro, trainer.config.gradient_accumulate_every, cfg.train.scan_chunk)
+    if ([r["step"] for r in metrics["metrics"]] != logged or not np.isfinite(losses).all()
             or not np.isfinite(metrics["best_loss"]) or not ema_moved):
-        raise RuntimeError(f"la_train metrics {metrics}, EMA moved {ema_moved}")
+        raise RuntimeError(f"la_train metrics {metrics}, expected records at steps {logged}, "
+                           f"EMA moved {ema_moved}")
     result = {"seconds": seconds, "optimizer_steps": LA_TRAIN_STEPS, "batch": LA_TRAIN_B,
               "horizon": trainer.dataset.horizon, "fused_qkv_local_attention_launches": launches,
               "launches_with_keep_mask": sum(kept), "launches_per_micro_step": launches / micro,
@@ -1460,9 +1504,13 @@ def b_train_run(dev, run, seed, *extra):
             raise RuntimeError(f"stack-B training wrote no {name}: {saved}")
     metrics = json.loads((Path(run) / "training_metrics.json").read_text())
     losses = [r["loss"] for r in metrics["metrics"]]
-    if (len(losses) != B_TRAIN_STEPS // 10 or not np.isfinite(losses).all()
+    cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+    logged = log_steps(B_TRAIN_STEPS * cfg.train.gradient_accumulate_every,
+                       cfg.train.gradient_accumulate_every, cfg.train.scan_chunk)
+    if ([r["step"] for r in metrics["metrics"]] != logged or not np.isfinite(losses).all()
             or not np.isfinite(metrics["best_loss"])):
-        raise RuntimeError(f"stack-B training metrics: {metrics}")
+        raise RuntimeError(f"stack-B training metrics: {metrics}, expected records at "
+                           f"steps {logged}")
     if trainer.dataset.horizon != B_TRAIN_H or trainer.config.batch_size != B_TRAIN_B:
         raise RuntimeError(f"stack-B training ran H {trainer.dataset.horizon}, "
                            f"B {trainer.config.batch_size}")
@@ -1599,7 +1647,7 @@ def b_eval_phase(dev, run):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(io.StringIO()):
-        report = cfg_eval_cli.main(["--run", run, "--scales", "0,3", "--num", "2",
+        report = cfg_eval_cli.main(["--run", run, "--scales", "3", "--num", "2",
                                     "--frames", "64", "--data-dir", str(MOTIONS),
                                     "--device", str(dev)])
     torch.cuda.synchronize()
@@ -1647,8 +1695,8 @@ def dec_phase(dev, timer, args, tmp):
         trainer = train_cli.main([
             "--config", str(DEC_CONFIG), "--data", str(WALK), "--steps", str(DEC_STEPS),
             "--out", run, "--device", "cuda", "--set", "train.log_every=10",
-            "train.save_every=15", "train.ema_start=20", "train.ema_every=10",
-            f"train.seed={args.seed}"])
+            "train.scan_chunk=1", "train.save_every=15", "train.ema_start=20",
+            "train.ema_every=10", f"train.seed={args.seed}"])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     if (trainer.dataset.horizon, trainer.config.batch_size) != (DEC_H, DEC_TRAIN_B):
@@ -1662,7 +1710,7 @@ def dec_phase(dev, timer, args, tmp):
     recs = metrics["metrics"]
     ema_moved = any((trainer.state.ema_params[k] != v).any().item()
                     for k, v in trainer.state.model.state_dict().items())
-    if (len(recs) != DEC_STEPS // 10 or not ema_moved
+    if ([r["step"] for r in recs] != log_steps(DEC_STEPS, 1, 1) or not ema_moved
             or not all(np.isfinite([r["loss"], r["loss_angle"], r["loss_velocity"]]).all()
                        for r in recs)):
         raise RuntimeError(f"dec metrics {metrics}, EMA moved {ema_moved}")
@@ -2182,6 +2230,268 @@ def physics_phase(dev, tmp, ops, peaks):
 
 
 
+def mujoco_missing():
+    """Why mujoco does not import here, or None when it does."""
+    try:
+        import mujoco  # noqa: F401
+    except ImportError as e:
+        return str(e)
+    return None
+
+
+def workflow_violations(wf, m, walk, flip):
+    """The frames and dims ``wf`` conditions, which must hold their values
+    exactly (tests/test_workflows.py's checks, bit for bit): -> a list of
+    what does not."""
+    H, bad = walk.shape[0], []
+    if wf == "editing":
+        if not ((m[:, BOX_ZERO] == 0).all() and (m[:, BOX_ELBOW] == np.float32(1.57)).all()):
+            bad.append("holding_box dims")
+    elif wf == "start-with-motion" and m.shape[0] != H:
+        bad.append(f"horizon {m.shape[0]}")
+    elif wf == "short-projection" and m.shape[0] != int(H * 0.75) // 8 * 8:
+        bad.append(f"horizon {m.shape[0]}")
+    elif wf == "long-projection":
+        keys = [f for kf in (0, H, 2 * H) for f in range(max(kf - 2, 0), min(kf + 3, 3 * H))]
+        if m.shape[0] != 3 * H or not (m[keys, 3:] == np.tile(walk, (3, 1))[keys, 3:]).all():
+            bad.append("keyframes")
+    elif wf == "inbetween":
+        e = H // 4
+        if not ((m[:e] == walk[:e]).all() and (m[-e:] == walk[-e:]).all()):
+            bad.append("edges")
+    elif wf == "blend":
+        a = walk[: H - (H + flip.shape[0]) % 8]
+        seam = a.shape[0]
+        if (m.shape[0] != seam + flip.shape[0] or not (m[:seam - 5] == a[:seam - 5]).all()
+                or not (m[seam + 5:, 3:] == flip[5:, 3:]).all()):
+            bad.append("outside the seam")
+    elif wf == "steer":
+        path = np.linspace(0, 2.0, 16).astype(np.float32)
+        if not ((m[:16, 0] == path).all() and (m[:16, 1] == 0).all()):
+            bad.append("root path")
+    return bad
+
+
+def run_workflows(run, tmp, per_step):
+    """The seven workflows of ``cli.workflows.main`` on a trained U-Net run,
+    each with B1's count set to 0 just before and read just after."""
+    walk, flip = workflows_cli._clip_qpos(str(WALK)), workflows_cli._clip_qpos(str(BACKFLIP))
+    T_run = ExperimentConfig.load(os.path.join(run, "config.json")).diffusion.noise_steps
+    rows, paths_of = [], {}
+    for wf in workflows_cli.WORKFLOWS:
+        reset_counts()
+        with counted_forwards(TemporalUnet) as calls, contextlib.redirect_stdout(io.StringIO()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = workflows_cli.main([wf, "--run", run, "--clip", str(WALK), "--clip2",
+                                        str(BACKFLIP), "--num", str(WF_NUM), "--out",
+                                        os.path.join(tmp, "wf", wf), "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        b1, b2 = counts()
+        steps = 2 if wf in ("start-with-motion", "blend") else T_run
+        if len(calls) != steps or set(calls) != {WF_NUM}:
+            raise RuntimeError(f"workflow {wf} ran {len(calls)} forwards of batch "
+                               f"{sorted(set(calls))}, expected {steps} of {WF_NUM}")
+        if (b1, b2) != (per_step * len(calls), 0):
+            raise RuntimeError(f"workflow {wf} launched conv_gn_mish {b1} and "
+                               f"conv1d_weight_grad {b2} times, expected {per_step} x "
+                               f"{len(calls)} forwards and 0")
+        motions = [np.load(p) for p in paths]
+        bad = [f"{os.path.basename(p)}: not finite" for p, m in zip(paths, motions)
+               if not np.isfinite(m).all()]
+        bad += [f"{os.path.basename(p)}: {v}" for p, m in zip(paths, motions)
+                for v in workflow_violations(wf, m, walk, flip)]
+        if len(paths) != WF_NUM or bad:
+            raise RuntimeError(f"workflow {wf}: {len(paths)} motions, {bad[:4]}")
+        paths_of[wf] = paths
+        rows.append({"workflow": wf, "num": WF_NUM, "frames": motions[0].shape[0],
+                     "forwards": len(calls), "conv_gn_mish_launches": b1,
+                     "conv1d_weight_grad_launches": b2, "seconds": seconds})
+    return rows, paths_of
+
+
+def run_compare(run, b_run, tmp, per_step):
+    """``cli.compare.main`` over the U-Net run and the stack-B run, with the
+    walk clip as ground truth and CFG on class 0."""
+    reset_counts()
+    with counted_forwards(TemporalUnet) as ucalls, \
+            counted_forwards(TransformerMotionModel) as bcalls, \
+            contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        report = compare_cli.main(["--runs", f"{run},{b_run}", "--gt", str(WALK), "--class-id",
+                                   "0", "--num", str(CMP_NUM), "--frames", str(CMP_FRAMES),
+                                   "--out", os.path.join(tmp, "compare"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    b1, b2 = counts()
+    archs = sorted(e["architecture"] for e in report.values())
+    bad = [name for name, e in report.items()
+           if not (np.isfinite([e["sifid"], e["inter_diversity"]]).all()
+                   and e["best_loss"] is not None and e["frames"] == CMP_FRAMES)]
+    if archs != ["temporal", "transformer"] or bad:
+        raise RuntimeError(f"cli.compare: architectures {archs}, entries failing {bad}: {report}")
+    b_cfg = ExperimentConfig.load(os.path.join(b_run, "config.json"))
+    if ((b1, b2) != (per_step * len(ucalls), 0) or set(bcalls) != {2 * CMP_NUM}
+            or len(bcalls) != b_cfg.diffusion.noise_steps - 1):
+        raise RuntimeError(f"cli.compare: conv_gn_mish {b1}, conv1d_weight_grad {b2} for "
+                           f"{len(ucalls)} U-Net forwards; {len(bcalls)} transformer "
+                           f"forwards of batch {sorted(set(bcalls))}")
+    return {"seconds": seconds, "unet_forwards": len(ucalls), "conv_gn_mish_launches": b1,
+            "transformer_forwards": len(bcalls), "transformer_batch": 2 * CMP_NUM,
+            "report": {name: {k: e[k] for k in ("architecture", "frames", "best_loss",
+                                                 "checkpoint_step", "sifid",
+                                                 "inter_diversity")}
+                       for name, e in report.items()}}
+
+
+def run_sweep(tmp, per_step):
+    """``cli.sweep.main``: two learning rates over the user config's dim-128
+    U-Net on the walk clip, SWEEP_STEPS optimizer steps each."""
+    base = ExperimentConfig.load(str(USER_CONFIG)).override({
+        "data.path": str(WALK), "train.num_train_steps": SWEEP_STEPS})
+    base = dataclasses.replace(base, name="sweep")
+    base.save(os.path.join(tmp, "sweep_base.json"))
+    with open(os.path.join(tmp, "sweep_grid.json"), "w") as f:
+        json.dump({"train.lr": [1e-3, 1e-4]}, f)
+    out = os.path.join(tmp, "sweep")
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        summary = sweep_cli.main(["--config", os.path.join(tmp, "sweep_base.json"), "--grid",
+                                  os.path.join(tmp, "sweep_grid.json"), "--out", out,
+                                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    b1, b2 = counts()
+    micro = 2 * SWEEP_STEPS * base.train.gradient_accumulate_every
+    files = [f for f in ("interim_summary.json", "final_summary.json", "best_configs.txt")
+             if os.path.exists(os.path.join(out, f))]
+    losses = [v for r in summary["all"] for v in (r["best_loss"], r["final_loss"])]
+    if (b1, b2) != (per_step * micro, per_step * micro):
+        raise RuntimeError(f"cli.sweep launched conv_gn_mish {b1} and conv1d_weight_grad {b2} "
+                           f"times, expected {per_step} x {micro} micro-steps each")
+    if len(files) != 3 or len(summary["all"]) != 2 or not np.isfinite(losses).all():
+        raise RuntimeError(f"cli.sweep wrote {files}: {summary}")
+    return {"seconds": seconds, "runs": 2, "micro_steps": micro,
+            "conv_gn_mish_launches": b1, "conv1d_weight_grad_launches": b2,
+            "best": {k: summary["best"][k] for k in ("name", "best_loss", "best_step")}}
+
+
+def run_playback(dev, tmp, motion_path, no_mujoco):
+    """``softrender.render_motion`` on a workflow motion (the forward
+    kinematics on the card, held against the CPU's on the walk clip) and
+    ``VideoSaver``; ``cli.play.main --physics --video`` where mujoco
+    imports."""
+    walk = load_clip(str(WALK)).qpos
+    pos, quat = softrender.body_poses(walk, device=dev)
+    ref_pos, ref_quat = softrender.body_poses(walk, device="cpu")
+    fk_err = max(np.abs(pos - ref_pos).max(), np.abs(quat - ref_quat).max())
+    if not fk_err <= FK_TOL:
+        raise RuntimeError(f"forward kinematics on the card differ from the CPU's by {fk_err}")
+    motion = np.load(motion_path)
+    t0 = time.perf_counter()
+    frames = softrender.render_motion(motion, device=dev)
+    render_s = time.perf_counter() - t0
+    if frames.shape != (motion.shape[0], 480, 640, 3) or frames.dtype != np.uint8:
+        raise RuntimeError(f"render_motion gave {frames.shape} {frames.dtype}")
+    video = os.path.join(tmp, "workflow.avi")
+    saver = VideoSaver(video)
+    for f in frames:
+        saver.write(f)
+    saver.close()
+    artifact = [p for p in (video, video + ".npy") if os.path.exists(p) and os.path.getsize(p)]
+    if not artifact:
+        raise RuntimeError("VideoSaver wrote nothing")
+    result = {"frames": int(frames.shape[0]), "render_seconds": render_s,
+              "fk_max_abs_err_card_vs_cpu": float(fk_err),
+              "video": os.path.basename(artifact[0]), "video_bytes": os.path.getsize(artifact[0])}
+    if no_mujoco:
+        emit({"phase": "note", "path": "workflows", "note": "mujoco does not import on this "
+              f"machine ({no_mujoco}): cli.play's MuJoCo player is not run; B5 on its "
+              "--physics path (track_motions) is driven by the physics phase"})
+        result["play"] = None
+        return result
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        t0 = time.perf_counter()
+        _, res = play_cli.main([motion_path, "--physics", "--physics-horizon",
+                                str(PLAY_HORIZON), "--video", os.path.join(tmp, "play.avi"),
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    b5 = DK.control_step_cuda.launches
+    if b5 != PLAY_HORIZON or len(out.getvalue().splitlines()) != 2:
+        raise RuntimeError(f"cli.play --physics launched control_step {b5} times, expected "
+                           f"{PLAY_HORIZON}: {out.getvalue()}")
+    result["play"] = {"seconds": seconds, "control_step_launches": b5,
+                      "summary": res["summary"], "lines": out.getvalue().splitlines()}
+    return result
+
+
+def run_walk(tmp, no_mujoco):
+    """The port's end-to-end walk at WALK_STEPS: train (scan_chunk 10), sample,
+    play into a video. Where mujoco does not import, the play step draws the
+    first sample with the software renderer on the card instead of the
+    MuJoCo player, and the result says so."""
+    out = os.path.join(tmp, "walk")
+    real_play = play_cli.main
+    if no_mujoco:
+        def stand_in(argv):
+            video = argv[argv.index("--video") + 1]
+            motion = np.load(argv[0])
+            saver = VideoSaver(video)
+            for f in softrender.render_motion(np.concatenate([motion, motion]), device="cuda"):
+                saver.write(f)
+            saver.close()
+        play_cli.main = stand_in
+    reset_counts()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            motion, artifacts = end_to_end_walk.main(["--steps", str(WALK_STEPS), "--out", out,
+                                                      "--device", "cuda"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        play_cli.main = real_play
+    metrics = json.loads((Path(out) / "training_metrics.json").read_text())
+    logged = [r["step"] for r in metrics["metrics"]]
+    m = np.load(motion)
+    if logged != log_steps(WALK_STEPS, 1, 10) or not artifacts or not np.isfinite(m).all():
+        raise RuntimeError(f"the walk logged steps {logged}, wrote {artifacts}, motion "
+                           f"{m.shape} finite {np.isfinite(m).all()}")
+    return {"seconds": seconds, "steps": WALK_STEPS, "logged_steps": logged,
+            "best_loss": metrics["best_loss"], "motion_shape": list(m.shape),
+            "video": [os.path.basename(a) for a in artifacts],
+            "player": "software renderer on the card (mujoco does not import)" if no_mujoco
+            else "mujoco",
+            "kernel_launches": kernel_counts()}
+
+
+def workflows_phase(dev, tmp, per_step, b_run):
+    """Phase 18: the repo's own workflows on the card, on the train phase's
+    run and the b_serve run."""
+    run = os.path.join(tmp, "train_run")
+    result = {}
+    for name, fn, a in (("workflows", run_workflows, (run, tmp, per_step)),
+                        ("compare", run_compare, (run, b_run, tmp, per_step)),
+                        ("sweep", run_sweep, (tmp, per_step))):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        if name == "workflows":
+            out, paths_of = out
+        result[name] = out
+        emit({"phase": "main_path", "path": name, "seconds": time.perf_counter() - t0,
+              name: out})
+    no_mujoco = mujoco_missing()
+    result["playback"] = run_playback(dev, tmp, paths_of["editing"][0], no_mujoco)
+    emit({"phase": "main_path", "path": "playback", **result["playback"]})
+    result["walk"] = run_walk(tmp, no_mujoco)
+    emit({"phase": "main_path", "path": "walk", **result["walk"]})
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -2260,6 +2570,7 @@ def main(argv=None) -> int:
         result["b_train"] = phase("b_train", b_train_phase, dev, args, tmp, b_cfg)
         result["b_eval"] = phase("b_eval", b_eval_phase, dev, b_run)
         result["dec"] = phase("dec", dec_phase, dev, timer, args, tmp)
+        result["workflows"] = phase("workflows", workflows_phase, dev, tmp, per_step, b_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -2271,6 +2582,8 @@ def main(argv=None) -> int:
     w_fwd = f"per_forward_h{TRAIN_H}"
     w_serve = f"per_forward_h{H}"
     guide = result["guide"]
+    wf = result["workflows"]
+    play = wf["playback"]["play"]
     kernels = [{
         "name": "conv_gn_mish", "route": "cuda", "status": "ported; matches its plain version",
         "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv_gn_mish.cu",
@@ -2297,6 +2610,12 @@ def main(argv=None) -> int:
         # value guidance: the U-Net's 33 and the ValueFunction's 20 launches a step
         "launches_guide": guide["conv_gn_mish_launches"],
         "value_function_forward": guide["value_function_kernels"]["conv_gn_mish"],
+        # phase 18: the seven workflows (T 1000 chains at B 16, two 2-step ones), compare's
+        # U-Net run, and the sweep's 20 micro-steps
+        "launches_workflows": {r["workflow"]: r["conv_gn_mish_launches"]
+                               for r in wf["workflows"]},
+        "launches_compare": wf["compare"]["conv_gn_mish_launches"],
+        "launches_sweep": wf["sweep"]["conv_gn_mish_launches"],
     }, {
         "name": "conv1d_weight_grad", "route": "cuda",
         "status": "ported; matches its plain version",
@@ -2318,6 +2637,7 @@ def main(argv=None) -> int:
         # value training: one value_diffusion_loss step's 20 launches (B 16, H 64)
         "launches_value_step": guide["value_diffusion_loss"]["launches"]["conv1d_weight_grad"],
         "value_function_step": guide["value_function_kernels"]["conv1d_weight_grad"],
+        "launches_sweep": wf["sweep"]["conv1d_weight_grad_launches"],
     }]
     # B3 and B4: per launch at the serving shape (B 16, H 128, no masks)
     b3_main, b4_main = b3[0], b4[0]
@@ -2361,6 +2681,8 @@ def main(argv=None) -> int:
             ("control_step", phys["control_step_reward"], 561,
              phys_path["steps_vs_rollout"]["control_step_launches"],
              {"launches_track_motions": phys_path["track_motions"]["control_step_launches"],
+              # cli.play --physics in phase 18; null where mujoco does not import
+              "launches_play": play["control_step_launches"] if play else None,
               "without_reward": {k: phys["control_step"][k]
                                  for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
               "host_wrapper_us": phys_path["profile"]["wrapper_host_us"]}),

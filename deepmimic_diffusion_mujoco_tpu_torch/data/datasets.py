@@ -68,6 +68,24 @@ def cyclic_rotations_rooted(x: np.ndarray) -> np.ndarray:
     return out
 
 
+def flattened_normalized(qpos: np.ndarray, frames: int = 80):
+    """Stack-C preprocessing: min-max normalize to [0, 1] and flatten
+    (frames, 35) -> (1, frames*35, 1) for a 1-channel 1-D diffusion.
+    Returns (flat, (min_val, max_val))."""
+    x = np.asarray(qpos[:frames], np.float32)
+    lo, hi = float(x.min()), float(x.max())
+    norm = (x - lo) / (hi - lo)
+    return norm.reshape(1, -1, 1), (lo, hi)
+
+
+def unflatten_denormalized(flat: np.ndarray, bounds: tuple[float, float],
+                           feature_dim: int = 35) -> np.ndarray:
+    """Inverse of :func:`flattened_normalized`."""
+    lo, hi = bounds
+    x = np.asarray(flat).reshape(-1, feature_dim)
+    return x * (hi - lo) + lo
+
+
 @dataclass
 class MotionDataset:
     """In-memory trajectory dataset over one or more mocap clips."""
@@ -152,6 +170,16 @@ class MotionDataset:
 
     def __len__(self) -> int:
         return self.trajectories.shape[0]
+
+    @property
+    def max_sequence_length(self) -> int:
+        return int(self.lengths.max())
+
+    def mask(self) -> np.ndarray:
+        """(N, H) float32: 1.0 on each trajectory's valid frames."""
+        return (
+            np.arange(self.horizon)[None, :] < self.lengths[:, None]
+        ).astype(np.float32)
 
     def batch(self, indices: np.ndarray) -> Batch:
         traj = self.trajectories[indices]

@@ -164,3 +164,15 @@ def sample_loop(
         if return_chain:
             chain.append(x)
     return SampleResult(trajectories=x, chain=torch.stack(chain) if return_chain else None)
+
+
+def make_sampler(sched: Schedule, model: torch.nn.Module, **kwargs):
+    """Bind the denoiser into a closure over ``sample_loop``: the returned
+    callable takes ``(shape, generator, **overrides)``, the overrides taking
+    precedence over ``kwargs``. The JAX package binds flax params into its
+    apply function here; a port model already holds its parameters."""
+
+    def sampler(shape, generator: torch.Generator, **overrides):
+        return sample_loop(sched, model, shape, generator, **{**kwargs, **overrides})
+
+    return sampler

@@ -222,7 +222,7 @@ class DynamicsEnv:
         if layout in _UNPORTED_LAYOUTS:
             raise NotImplementedError(
                 f"DynamicsEnv layout {layout!r} ({_UNPORTED_LAYOUTS[layout]}) is not ported "
-                "yet (ROADMAP Queue A, slice 4); use layout='auto'")
+                "yet (ROADMAP Queue A, the other dynamics engines); use layout='auto'")
         if layout not in ("auto", "pallas"):
             raise ValueError(layout)
         self.dt = dt

@@ -9,9 +9,15 @@ best-model window and periodic saves, and ``save_metrics`` (the same
 ``training_metrics.json``).
 
 The JAX package's ``lax.scan`` chunking (``_train_scanned``,
-``make_train_many``) has no counterpart: ``TrainerConfig.scan_chunk`` is
-read and ignored, and every step runs through the per-step loop, which
-tracks the best model exactly as the scanned path does (the post-update
+``make_train_many``) compiles ``scan_chunk`` updates into one call. Here
+every micro-step runs through the same per-step loop whatever
+``TrainerConfig.scan_chunk`` is; the chunk sets only the log records. With
+``scan_chunk > 1`` there is one record per ``scan_chunk`` micro-steps and
+one for a ragged tail, each with ``step``, that micro-step's ``loss`` and
+``steps_per_s`` in micro-steps, as the scanned trainer writes them; with
+``scan_chunk <= 1`` one every ``log_every`` micro-steps with the loss's
+scalar ``info`` fields too. The best model is tracked over every
+micro-step either way, exactly as the scanned path does (the post-update
 state of the lowest-loss micro-step at or after optimizer step
 ``int(n * (1 - best_window_frac))``). Timesteps, noise, label-drop masks
 and dropout masks come from the trainer's ``torch.Generator`` on the
@@ -119,7 +125,7 @@ class TrainerConfig:
     save_every: int | None = None
     best_window_frac: float = 0.15   # best-model tracking window
     seed: int = 0
-    scan_chunk: int = 1              # read and ignored: no scanned loop here
+    scan_chunk: int = 1              # > 1: one log record per chunk of micro-steps
     class_balanced: bool = False
 
 
@@ -178,9 +184,11 @@ class Trainer:
                                       class_balanced=cfg.class_balanced)
         best_from = int(n * (1.0 - cfg.best_window_frac))
         self.state.model.train()
+        micro = n * accum
+        chunk = cfg.scan_chunk if cfg.scan_chunk > 1 else None
         t0 = time.time()
         last_saved = 0
-        for i in range(n * accum):
+        for i in range(micro):
             batch = next(batches)
             x0, y, mask = (self._to_device(a) for a in
                            (batch.trajectories, batch.motion_class, batch.mask))
@@ -193,11 +201,16 @@ class Trainer:
                 ts.update_with_losses(self.sampler_state, t, info["per_sample_loss"])
             # state.step counts micro-steps; report/compare in optimizer steps
             opt_step = self.state.step // accum
-            if (i + 1) % cfg.log_every == 0:
+            if chunk is not None:
+                log = (i + 1) % chunk == 0 or i + 1 == micro
+            else:
+                log = (i + 1) % cfg.log_every == 0
+            if log:
                 loss_v = float(loss)
                 dt = time.time() - t0
-                rec = {"step": opt_step, "loss": loss_v, "steps_per_s": (i + 1) / dt,
-                       **{k: float(v) for k, v in info.items() if v.dim() == 0}}
+                rec = {"step": opt_step, "loss": loss_v, "steps_per_s": (i + 1) / dt}
+                if chunk is None:
+                    rec.update({k: float(v) for k, v in info.items() if v.dim() == 0})
                 self.metrics.append(rec)
                 self.log_fn(f"step {opt_step}: loss {loss_v:.6f} "
                             f"({rec['steps_per_s']:.1f} steps/s)")

@@ -29,7 +29,7 @@ FWD_TOL = 1e-5
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONFIG = os.path.join(ROOT, "experiments", "decoder10k", "config.json")
 TINY = ["model.latent_dim=32", "model.num_layers=2", "model.n_heads=2", "model.max_seq_len=24",
-        "diffusion.noise_steps=8", "train.log_every=2", "train.save_every=2",
+        "diffusion.noise_steps=8", "train.log_every=2", "train.scan_chunk=1", "train.save_every=2",
         "train.ema_start=2", "train.ema_every=2"]
 
 

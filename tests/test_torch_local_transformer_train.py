@@ -51,7 +51,7 @@ CONFIG = os.path.join(ROOT, "experiments", "localattn5k_r3", "config.json")
 WALK = os.path.join(ROOT, "data", "motions", "humanoid3d_walk.txt")
 TINY = ["model.latent_dim=32", "model.depth=1", "model.n_heads=2", "model.dim_head=16",
         "model.max_seq_len=40", "diffusion.noise_steps=8", "train.log_every=2",
-        "train.save_every=2", "train.ema_start=2", "train.ema_every=2"]
+        "train.scan_chunk=1", "train.save_every=2", "train.ema_start=2", "train.ema_every=2"]
 
 
 @pytest.fixture(autouse=True)

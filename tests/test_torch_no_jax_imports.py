@@ -10,14 +10,20 @@ import torch
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.cli import cfg_eval as cfg_eval_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import compare as compare_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import play as play_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import sweep as sweep_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import workflows as workflows_cli
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process, schedules
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.timestep_sampling import LossSecondMomentState
+from deepmimic_diffusion_mujoco_tpu_torch.examples import end_to_end_walk
 from deepmimic_diffusion_mujoco_tpu_torch.physics import env as physics_env
 from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics import DynamicsEnv
 from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
+from deepmimic_diffusion_mujoco_tpu_torch.physics.softrender import render_motion
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig, ModelConfig
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,6 +68,12 @@ ENTRY_POINTS = {
     "track_motions": lambda tmp: track_motions(np.zeros((4, 35))),
     "diffuser_loss_weights": lambda tmp: process.diffuser_loss_weights(8, 35),
     "LossSecondMomentState": lambda tmp: LossSecondMomentState.create(8),
+    "workflows_main": lambda tmp: workflows_cli.main(["editing", "--untrained"]),
+    "compare_main": lambda tmp: compare_cli.main(["--runs", str(tmp), "--out", str(tmp)]),
+    "sweep_main": lambda tmp: sweep_cli.main(["--grid", "grid.json"]),
+    "render_motion": lambda tmp: render_motion(np.zeros((2, 35))),
+    "play_main": lambda tmp: play_cli.main(["motion.npy", "--no-render"]),
+    "end_to_end_walk": lambda tmp: end_to_end_walk.main(["--out", str(tmp)]),
 }
 
 
@@ -115,7 +127,7 @@ def test_unported_local_attention_options_name_roadmap(case):
 
 @pytest.mark.parametrize("layout", ["aba", "lanes", "vmap"])
 def test_unported_dynamics_layouts_name_roadmap(layout):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, the other dynamics engines"):
         DynamicsEnv(layout=layout)
     assert DynamicsEnv(layout="pallas").layout == DynamicsEnv().layout == "pallas"
 

@@ -45,8 +45,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 CONFIG = os.path.join(ROOT, "experiments", "allclips12k_r5", "config.json")
 TINY = ["model.latent_dim=32", "model.num_layers=1", "model.n_heads=2",
         "model.dim_feedforward=64", "model.max_seq_len=40", "diffusion.noise_steps=8",
-        "data.max_files=3", "train.log_every=2", "train.save_every=2", "train.ema_start=2",
-        "train.ema_every=2"]
+        "data.max_files=3", "train.log_every=2", "train.scan_chunk=1", "train.save_every=2",
+        "train.ema_start=2", "train.ema_every=2"]
 
 
 def _t(a):

@@ -273,3 +273,59 @@ def test_trainer_steps_match_jax():
             diff = (ours[k] - v).abs()
             close = (diff <= 1e-5 * v.abs().max() + 1e-2 * lr).float().mean().item()
             assert close >= 0.999 and diff.max().item() <= lr, (k, close, diff.max().item())
+
+
+class _Scale(torch.nn.Module):
+    """A one-parameter denoiser, x * w: the log records do not depend on
+    the model, and JAX's scanned trainer compiles it in seconds."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(()))
+
+    def forward(self, x, t, y=None):
+        return x * self.w
+
+
+@pytest.mark.parametrize("scan_chunk,accum", [(4, 1), (4, 2), (1, 1)])
+def test_training_metrics_records_match_jax(tmp_path, scan_chunk, accum):
+    """training_metrics.json's records over 10 micro-steps: with scan_chunk 4
+    JAX's scanned trainer writes one per chunk and one for the ragged tail
+    (step, the chunk's last loss, steps_per_s); with scan_chunk 1 one every
+    log_every micro-steps with the info fields. The port's file has the same
+    top-level keys and records of the same steps, keys and count."""
+    import json
+
+    x0 = np.random.default_rng(2).normal(size=(2, H, D)).astype(np.float32)
+    weights = JP.diffuser_loss_weights(H, D, 1.0, 1.0)
+    cfg = dict(num_train_steps=10 // accum, batch_size=2, gradient_accumulate_every=accum,
+               log_every=3, seed=0, scan_chunk=scan_chunk)
+    tx = JSt.make_optimizer("adamw", lr=1e-3)
+    jtrainer = JL.Trainer(
+        JSt.TrainState.create({"w": jnp.ones(())}, tx, JSt.EMAConfig(0.9, 4, 3)), tx,
+        JL.make_loss_fn(JS.make_schedule("cosine", T, convention="diffuser"),
+                        lambda p, x, t, *a, **k: x * p["w"], kind="diffuser",
+                        weights=weights),
+        FixedBatch(x0), JL.TrainerConfig(**cfg), log_fn=lambda s: None)
+    jtrainer.train()
+    jtrainer.save_metrics(str(tmp_path / "jax.json"))
+
+    model = _Scale()
+    opt, sched = TSt.make_optimizer(model.parameters(), "adamw", lr=1e-3)
+    state = TSt.TrainState(model, opt, sched, TSt.EMAConfig(0.9, 4, 3), accum=accum)
+    loss_fn = TL.make_loss_fn(TS.make_schedule("cosine", T, convention="diffuser", device="cpu"),
+                              model, weights=_t(np.asarray(weights)))
+    trainer = TL.Trainer(state, loss_fn, FixedBatch(x0), TL.TrainerConfig(**cfg),
+                         log_fn=lambda s: None, num_timesteps=T)
+    trainer.train()
+    trainer.save_metrics(str(tmp_path / "port.json"))
+
+    ref, ours = (json.loads((tmp_path / f"{n}.json").read_text()) for n in ("jax", "port"))
+    assert ours.keys() == ref.keys()
+    expected = {(4, 1): [4, 8, 10], (4, 2): [2, 4, 5], (1, 1): [3, 6, 9]}[scan_chunk, accum]
+    assert [r["step"] for r in ref["metrics"]] == expected
+    assert [r["step"] for r in ours["metrics"]] == expected
+    for a, b in zip(ours["metrics"], ref["metrics"]):
+        assert a.keys() == b.keys()
+        assert np.isfinite(a["loss"]) and a["steps_per_s"] > 0
+    assert ("a0_loss" in ours["metrics"][0]) == (scan_chunk == 1)

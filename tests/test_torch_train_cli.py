@@ -21,8 +21,9 @@ CONFIG = os.path.join(ROOT, "experiments", "unet_walk10k", "config.json")
 CLIP = os.path.join(ROOT, "data", "motions", "humanoid3d_walk.txt")
 TINY = ["model.channel_dim=16", "diffusion.noise_steps=8", "train.gradient_accumulate_every=2",
         "train.log_every=2", "train.save_every=2", "train.ema_start=2", "train.ema_every=2"]
-# the record keys of deepmimic_diffusion_mujoco_tpu/train/loop.py Trainer.train
-RECORD_KEYS = {"step", "loss", "steps_per_s", "a0_loss"}
+# the record keys of deepmimic_diffusion_mujoco_tpu/train/loop.py Trainer._train_scanned: the
+# user config's scan_chunk 50 logs one record per chunk (8 micro-steps: one ragged chunk)
+RECORD_KEYS = {"step", "loss", "steps_per_s"}
 
 
 def _train(out, *extra):
@@ -43,7 +44,8 @@ def test_run_directory_contract(run):
     assert cfg.model.channel_dim == 16 and cfg.train.gradient_accumulate_every == 2
     metrics = json.loads((run / "training_metrics.json").read_text())
     assert metrics.keys() == {"metrics", "best_loss", "best_step"}
-    assert [r["step"] for r in metrics["metrics"]] == [1, 2, 3, 4]
+    assert cfg.train.scan_chunk == 50
+    assert [r["step"] for r in metrics["metrics"]] == [4]
     for rec in metrics["metrics"]:
         assert rec.keys() == RECORD_KEYS and np.isfinite(rec["loss"])
     assert metrics["best_step"] >= 3  # the window opens at int(4 * 0.85)
@@ -68,7 +70,7 @@ def test_resume_continues_the_run(run, tmp_path):
                               "--resume", "--device", "cpu"])
     assert trainer.state.step == 16
     assert trainer.state.optimizer.state_dict()["state"][0]["step"].item() == 8
-    assert [r["step"] for r in trainer.metrics] == [5, 6, 7, 8]
+    assert [r["step"] for r in trainer.metrics] == [8]  # 8 micro-steps: one ragged chunk
     after, _ = Checkpointer(str(resumed / "checkpoints")).restore()
     assert after["step"] == 16
     assert any((after["params"][k] != v).any() for k, v in before["params"].items())
@@ -112,4 +114,4 @@ def test_unported_training_paths_raise(tmp_path, overrides, error, match):
     names = sorted(p.name for p in (tmp_path / "checkpoints").glob("*.pt"))
     assert names == ["best_model.pt", "state_4.pt", "state_8.pt"]
     metrics = json.loads((tmp_path / "training_metrics.json").read_text())
-    assert len(metrics["metrics"]) == 4 and np.isfinite(metrics["best_loss"])
+    assert len(metrics["metrics"]) == 1 and np.isfinite(metrics["best_loss"])
