@@ -139,6 +139,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    walk clip) into ``VideoSaver``; ``cli.play.main --physics --video`` (B5 once a control
    step) where mujoco imports, else a line that says so; and the port's end-to-end walk at
    20 steps (its play step through the software renderer where mujoco does not import).
+19. engines, run after the physics phase (no kernel of their own; f32 with TF32 off): the
+   three reference engines ``DynamicsEnv(layout=L).step`` for L = vmap (dense), lanes
+   (env-last) and aba (O(n)), one control step (17 substeps, contacts and limits on) from the
+   walk clip's frames staggered over N 4096 envs, each held against B5 on the same state
+   (ENGINE_QPOS_TOL), with seconds per control step (host clock after a sync, the best of 3),
+   env-steps/s and peak device memory; vmap in float64 at N 16 on the card against the same
+   call on the CPU (ENGINE_F64_TOL), which ties the card to the engine the CPU tests hold
+   against MuJoCo; ``PhysicsTrackingEnv(layout="aba").rollout`` of ENGINE_ROLLOUT_T steps at
+   N 4096 against the B6 rollout from the same state (rewards and done, their differences
+   printed).
 
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -201,6 +211,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
 from deepmimic_diffusion_mujoco_tpu_torch.physics import dynamics_kernel as DK
+from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics import DynamicsEnv
 from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics_sweep import log_of
 from deepmimic_diffusion_mujoco_tpu_torch.physics.env import PhysicsTrackingEnv, tracking_reward
 from deepmimic_diffusion_mujoco_tpu_torch.physics import softrender
@@ -262,6 +273,11 @@ GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) ove
 # multiple of 8 (the U-Net's), on CMP_NUM samples a run; a two-point sweep of SWEEP_STEPS
 WF_NUM, CMP_NUM, CMP_FRAMES, SWEEP_STEPS, PLAY_HORIZON, WALK_STEPS = 16, 8, 32, 10, 15, 20
 FK_TOL = 1e-5            # body poses: forward kinematics on the card against the CPU
+ENGINE_LAYOUTS = ("vmap", "lanes", "aba")
+ENGINE_QPOS_TOL = 5e-4   # f32 engines against B5 after one control step: the f32
+                         # cross-layout tolerance of tests/test_dynamics.py:250-343
+ENGINE_F64_N, ENGINE_F64_TOL = 16, 1e-10  # vmap in f64, the card against the CPU (qpos)
+ENGINE_ROLLOUT_T = 5     # PhysicsTrackingEnv(layout="aba").rollout against B6
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -2230,6 +2246,88 @@ def physics_phase(dev, tmp, ops, peaks):
 
 
 
+def timed_best(fn, reps=3):
+    """(seconds of the fastest of ``reps`` calls, host clock after a sync,
+    every time, the first call's result)."""
+    times, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        out = res if out is None else out
+    return min(times), times, out
+
+
+def engines_phase(dev, smi):
+    """Phase 19: the reference engines (vmap, lanes, aba) through
+    DynamicsEnv.step at N 4096 against B5 on the same state; vmap in
+    float64 on the card against the CPU; the aba rollout against B6."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 is on in cuBLAS: the engines' mass matrices need true f32")
+    result = {"N": PHYS_N, "substeps": SUBSTEPS, "nvidia_smi": smi, "layouts": {}}
+    qpos, qvel, tgts, _ = staggered_walk(dev, PHYS_N)
+    kw = dict(h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS)
+    b5 = DK.control_step_cuda(qpos, qvel, tgts[0], **kw)
+    for layout in ENGINE_LAYOUTS:
+        eng = DynamicsEnv(dt=1.0 / 30.0, substeps=SUBSTEPS, layout=layout)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        best, times, out = timed_best(lambda: eng.step(qpos, qvel, tgts[0]))
+        errs = {"qpos": (out[0] - b5[0]).abs().max().item(),
+                "qvel": (out[1] - b5[1]).abs().max().item(), "max_abs_qvel": b5[1].abs().max().item()}
+        finite = all(torch.isfinite(t).all() for t in out)
+        if not (finite and errs["qpos"] <= ENGINE_QPOS_TOL):
+            raise RuntimeError(f"layout {layout} against B5 at N {PHYS_N}: {errs}, finite {finite}")
+        result["layouts"][layout] = {
+            "max_abs_err_vs_b5": errs, "seconds_per_control_step": best, "seconds": times,
+            "env_steps_per_s": PHYS_N / best,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) - base}
+        emit({"phase": "engines", "layout": layout, "N": PHYS_N, "nvidia_smi": smi,
+              **result["layouts"][layout]})
+
+    n = ENGINE_F64_N
+    eng = DynamicsEnv(dt=1.0 / 30.0, substeps=SUBSTEPS, layout="vmap")
+    args = [t[:n].double() for t in (qpos, qvel, tgts[0])]
+    card = eng.step(*args)
+    cpu = eng.step(*[t.cpu() for t in args])
+    errs = {"qpos": (card[0].cpu() - cpu[0]).abs().max().item(),
+            "qvel": (card[1].cpu() - cpu[1]).abs().max().item()}
+    if not (all(torch.isfinite(t).all() for t in cpu) and errs["qpos"] <= ENGINE_F64_TOL):
+        raise RuntimeError(f"vmap float64 at N {n}, the card against the CPU: {errs}")
+    result["f64_card_vs_cpu"] = {"N": n, "max_abs_err": errs}
+    emit({"phase": "engines", "path": "vmap_f64_card_vs_cpu", **result["f64_card_vs_cpu"]})
+
+    clip = load_clip(str(WALK))
+    envs = {layout: PhysicsTrackingEnv(clip.qpos, clip.qvel, dt=1.0 / 30.0, substeps=SUBSTEPS,
+                                       fall_height=0.3, layout=layout, device=dev)
+            for layout in ("aba", "auto")}
+    state = envs["aba"].reset(PHYS_N)
+    best, _, (final, rewards) = timed_best(lambda: envs["aba"].rollout(state, ENGINE_ROLLOUT_T),
+                                           reps=1)
+    ref_final, ref_rewards = envs["auto"].rollout(state, ENGINE_ROLLOUT_T)
+    if not (rewards.shape == ref_rewards.shape == (ENGINE_ROLLOUT_T, PHYS_N)
+            and torch.isfinite(rewards).all() and torch.isfinite(final.qpos).all()
+            and torch.equal(final.frame, ref_final.frame)):
+        raise RuntimeError(f"aba rollout: rewards {tuple(rewards.shape)}, finite "
+                           f"{bool(torch.isfinite(rewards).all())}")
+    both = ~(final.done | ref_final.done)
+    result["rollout_aba_vs_b6"] = {
+        "N": PHYS_N, "T": ENGINE_ROLLOUT_T, "seconds": best,
+        "env_steps_per_s": PHYS_N * ENGINE_ROLLOUT_T / best,
+        "max_abs_reward_diff": (rewards - ref_rewards).abs().max().item(),
+        "mean_abs_reward_diff": (rewards - ref_rewards).abs().mean().item(),
+        "reward_mean": rewards.mean().item(), "reward_mean_b6": ref_rewards.mean().item(),
+        "done": int(final.done.sum()), "done_b6": int(ref_final.done.sum()),
+        "done_differ": int((final.done != ref_final.done).sum()),
+        "max_abs_qpos_diff_live": ((final.qpos - ref_final.qpos)[both].abs().max().item()
+                                   if both.any() else None)}
+    emit({"phase": "engines", "path": "rollout_aba_vs_b6", **result["rollout_aba_vs_b6"]})
+    return result
+
+
 def mujoco_missing():
     """Why mujoco does not import here, or None when it does."""
     try:
@@ -2562,6 +2660,7 @@ def main(argv=None) -> int:
         result["serve"] = phase("serve", serve_phase, dev, timer, args, tmp, shape_counts, peaks)
         result["guide"] = phase("guide", guide_phase, dev, timer, args, tmp, peaks)
         result["physics"] = phase("physics", physics_phase, dev, tmp, phys_ops, peaks)
+        result["engines"] = phase("engines", engines_phase, dev, smi)
         result["la_serve"] = phase("la_serve", la_serve_phase, dev, timer, args, tmp, la_cfg)
         result["la_train"] = phase("la_train", la_train_phase, dev, args, tmp, la_cfg)
         result["train"] = phase("train", train_phase, args, tmp, per_step)

@@ -11,9 +11,12 @@ instances in lockstep on the card, plus the DeepMimic tracking-reward stack
   carry) and runs FK: the playback/eval path.
 - PhysicsTrackingEnv: the DeepMimic imitation loop on the rigid-body
   engine: PD torques toward the next mocap frame, tracking reward, fall
-  termination. `step` is one launch of the whole-control-step kernel (B5)
-  with the reward fused in; `rollout` is one launch of the whole-rollout
-  kernel (B6). On CPU tensors both run the kernels' plain versions.
+  termination. On the "auto"/"pallas" layout `step` is one launch of the
+  whole-control-step kernel (B5) with the reward fused in and `rollout` one
+  launch of the whole-rollout kernel (B6); on CPU tensors both run the
+  kernels' plain versions. On "vmap", "lanes" and "aba" `step` runs that
+  engine (dynamics.DynamicsEnv) and then the reward, and `rollout` is `step`
+  in a loop.
 
 Constructors take ``device`` ("cuda" by default; it raises without a card).
 """
@@ -176,26 +179,39 @@ class PhysicsTrackingEnv:
                             done=torch.zeros((n,), dtype=torch.bool, device=self.device))
 
     def step(self, state: PhysicsState):
-        """PD toward the NEXT mocap frame, integrate, reward vs that frame:
-        one launch of B5 with the reward fused in (on the post-step state,
-        identical to the unfused order because done instances gate to 0
-        below anyway). Returns (state, reward)."""
+        """PD toward the NEXT mocap frame, integrate, reward vs that frame.
+        On the whole-control-step layout, one launch of B5 with the reward
+        fused in (on the post-step state, identical to the unfused order
+        because done instances gate to 0 below anyway). Returns (state,
+        reward)."""
         nxt = torch.where(state.frame + 1 >= self.num_frames, torch.zeros_like(state.frame),
                           state.frame + 1)
         target = self.motion[nxt]
-        qpos, qvel, reward = dynamics_kernel.control_step(
-            state.qpos, state.qvel, target, self.vel[nxt], **self.engine.kernel_args())
+        if self.engine.layout == "pallas":
+            qpos, qvel, reward = dynamics_kernel.control_step(
+                state.qpos, state.qvel, target, self.vel[nxt], **self.engine.kernel_args())
+        else:
+            qpos, qvel = self.engine.step(state.qpos, state.qvel, target)
         # frozen once fallen
         qpos = torch.where(state.done[:, None], state.qpos, qpos)
         qvel = torch.where(state.done[:, None], state.qvel, qvel)
+        if self.engine.layout != "pallas":
+            reward = tracking_reward(qpos, qvel, target, self.vel[nxt])
         done = state.done | (qpos[:, 2] < self.fall_height)
         reward = torch.where(done, torch.zeros_like(reward), reward)
         return PhysicsState(nxt, qpos, qvel, done), reward
 
     def rollout(self, state: PhysicsState, num_steps: int):
-        """`num_steps` control steps as ONE launch of the whole-rollout
-        kernel (B6): dynamics, rewards and the done/fall bookkeeping.
-        Returns (final_state, rewards (num_steps, N))."""
+        """`num_steps` control steps. Returns (final_state, rewards
+        (num_steps, N)). On the whole-control-step layout, ONE launch of the
+        whole-rollout kernel (B6): dynamics, rewards and the done/fall
+        bookkeeping; on the other layouts `step` in a loop."""
+        if self.engine.layout != "pallas":
+            rewards = []
+            for _ in range(num_steps):
+                state, r = self.step(state)
+                rewards.append(r)
+            return state, torch.stack(rewards)
         frames = (state.frame[None, :] + 1
                   + torch.arange(num_steps, device=state.frame.device)[:, None]) % self.num_frames
         qpos, qvel, rewards, done = dynamics_kernel.rollout(

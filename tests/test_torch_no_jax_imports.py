@@ -127,8 +127,19 @@ def test_unported_local_attention_options_name_roadmap(case):
 
 @pytest.mark.parametrize("layout", ["aba", "lanes", "vmap"])
 def test_unported_dynamics_layouts_name_roadmap(layout):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, the other dynamics engines"):
-        DynamicsEnv(layout=layout)
+    """Every dynamics layout is ported: each steps a 2-env batch to finite
+    values on the CPU, and "auto" and "pallas" still mean the
+    whole-control-step path."""
+    from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
+
+    clip = load_clip(str(ROOT / "data" / "motions" / "humanoid3d_walk.txt"))
+    q = torch.tensor(clip.qpos[:2], dtype=torch.float32)
+    v = torch.tensor(clip.qvel[:2], dtype=torch.float32)
+    eng = DynamicsEnv(substeps=2, layout=layout)
+    assert eng.layout == layout
+    qp, qv = eng.step(q, v, torch.tensor(clip.qpos[1:3], dtype=torch.float32))
+    assert qp.shape == (2, 35) and qv.shape == (2, 34)
+    assert torch.isfinite(qp).all() and torch.isfinite(qv).all()
     assert DynamicsEnv(layout="pallas").layout == DynamicsEnv().layout == "pallas"
 
 
