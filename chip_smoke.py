@@ -103,10 +103,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    loss, then v4 with the loss-aware timestep sampler; one x0-loss gradient at B 16 (injected
    t, noise and label-drop mask, dropout off) against float64 on the CPU (B_GRAD_TOL); ms per
    optimizer step over 10 steps, busy share and peak memory.
-14. b_eval: ``cli.evaluate.main`` on the b_serve run against the walk clip (8 samples x H 64,
-   2 replications) and ``cli.cfg_eval.main`` (scale 3, 2 samples a class, H 64; the
-   unconditional branch runs in b_serve's plain request):
-   every metric finite.
+14. b_eval: ``cli.evaluate.main`` on the b_serve run's weights against the walk clip (8 samples
+   x H 64, 2 replications) and ``cli.cfg_eval.main`` (scale 3, 2 samples a class, H 64; the
+   unconditional branch runs in b_serve's plain request): every metric finite. Both run a copy
+   of the run whose chains are cut to B_EVAL_T steps (the T 1000 chain is b_serve's; at T 1000
+   the 18 host-bound cfg_eval chains alone took 78-128 s on an NVIDIA H100 80GB HBM3 at 700 W).
 15. guide, run after the serve phase: ``guided_sample_loop`` with the serve phase's dim-128 U-Net
    run (posterior T 1000, B 16 x H 64, holding_box) and a seeded ``ValueFunction`` (dim 32,
    mults 1, 2, 4, 8, over H 64, parameters frozen): B1's count set to 0 just before and read
@@ -150,6 +151,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    N 4096 against the B6 rollout from the same state (rewards and done, their differences
    printed).
 
+20. parallel, run after the train, physics and workflows phases (``torch.distributed``; the
+   card is one device, so the multi-rank parts put two ranks on it over gloo: NCCL refuses two
+   ranks on one device, and such timings are not scaling): ``cli.train.main`` with the train
+   phase's arguments plus ``--coordinator file://... --num-processes 1 --process-id 0`` (NCCL,
+   world size 1): B1 and B2 33 a micro-step, its parameters bit-equal to those of the same
+   ``cli.train.main`` run without the flags, made just before it (an all_reduce over one rank
+   is the identity; phase 20 runs cuDNN's deterministic algorithms); ms per optimizer step
+   of the CLI's trainer with and without the group (PAR_STEPS-step windows in turns), their
+   parameters bit-equal after the same steps (an all_reduce over one rank is the identity;
+   phase 20 runs cuDNN's deterministic algorithms), one traced step (``utils.profiling.trace``:
+   one ``all_reduce_grads`` range a micro-step), and the gradient all_reduce's ms per step (CUDA
+   events and host clock); then two gloo ranks
+   (``parallel.launch.spawn_ranks``): ``multihost_check`` at dim 128 (loss and checksum
+   bit-equal across the ranks, within PAR_CHECK_TOL of one process; B1/B2 launches),
+   ``rollout_sharded(state, 20)`` at N 4096 (B6 once a rank at N 2048) against ``rollout``
+   from the same state (step tolerances, done flags and frames equal), the tensor-parallel
+   forward of experiments/allclips12k_r5/config.json (every attention and feed-forward Linear
+   split, B 16 x H 168, a padded key mask) against the one-process forward (B_FWD_TOL);
+   ``prefetch_to_device`` of eight training batches onto the card, equal to direct copies;
+   ``cli.scaling --widths 1,2 --steps 5`` (width 1 on NCCL, width 2 two ranks on gloo, recorded
+   ``measurement_valid`` false); and the local-attention leftovers on
+   experiments/localattn5k_r3/config.json with two overrides no experiment sets:
+   ``model.causal=true``, LA_DECODE frames at B 4 decoded through the KV cache against the
+   causal forward (LA_FORWARD_TOL), and ``model.use_global_attn=true``, one forward at B 16 x
+   H 128, finite and of its shape, with its ms.
+
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
 every phase's results to one JSON file. Timings use CUDA events with the
@@ -175,6 +202,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from deepmimic_diffusion_mujoco_tpu_torch import factory
@@ -183,10 +211,11 @@ from deepmimic_diffusion_mujoco_tpu_torch.cli import compare as compare_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import play as play_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import scaling as scaling_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sweep as sweep_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import workflows as workflows_cli
-from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset
+from deepmimic_diffusion_mujoco_tpu_torch.data.datasets import MotionDataset, prefetch_to_device
 from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.guidance import (
@@ -206,6 +235,9 @@ from deepmimic_diffusion_mujoco_tpu_torch.models.transformer_decoder import (
     TransformerDecoderMotionModel,
 )
 from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
+from deepmimic_diffusion_mujoco_tpu_torch.parallel import mesh as meshlib
+from deepmimic_diffusion_mujoco_tpu_torch.parallel import multihost_check, tp
+from deepmimic_diffusion_mujoco_tpu_torch.parallel.launch import spawn_ranks
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
@@ -220,6 +252,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.physics.video import VideoSaver
 from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
+from deepmimic_diffusion_mujoco_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
@@ -263,6 +296,7 @@ NO_LIBRARY = "no single PyTorch call computes the humanoid's dynamics or its tra
 # Stack B (the MDM transformer, f32 with TF32 off, no kernel): serving B x H with CFG (2B
 # forwards), training B 64 on the nine clips (H 160), the gradient check on B_GRAD_B rows
 B_B, B_H, B_TRAIN_B, B_TRAIN_H, B_TRAIN_STEPS, B_GRAD_B = 16, 168, 64, 160, 30, 16
+B_EVAL_T = 100           # b_eval's chain length (a run copy with diffusion.noise_steps cut)
 B_FWD_TOL = 1e-4         # |forward or loss on the card - float64 on the CPU| / max |float64|
 B_GRAD_TOL = 1e-4        # per parameter: |grad(card) - grad(float64)| / max |grad(float64)|,
 B_GRAD_FLOOR = 1e-4      # the divisor at least this share of the largest gradient over all
@@ -278,6 +312,12 @@ ENGINE_QPOS_TOL = 5e-4   # f32 engines against B5 after one control step: the f3
                          # cross-layout tolerance of tests/test_dynamics.py:250-343
 ENGINE_F64_N, ENGINE_F64_TOL = 16, 1e-10  # vmap in f64, the card against the CPU (qpos)
 ENGINE_ROLLOUT_T = 5     # PhysicsTrackingEnv(layout="aba").rollout against B6
+# parallel (phase 20): ms per optimizer step in windows of PAR_STEPS, taken in turns
+PAR_STEPS = 5
+PAR_CHECK_TOL = 1e-5     # multihost_check, two ranks (B 8 each) against one process (B 16):
+                         # B1/B2 sums over other rows, then one Adam step; relative
+PAR_TIMEOUT = 300.0      # seconds for the two gloo ranks' work
+LA_DECODE = 64           # frames decoded through the KV cache, against the causal forward
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -1649,7 +1689,12 @@ def b_train_phase(dev, args, tmp, cfg, steps=10):
 def b_eval_phase(dev, run):
     """``cli.evaluate.main`` and ``cli.cfg_eval.main`` on the served run:
     finite metrics of the expected keys (random weights: the scores
-    themselves mean nothing)."""
+    themselves mean nothing), on a copy of the run with B_EVAL_T-step chains."""
+    short = run + f"_t{B_EVAL_T}"
+    shutil.copytree(run, short)
+    config = os.path.join(short, "config.json")
+    ExperimentConfig.load(config).override({"diffusion.noise_steps": B_EVAL_T}).save(config)
+    run = short
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -1691,7 +1736,7 @@ def b_eval_phase(dev, run):
             torch.linalg.svd(product, driver=driver)
         torch.cuda.synchronize()
         svd_ms[driver or "default"] = (time.perf_counter() - t0) / 5 * 1e3
-    result = {"evaluate": {"seconds": ev_s, "metrics": ev},
+    result = {"T": B_EVAL_T, "evaluate": {"seconds": ev_s, "metrics": ev},
               "cfg_eval": {"seconds": cfg_s, "scales": summary},
               "sifid_svd_ms": svd_ms, "kernel_launches": kernel_counts()}
     emit({"phase": "main_path", "path": "b_eval", **result})
@@ -2590,6 +2635,326 @@ def workflows_phase(dev, tmp, per_step, b_run):
     return result
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer (phase 20)
+
+
+def window_ms(trainer, steps=PAR_STEPS):
+    """Host-clock ms per optimizer step of ``steps`` steps ended by a sync."""
+    t0 = time.perf_counter()
+    trainer.train(num_steps=steps)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def nccl_train(dev, args, tmp, per_step):
+    """``cli.train`` on the user config with the process group started by its
+    own flags (NCCL, world size 1), bit-equal to the same run without the
+    flags at the same seed; then the CLI's trainer with and without the
+    group in PAR_STEPS-step windows taken in turns: ms per optimizer step,
+    their parameters after the same steps bit-equal (an all_reduce over one
+    rank is the identity), one step traced through ``utils.profiling.trace``,
+    and the gradient all_reduce's ms per step. Runs with cuDNN's
+    deterministic algorithms, which the bit-equality needs."""
+    micro = TRAIN_STEPS * ACCUM
+    seconds = {}
+    trainers = {}
+    for name, flags in (("plain", []), ("nccl", [
+            "--coordinator", f"file://{tmp}/nccl_store", "--num-processes", "1",
+            "--process-id", "0"])):
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainers[name] = train_cli.main(
+                train_args(os.path.join(tmp, f"train_run_{name}"), args.seed) + flags)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    b1, b2 = counts()
+    if dist.is_initialized() or (b1, b2) != (per_step * micro, per_step * micro):
+        raise RuntimeError(f"the NCCL run launched conv_gn_mish {b1} and conv1d_weight_grad "
+                           f"{b2} times (expected {per_step} x {micro}); group left open: "
+                           f"{dist.is_initialized()}")
+    ref = trainers["plain"].state.model.state_dict()
+    ours = trainers["nccl"].state.model.state_dict()
+    diff = max((ours[k] - v).abs().max().item() for k, v in ref.items())
+    if diff != 0.0:
+        raise RuntimeError(f"cli.train over NCCL at world size 1 differs from the same run "
+                           f"without a group by {diff}")
+    del trainers, ours, ref
+    result = {"seconds": seconds["nccl"], "seconds_plain": seconds["plain"],
+              "micro_steps": micro, "conv_gn_mish_launches": b1,
+              "conv1d_weight_grad_launches": b2, "max_abs_diff_vs_plain_run": diff}
+
+    meshlib.initialize_multihost(f"file://{tmp}/nccl_store_timing", 1, 0, device=dev)
+    try:
+        cfg = ExperimentConfig.load(str(USER_CONFIG)).override({
+            "data.path": str(CARTWHEEL), "train.batch_size": TRAIN_B,
+            "train.gradient_accumulate_every": ACCUM, "train.seed": args.seed})
+        trainers = {"single": train_cli.build_trainer(cfg, device=dev),
+                    "nccl": train_cli.build_trainer(cfg, device=dev, group=dist.group.WORLD)}
+        for tr in trainers.values():
+            tr.config = dataclasses.replace(tr.config, log_every=10 ** 9, best_window_frac=-1e6)
+            window_ms(tr, 2)
+        ms = {"single": [], "nccl": []}
+        for name in ("single", "nccl", "nccl", "single"):
+            ms[name].append(window_ms(trainers[name]))
+        same = max((a - b).abs().max().item() for a, b in zip(
+            trainers["single"].state.model.state_dict().values(),
+            trainers["nccl"].state.model.state_dict().values()))
+        if same != 0.0:
+            raise RuntimeError(f"the trainer over NCCL at world size 1 differs from the one "
+                               f"without a group by {same} after the same steps")
+        # one optimizer step traced: its all_reduce ranges (one a micro-step) and kernels
+        with profiling.trace(os.path.join(tmp, "nccl_trace"), dev) as prof:
+            trainers["nccl"].train(num_steps=1)
+        ranges = [e for e in prof.key_averages() if e.key == "all_reduce_grads"]
+        if not ranges or ranges[0].count != ACCUM:
+            raise RuntimeError(f"the trace holds {ranges[0].count if ranges else 0} "
+                               f"all_reduce_grads ranges, expected {ACCUM}")
+        # the gradient all_reduce itself (flatten, all_reduce, average, copy back), on the
+        # stream by CUDA events and on the host clock
+        grads = [p.grad for p in trainers["nccl"].state.model.parameters()
+                 if p.grad is not None]
+        reps = 20
+        meshlib.all_reduce_mean(grads, dist.group.WORLD)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        for _ in range(reps):
+            meshlib.all_reduce_mean(grads, dist.group.WORLD)
+        events[1].record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        result.update(backend=dist.get_backend(), ms_per_optimizer_step=ms,
+                      max_abs_diff_nccl_vs_single=same,
+                      gradient_floats=sum(g.numel() for g in grads),
+                      all_reduce_ms_per_step=events[0].elapsed_time(events[1]) / reps * ACCUM,
+                      all_reduce_host_ms_per_step=host_ms * ACCUM,
+                      trace_bytes=os.path.getsize(os.path.join(tmp, "nccl_trace", "trace.json")))
+    finally:
+        dist.destroy_process_group()
+    return result
+
+
+def tp_inputs(cfg, seed, dev):
+    g = torch.Generator().manual_seed(seed + 20)
+    x = torch.randn(B_B, B_H, cfg.model.input_dim, generator=g)
+    t = torch.randint(0, T, (B_B,), generator=g)
+    y = torch.arange(B_B) % (cfg.model.num_classes + 1)
+    mask = (torch.arange(B_H)[None, :] < torch.randint(B_H // 2, B_H + 1, (B_B, 1),
+                                                       generator=g)).float()
+    return [a.to(dev) for a in (x, t, y, mask)]
+
+
+def parallel_worker(rank, world, seed):
+    """One of phase 20's two gloo ranks on the one card: multihost_check at
+    dim 128, rollout_sharded at N PHYS_N, and the tensor-parallel forward of
+    the stack-B user config. -> numpy results."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    t0 = time.perf_counter()
+    out["check"] = multihost_check.run_check(dim=DIM, device=dev)
+    out["check"]["seconds"] = time.perf_counter() - t0
+
+    clip = load_clip(str(WALK))
+    env = PhysicsTrackingEnv(clip.qpos, clip.qvel, dt=1.0 / 30.0, substeps=SUBSTEPS,
+                             fall_height=0.3, device=dev)
+    state = env.reset(PHYS_N)
+    launches = DK.rollout_cuda.launches
+    t0 = time.perf_counter()
+    final, rewards = env.rollout_sharded(meshlib.make_mesh(device_type="cuda"), state, PHYS_T)
+    torch.cuda.synchronize()
+    out["rollout"] = {"seconds": time.perf_counter() - t0,
+                      "rollout_launches": DK.rollout_cuda.launches - launches,
+                      "local_envs": PHYS_N // world, "rewards": rewards.cpu().numpy(),
+                      **{k: v.cpu().numpy() for k, v in final._asdict().items()}}
+
+    cfg = ExperimentConfig.load(str(B_CONFIG))
+    model = seeded_model(cfg, seed, adaln_modulations).to(dev).eval()
+    plan = tp.shard_params(model, meshlib.make_mesh(data=1, seq=world, device_type="cuda")["seq"])
+    inputs = tp_inputs(cfg, seed, dev)
+    with torch.no_grad():
+        model(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = model(*inputs)
+        torch.cuda.synchronize()
+    out["tp"] = {"ms": (time.perf_counter() - t0) * 1e3, "plan": sorted(plan),
+                 "out": y.cpu().numpy()}
+    return out
+
+
+def gloo_ranks(dev, args, tmp):
+    """Phase 20's two ranks on the one card (gloo: NCCL refuses two ranks on
+    one device), each part against this process alone."""
+    ranks = spawn_ranks(parallel_worker, 2, os.path.join(tmp, "gloo_store"),
+                        device="cuda", args=(args.seed,), timeout=PAR_TIMEOUT)
+    result = {}
+    one = multihost_check.run_check(dim=DIM, device=dev)
+    checks = [r["check"] for r in ranks]
+    rel = {k: abs(checks[0][k] - one[k]) / abs(one[k]) for k in ("loss", "param_checksum")}
+    if (any(c[k] != checks[0][k] for c in checks for k in ("loss", "param_checksum"))
+            or max(rel.values()) > PAR_CHECK_TOL or checks[0]["backend"] != "gloo"
+            or checks[0]["conv_gn_mish_launches"] != one["conv_gn_mish_launches"]
+            or checks[0]["conv1d_weight_grad_launches"] != one["conv1d_weight_grad_launches"]):
+        raise RuntimeError(f"multihost_check: ranks {checks}, one process {one}")
+    result["multihost_check"] = {"ranks": checks, "one_process": one, "rel_diff": rel}
+
+    clip = load_clip(str(WALK))
+    env = PhysicsTrackingEnv(clip.qpos, clip.qvel, dt=1.0 / 30.0, substeps=SUBSTEPS,
+                             fall_height=0.3, device=dev)
+    state = env.reset(PHYS_N)
+    final, rewards = env.rollout(state, PHYS_T)
+    r0, r1 = (r["rollout"] for r in ranks)
+    same = all(np.array_equal(r0[k], r1[k]) for k in ("rewards", "qpos", "qvel", "done", "frame"))
+    sharded = [torch.from_numpy(r0[k]) for k in ("qpos", "qvel", "rewards")]
+    errs, ok = step_errors(sharded, [final.qpos.cpu(), final.qvel.cpu(), rewards.cpu()])
+    done_same = np.array_equal(r0["done"], final.done.cpu().numpy())
+    frames_same = np.array_equal(r0["frame"], final.frame.cpu().numpy())
+    if not (same and ok and done_same and frames_same and r0["rollout_launches"] == 1):
+        raise RuntimeError(f"rollout_sharded: ranks equal {same}, against rollout {errs} ok "
+                           f"{ok}, done {done_same}, frames {frames_same}, B6 launches a rank "
+                           f"{r0['rollout_launches']}")
+    result["rollout_sharded"] = {
+        "N": PHYS_N, "T": PHYS_T, "envs_per_rank": r0["local_envs"],
+        "rollout_launches_per_rank": [r["rollout"]["rollout_launches"] for r in ranks],
+        "seconds_per_rank": [r["rollout"]["seconds"] for r in ranks],
+        "max_abs_err_vs_rollout": errs, "done": int(r0["done"].sum()),
+        "plans": {"rank": dataclasses.asdict(DK.dynamics_plan(r0["local_envs"])),
+                  "one_process": dataclasses.asdict(DK.dynamics_plan(PHYS_N))}}
+
+    cfg = ExperimentConfig.load(str(B_CONFIG))
+    model = seeded_model(cfg, args.seed, adaln_modulations).to(dev).eval()
+    with torch.no_grad():
+        ref = model(*tp_inputs(cfg, args.seed, dev)).cpu().numpy()
+    outs = [r["tp"]["out"] for r in ranks]
+    err = float(np.abs(outs[0] - ref).max() / np.abs(ref).max())
+    if (not np.array_equal(outs[0], outs[1]) or not err <= B_FWD_TOL
+            or len(ranks[0]["tp"]["plan"]) != 6 * cfg.model.num_layers):
+        raise RuntimeError(f"the TP forward differs from one process by {err} (ranks equal "
+                           f"{np.array_equal(outs[0], outs[1])}), plan {ranks[0]['tp']['plan']}")
+    result["tp_forward"] = {"B": B_B, "H": B_H, "rel_err_vs_one_process": err,
+                            "ms_per_rank": [r["tp"]["ms"] for r in ranks],
+                            "split_layers": len(ranks[0]["tp"]["plan"])}
+    return result
+
+
+def prefetch_check(dev, batches=8):
+    """``data.datasets.prefetch_to_device`` onto the card (pinned copies on
+    its side stream, two batches ahead): the training batches of the
+    cartwheel clip, each used on the current stream as it arrives, equal to
+    the same batches copied directly."""
+    ds = MotionDataset.from_path(str(CARTWHEEL), include_velocity=False, augment="cyclic",
+                                 horizon_multiple=8)
+    direct = ds.epochs(TRAIN_B, seed=0)
+    fetched = prefetch_to_device(ds.epochs(TRAIN_B, seed=0), size=2, device=dev)
+    t0 = time.perf_counter()
+    worst = 0.0
+    try:
+        for _ in range(batches):
+            got, want = next(fetched), next(direct)
+            for a, b in ((got.trajectories, want.trajectories), (got.mask, want.mask),
+                         (got.motion_class, want.motion_class)):
+                if a.device.type != "cuda":
+                    raise RuntimeError(f"prefetch gave a tensor on {a.device}")
+                worst = max(worst, (a.double() - torch.from_numpy(b).to(a.device).double())
+                            .abs().max().item())
+    finally:
+        fetched.close()
+    torch.cuda.synchronize(dev)
+    if worst != 0.0:
+        raise RuntimeError(f"prefetched batches differ from the direct copies by {worst}")
+    return {"batches": batches, "batch": TRAIN_B, "max_abs_diff": worst,
+            "ms_per_batch": (time.perf_counter() - t0) * 1e3 / batches}
+
+
+def scaling_run(tmp):
+    """``cli.scaling --widths 1,2``: width 2 puts two ranks on the one card."""
+    out = os.path.join(tmp, "scaling.json")
+    with contextlib.redirect_stdout(io.StringIO()) as table:
+        report = scaling_cli.main(["--widths", "1,2", "--steps", "5", "--json", out])
+    if (report["measurement_valid"] or report["gate_evaluated"]
+            or [report[w]["backend"] for w in ("1", "2")] != ["nccl", "gloo"]
+            or not all(report[w]["steps_per_s"] > 0 for w in ("1", "2"))):
+        raise RuntimeError(f"cli.scaling: {report}")
+    return {**report, "table": table.getvalue().splitlines()}
+
+
+def la_leftovers(dev, args):
+    """The user config localattn5k_r3 with model.causal=true decoded frame by
+    frame through the KV cache against its causal forward, and with
+    model.use_global_attn=true one forward."""
+    cfg = ExperimentConfig.load(str(LA_CONFIG))
+    g = torch.Generator().manual_seed(args.seed + 21)
+    result = {}
+    causal = seeded_model(cfg.override({"model.causal": True}), args.seed,
+                          hyper_connection_weights).to(dev).eval()
+    x = torch.randn(LA_SMALL_B, LA_DECODE, cfg.model.input_dim, generator=g).to(dev)
+    t = torch.randint(0, T, (LA_SMALL_B,), generator=g).to(dev)
+    with torch.inference_mode():
+        FA.fused_qkv_local_attention_cuda.launches = 0
+        full = causal(x, t)
+        b3 = FA.fused_qkv_local_attention_cuda.launches
+        cache = causal.init_decode_cache(LA_SMALL_B)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LA_DECODE):
+            out, cache = causal(x[:, i:i + 1], t, cache=cache, decode_pos=i)
+            steps.append(out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    err = (torch.cat(steps, dim=1) - full).abs().max().item()
+    if not err <= LA_FORWARD_TOL:
+        raise RuntimeError(f"the KV-cache decode differs from the causal forward by {err}")
+    result["decode"] = {"B": LA_SMALL_B, "frames": LA_DECODE, "max_abs_err_vs_forward": err,
+                        "ms_per_frame": seconds * 1e3 / LA_DECODE,
+                        "causal_forward_b3_launches": b3}
+    glob = seeded_model(cfg.override({"model.use_global_attn": True}), args.seed,
+                        hyper_connection_weights).to(dev).eval()
+    x = torch.randn(LA_B, LA_H, cfg.model.input_dim, generator=g).to(dev)
+    t = torch.randint(0, T, (LA_B,), generator=g).to(dev)
+    with torch.inference_mode():
+        glob(x, t)
+        FA.fused_qkv_local_attention_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = glob(x, t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    if y.shape != x.shape or not torch.isfinite(y).all():
+        raise RuntimeError(f"the global-attention forward gave {tuple(y.shape)}, finite "
+                           f"{bool(torch.isfinite(y).all())}")
+    result["global_attn"] = {"B": LA_B, "H": LA_H, "ms": ms, "inserts": len(glob.global_layers),
+                             "b3_launches": FA.fused_qkv_local_attention_cuda.launches}
+    return result
+
+
+def parallel_phase(dev, args, tmp, per_step):
+    """Phase 20: the parallel layer on the card, with cuDNN's deterministic
+    algorithms (``nccl_train``'s bit-equalities). It makes its own
+    references and needs no earlier phase's files."""
+    result = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, fn, a in (("nccl_train", nccl_train, (dev, args, tmp, per_step)),
+                            ("gloo_ranks", gloo_ranks, (dev, args, tmp)),
+                            ("prefetch", prefetch_check, (dev,)),
+                            ("scaling", scaling_run, (tmp,)),
+                            ("local_attention", la_leftovers, (dev, args))):
+            t0 = time.perf_counter()
+            result[name] = fn(*a)
+            result[name]["part_seconds"] = time.perf_counter() - t0
+            emit({"phase": "main_path", "path": f"parallel_{name}", **result[name]})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -2670,6 +3035,7 @@ def main(argv=None) -> int:
         result["b_eval"] = phase("b_eval", b_eval_phase, dev, b_run)
         result["dec"] = phase("dec", dec_phase, dev, timer, args, tmp)
         result["workflows"] = phase("workflows", workflows_phase, dev, tmp, per_step, b_run)
+        result["parallel"] = phase("parallel", parallel_phase, dev, args, tmp, per_step)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -2682,6 +3048,7 @@ def main(argv=None) -> int:
     w_serve = f"per_forward_h{H}"
     guide = result["guide"]
     wf = result["workflows"]
+    par = result["parallel"]
     play = wf["playback"]["play"]
     kernels = [{
         "name": "conv_gn_mish", "route": "cuda", "status": "ported; matches its plain version",
@@ -2715,6 +3082,10 @@ def main(argv=None) -> int:
                                for r in wf["workflows"]},
         "launches_compare": wf["compare"]["conv_gn_mish_launches"],
         "launches_sweep": wf["sweep"]["conv_gn_mish_launches"],
+        # phase 20: cli.train over NCCL (world size 1), and one multihost_check rank's step
+        "launches_parallel_nccl_train": par["nccl_train"]["conv_gn_mish_launches"],
+        "launches_parallel_multihost_check_rank":
+            par["gloo_ranks"]["multihost_check"]["ranks"][0]["conv_gn_mish_launches"],
     }, {
         "name": "conv1d_weight_grad", "route": "cuda",
         "status": "ported; matches its plain version",
@@ -2737,6 +3108,9 @@ def main(argv=None) -> int:
         "launches_value_step": guide["value_diffusion_loss"]["launches"]["conv1d_weight_grad"],
         "value_function_step": guide["value_function_kernels"]["conv1d_weight_grad"],
         "launches_sweep": wf["sweep"]["conv1d_weight_grad_launches"],
+        "launches_parallel_nccl_train": par["nccl_train"]["conv1d_weight_grad_launches"],
+        "launches_parallel_multihost_check_rank":
+            par["gloo_ranks"]["multihost_check"]["ranks"][0]["conv1d_weight_grad_launches"],
     }]
     # B3 and B4: per launch at the serving shape (B 16, H 128, no masks)
     b3_main, b4_main = b3[0], b4[0]
@@ -2788,6 +3162,9 @@ def main(argv=None) -> int:
             ("rollout", phys["rollout"], 830,
              phys_path["rollout"][f"n{PHYS_N}"]["rollout_launches"],
              {"launches_n65536": phys_path["rollout"][f"n{PHYS_BIG_N}"]["rollout_launches"],
+              # phase 20: rollout_sharded, one launch at N / 2 on each of two ranks
+              "launches_rollout_sharded_per_rank":
+                  par["gloo_ranks"]["rollout_sharded"]["rollout_launches_per_rank"],
               "main_path_bound_ms": {f"n{n}": phys_path["rollout"][f"n{n}"]["bound_ms"]
                                      for n in (PHYS_N, PHYS_BIG_N)},
               "main_path_seconds": {f"n{n}": phys_path["rollout"][f"n{n}"]["best_seconds"]

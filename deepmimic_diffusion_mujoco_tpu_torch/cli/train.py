@@ -24,9 +24,21 @@ v4, x0, kl, angle_velocity), CFG label drop toward the null label
 ``num_classes``, dropout where the config turns it on (as the JAX CLI's
 ``has_dropout``: ``transformer`` with ``dropout``, ``local_attention`` with
 ``attn_dropout`` or ``ff_dropout`` > 0), and
-``train.timestep_sampler="loss_aware"`` (v4 only, as in JAX). The port
-trains on one device (the JAX CLI's data mesh is ROADMAP.md's parallel
-layer).
+``train.timestep_sampler="loss_aware"`` (v4 only, as in JAX).
+
+Data-parallel: launched by ``torchrun`` (``WORLD_SIZE``, ``RANK``,
+``LOCAL_RANK``), or given the JAX CLI's ``--coordinator host:port
+--num-processes R --process-id r`` on each process, it trains over R ranks
+(``train/loop.py``): ``train.batch_size`` is the global batch and must
+split evenly over them, as the JAX CLI's data mesh requires. Each rank
+takes ``cuda:LOCAL_RANK`` (rank modulo the cards when ranks share them;
+the group then runs gloo, as NCCL refuses two ranks on one card:
+``parallel.mesh.default_backend``). Rank 0
+alone writes the config, checkpoints, ``training_metrics.json`` and logs;
+every rank reads a checkpoint on ``--resume``.
+
+    torchrun --nproc-per-node 8 -m deepmimic_diffusion_mujoco_tpu_torch.cli.train \
+        --config cfg.json --out experiments/run1
 """
 from __future__ import annotations
 
@@ -36,12 +48,14 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
 
 from .. import factory
 from ..data.datasets import MotionDataset
 from ..device import resolve_device
 from ..diffusion import process
 from ..diffusion.timestep_sampling import LossSecondMomentState
+from ..parallel import mesh as meshlib
 from ..train.checkpoint import Checkpointer
 from ..train.config import ExperimentConfig
 from ..train.loop import Trainer, TrainerConfig, make_loss_fn
@@ -57,10 +71,12 @@ def has_dropout(m) -> bool:
 
 
 def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: bool = False,
-                  device: str | torch.device = "cuda") -> Trainer:
+                  device: str | torch.device = "cuda", group=None) -> Trainer:
     """``resume=True`` restores the latest periodic checkpoint in
-    ``out_dir``."""
+    ``out_dir``. ``group``: train data-parallel over that process group;
+    rank 0 alone checkpoints and logs."""
     dev = resolve_device(device)
+    rank, _ = meshlib.rank_and_world(group)
     if cfg.train.timestep_sampler == "loss_aware" and cfg.diffusion.loss != "v4":
         raise ValueError("timestep_sampler=loss_aware requires diffusion.loss=v4")
     with torch.random.fork_rng(devices=[]):
@@ -94,7 +110,7 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
         weights=weights, loss_kind=d.loss_kind, label_drop_prob=t.label_drop_prob,
         null_label=cfg.model.num_classes or None, smooth_loss_weight=d.smooth_loss_weight,
         use_mask=d.loss in ("v4", "x0"),
-        dropout=has_dropout(cfg.model),
+        dropout=has_dropout(cfg.model), group=group,
     )
 
     ckpt = None
@@ -104,6 +120,8 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
             payload, _ = ckpt.restore(map_location=dev)
             state.load(payload)
             print(f"resumed from step {state.step}")
+        if rank:
+            ckpt = None
     return Trainer(
         state, loss_fn, ds,
         TrainerConfig(
@@ -117,9 +135,11 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
             class_balanced=t.class_balanced,
         ),
         checkpointer=ckpt,
+        log_fn=print if rank == 0 else (lambda _: None),
         num_timesteps=sched.num_timesteps,
         sampler_state=(LossSecondMomentState.create(sched.num_timesteps, device=dev)
                        if t.timestep_sampler == "loss_aware" else None),
+        group=group,
     )
 
 
@@ -137,9 +157,30 @@ def main(argv=None) -> Trainer:
                    help="dotted overrides, e.g. train.lr=1e-4")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
+    p.add_argument("--coordinator", default=None,
+                   help="data-parallel: rendezvous address host:port (or a torch init method)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
+    started = False
+    if args.coordinator or args.num_processes or "WORLD_SIZE" in os.environ:
+        n = args.num_processes or int(os.environ["WORLD_SIZE"])
+        r = args.process_id if args.process_id is not None else int(os.environ["RANK"])
+        if dev.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", r))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+        started = meshlib.initialize_multihost(args.coordinator or "env://", n, r, device=dev)
+    try:
+        return _train(args, dev, dist.group.WORLD if dist.is_initialized() else None)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, dev, group) -> Trainer:
+    rank, _ = meshlib.rank_and_world(group)
     # float32 throughout: no TF32 in cuDNN's convolutions or cuBLAS's matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,11 +202,13 @@ def main(argv=None) -> Trainer:
         cfg = cfg.override({key: parsed})
 
     os.makedirs(args.out, exist_ok=True)
-    cfg.save(os.path.join(args.out, "config.json"))
-    trainer = build_trainer(cfg, args.out, resume=args.resume, device=dev)
+    if rank == 0:
+        cfg.save(os.path.join(args.out, "config.json"))
+    trainer = build_trainer(cfg, args.out, resume=args.resume, device=dev, group=group)
     trainer.train()
-    trainer.save_metrics(os.path.join(args.out, "training_metrics.json"))
-    print(f"done: best loss {trainer.best_loss:.6f} @ step {trainer.best_step}")
+    if rank == 0:
+        trainer.save_metrics(os.path.join(args.out, "training_metrics.json"))
+        print(f"done: best loss {trainer.best_loss:.6f} @ step {trainer.best_step}")
     return trainer
 
 

@@ -37,7 +37,10 @@ pose_embed, time_embed_{0,1}, final_layer          same name .{weight,bias}     
 pos_emb                                            pos_emb                               none
 class_embed/embedding                              class_embed.weight                    none
 dynamic_pos_bias/Dense_i                           dynamic_pos_bias.dense.i              kernel.T
-hc_{attn,ff}_i/<param>, .../norm/scale             hc_{attn,ff}.i.<param>, .norm.scale   none
+hc_{attn,ff,global}_i/<param>, .../norm/scale      hc_{attn,ff,global}.i.<param>, ...    none
+global_attn_i/LayerNorm_0/{scale,bias}             global_attn.i.norm.{weight,bias}      none
+global_attn_i/MultiHeadDotProductAttention_0/      global_attn.i.attn.<name>             (D, h, dh) -> (D, h*dh).T;
+  {query,key,value,out}/{kernel,bias}                                                    out (h, dh, D) -> (h*dh, D).T
 attn_i/LayerNorm_0/{scale,bias}                    attn.i.norm.{weight,bias}             none
 attn_i/Dense_0, Dense_1 (no bias)                  attn.i.to_qkv, attn.i.to_out          kernel.T
 ff_i/LayerNorm_0, Dense_0, Dense_1                 ff.i.norm, ff.i.proj_in, ff.i.proj_out as above
@@ -172,15 +175,23 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 
 _NORM = {"scale": "weight", "bias": "bias"}
+_MHA = "MultiHeadDotProductAttention_0"
+_HEADS = lambda a: a.reshape(a.shape[0], -1).T   # flax MHA (D, h, dh) -> Linear (h*dh, D)
+_HEADS_BIAS = lambda b: b.reshape(-1)
+_OUT = lambda a: a.reshape(-1, a.shape[-1]).T     # flax MHA out (h, dh, D) -> Linear (D, h*dh)
 
-# (pattern over the flax path, torch key template, transform of a Dense kernel)
+# (pattern over the flax path, torch key template, transform of a Dense kernel[, of a bias])
 _LOCAL_TABLE = [
     (r"(pose_embed|time_embed_0|time_embed_1|final_layer)/(kernel|bias)", "{0}.{leaf}", _DENSE),
     (r"(pos_emb)", "{0}", _SAME),
     (r"class_embed/(embedding)", "class_embed.weight", _SAME),
     (r"dynamic_pos_bias/Dense_(\d+)/(kernel|bias)", "dynamic_pos_bias.dense.{0}.{leaf}", _DENSE),
-    (r"hc_(attn|ff)_(\d+)/norm/(scale)", "hc_{0}.{1}.norm.scale", _SAME),
-    (r"hc_(attn|ff)_(\d+)/(\w+)", "hc_{0}.{1}.{2}", _SAME),
+    (r"hc_(attn|ff|global)_(\d+)/norm/(scale)", "hc_{0}.{1}.norm.scale", _SAME),
+    (r"hc_(attn|ff|global)_(\d+)/(\w+)", "hc_{0}.{1}.{2}", _SAME),
+    (r"global_attn_(\d+)/LayerNorm_0/(scale|bias)", "global_attn.{0}.norm.{norm}", _SAME),
+    (rf"global_attn_(\d+)/{_MHA}/(query|key|value)/(kernel|bias)",
+     "global_attn.{0}.attn.{1}.{leaf}", _HEADS, _HEADS_BIAS),
+    (rf"global_attn_(\d+)/{_MHA}/(out)/(kernel|bias)", "global_attn.{0}.attn.{1}.{leaf}", _OUT),
     (r"attn_(\d+)/LayerNorm_0/(scale|bias)", "attn.{0}.norm.{norm}", _SAME),
     (r"attn_(\d+)/Dense_0/(kernel)", "attn.{0}.to_qkv.weight", _DENSE),
     (r"attn_(\d+)/Dense_1/(kernel)", "attn.{0}.to_out.weight", _DENSE),
@@ -221,9 +232,6 @@ def local_transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tens
     return _map_table(params_np, _LOCAL_TABLE)
 
 
-_MHA = "MultiHeadDotProductAttention_0"
-
-# (pattern over the flax path, torch key template, transform of a kernel[, of a bias])
 _TRANSFORMER_TABLE = [
     (r"(pose_embed|time_embed_[01]|class_embed_[01]|final_mod|final_layer)/(kernel|bias)",
      "{0}.{leaf}", _DENSE),
@@ -245,9 +253,6 @@ def transformer_from_flax(params_np: dict) -> "OrderedDict[str, torch.Tensor]":
 
 
 _CONV = lambda a: a.transpose(2, 1, 0)  # flax (k, Cin, Cout) -> torch Conv1d (Cout, Cin, k)
-_HEADS = lambda a: a.reshape(a.shape[0], -1).T
-_HEADS_BIAS = lambda b: b.reshape(-1)
-_OUT = lambda a: a.reshape(-1, a.shape[-1]).T
 
 _DECODER_TABLE = [
     (r"(input_process|embed_timestep_[01]|output_process)/(kernel|bias)", "{0}.{leaf}", _DENSE),

@@ -11,8 +11,9 @@ only: the same seed gives the same batch sequence as the JAX package.
   ``replicas`` times. Clips of different lengths become zero-padded arrays
   with a validity mask.
 
-Batches stay numpy on the host; the training loop copies each one to the
-device (``train/loop.py``).
+Batches stay numpy on the host; ``prefetch_to_device`` copies them to the
+device ahead of their use, on a side CUDA stream from a background thread
+(the training loop's feed, ``train/loop.py``).
 """
 from __future__ import annotations
 
@@ -223,3 +224,78 @@ class MotionDataset:
             ])
             for i in range(0, order.size - batch_size + 1, batch_size):
                 yield self.batch(order[i : i + batch_size])
+
+
+def prefetch_to_device(iterator, size: int = 2, device="cuda"):
+    """Yield ``iterator``'s batches (pytrees of numpy arrays) as tensors on
+    ``device``, with a background thread keeping ``size`` of them queued
+    ahead (JAX's ``prefetch_to_device``; the reference's DataLoader worker).
+
+    On a CUDA device each batch is pinned and copied on a side stream; the
+    consumer's current stream waits for that copy before the batch is
+    yielded, and each tensor is marked used on the consumer's stream
+    (``record_stream``), so the caching allocator does not hand its memory
+    out while work queued there may still read it. ``device="cpu"`` only
+    queues. An exception in the iterator is raised at the consumer's next
+    batch; closing the generator stops the thread."""
+    import queue
+    import threading
+
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    end = object()
+
+    def copy(a):
+        t = torch.as_tensor(a)
+        return t.to(dev) if stream is None else t.pin_memory().to(dev, non_blocking=True)
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for batch in iterator:
+                if stream is None:
+                    item = (tree_map(copy, batch), None)
+                else:
+                    with torch.cuda.stream(stream):
+                        out = tree_map(copy, batch)
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                    item = (out, done)
+                if not put(item):
+                    return
+            put((end, None))
+        except BaseException as e:  # handed to the consumer, which raises it
+            put((e, None))
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            batch, done = q.get()
+            if batch is end:
+                return
+            if isinstance(batch, BaseException):
+                raise batch
+            if done is not None:
+                current = torch.cuda.current_stream(dev)
+                current.wait_event(done)
+                tree_map(lambda t: t.record_stream(current), batch)
+            yield batch
+    finally:
+        stop.set()
+        thread.join(timeout=5.0)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import all_reduce_mean
 from .schedules import Schedule, extract
 
 
@@ -174,10 +175,17 @@ def diffuser_p_losses(
 # ---------------------------------------------------------------------------
 
 
-def _masked_mean(err, mask):
-    """Mean of (B, H, D) ``err`` over the valid frames of a (B, H) mask."""
+def _masked_mean(err, mask, group=None):
+    """Mean of (B, H, D) ``err`` over the valid frames of a (B, H) mask.
+    With a data-parallel ``group`` it is divided by the ranks' mean count of
+    valid frames (one all_reduce), so that the mean of the ranks' losses,
+    and of their gradients, is the masked mean over the global batch
+    however the valid frames fall on the ranks."""
     m = mask[..., None]
-    return (err * m).sum() / (m.sum() * err.shape[-1])
+    count = m.sum()
+    if group is not None:
+        all_reduce_mean([count], group)
+    return (err * m).sum() / (count * err.shape[-1])
 
 
 def mse_loss(pred, target, mask=None):
@@ -225,7 +233,7 @@ def v_training_loss(sched: Schedule, model_fn, x0, t, noise, mask=None):
 
 
 def v4_training_loss(sched: Schedule, model_fn, x0, t, noise, predict_x0: bool = True,
-                     mask=None, t_weights=None, loss_space: str = "eps"):
+                     mask=None, t_weights=None, loss_space: str = "eps", group=None):
     """Stack B's loss. ``loss_space="eps"``: MSE in epsilon space (an
     x0-predicting model's output is converted first); ``"x0"``: MSE on the
     recovered x0 (MDM's "simple" objective, loss kind "x0").
@@ -233,7 +241,8 @@ def v4_training_loss(sched: Schedule, model_fn, x0, t, noise, predict_x0: bool =
     Unweighted (``t_weights`` None) it is the global mean, masked over valid
     frames with a (B, H) ``mask``; with (B,) importance weights from the
     loss-aware sampler, the mean of per-sample means times the weights.
-    info["per_sample_loss"] (B,) is what that sampler records."""
+    info["per_sample_loss"] (B,) is what that sampler records. ``group``:
+    this batch is one data-parallel rank's share (``_masked_mean``)."""
     x_noisy = q_sample(sched, x0, t, noise)
     pred = model_fn(x_noisy, t)
     if loss_space == "x0":
@@ -248,7 +257,7 @@ def v4_training_loss(sched: Schedule, model_fn, x0, t, noise, predict_x0: bool =
         m = mask[..., None]
         per_sample = (err * m).sum(dim=(1, 2)) / (m.sum(dim=(1, 2)) * err.shape[-1])
     if t_weights is None:
-        loss = err.mean() if mask is None else _masked_mean(err, mask)
+        loss = err.mean() if mask is None else _masked_mean(err, mask, group)
     else:
         loss = (per_sample * t_weights).mean()
     return loss, {"per_sample_loss": per_sample}

@@ -7,9 +7,11 @@ losses on the device, draws t with probability proportional to
 sqrt(E[loss²]) mixed with uniform once every row is full, and weights each
 draw by 1 / (T · p[t]). Draws come from an explicit ``torch.Generator``.
 
-The JAX sampler's ``axis_name`` all-gather of every device's (t, loss)
-pairs waits for the parallel layer (ROADMAP.md Queue A, the parallel
-layer): ``update_with_losses`` raises if it is asked for.
+Draws are batch-shaped: a data-parallel rank's generator
+(``utils.rng.ShardGenerator``) draws the global batch's t and keeps its
+rows. ``update_with_losses`` over a process group records every rank's
+(t, loss) pairs in rank order, as JAX's ``axis_name`` all_gather does, so
+every rank's state is the one process's that sees the whole batch.
 """
 from __future__ import annotations
 
@@ -18,11 +20,14 @@ from dataclasses import dataclass
 import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_rows
+from ..utils.rng import draw_rows
 
 
 def uniform_timesteps(generator: torch.Generator, batch: int, num_timesteps: int):
     """t ~ U{0..T-1} on the generator's device, weights 1."""
-    t = torch.randint(0, num_timesteps, (batch,), generator=generator, device=generator.device)
+    t = draw_rows(generator, (batch,), lambda s: torch.randint(
+        0, num_timesteps, s, generator=generator, device=generator.device))
     return t, torch.ones((batch,), dtype=torch.float32, device=generator.device)
 
 
@@ -65,26 +70,27 @@ def importance_weights(state: LossSecondMomentState, t: torch.Tensor) -> torch.T
 def loss_aware_timesteps(state: LossSecondMomentState, generator: torch.Generator, batch: int):
     """Draw (B,) t from the loss-aware distribution -> (t, importance weights)."""
     p = loss_aware_weights(state)
-    t = torch.multinomial(p, batch, replacement=True, generator=generator)
+    t = draw_rows(generator, (batch,), lambda s: torch.multinomial(
+        p, s[0], replacement=True, generator=generator))
     return t, 1.0 / (p.shape[0] * p[t])
 
 
 def update_with_losses(state: LossSecondMomentState, t: torch.Tensor, losses: torch.Tensor,
-                       axis_name: str | None = None) -> LossSecondMomentState:
+                       group=None) -> LossSecondMomentState:
     """Record per-sample ``losses`` at timesteps ``t``, in batch order, in
     place: as if each (t, loss) pair were appended one after another (the
     JAX sampler's ``lax.scan``), so a timestep drawn k times in one batch
-    receives all k losses, the oldest dropping out of a full row.
+    receives all k losses, the oldest dropping out of a full row. With
+    ``group`` (a process group or a mesh's "data" dimension) every rank's
+    pairs are recorded, in rank order (``parallel.mesh.all_gather_rows``,
+    exact).
 
     Computed at once: row t's history followed by its new losses in batch
     order is one sequence, of which the row keeps the last ``history``."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "update_with_losses over a device axis is not ported yet: "
-            "ROADMAP.md Queue A, the parallel layer")
+    t, losses = t.long(), losses.detach().to(state.losses.dtype)
+    if group is not None:
+        t, losses = all_gather_rows([t, losses], group)
     T, hist = state.losses.shape
-    t = t.long()
-    losses = losses.detach().to(state.losses.dtype)
     order = torch.argsort(t, stable=True)
     t_sorted = t[order]
     rank = torch.empty_like(t)                      # earlier samples of the same t

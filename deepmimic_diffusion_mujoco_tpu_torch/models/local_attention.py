@@ -13,7 +13,20 @@ Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/local_attention.py``:
   cover the call: no window override, no bias table, rotary on, xpos off and
   a chunk plan for N. Every other call takes ``local_attention``;
 - ``GEGLUFeedForward``, ``DynamicPositionBias`` and ``LocalTransformer``
-  with hyper-connection residual streams.
+  with hyper-connection residual streams;
+- ``GlobalMHA``: pre-norm full attention over the whole horizon (flax's
+  ``MultiHeadDotProductAttention`` with a key mask, written out in f32 as
+  ``models.transformer.MultiHeadAttention``), inserted before the local
+  attention of the layers ``global_attn_layers`` names (1-based; empty
+  means every layer) when ``use_global_attn`` is set. With
+  hyper-connections each insert has its own width connection, slot
+  ``2·depth + i``, so the other parameters keep their names;
+- the KV-cache decode (causal models): ``init_decode_cache(batch)`` gives
+  each layer a ring buffer of the last ``window_size`` PRE-rotary keys and
+  values; ``forward(x, time, y, cache=..., decode_pos=p)`` on the newest
+  frame returns ``(out, cache)``, with rotary at the buffer's fixed
+  relative positions and slots older than the sequence start masked. It
+  is plain tensor code: B3 has no single-query form.
 
 Dropout (training mode, ``attn_dropout`` / ``ff_dropout`` > 0) draws its
 keep masks from the ``generator`` passed to ``forward``, on the
@@ -22,9 +35,9 @@ attention's mask, then the feed-forward's. On the kernel route the
 attention's mask is the kernel-layout keep mask
 (``ops.fused_local_attention.dropout_keep_mask``) that B3 applies to its
 probabilities; the bucketed path drops its probabilities in its own
-layout, as the JAX package's jnp path does. The global-attention inserts
-and the KV-cache decode raise ``NotImplementedError`` naming their
-ROADMAP.md item. Norms use flax's eps 1e-6 and GELU is flax's tanh
+layout, as the JAX package's jnp path does; a global insert's attention
+weights get one mask broadcast over batch and heads, as flax's MHA does.
+Norms use flax's eps 1e-6 and GELU is flax's tanh
 approximation, so ``convert.local_transformer_from_flax`` weights
 reproduce the JAX model.
 """
@@ -38,7 +51,7 @@ import torch.nn.functional as F
 from ..ops import fused_local_attention as FK
 from . import hyper_connections as hc_lib
 from .embeddings import apply_rotary, mdm_timestep_embedding, rotary_angles, xpos_scale
-from .transformer import keep_mask
+from .transformer import MultiHeadAttention, keep_mask
 
 NEG_INF = -1e9
 EPS = 1e-6  # flax LayerNorm / RMSNorm
@@ -156,11 +169,16 @@ class LocalMHA(nn.Module):
                 and not self.use_xpos
                 and FK.supports(N, self.window_size, self.use_xpos, self.causal))
 
-    def forward(self, x, key_mask=None, window_size=None, bias_table=None, generator=None):
+    def forward(self, x, key_mask=None, window_size=None, bias_table=None, generator=None,
+                cache=None, decode_pos=None):
+        """``cache`` (k, v), each (B, h, w, dh): decode the single frame
+        ``x`` (B, 1, D) at sequence position ``decode_pos`` -> (out, cache)."""
         B, N, _ = x.shape
         h, dh = self.heads, self.dim_head
         dropout = self.attn_dropout if self.training else 0.0
         qkv = self.to_qkv(self.norm(x))
+        if cache is not None:
+            return self._decode(qkv, cache, decode_pos)
         if self.uses_kernel(N, window_size, bias_table):
             keep = None
             if dropout > 0.0:
@@ -184,6 +202,41 @@ class LocalMHA(nn.Module):
                 attn_dropout=dropout, generator=generator,
             ).transpose(1, 2).reshape(B, N, h * dh)
         return self.to_out(out)
+
+    def _decode(self, qkv, cache, decode_pos):
+        """One causal step over the ring buffer: the L = w + 1 keys are the
+        cached w and the new one, the new query sits at relative position
+        L - 1, and slots before the sequence start are masked."""
+        if not (self.causal and self.exact_windowsize and self.use_rotary
+                and not self.use_xpos) or qkv.shape[1] != 1:
+            raise ValueError("the KV-cache decode takes one frame of a causal model with "
+                             "exact windows and rotary (no xpos)")
+        B, h, dh = qkv.shape[0], self.heads, self.dim_head
+        q, k, v = qkv.reshape(B, 3, h, 1, dh).unbind(1)           # (B, h, 1, dh) each
+        k_buf = torch.cat([cache[0], k], dim=2)                   # (B, h, L, dh)
+        v_buf = torch.cat([cache[1], v], dim=2)
+        L = k_buf.shape[2]
+        ang = rotary_angles(L, dh, device=qkv.device).to(qkv.dtype)
+        qr = apply_rotary(q, ang[L - 1:L]) * dh ** -0.5
+        sim = qr @ apply_rotary(k_buf, ang).transpose(-1, -2)      # (B, h, 1, L)
+        valid = torch.arange(L, device=qkv.device) >= L - 1 - decode_pos
+        attn = sim.masked_fill(~valid, NEG_INF).softmax(dim=-1)
+        out = (attn @ v_buf).transpose(1, 2).reshape(B, 1, h * dh)
+        return self.to_out(out), (k_buf[:, :, 1:], v_buf[:, :, 1:])
+
+
+class GlobalMHA(nn.Module):
+    """Pre-norm full attention over the whole horizon: LayerNorm, then
+    flax's ``MultiHeadDotProductAttention`` (``heads`` x ``dim_head``
+    features, biases) with padded keys masked for every query."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.attn = MultiHeadAttention(dim, heads, dropout, inner=heads * dim_head)
+
+    def forward(self, x, key_mask=None, generator=None):
+        return self.attn(self.norm(x), None if key_mask is None else key_mask > 0, generator)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -236,11 +289,7 @@ class LocalTransformer(nn.Module):
                  use_dynamic_pos_bias: bool = False, use_global_attn: bool = False,
                  global_attn_layers: tuple = ()):
         super().__init__()
-        if use_global_attn:
-            raise NotImplementedError(
-                "use_global_attn (GlobalMHA inserts) is not ported yet: "
-                "ROADMAP.md Queue A, local attention: GlobalMHA")
-        del global_attn_layers
+        self.causal = causal
         self.input_dim, self.max_seq_len, self.dim = input_dim, max_seq_len, dim
         self.depth, self.window_size = depth, window_size
         self.num_classes = num_classes
@@ -258,24 +307,43 @@ class LocalTransformer(nn.Module):
                      use_rotary=not use_dynamic_pos_bias, attn_dropout=attn_dropout)
             for _ in range(depth)])
         self.ff = nn.ModuleList([GEGLUFeedForward(dim, ff_mult, ff_dropout) for _ in range(depth)])
+        # global inserts before the local attention of these 0-based layers
+        self.global_layers = (sorted(i - 1 for i in (global_attn_layers or range(1, depth + 1)))
+                              if use_global_attn else [])
+        self.global_attn = nn.ModuleDict({str(i): GlobalMHA(dim, heads, dim_head, attn_dropout)
+                                          for i in self.global_layers})
         S = num_residual_streams
         if S > 1:
-            # width connections of the attention / FF branches: layer indices 2i, 2i+1
+            # width connections of the attention / FF branches: layer indices 2i, 2i+1;
+            # the global inserts' after them, 2 depth + i
             self.hc_attn = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i)
                                           for i in range(depth)])
             self.hc_ff = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i + 1)
                                         for i in range(depth)])
+            self.hc_global = nn.ModuleDict({str(i): hc_lib.HyperConnection(dim, S, 2 * depth + i)
+                                            for i in self.global_layers})
         self.norm = nn.LayerNorm(dim, eps=EPS)
         self.final_layer = nn.Linear(dim, input_dim)
 
+    def init_decode_cache(self, batch: int) -> tuple:
+        """Empty per-layer (k, v) ring buffers, each (batch, h, w, dh), for
+        the KV-cache decode (look-back one window)."""
+        mha = self.attn[0]
+        shape = (batch, mha.heads, self.window_size, mha.dim_head)
+        return tuple((self.pos_emb.new_zeros(shape), self.pos_emb.new_zeros(shape))
+                     for _ in range(self.depth))
+
     def forward(self, x, time=None, y=None, mask=None, window_size=None, cache=None,
                 decode_pos=None, generator=None):
-        """``generator`` feeds the dropout keep masks in training mode."""
-        if cache is not None or decode_pos is not None:
-            raise NotImplementedError(
-                "the KV-cache incremental decode is not ported yet: "
-                "ROADMAP.md Queue A, local attention: KV-cache decode")
+        """``generator`` feeds the dropout keep masks in training mode. With
+        ``cache`` (``init_decode_cache``; a causal model without global
+        inserts) ``x`` is the newest frame (B, 1, D) at sequence position
+        ``decode_pos``, and the result is ``(out, cache)``."""
         B, N, _ = x.shape
+        decoding = cache is not None
+        if decoding and (N != 1 or not self.causal or self.global_layers):
+            raise ValueError("the KV-cache decode takes one frame at a time, of a causal "
+                             "model without global-attention inserts")
         if N > self.max_seq_len:
             raise ValueError(
                 f"horizon {N} exceeds max_seq_len {self.max_seq_len}: the learned position "
@@ -285,7 +353,7 @@ class LocalTransformer(nn.Module):
         if time is not None:
             t = mdm_timestep_embedding(time, self.dim)
             h = h + self.time_embed_1(F.silu(self.time_embed_0(t)))[:, None, :]
-        h = h + self.pos_emb[None, :N]
+        h = h + (self.pos_emb[decode_pos][None, None] if decoding else self.pos_emb[None, :N])
         if self.class_embed is not None:
             if y is None:
                 y = torch.full((B,), self.num_classes, dtype=torch.long, device=x.device)
@@ -299,19 +367,33 @@ class LocalTransformer(nn.Module):
         use_hc = self.num_residual_streams > 1
         if use_hc:
             h = hc_lib.expand_streams(h, self.num_residual_streams)
+        new_cache = []
+
+        def attend(i, z):
+            if not decoding:
+                return self.attn[i](z, key_mask=mask, window_size=window_size,
+                                    bias_table=bias_table, generator=generator)
+            out, kv = self.attn[i](z, cache=cache[i], decode_pos=decode_pos)
+            new_cache.append(kv)
+            return out
+
         for i in range(self.depth):
-            mha, ff = self.attn[i], self.ff[i]
-            if use_hc:
-                hin, res, beta = self.hc_attn[i](h)
-                out = mha(hin, key_mask=mask, window_size=window_size, bias_table=bias_table,
-                          generator=generator)
-                h = hc_lib.depth_connection(out, res, beta)
-                hin, res, beta = self.hc_ff[i](h)
-                h = hc_lib.depth_connection(ff(hin, generator), res, beta)
-            else:
-                h = h + mha(h, key_mask=mask, window_size=window_size, bias_table=bias_table,
-                            generator=generator)
-                h = h + ff(h, generator)
+            g = str(i)
+            if g in self.global_attn:
+                h = self._branch(h, self.hc_global[g] if use_hc else None,
+                                 lambda z: self.global_attn[g](z, mask, generator))
+            h = self._branch(h, self.hc_attn[i] if use_hc else None, lambda z: attend(i, z))
+            h = self._branch(h, self.hc_ff[i] if use_hc else None,
+                             lambda z: self.ff[i](z, generator))
         if use_hc:
             h = hc_lib.reduce_streams(h)
-        return self.final_layer(self.norm(h))
+        out = self.final_layer(self.norm(h))
+        return (out, tuple(new_cache)) if decoding else out
+
+    @staticmethod
+    def _branch(h, hc, fn):
+        """A residual branch: plain, or wrapped by the hyper-connection ``hc``."""
+        if hc is None:
+            return h + fn(h)
+        hin, res, beta = hc(h)
+        return hc_lib.depth_connection(fn(hin), res, beta)

@@ -37,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.rng import draw_rows
 from .embeddings import mdm_timestep_embedding
 
 EPS = 1e-6  # flax LayerNorm
@@ -44,11 +45,17 @@ CONDITIONING = ("add", "adaln", "both")
 
 
 def keep_mask(shape, keep_prob: float, generator: torch.Generator | None,
-              device: torch.device) -> torch.Tensor:
-    """Bernoulli(keep_prob) keep mask of ``shape`` from ``generator``."""
+              device: torch.device, rows: bool = True) -> torch.Tensor:
+    """Bernoulli(keep_prob) keep mask of ``shape`` from ``generator``. With
+    ``rows`` the leading axis is the batch: a data-parallel rank's
+    generator draws it at the global batch (``utils.rng.draw_rows``)."""
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
-    u = torch.rand(shape, generator=generator, device=generator.device)
+
+    def draw(s):
+        return torch.rand(s, generator=generator, device=generator.device)
+
+    u = draw_rows(generator, shape, draw) if rows else draw(tuple(shape))
     return (u < keep_prob).to(device)
 
 
@@ -74,22 +81,28 @@ def dense(d_in: int, d_out: int, zero: bool = False) -> nn.Linear:
 class MultiHeadAttention(nn.Module):
     """Attention of (B, N, D) queries over (B, M, D) keys and values (the
     queries themselves unless ``memory`` is given) with flax's MHA
-    semantics. ``key_mask`` (B, M) and ``attn_mask`` (N, M), True where a
-    query may attend a key, each fill masked logits with ``finfo.min``."""
+    semantics, ``heads`` heads over ``inner`` (flax's ``qkv_features``,
+    default D) projected features. ``key_mask`` (B, M) and ``attn_mask``
+    (N, M), True where a query may attend a key, each fill masked logits
+    with ``finfo.min``. The head count is read off the projections' width,
+    so a column-parallel split of query/key/value (``parallel.tp``) runs on
+    its share of whole heads."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, inner: int | None = None):
         super().__init__()
-        self.heads, self.dropout = heads, dropout
-        self.query, self.key, self.value, self.out = (dense(dim, dim) for _ in range(4))
+        inner = dim if inner is None else inner
+        self.heads, self.dim_head, self.dropout = heads, inner // heads, dropout
+        self.query, self.key, self.value = (dense(dim, inner) for _ in range(3))
+        self.out = dense(inner, dim)
 
     def forward(self, x, key_mask=None, generator=None, memory=None, attn_mask=None):
-        B, N, D = x.shape
-        h, dh = self.heads, D // self.heads
+        B, N, _ = x.shape
+        dh = self.dim_head
         kv = x if memory is None else memory
         M = kv.shape[1]
 
         def split(t):
-            return t.view(B, t.shape[1], h, dh).transpose(1, 2)  # (B, h, n, dh)
+            return t.view(B, t.shape[1], -1, dh).transpose(1, 2)  # (B, h, n, dh)
 
         q = split(self.query(x)) / math.sqrt(dh)
         logits = q @ split(self.key(kv)).transpose(-1, -2)  # (B, h, N, M)
@@ -101,9 +114,9 @@ class MultiHeadAttention(nn.Module):
         w = logits.softmax(dim=-1)
         if self.training and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
-            keep = keep_mask((1, 1, N, M), keep_prob, generator, x.device)
+            keep = keep_mask((1, 1, N, M), keep_prob, generator, x.device, rows=False)
             w = w * (keep.to(w.dtype) / keep_prob)
-        ctx = (w @ split(self.value(kv))).transpose(1, 2).reshape(B, N, D)
+        ctx = (w @ split(self.value(kv))).transpose(1, 2).reshape(B, N, -1)
         return self.out(ctx)
 
 

@@ -44,6 +44,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils.rng import draw_rows
 from . import _build
 
 NEG_INF = -1e9
@@ -88,8 +89,9 @@ def dropout_keep_mask(generator: torch.Generator, keep_prob: float, batch: int, 
     if p is None:
         return None
     shape = (batch, p["Np"], heads * p["K"])
-    return (torch.rand(shape, generator=generator, device=generator.device)
-            < keep_prob).to(dtype)
+    u = draw_rows(generator, shape,
+                  lambda s: torch.rand(s, generator=generator, device=generator.device))
+    return (u < keep_prob).to(dtype)
 
 
 def window_mask(ti, tj, w, lb, lf, causal, exact, invalid):

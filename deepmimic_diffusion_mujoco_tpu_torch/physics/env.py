@@ -16,7 +16,7 @@ instances in lockstep on the card, plus the DeepMimic tracking-reward stack
   launch of the whole-rollout kernel (B6); on CPU tensors both run the
   kernels' plain versions. On "vmap", "lanes" and "aba" `step` runs that
   engine (dynamics.DynamicsEnv) and then the reward, and `rollout` is `step`
-  in a loop.
+  in a loop. `rollout_sharded` splits the envs over data-parallel ranks.
 
 Constructors take ``device`` ("cuda" by default; it raises without a card).
 """
@@ -29,6 +29,7 @@ import torch
 
 from ..data.skeleton import BODY_JOINTS, DOF_DEF, JOINT_WEIGHT, QPOS_JOINT_SLICES, QVEL_DIM
 from ..device import resolve_device
+from ..parallel.mesh import all_gather_rows, shard_batch
 from . import dynamics_kernel
 from .kinematics import forward_kinematics, quat_from_euler_rxyz, quat_geodesic_angle
 
@@ -220,6 +221,15 @@ class PhysicsTrackingEnv:
         return PhysicsState(frames[-1], qpos, qvel, done), rewards
 
     def rollout_sharded(self, mesh, state: PhysicsState, num_steps: int):
-        raise NotImplementedError(
-            "rollout_sharded (the env axis over several cards) is not ported yet "
-            "(ROADMAP Queue A, slice 6: the parallel layer)")
+        """`rollout` with the env axis split over the ranks of ``mesh`` (a
+        ``DeviceMesh``'s "data" dimension or a process group): every rank
+        runs `rollout` on its N/R envs of the global ``state`` (one B6
+        launch at N/R on the whole-control-step layout), and the rewards
+        (num_steps, N) and final state are gathered in rank order
+        (``parallel.mesh.all_gather_rows``), so every rank returns what
+        `rollout` of the whole state returns. Envs are independent: no
+        other communication. N must split evenly over the ranks."""
+        local = PhysicsState(*shard_batch(mesh, tuple(state)))
+        final, rewards = self.rollout(local, num_steps)
+        *parts, rewards = all_gather_rows([*final, rewards.T], mesh)
+        return PhysicsState(*parts), rewards.T.contiguous()

@@ -23,6 +23,17 @@ state of the lowest-loss micro-step at or after optimizer step
 and dropout masks come from the trainer's ``torch.Generator`` on the
 device (``Trainer.draw``, the loss function's ``generator``), so they
 differ from the JAX package's draws; tests inject the same ones into both.
+
+Data-parallel (``group``, a ``torch.distributed`` process group of R
+ranks): R ranks take the step one process takes over the same global
+batch, as JAX's SPMD step does. Every rank builds the global batch and
+keeps its rows (``parallel.mesh.shard_batch``); every batch-shaped draw is
+taken at the global batch and cut to the rank's rows
+(``utils.rng.ShardGenerator``); the masked losses divide by the ranks'
+mean count of valid frames; gradients, the loss and its scalar info are
+averaged over the ranks in one all_reduce after each backward, so every
+rank applies the same update and holds the same bits; the loss-aware
+sampler records every rank's (t, loss) pairs in rank order.
 """
 from __future__ import annotations
 
@@ -33,10 +44,14 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..diffusion import process
 from ..diffusion import timestep_sampling as ts
 from ..diffusion.schedules import Schedule
+from ..parallel.mesh import all_reduce_mean, data_group, rank_and_world, shard_batch
+from ..utils.profiling import annotate
+from ..utils.rng import ShardGenerator, draw_rows
 from .state import TrainState
 
 LOSS_KINDS = ("diffuser", "v4", "x0", "kl", "angle_velocity")
@@ -56,6 +71,7 @@ def make_loss_fn(
     smooth_loss_weight: float = 0.1,
     use_mask: bool = False,
     dropout: bool = False,
+    group=None,
 ) -> Callable:
     """The per-batch loss ``loss_fn(x0, t, noise, *, y=None, mask=None,
     t_weights=None, generator=None, drop=None) -> (loss, info)``.
@@ -69,7 +85,8 @@ def make_loss_fn(
     trains CFG's unconditional branch. ``use_mask`` takes the (B, H) frame
     mask into the v4 / x0 loss; ``t_weights`` are the loss-aware sampler's
     importance weights. ``dropout=True`` hands ``generator`` to the model,
-    whose dropout then draws its keep masks from it."""
+    whose dropout then draws its keep masks from it. ``group``: each batch
+    is one data-parallel rank's share (the masked mean's global count)."""
     if kind not in LOSS_KINDS:
         raise ValueError(f"unknown loss kind {kind!r}; expected one of {LOSS_KINDS}")
 
@@ -87,8 +104,8 @@ def make_loss_fn(
                 smooth_loss_weight=smooth_loss_weight)
         if y is not None and null_label is not None:
             if drop is None:
-                drop = torch.rand(y.shape, generator=generator,
-                                  device=generator.device) < label_drop_prob
+                drop = draw_rows(generator, y.shape, lambda s: torch.rand(
+                    s, generator=generator, device=generator.device)) < label_drop_prob
             y = torch.where(drop, torch.full_like(y, null_label), y)
 
         def model_fn(x, tt):
@@ -100,20 +117,27 @@ def make_loss_fn(
         return process.v4_training_loss(
             sched, model_fn, x0, t, noise, predict_x0=not predict_epsilon,
             mask=mask if use_mask else None, t_weights=t_weights,
-            loss_space="x0" if kind == "x0" else "eps",
+            loss_space="x0" if kind == "x0" else "eps", group=group,
         )
 
     return loss_fn
 
 
-def train_step(state: TrainState, loss_fn: Callable, x0, t, noise, **loss_kw):
+def train_step(state: TrainState, loss_fn: Callable, x0, t, noise, group=None, **loss_kw):
     """loss -> backward -> optimizer (every ``accum`` micro-steps) -> EMA.
-    -> (loss, info), detached."""
+    -> (loss, info), detached. With a data-parallel ``group`` the gradients,
+    the loss and info's scalars are averaged over the ranks first (one
+    all_reduce); the ranks must give gradients to the same parameters."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, info = loss_fn(x0, t, noise, **loss_kw)
     loss.backward()
+    loss, info = loss.detach(), {k: v.detach() for k, v in info.items()}
+    if group is not None:
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        with annotate("all_reduce_grads", loss.device):
+            all_reduce_mean(grads + [loss] + [v for v in info.values() if v.dim() == 0], group)
     state.apply_gradients()
-    return loss.detach(), {k: v.detach() for k, v in info.items()}
+    return loss, info
 
 
 @dataclass
@@ -135,12 +159,19 @@ class Trainer:
     each numpy batch is copied to the model's device. A
     ``LossSecondMomentState`` as ``sampler_state`` turns on the loss-aware
     timestep sampler: t is drawn from it, the loss is importance-weighted,
-    and each step's per-sample losses are recorded in it."""
+    and each step's per-sample losses are recorded in it. ``group`` trains
+    data-parallel (see the module's docstring): ``config.batch_size`` is the
+    global batch, which must split evenly over the ranks; the parameters
+    and EMA start from rank 0's."""
 
     def __init__(self, state: TrainState, loss_fn: Callable, dataset,
                  config: TrainerConfig = TrainerConfig(), checkpointer=None,
                  log_fn=print, num_timesteps: int = 1000,
-                 sampler_state: ts.LossSecondMomentState | None = None):
+                 sampler_state: ts.LossSecondMomentState | None = None, group=None):
+        rank, world = rank_and_world(group)
+        if config.batch_size % world:
+            raise ValueError(f"batch size {config.batch_size} does not split over {world} ranks")
+        self.group = group
         self.state = state
         self.sampler_state = sampler_state
         self.loss_fn = loss_fn
@@ -150,7 +181,12 @@ class Trainer:
         self.log_fn = log_fn
         self.num_timesteps = num_timesteps
         self.device = next(state.model.parameters()).device
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.generator = ShardGenerator(self.device, rank, world).manual_seed(config.seed)
+        if group is not None:
+            pg = data_group(group)
+            src = dist.get_global_rank(pg, 0)
+            for v in [*state.model.state_dict().values(), *state.ema_params.values()]:
+                dist.broadcast(v, src, group=pg)
         self.metrics: list[dict] = []
         self.best_loss = float("inf")
         self.best_step = -1
@@ -162,8 +198,14 @@ class Trainer:
             t, _ = ts.uniform_timesteps(self.generator, x0.shape[0], self.num_timesteps)
         else:
             t, _ = ts.loss_aware_timesteps(self.sampler_state, self.generator, x0.shape[0])
-        noise = torch.randn(x0.shape, generator=self.generator, device=self.device)
+        g = self.generator
+        noise = draw_rows(g, x0.shape, lambda s: torch.randn(s, generator=g, device=self.device))
         return t, noise
+
+    def _save(self):
+        st = self.state
+        self.checkpointer.save(st.step, st.model.state_dict(), st.ema_params,
+                               st.opt_state_dict())
 
     def _to_device(self, a):
         a = torch.from_numpy(a)
@@ -171,17 +213,14 @@ class Trainer:
             a = a.pin_memory()  # so that the copy does not wait for the device
         return a.to(self.device, non_blocking=True)
 
-    def _save(self):
-        st = self.state
-        self.checkpointer.save(st.step, st.model.state_dict(), st.ema_params,
-                               st.opt_state_dict())
-
     def train(self, num_steps: int | None = None) -> TrainState:
         cfg = self.config
         n = num_steps if num_steps is not None else cfg.num_train_steps
         accum = max(1, cfg.gradient_accumulate_every)
         batches = self.dataset.epochs(cfg.batch_size, seed=cfg.seed,
                                       class_balanced=cfg.class_balanced)
+        if self.group is not None:
+            batches = (shard_batch(self.group, b) for b in batches)
         best_from = int(n * (1.0 - cfg.best_window_frac))
         self.state.model.train()
         micro = n * accum
@@ -195,10 +234,12 @@ class Trainer:
             t, noise = self.draw(x0)
             t_weights = (None if self.sampler_state is None
                          else ts.importance_weights(self.sampler_state, t))
-            loss, info = train_step(self.state, self.loss_fn, x0, t, noise, y=y.long(),
-                                    mask=mask, t_weights=t_weights, generator=self.generator)
+            loss, info = train_step(self.state, self.loss_fn, x0, t, noise, group=self.group,
+                                    y=y.long(), mask=mask, t_weights=t_weights,
+                                    generator=self.generator)
             if self.sampler_state is not None:
-                ts.update_with_losses(self.sampler_state, t, info["per_sample_loss"])
+                ts.update_with_losses(self.sampler_state, t, info["per_sample_loss"],
+                                      self.group)
             # state.step counts micro-steps; report/compare in optimizer steps
             opt_step = self.state.step // accum
             if chunk is not None:

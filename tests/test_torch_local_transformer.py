@@ -234,12 +234,21 @@ def test_forward_with_dynamic_position_bias_matches_jax():
 
 
 def test_unsupported_options_raise_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*GlobalMHA"):
-        LA.LocalTransformer(D, use_global_attn=True, **SMALL)
+    """The global inserts and the KV-cache decode are ported (held against
+    JAX in tests/test_torch_global_attention_decode.py): both run here; the
+    decode refuses a bidirectional model; a horizon past max_seq_len still
+    raises."""
+    model = LA.LocalTransformer(D, use_global_attn=True, **SMALL).eval()
+    with torch.no_grad():
+        assert model(torch.zeros(1, 16, D), torch.zeros(1)).shape == (1, 16, D)
     model = torch_transformer(1, 0)
     x = torch.zeros(1, 1, D)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*KV-cache"):
-        model(x, torch.zeros(1), cache=())
+    with pytest.raises(ValueError, match="causal"):
+        model(x, torch.zeros(1), cache=model.init_decode_cache(1), decode_pos=0)
+    causal = LA.LocalTransformer(D, causal=True, **SMALL).eval()
+    with torch.no_grad():
+        out, cache = causal(x, torch.zeros(1), cache=causal.init_decode_cache(1), decode_pos=0)
+    assert out.shape == (1, 1, D) and len(cache) == SMALL["depth"]
     with pytest.raises(ValueError, match="max_seq_len"):
         model(torch.zeros(1, 400, D), torch.zeros(1))
 

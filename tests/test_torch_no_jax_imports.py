@@ -14,12 +14,15 @@ from deepmimic_diffusion_mujoco_tpu_torch.cli import compare as compare_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import evaluate as evaluate_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import play as play_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sample as cli
+from deepmimic_diffusion_mujoco_tpu_torch.cli import scaling as scaling_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import sweep as sweep_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
 from deepmimic_diffusion_mujoco_tpu_torch.cli import workflows as workflows_cli
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, process, schedules
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion.timestep_sampling import LossSecondMomentState
 from deepmimic_diffusion_mujoco_tpu_torch.examples import end_to_end_walk
+from deepmimic_diffusion_mujoco_tpu_torch.parallel import mesh as meshlib
+from deepmimic_diffusion_mujoco_tpu_torch.parallel import multihost_check
 from deepmimic_diffusion_mujoco_tpu_torch.physics import env as physics_env
 from deepmimic_diffusion_mujoco_tpu_torch.physics.dynamics import DynamicsEnv
 from deepmimic_diffusion_mujoco_tpu_torch.physics.plausibility import track_motions
@@ -30,6 +33,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "deepmimic_diffusion_mujoco_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepmimic_diffusion_mujoco_tpu"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+NEW_MODULES = ["parallel/mesh.py", "parallel/tp.py", "parallel/multihost_check.py",
+               "parallel/launch.py", "utils/profiling.py", "utils/rng.py", "cli/scaling.py"]
 
 
 def _imported_roots(path: Path):
@@ -74,6 +79,10 @@ ENTRY_POINTS = {
     "render_motion": lambda tmp: render_motion(np.zeros((2, 35))),
     "play_main": lambda tmp: play_cli.main(["motion.npy", "--no-render"]),
     "end_to_end_walk": lambda tmp: end_to_end_walk.main(["--out", str(tmp)]),
+    "multihost_check": lambda tmp: multihost_check.main([]),
+    "scaling_main": lambda tmp: scaling_cli.main(["--widths", "1"]),
+    "initialize_multihost": lambda tmp: meshlib.initialize_multihost(
+        f"file://{tmp}/store", 1, 0),
 }
 
 
@@ -109,20 +118,28 @@ def _tiny_local(**kw):
 
 @pytest.mark.parametrize("case", ["global_attn", "decode_cache", "train_local_attention"])
 def test_unported_local_attention_options_name_roadmap(case):
-    """The options still to port raise naming ROADMAP.md; training, ported
-    since, builds a trainer whose dropout is live as the JAX CLI sets it."""
+    """Every local-attention option is ported: the global inserts build from
+    a config and run, the KV-cache decode runs on a causal model, and
+    training builds a trainer whose dropout is live as the JAX CLI sets it."""
     if case == "train_local_attention":
         cfg = ExperimentConfig.load(str(ROOT / "experiments" / "localattn5k_r3" / "config.json"))
         assert train_cli.has_dropout(cfg.model)
         assert not train_cli.has_dropout(cfg.override({"model.attn_dropout": 0.0,
                                                        "model.ff_dropout": 0.0}).model)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with torch.no_grad():
         if case == "global_attn":
-            factory.build_model(_tiny_local(use_global_attn=True), device="cpu")
+            model = factory.build_model(_tiny_local(use_global_attn=True,
+                                                    global_attn_layers=[1]), device="cpu")
+            assert list(model.global_attn) == ["0"]
+            out = model(torch.zeros(1, 16, model.input_dim), torch.zeros(1))
+            assert out.shape == (1, 16, model.input_dim)
         else:
-            model = factory.build_model(_tiny_local(), device="cpu")
-            model(torch.zeros(1, 1, 35), torch.zeros(1), cache=(), decode_pos=0)
+            model = factory.build_model(_tiny_local(), device="cpu").eval()
+            out, cache = model(torch.zeros(1, 1, model.input_dim), torch.zeros(1),
+                               cache=model.init_decode_cache(1), decode_pos=0)
+            assert out.shape == (1, 1, model.input_dim) and len(cache) == 1
+        assert torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("layout", ["aba", "lanes", "vmap"])
@@ -143,7 +160,44 @@ def test_unported_dynamics_layouts_name_roadmap(layout):
     assert DynamicsEnv(layout="pallas").layout == DynamicsEnv().layout == "pallas"
 
 
-def test_rollout_sharded_names_roadmap():
-    env = physics_env.PhysicsTrackingEnv(np.zeros((4, 35)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        env.rollout_sharded(None, env.reset(2), 1)
+def test_rollout_sharded_names_roadmap(tmp_path):
+    """rollout_sharded is ported: over a group of one it is rollout."""
+    from _torch_dist_workers import WALK, one_rank_group
+    from deepmimic_diffusion_mujoco_tpu_torch.data.mocap import load_clip
+
+    clip = load_clip(str(WALK))
+    env = physics_env.PhysicsTrackingEnv(clip.qpos, clip.qvel, substeps=2, device="cpu")
+    state = env.reset(2)
+    final, rewards = env.rollout(state, 1)
+    with one_rank_group(tmp_path) as group:
+        s_final, s_rewards = env.rollout_sharded(group, state, 1)
+    assert torch.equal(s_rewards, rewards)
+    assert all(torch.equal(a, b) for a, b in zip(s_final, final))
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_parallel_layer_modules_are_scanned(module):
+    """The parallel layer, profiling and the scaling CLI are among the files
+    test_no_jax_imports reads."""
+    assert PORT / module in FILES
+
+
+def _imported_modules(path: Path):
+    pkg = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = pkg[:len(pkg) - node.level + 1] if node.level else ()
+            yield ".".join([*base, node.module or ""]).strip(".")
+
+
+@pytest.mark.parametrize("layer", ["ops", "models", "utils"])
+def test_lower_layers_do_not_import_the_parallel_layer(layer):
+    """The kernels' wrappers, the models and the utilities (the batch-shaped
+    draws of utils/rng.py among them) depend on neither parallel/ nor
+    torch.distributed."""
+    for path in sorted((PORT / layer).rglob("*.py")):
+        bad = [m for m in _imported_modules(path)
+               if m.startswith("torch.distributed") or ".parallel" in f".{m}"]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -46,10 +46,20 @@ def test_update_with_repeated_timesteps_matches_scan():
     np.testing.assert_array_equal(_states([first])[1].losses[2].numpy(), [4, 5, 7])
 
 
-def test_update_over_a_device_axis_raises():
-    ts = TTS.LossSecondMomentState.create(T, HIST, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel layer"):
-        TTS.update_with_losses(ts, torch.zeros(2, dtype=torch.long), torch.ones(2), "data")
+def test_update_over_a_device_axis_raises(tmp_path):
+    """update_with_losses over a process group is ported: in a group of one it
+    records exactly what the update without a group records (two ranks:
+    tests/test_torch_parallel_mesh.py)."""
+    from _torch_dist_workers import one_rank_group
+
+    t, losses = torch.tensor([3, 1, 3, 0]), torch.tensor([0.5, 2.0, 1.5, 0.25])
+    ours = TTS.LossSecondMomentState.create(T, HIST, device="cpu")
+    ref = TTS.LossSecondMomentState.create(T, HIST, device="cpu")
+    TTS.update_with_losses(ref, t, losses)
+    with one_rank_group(tmp_path) as group:
+        TTS.update_with_losses(ours, t, losses, group)
+    assert torch.equal(ours.losses, ref.losses) and torch.equal(ours.counts, ref.counts)
+    assert ref.counts[3] == 2
 
 
 @pytest.mark.parametrize("steps", [0, 2, 12])

@@ -141,8 +141,9 @@ def test_dropout_matches_flax_with_the_same_keep_masks(monkeypatch, conditioning
     assert [m.shape for m in masks] == [(1, 1, H, H), (B, H, 64)] * 2
     replay = iter(masks)
 
-    def keep_mask(shape, keep_prob, generator, device):
+    def keep_mask(shape, keep_prob, generator, device, rows=True):
         m = next(replay)
+        assert rows == (shape[0] != 1)  # the attention's mask is shared by the batch
         assert tuple(shape) == m.shape and keep_prob == pytest.approx(0.7)
         return torch.from_numpy(m)
 
