@@ -5,8 +5,8 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: the four CUDA sources (B1 csrc/conv_gn_mish.cu, B2
-   csrc/conv1d_weight_grad.cu, B3 and B4 csrc/local_attention.cu, B5-B7
+2. build: the four CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B2
+   csrc/conv1d_weight_grad.cu, B3, K3 and B4 csrc/local_attention.cu, B5-B7
    csrc/humanoid_dynamics.cu), compiled in parallel with nvcc, one process
    each, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
@@ -129,8 +129,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    JAX trainer does, and each run's logged steps are checked.)
 18. workflows, run after the train, b_serve and physics phases on their run directories:
    ``cli.workflows.main`` runs the seven workflows (editing, start-with-motion, short- and
-   long-projection, inbetween, blend, steer) on the train phase's dim-128 run (posterior
-   T 1000, B 16), each with B1's count set to 0 just before and read just after (33 x the
+   long-projection, inbetween, blend, steer) on a copy of the train phase's dim-128 run cut
+   to WF_T (posterior T 100, B 16), each with B1's count set to 0 just before and read just
+   after (33 x the
    U-Net forwards counted, B2 0), its motions finite and its conditioned frames and dims
    exact; ``cli.compare.main`` over that run and the b_serve run (walk clip ground truth,
    H 32, CFG on class 0): both architectures, finite SiFID and inter-diversity, a best loss;
@@ -176,6 +177,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``model.causal=true``, LA_DECODE frames at B 4 decoded through the KV cache against the
    causal forward (LA_FORWARD_TOL), and ``model.use_global_attn=true``, one forward at B 16 x
    H 128, finite and of its shape, with its ms.
+
+21. seq, run after phase 20 (sequence-sharded sampling; two gloo ranks share the one card, so
+   no timing here is scaling): K1 (``conv_gn_stats``, B1's conv + local statistics) and K2
+   (``gn_affine_mish``) against their plain versions at every shape of a rank's sharded
+   dim-128 U-Net forward (B 4, 512 of H 1024 a rank), K1 + K2 over one rank against B1 itself,
+   and K3 (``local_attention_halo``, B3's halo entry) at both ranks' slabs of the
+   localattn5k_r3 model, each with ms, the plain version's ms, the composition's
+   (``F.conv1d`` + ``var_mean``; the elementwise chain; rotary + SDPA with the band mask) and
+   the bound. Then two ranks (``parallel.launch.spawn_ranks``), the horizon split 512 + 512:
+   one forward of the dim-128 U-Net at B 4 x H 1024 against one process with B1 (FORWARD_TOL),
+   then a DDIM-10 chain (the output read as x0) with holding_box through
+   ``sample_loop(..., x_sharding=seq_sharding(mesh))``, its counts set to 0 just before and read
+   just after (K1 and K2 33 a forward a rank, B1 0), against the one-process chain with B1
+   (SEQ_CHAIN_RTOL, SEQ_CHAIN_ATOL) and its clamped dims exact, and a DDIM-10 chain from
+   t SEQ_EPS_T with the output read as epsilon, as the serve config reads it, held the same way;
+   one forward and a v4 chain of
+   SEQ_LA_STEPS steps of the localattn5k_r3 copy with max_seq_len 1024 at B 4 x H 1024 (K3
+   depth a forward a rank, B3 0: nothing takes the bucketed route) against one process with
+   B3; the ms a step of both chains, sharded and one-process.
 
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -253,6 +273,7 @@ from deepmimic_diffusion_mujoco_tpu_torch.train.checkpoint import Checkpointer
 from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 from deepmimic_diffusion_mujoco_tpu_torch.train.loop import make_loss_fn
 from deepmimic_diffusion_mujoco_tpu_torch.utils import profiling
+from deepmimic_diffusion_mujoco_tpu_torch.utils import seq as seqlib
 
 ROOT = Path(__file__).resolve().parent
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
@@ -306,6 +327,8 @@ GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) ove
 # workflows: --num where the horizon allows; compare at the walk clip's 39 frames cut to a
 # multiple of 8 (the U-Net's), on CMP_NUM samples a run; a two-point sweep of SWEEP_STEPS
 WF_NUM, CMP_NUM, CMP_FRAMES, SWEEP_STEPS, PLAY_HORIZON, WALK_STEPS = 16, 8, 32, 10, 15, 20
+WF_T = 100               # the workflows' chains: a copy of the trained run cut to T 100 (at T 1000
+                         # its five full chains took 37 s of a script near its 1,200 s limit)
 FK_TOL = 1e-5            # body poses: forward kinematics on the card against the CPU
 ENGINE_LAYOUTS = ("vmap", "lanes", "aba")
 ENGINE_QPOS_TOL = 5e-4   # f32 engines against B5 after one control step: the f32
@@ -318,6 +341,15 @@ PAR_CHECK_TOL = 1e-5     # multihost_check, two ranks (B 8 each) against one pro
                          # B1/B2 sums over other rows, then one Adam step; relative
 PAR_TIMEOUT = 300.0      # seconds for the two gloo ranks' work
 LA_DECODE = 64           # frames decoded through the KV cache, against the causal forward
+# seq (phase 21): the horizon split over SEQ_RANKS gloo ranks on the one card
+SEQ_B, SEQ_H, SEQ_RANKS, SEQ_DDIM, SEQ_LA_STEPS = 4, 1024, 2, 10, 10
+SEQ_CHAIN_RTOL, SEQ_CHAIN_ATOL = 1e-4, 1e-3  # sharded chain against one process:
+                         # tests/test_parallel.py:50-53 (eps-chains reach |x| ~ 1e2)
+SEQ_EPS_T = 100          # the epsilon chain's first step: alpha_bar there is about 0.97
+SEQ_STATS_TOL = 1e-4     # K1's M2 against its plain version, relative (f32 sums of 8 k values)
+SEQ_LA_TOL = 1e-3        # the sharded LocalTransformer (K3) against one process (B3) after
+                         # 6 layers: LA_FORWARD_TOL's reason
+SEQ_TIMEOUT = 300.0      # seconds for the two gloo ranks' work
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -408,6 +440,9 @@ def build_all():
 
 def reset_counts():
     CB.conv_gn_mish_cuda.launches = 0
+    CB.conv_gn_stats_cuda.launches = 0
+    CB.gn_affine_mish_cuda.launches = 0
+    FA.local_attention_halo_cuda.launches = 0
     CW.conv1d_weight_grad_cuda.launches = 0
     FA.fused_qkv_local_attention_cuda.launches = 0
     LH.local_attention_heads_cuda.launches = 0
@@ -475,14 +510,15 @@ def warm_card(dev, seconds=WARM_S):
         torch.cuda.synchronize()
 
 
-def b1_plan(x, w):
-    """The launch plan B1 takes for x and w, with the CTAs per SM the card
-    holds (cudaOccupancyMaxActiveClusters x cluster size / SMs)."""
+def b1_plan(x, w, stats=False):
+    """The launch plan B1 (or, with ``stats``, K1) takes for x's (B, H) and
+    w, with the CTAs per SM the card holds (cudaOccupancyMaxActiveClusters x
+    cluster size / SMs)."""
     (batch, h, cin), (_, _, cout) = x.shape, w.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = CB.conv_plan(batch, h, cin, cout, K, GROUPS)
     vec = (cout // GROUPS) % 4 == 0 and w.data_ptr() % 16 == 0
-    clusters = CB.max_active_clusters(plan, h, cin, cout, K, GROUPS, vec, x.device)
+    plan = (CB.stats_plan if stats else CB.conv_plan)(batch, h, cin, cout, K, GROUPS)
+    clusters = CB.max_active_clusters(plan, h, cin, cout, K, GROUPS, vec, x.device, stats)
     return {"cluster": plan.cluster, "rows": plan.rows, "ctas": plan.grid,
             "ctas_per_sm": clusters * plan.cluster / sms, "threads": plan.threads,
             "slices": plan.slices, "tile_h": plan.tile_h, "ck": plan.ck, "stages": plan.stages,
@@ -1686,15 +1722,20 @@ def b_train_phase(dev, args, tmp, cfg, steps=10):
     return {"runs": runs, "grads": grad, "profile": profile}
 
 
+def short_run(run, steps):
+    """A copy of the run directory whose config cuts its chains to ``steps``."""
+    short = run + f"_t{steps}"
+    shutil.copytree(run, short)
+    config = os.path.join(short, "config.json")
+    ExperimentConfig.load(config).override({"diffusion.noise_steps": steps}).save(config)
+    return short
+
+
 def b_eval_phase(dev, run):
     """``cli.evaluate.main`` and ``cli.cfg_eval.main`` on the served run:
     finite metrics of the expected keys (random weights: the scores
     themselves mean nothing), on a copy of the run with B_EVAL_T-step chains."""
-    short = run + f"_t{B_EVAL_T}"
-    shutil.copytree(run, short)
-    config = os.path.join(short, "config.json")
-    ExperimentConfig.load(config).override({"diffusion.noise_steps": B_EVAL_T}).save(config)
-    run = short
+    run = short_run(run, B_EVAL_T)
     reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2617,7 +2658,7 @@ def workflows_phase(dev, tmp, per_step, b_run):
     run and the b_serve run."""
     run = os.path.join(tmp, "train_run")
     result = {}
-    for name, fn, a in (("workflows", run_workflows, (run, tmp, per_step)),
+    for name, fn, a in (("workflows", run_workflows, (short_run(run, WF_T), tmp, per_step)),
                         ("compare", run_compare, (run, b_run, tmp, per_step)),
                         ("sweep", run_sweep, (tmp, per_step))):
         t0 = time.perf_counter()
@@ -2955,6 +2996,323 @@ def parallel_phase(dev, args, tmp, per_step):
     return result
 
 
+def seq_unet(seed, dev):
+    """The dim-128 serve-config U-Net from a seeded init, its schedule, and
+    inputs for one forward."""
+    torch.manual_seed(seed)
+    model = TemporalUnet(D, dim=DIM).to(dev).eval()
+    g = torch.Generator().manual_seed(seed + 33)
+    x = torch.randn(SEQ_B, SEQ_H, D, generator=g).to(dev)
+    t = torch.randint(0, T, (SEQ_B,), generator=g).to(dev)
+    return model, make_schedule("cosine", T, convention="diffuser", device=dev), x, t
+
+
+def seq_unet_chain(model, sched, seed, dev, x_sharding=None, prediction="x0", t_start=None):
+    """The DDIM chain, by default from t 999 with the model's output read as
+    x0. Read as epsilon there, the random-weight U-Net's first step divides
+    it by sqrt(alpha_bar_999) (about 5e-5): float32 rounding of the forward
+    (1e-6) then moves x0 by about 0.02 between any two implementations, and
+    the chain to |x| ~ 1e5, where one float32 ulp exceeds SEQ_CHAIN_ATOL. So
+    the epsilon chain starts at SEQ_EPS_T."""
+    return sample_loop(sched, model, (SEQ_B, SEQ_H, D),
+                       torch.Generator(device=dev).manual_seed(seed + 30), mode="ddim",
+                       ddim_steps=SEQ_DDIM, prediction=prediction, t_start=t_start,
+                       conditioning_fn=conditioning.holding_box(D, device=dev),
+                       x_sharding=x_sharding).trajectories
+
+
+def seq_la_model(seed, dev):
+    """The localattn5k_r3 copy with max_seq_len SEQ_H (la_serve's long run),
+    seeded, with its schedule and inputs for one forward."""
+    cfg = ExperimentConfig.load(str(LA_CONFIG)).override({"model.max_seq_len": SEQ_H})
+    model = seeded_model(cfg, seed, hyper_connection_weights).to(dev).eval()
+    g = torch.Generator().manual_seed(seed + 31)
+    x = torch.randn(SEQ_B, SEQ_H, cfg.model.input_dim, generator=g).to(dev)
+    t = torch.randint(0, cfg.diffusion.noise_steps, (SEQ_B,), generator=g).to(dev)
+    return model, factory.build_schedule(cfg.diffusion, dev), x, t
+
+
+def seq_la_chain(model, sched, seed, dev, x_sharding=None):
+    return sample_loop(sched, model, (SEQ_B, SEQ_H, model.input_dim),
+                       torch.Generator(device=dev).manual_seed(seed + 32), mode="v4",
+                       predict_epsilon=False, t_start=SEQ_LA_STEPS + 1,
+                       conditioning_fn=conditioning.holding_box(model.input_dim, device=dev),
+                       x_sharding=x_sharding).trajectories
+
+
+def seq_counts():
+    return {"conv_gn_stats": CB.conv_gn_stats_cuda.launches,
+            "gn_affine_mish": CB.gn_affine_mish_cuda.launches,
+            "conv_gn_mish": CB.conv_gn_mish_cuda.launches,
+            "local_attention_halo": FA.local_attention_halo_cuda.launches,
+            "fused_qkv_local_attention": FA.fused_qkv_local_attention_cuda.launches}
+
+
+def counted(fn):
+    """fn() with every count set to 0 just before and read just after:
+    -> (result, host seconds ended by a sync, counts)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, seq_counts()
+
+
+def seq_worker(rank, world, seed, device="cuda"):
+    """One of phase 21's two gloo ranks on the one card, the horizon split
+    SEQ_H / world frames a rank: the U-Net's DDIM chain (K1, K2), then the
+    local transformer's forward and v4 chain (K3), each run once before
+    the counted run. -> numpy results."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shard = meshlib.seq_sharding(meshlib.make_mesh(data=1, seq=world, device_type=dev.type))
+    out = {}
+    unet, sched, x, t = seq_unet(seed, dev)
+    with torch.inference_mode(), seqlib.sharded(shard):
+        y = unet(shard.shard(x).contiguous(), t)
+    out["unet_forward"] = y.cpu().numpy()
+    seq_unet_chain(unet, sched, seed, dev, shard)
+    traj, seconds, n = counted(lambda: seq_unet_chain(unet, sched, seed, dev, shard))
+    out["unet"] = {"seconds": seconds, "counts": n, "traj": traj.cpu().numpy()}
+    out["unet_epsilon"] = seq_unet_chain(unet, sched, seed, dev, shard, "epsilon",
+                                         SEQ_EPS_T).cpu().numpy()
+    del unet
+    model, la_sched, x, t = seq_la_model(seed, dev)
+    xs = shard.shard(x).contiguous()
+
+    def forward():
+        with torch.inference_mode(), seqlib.sharded(shard):
+            return model(xs, t)
+
+    forward()
+    y, seconds, n = counted(forward)
+    out["la_forward"] = {"seconds": seconds, "counts": n, "out": y.cpu().numpy()}
+    traj, seconds, n = counted(lambda: seq_la_chain(model, la_sched, seed, dev, shard))
+    out["la_chain"] = {"seconds": seconds, "counts": n, "traj": traj.cpu().numpy()}
+    return out
+
+
+def seq_k1_k2_rows(dev, timer, peaks, shapes):
+    """K1 and K2 against their plain versions at every (H, Cin, Cout) of a
+    rank's sharded forward (``shapes``: Counter of launches a forward), K1 +
+    K2 over one rank (zero halo rows) against B1, with the compositions."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k1, k2 = [], []
+    for (h, cin, cout), n in shapes.items():
+        xh = torch.randn(SEQ_B, h + K - 1, cin, generator=g, device=dev)
+        w = torch.randn(K, cin, cout, generator=g, device=dev) * (K * cin) ** -0.5
+        b, gamma, beta = (m + 0.1 * torch.randn(cout, generator=g, device=dev)
+                          for m in (0.0, 1.0, 0.0))
+        pre, st = CB.conv_gn_stats_cuda(xh, w, b, GROUPS)
+        pre_p, st_p = CB.conv_gn_stats_plain(xh, w, b, GROUPS)
+        count = h * (cout // GROUPS)
+        merged = CB.chan_merge(st[None], count, 1e-5)
+        y = CB.gn_affine_mish_cuda(pre, merged, gamma, beta, GROUPS)
+        y_p = CB.gn_affine_mish_plain(pre, merged, gamma, beta, GROUPS)
+        xz = xh.clone()  # one rank holding the whole horizon: zero halo rows, then B1
+        xz[:, :K // 2] = 0
+        xz[:, h + K // 2:] = 0
+        pz, sz = CB.conv_gn_stats_cuda(xz, w, b, GROUPS)
+        via = CB.gn_affine_mish_cuda(pz, CB.chan_merge(sz[None], count, 1e-5), gamma, beta,
+                                     GROUPS)
+        b1 = CB.conv_gn_mish_cuda(xz[:, K // 2:h + K // 2].contiguous(), w, b, gamma, beta,
+                                  GROUPS)
+        torch.cuda.synchronize()
+        errs = {"pre": (pre - pre_p).abs().max().item(),
+                "mean": (st[..., 0] - st_p[..., 0]).abs().max().item(),
+                "m2_rel": ((st[..., 1] - st_p[..., 1]).abs()
+                           / st_p[..., 1].abs().clamp_min(1e-30)).max().item(),
+                "k2": (y - y_p).abs().max().item(), "k1_k2_vs_b1": (via - b1).abs().max().item()}
+        if not (max(errs["pre"], errs["mean"], errs["k2"], errs["k1_k2_vs_b1"]) <= KERNEL_TOL
+                and errs["m2_rel"] <= SEQ_STATS_TOL and torch.isfinite(y).all()):
+            raise RuntimeError(f"K1/K2 disagree at B {SEQ_B}, H {h}, {cin}->{cout}: {errs}")
+        xc, wc = xh.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        cg = cout // GROUPS
+        mean_c, rstd_c = (merged[..., i].repeat_interleave(cg, dim=1)[:, None, :] for i in (0, 1))
+
+        def k1_comp():
+            o = F.conv1d(xc, wc, b)
+            return o, torch.var_mean(o.view(SEQ_B, GROUPS, -1), dim=-1, correction=0)
+
+        flops = 2.0 * SEQ_B * h * cout * K * cin
+        nbytes = 4.0 * (SEQ_B * (h + K - 1) * cin + K * cin * cout + cout + SEQ_B * h * cout
+                        + 2 * SEQ_B * GROUPS)
+        row = {"B": SEQ_B, "H": h, "cin": cin, "cout": cout, "per_forward": n,
+               "plan": b1_plan(xh[:, :h], w, stats=True), "max_abs_err": errs["pre"],
+               "errors": errs,
+               "ms": timer(lambda: CB.conv_gn_stats_cuda(xh, w, b, GROUPS)),
+               "plain_ms": timer(lambda: CB.conv_gn_stats_plain(xh, w, b, GROUPS)),
+               "composition_ms": timer(k1_comp)}
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peaks)
+        k1.append(row)
+        emit({"phase": "kernel", "name": "conv_gn_stats", **row})
+        elems = SEQ_B * h * cout
+        # per value: 4 for the normalise and affine, max, abs and add of the softplus,
+        # exp, log1p, tanh and the product: 11
+        row = {"B": SEQ_B, "H": h, "C": cout, "per_forward": n, "max_abs_err": errs["k2"],
+               "ms": timer(lambda: CB.gn_affine_mish_cuda(pre, merged, gamma, beta, GROUPS)),
+               "plain_ms": timer(lambda: CB.gn_affine_mish_plain(pre, merged, gamma, beta,
+                                                                 GROUPS)),
+               "composition_ms": timer(lambda: F.mish(torch.addcmul(beta, (pre - mean_c) * rstd_c,
+                                                                    gamma)))}
+        row["bound_ms"], row["bound_by"] = bound(11.0 * elems, 4.0 * (2 * elems + 2 * cout
+                                                                      + 2 * SEQ_B * GROUPS), peaks)
+        k2.append(row)
+        emit({"phase": "kernel", "name": "gn_affine_mish", **row})
+    return k1, k2
+
+
+def seq_k3_rows(dev, timer, peaks, mcfg):
+    """K3 against its plain version at both ranks' slabs of the split (rank
+    0: no rows before; rank 1: none after), with the composition: rotary at
+    the global positions, then one SDPA with the band mask."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    n = SEQ_H // SEQ_RANKS
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for rank in range(SEQ_RANKS):
+        q0 = w if rank > 0 else 0
+        Nh = q0 + n + (lf * w if rank < SEQ_RANKS - 1 else 0)
+        pos0 = rank * n - q0
+        qkv = torch.randn(SEQ_B, Nh, 3 * h * dh, generator=g, device=dev)
+        args = (qkv, h, dh, w, q0, n, pos0, causal, True, True, None)
+        out = FA.local_attention_halo_cuda(*args)
+        ref = FA.local_attention_halo_plain(*args)
+        ti, tj = np.arange(q0, q0 + n)[:, None], np.arange(Nh)[None, :]
+        ok = ~FA.window_mask(ti, tj, w, 1, lf, causal, True, False)
+        x = qkv.view(SEQ_B, Nh, 3, h, dh).permute(2, 0, 3, 1, 4)
+        q_tab = rotary_tables(pos0 + np.arange(q0, q0 + n) + lf * w, dh, dev)
+        k_tab = rotary_tables(pos0 + np.arange(Nh), dh, dev)
+        mask = torch.from_numpy(ok).to(dev)
+
+        def comp():
+            o = F.scaled_dot_product_attention(rotate(x[0][:, :, q0:q0 + n], q_tab),
+                                               rotate(x[1], k_tab), x[2], attn_mask=mask)
+            return o.transpose(1, 2).reshape(SEQ_B, n, h * dh)
+
+        torch.cuda.synchronize()
+        err, comp_err = (out - ref).abs().max().item(), (comp() - ref).abs().max().item()
+        if not (err <= ATTN_TOL and comp_err <= COMP_TOL and torch.isfinite(out).all()):
+            raise RuntimeError(f"local_attention_halo disagrees at rank {rank}'s slab: kernel "
+                               f"{err}, composition {comp_err}")
+        pairs = int(ok.sum()) * SEQ_B
+        flops = h * 4.0 * dh * pairs + 6.0 * SEQ_B * (n + Nh) * h * dh
+        row = {"rank": rank, "B": SEQ_B, "Nh": Nh, "q0": q0, "Nq": n, "pos0": pos0,
+               "plan": dataclasses.asdict(FA.halo_plan(SEQ_B, h, dh, w, q0, n, Nh, causal, True)),
+               "max_abs_err": err, "composition_max_abs_err": comp_err,
+               "ms": timer(lambda: FA.local_attention_halo_cuda(*args)),
+               "plain_ms": timer(lambda: FA.local_attention_halo_plain(*args)),
+               "composition_ms": timer(comp), "pairs_per_head": pairs}
+        # bytes: Q of the rank's n rows, K and V of the slab's Nh, the n output rows
+        row["bound_ms"], row["bound_by"] = bound(flops, 4.0 * SEQ_B * h * dh * (2 * Nh + 2 * n),
+                                                 peaks)
+        rows.append(row)
+        emit({"phase": "kernel", "name": "local_attention_halo", **row})
+    return rows
+
+
+def seq_phase(dev, timer, args, tmp, peaks):
+    """Phase 21: the kernels of the horizon split at its shapes, then the
+    two gloo ranks' chains and forward against this process alone (B1, B3).
+    It makes its own references and needs no earlier phase's files."""
+    la_cfg = ExperimentConfig.load(str(LA_CONFIG))
+    probe = TemporalUnet(D, dim=DIM).to(dev).eval()
+    x = torch.zeros(SEQ_B, SEQ_H // SEQ_RANKS, D, device=dev)
+    shapes = Counter(record_block_shapes(probe, x, torch.zeros(SEQ_B, device=dev)))
+    del probe
+    k1, k2 = seq_k1_k2_rows(dev, timer, peaks, shapes)
+    k3 = seq_k3_rows(dev, timer, peaks, la_cfg.model)
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(seq_worker, SEQ_RANKS, os.path.join(tmp, "seq_store"), device=dev.type,
+                        args=(args.seed, dev.type), timeout=SEQ_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    per_forward = sum(shapes.values())  # 33
+    result = {"ranks": SEQ_RANKS, "ranks_seconds": ranks_s,
+              "note": "gloo on one card, not scaling"}
+
+    unet, sched, x, t = seq_unet(args.seed, dev)
+    with torch.inference_mode():
+        unet_fwd = unet(x, t).cpu().numpy()
+    fwd_err = float(np.abs(np.concatenate([r["unet_forward"] for r in ranks], axis=1)
+                           - unet_fwd).max())
+    seq_unet_chain(unet, sched, args.seed, dev)
+    one, one_s, one_n = counted(lambda: seq_unet_chain(unet, sched, args.seed, dev))
+    eps_ref = seq_unet_chain(unet, sched, args.seed, dev, None, "epsilon", SEQ_EPS_T).cpu().numpy()
+    del unet
+    eps_got = np.concatenate([r["unet_epsilon"] for r in ranks], axis=1)
+    eps_close = np.allclose(eps_got, eps_ref, rtol=SEQ_CHAIN_RTOL, atol=SEQ_CHAIN_ATOL)
+    eps_box = (np.abs(eps_got[:, :, BOX_ZERO]).max(),
+               np.abs(eps_got[:, :, BOX_ELBOW] - np.float32(1.57)).max())
+    got = np.concatenate([r["unet"]["traj"] for r in ranks], axis=1)
+    ref = one.cpu().numpy()
+    counts = [r["unet"]["counts"] for r in ranks]
+    want = {"conv_gn_stats": per_forward * SEQ_DDIM, "gn_affine_mish": per_forward * SEQ_DDIM,
+            "conv_gn_mish": 0, "local_attention_halo": 0, "fused_qkv_local_attention": 0}
+    box = np.abs(got[:, :, BOX_ZERO]).max(), np.abs(got[:, :, BOX_ELBOW] - np.float32(1.57)).max()
+    close = np.allclose(got, ref, rtol=SEQ_CHAIN_RTOL, atol=SEQ_CHAIN_ATOL)
+    if not (fwd_err <= FORWARD_TOL and close and np.isfinite(got).all() and max(box) == 0.0
+            and eps_close and np.isfinite(eps_got).all() and max(eps_box) == 0.0
+            and all(c == want for c in counts) and one_n["conv_gn_mish"] == per_forward * SEQ_DDIM):
+        raise RuntimeError(f"the sharded U-Net: forward off by {fwd_err}; chain allclose {close} "
+                           f"(max |diff| {np.abs(got - ref).max()}, max |x| {np.abs(ref).max()}), "
+                           f"clamped dims off by {box}; epsilon chain allclose {eps_close} (max "
+                           f"|diff| {np.abs(eps_got - eps_ref).max()}), clamped dims off by "
+                           f"{eps_box}; counts {counts} (expected {want}), one process {one_n}")
+    result["unet_ddim"] = {
+        "B": SEQ_B, "H": SEQ_H, "steps": SEQ_DDIM, "counts_per_rank": counts,
+        "forward_max_abs_err": fwd_err,
+        "one_process_counts": one_n,
+        "max_abs_diff": float(np.abs(got - ref).max()), "max_abs": float(np.abs(ref).max()),
+        "epsilon_chain": {"t_start": SEQ_EPS_T, "steps": SEQ_DDIM,
+                          "max_abs_diff": float(np.abs(eps_got - eps_ref).max()),
+                          "max_abs": float(np.abs(eps_ref).max())},
+        "ms_per_step_sharded": [r["unet"]["seconds"] * 1e3 / SEQ_DDIM for r in ranks],
+        "ms_per_step_one_process": one_s * 1e3 / SEQ_DDIM}
+    emit({"phase": "main_path", "path": "seq_unet", **result["unet_ddim"]})
+
+    model, la_sched, x, t = seq_la_model(args.seed, dev)
+    depth = model.depth
+    with torch.inference_mode():
+        model(x, t)
+        y, fwd_s, fwd_n = counted(lambda: model(x, t))
+    got = np.concatenate([r["la_forward"]["out"] for r in ranks], axis=1)
+    fwd_err = float(np.abs(got - y.cpu().numpy()).max())
+    traj, chain_s, chain_n = counted(lambda: seq_la_chain(model, la_sched, args.seed, dev))
+    got_chain = np.concatenate([r["la_chain"]["traj"] for r in ranks], axis=1)
+    ref = traj.cpu().numpy()
+    close = np.allclose(got_chain, ref, rtol=SEQ_CHAIN_RTOL, atol=SEQ_CHAIN_ATOL)
+    fwd_counts = [r["la_forward"]["counts"] for r in ranks]
+    chain_counts = [r["la_chain"]["counts"] for r in ranks]
+
+    def k3_only(n):
+        return {"conv_gn_stats": 0, "gn_affine_mish": 0, "conv_gn_mish": 0,
+                "local_attention_halo": n, "fused_qkv_local_attention": 0}
+
+    if not (fwd_err <= SEQ_LA_TOL and close and np.isfinite(got_chain).all()
+            and all(c == k3_only(depth) for c in fwd_counts)
+            and all(c == k3_only(depth * SEQ_LA_STEPS) for c in chain_counts)
+            and fwd_n["fused_qkv_local_attention"] == depth):
+        raise RuntimeError(f"the sharded local transformer: forward off by {fwd_err}, chain "
+                           f"allclose {close}, counts {fwd_counts} / {chain_counts}")
+    result["local_attention"] = {
+        "B": SEQ_B, "H": SEQ_H, "depth": depth, "forward_max_abs_err": fwd_err,
+        "forward_counts_per_rank": fwd_counts, "chain_counts_per_rank": chain_counts,
+        "chain_steps": SEQ_LA_STEPS, "chain_max_abs_diff": float(np.abs(got_chain - ref).max()),
+        "forward_ms_sharded": [r["la_forward"]["seconds"] * 1e3 for r in ranks],
+        "forward_ms_one_process": fwd_s * 1e3,
+        "ms_per_step_sharded": [r["la_chain"]["seconds"] * 1e3 / SEQ_LA_STEPS for r in ranks],
+        "ms_per_step_one_process": chain_s * 1e3 / SEQ_LA_STEPS}
+    emit({"phase": "main_path", "path": "seq_local_attention", **result["local_attention"]})
+    result.update(k1_rows=k1, k2_rows=k2, k3_rows=k3, per_forward=per_forward)
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -3036,6 +3394,7 @@ def main(argv=None) -> int:
         result["dec"] = phase("dec", dec_phase, dev, timer, args, tmp)
         result["workflows"] = phase("workflows", workflows_phase, dev, tmp, per_step, b_run)
         result["parallel"] = phase("parallel", parallel_phase, dev, args, tmp, per_step)
+        result["seq"] = phase("seq", seq_phase, dev, timer, args, tmp, peaks)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -3187,6 +3546,42 @@ def main(argv=None) -> int:
             "bound_by": row["bound_by"], "library_ms": None, "library_note": NO_LIBRARY,
             "shape": {k: row[k] for k in ("N", "T", "substeps") if k in row},
             "plan": row["plan"], "ptxas": row["ptxas"], **extra})
+    # phase 21's kernels: K1 and K2 summed over one sharded forward's 33 launches (B 4, 512
+    # rows a rank), K3 per launch at rank 0's slab
+    seq = result["seq"]
+    k3_main = seq["k3_rows"][0]
+    for name, rows, launches in (
+            ("conv_gn_stats", seq["k1_rows"], seq["unet_ddim"]["counts_per_rank"][0]),
+            ("gn_affine_mish", seq["k2_rows"], seq["unet_ddim"]["counts_per_rank"][0])):
+        kernels.append({
+            "name": name, "route": "cuda", "status": "ported; matches its plain version",
+            "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv_gn_mish.cu",
+            "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/conv_block_kernel.py:104",
+            "form": "B1's horizon-sharded form", "launches": launches[name],
+            "launches_per_rank": [c[name] for c in seq["unet_ddim"]["counts_per_rank"]],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: per_launch_sum(rows, k, "per_forward")
+               for k in ("ms", "plain_ms", "bound_ms", "composition_ms")},
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
+            else "bytes", "library_ms": None,
+            "shape": {"B": SEQ_B, "H_per_rank": SEQ_H // SEQ_RANKS, "launches_per_forward":
+                      seq["per_forward"]}})
+    kernels.append({
+        "name": "local_attention_halo", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/fused_local_attention.py:284",
+        "form": "B3's halo entry",
+        "launches": seq["local_attention"]["chain_counts_per_rank"][0]["local_attention_halo"],
+        "launches_forward_per_rank": [c["local_attention_halo"] for c in
+                                      seq["local_attention"]["forward_counts_per_rank"]],
+        "max_abs_err": max(r["max_abs_err"] for r in seq["k3_rows"]),
+        "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
+        "bound_by": k3_main["bound_by"], "library_ms": None,
+        "composition_ms": k3_main["composition_ms"],
+        "shape": {"B": SEQ_B, "Nh": k3_main["Nh"], "Nq": k3_main["Nq"]},
+        "other_rank": {k: seq["k3_rows"][1][k] for k in ("Nh", "q0", "ms", "plain_ms",
+                                                         "composition_ms", "bound_ms")}})
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -61,6 +61,21 @@
 // each weight chunk across the clusters of one group (every batch row reads
 // the same weights).
 //
+// The horizon-sharded form (sequence-sharded sampling: each rank holds H / R
+// frames, and GroupNorm's statistics span every rank's rows) splits the work
+// into two launches around a merge the host does across the ranks:
+//   K1 conv_gn_stats_f32: the same kernel with kStats set. Its input is the
+//      rank's rows with a k / 2-row halo on each side, (B, H + k - 1, Cin),
+//      convolved without padding; it writes the pre-norm conv + bias
+//      (B, H, Cout) and, per (batch row, group), the local mean and the sum
+//      of squared deviations from it (M2), two-pass, as steps 1-3 compute
+//      them, and skips step 4.
+//   K2 gn_affine_mish_f32: elementwise, (pre - mean) * rstd * gamma + beta,
+//      then Mish in step 4's form, with the merged (mean, rstd) of each
+//      (batch row, group). It reads and writes each value once: bytes bound
+//      it. A float4 a thread where the groups' widths are multiples of 4.
+// The merge (Chan's parallel variance in float64) is ops/conv_block_kernel.py's.
+//
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrapper (ops/conv_block_kernel.py) validates shapes, dtypes and
 // contiguity, chooses the plan once per shape and passes it in.
@@ -82,6 +97,12 @@ constexpr int kMaxRows = 4;              // batch rows per cluster
 constexpr int kMaxCluster = 8;           // the portable cluster size
 constexpr int kMaxGroupChannels = 256;   // a weight row's float4s fit the CTA's threads
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic + static shared memory of one CTA
+// The kernel's static shared memory: the ring's mbarriers, the statistics'
+// slots and the group's bias / gamma / beta.
+constexpr size_t kStaticSmem =
+    16 * kMaxStages + sizeof(float) * (2 * kMaxRows + 3 * kMaxGroupChannels);
+// What a CTA takes, static and dynamic together, before the kernel opts in to more
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 // Chosen on the host (ops/conv_block_kernel.py: make_plan), passed by value.
 struct Plan {
@@ -260,13 +281,16 @@ __device__ __forceinline__ float row_value(const float (&v)[kMaxRows], int rb) {
 }
 
 // kVecW: the group's weight columns are 16-byte aligned and cg % 4 == 0, so
-// each weight row is copied as 16-byte pieces.
-template <int K, bool kVecW>
+// each weight row is copied as 16-byte pieces. kStats: K1 (the header): x is
+// (B, H + K - 1, Cin) with its halo, `out` gets the pre-norm values and
+// `stats` (B, groups, 2) each (batch row, group)'s local (mean, M2).
+template <int K, bool kVecW, bool kStats>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, float* __restrict__ out, int B, int H,
-                    int Cin, int Cout, int groups, Plan p, float eps) {
+                    const float* __restrict__ beta, float* __restrict__ out,
+                    float* __restrict__ stats_out, int B, int H, int Cin, int Cout, int groups,
+                    Plan p, float eps) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
   __shared__ float stats[2][kMaxRows];
@@ -276,6 +300,7 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   const int cg = Cout / groups;
   const Layout l = layout(p, H, cg, K);
+  const int Hin = kStats ? H + K - 1 : H;  // rows of x
   const int C = p.cluster;
   const int rank = blockIdx.x % C;  // a 1-D grid of 1-D clusters
   const int cl = blockIdx.x / C;    // (row block, group)
@@ -325,15 +350,18 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // "full" barrier covers these copies too.
   for (int c = tid; c < cg; c += threads) {
     copy4(&affine[0][c], bias + g * cg + c, true);
-    copy4(&affine[1][c], gamma + g * cg + c, true);
-    copy4(&affine[2][c], beta + g * cg + c, true);
+    if (!kStats) {
+      copy4(&affine[1][c], gamma + g * cg + c, true);
+      copy4(&affine[2][c], beta + g * cg + c, true);
+    }
   }
   __syncthreads();
 
   // Stage input channels [cin_lo + chunk * ck, + ck) of the rows tile h0
   // needs, for every batch row, into ring stage seq % stages; padding
   // (sequence ends, rows past B, channels past the rank's range or cg) is
-  // zero-filled by the copies themselves.
+  // zero-filled by the copies themselves. With kStats, x row h0 + r is the
+  // "same" conv's row h0 - K / 2 + r: the halo stands in for the padding.
   auto produce = [&](int seq, int chunk, int h0) {
     const int st = seq % p.stages;
     float* ws = smem + st * l.stage;
@@ -344,9 +372,9 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const bool cin_ok = cin < cin_hi;
       int xb = x_rb0, xr = x_r0;
       for (int q = x_q0; q < x_n; q += x_step) {
-        const int h = h0 - kPad + xr;
-        const bool ok = cin_ok && xb < nb && h >= 0 && h < H;
-        copy4(xs + xb * l.xs_row + xr, ok ? x + ((size_t)(b0 + xb) * H + h) * Cin + cin : x,
+        const int h = kStats ? h0 + xr : h0 - kPad + xr;
+        const bool ok = cin_ok && xb < nb && h >= 0 && h < Hin;
+        copy4(xs + xb * l.xs_row + xr, ok ? x + ((size_t)(b0 + xb) * Hin + h) * Cin + cin : x,
               ok);
         xb += x_drb;
         xr += x_dr;
@@ -540,8 +568,16 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (C > 1) cluster_arrive();  // this rank has read every rank's statistics
 #pragma unroll
   for (int u = 0; u < kMaxRows; ++u) inv[u] = 1.f / sqrtf(stat[u] / n + eps);
+  if (kStats && rank == 0 && tid == 0) {
+    for (int b = 0; b < nb; ++b) {
+      stats_out[((size_t)(b0 + b) * groups + g) * 2] = row_value(mean, b);
+      stats_out[((size_t)(b0 + b) * groups + g) * 2 + 1] = row_value(stat, b);
+    }
+  }
 
-  for (int t = 0; t < l.n_tiles; ++t) {
+  // K1 leaves the pre-norm values in `out`: only a single tile's, kept in
+  // shared memory, still have to go there.
+  for (int t = 0; t < ((kStats && !single) ? 0 : l.n_tiles); ++t) {
     const float* tile = smem + l.ring + (t & 1) * l.tile;
     for (int b = 0; b < nb; ++b) {
       for (int i4 = b * sub4 + lo4 + tid; i4 < b * sub4 + hi4; i4 += threads) {
@@ -555,15 +591,59 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
         for (int q = 0; q < 4; ++q) {
           const int cc = c + q;
           if (cc < cg) {
-            const float v = (src[q] - m) * s * affine[1][cc] + affine[2][cc];
-            const float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-            dst[q] = v * tanhf(sp);
+            if (kStats) {
+              dst[q] = src[q];
+            } else {
+              const float v = (src[q] - m) * s * affine[1][cc] + affine[2][cc];
+              const float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
+              dst[q] = v * tanhf(sp);
+            }
           }
         }
       }
     }
   }
   if (C > 1) cluster_wait();  // no rank leaves while another may still read its shared memory
+}
+
+// K2: out = Mish((pre - mean) * rstd * gamma + beta) with `stats` (B, groups,
+// 2) holding each (batch row, group)'s (mean, rstd); kV values a thread
+// (4 where C and the group width are multiples of 4), grid-stride.
+template <int kV>
+__global__ void __launch_bounds__(256)
+gn_affine_mish_kernel(const float* __restrict__ pre, const float* __restrict__ stats,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      float* __restrict__ out, long long n, int HC, int C, int cg) {
+  const int groups = C / cg;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / kV; i += stride) {
+    const long long e = i * kV;
+    const int b = (int)(e / HC);
+    const int c = (int)(e % C);
+    const float* st = stats + ((size_t)b * groups + c / cg) * 2;
+    const float m = st[0], s = st[1];
+    float v[4];
+    if constexpr (kV == 4) {
+      const float4 u = reinterpret_cast<const float4*>(pre)[i];
+      v[0] = u.x;
+      v[1] = u.y;
+      v[2] = u.z;
+      v[3] = u.w;
+    } else {
+      v[0] = pre[e];
+    }
+#pragma unroll
+    for (int q = 0; q < kV; ++q) {
+      const float y = (v[q] - m) * s * gamma[c + q] + beta[c + q];
+      const float sp = fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)));
+      v[q] = y * tanhf(sp);
+    }
+    if constexpr (kV == 4) {
+      reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      out[e] = v[0];
+    }
+  }
 }
 
 // The plan's own consistency; false for a plan the kernel does not take.
@@ -578,23 +658,24 @@ bool plan_ok(const Plan& p, int H, int Cin, int cg, int K) {
   const Layout l = layout(p, H, cg, K);
   return p.threads == l.n_out * p.slices && p.threads >= 32 && p.threads <= kMaxThreads &&
          p.ck <= p.threads && l.ntc <= p.threads &&
-         l.bytes + sizeof(float) * (2 * kMaxRows + 3 * kMaxGroupChannels) + 16 * kMaxStages <=
-             kMaxSmem;
+         l.bytes + kStaticSmem <= kMaxSmem;
 }
 
-template <int K, bool kVecW>
+template <int K, bool kVecW, bool kStats>
 cudaError_t configure(const Plan& p, size_t smem, cudaLaunchConfig_t* cfg,
                       cudaLaunchAttribute* attr, int grid, cudaStream_t stream) {
   // Dynamic shared memory allowed so far, per device: the attribute applies
-  // to the current device only.
+  // to the current device only. Without it a plan whose dynamic bytes fit
+  // 48 KB but not beside the static ones is refused at launch and held to 0
+  // clusters by cudaOccupancyMaxActiveClusters.
   constexpr int kMaxDevices = 64;
   static size_t configured[kMaxDevices] = {};
-  if (smem > 48 * 1024) {
+  if (smem + kStaticSmem > kDefaultSmem) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return e;
     if (!(dev < kMaxDevices && smem <= configured[dev])) {
-      e = cudaFuncSetAttribute(conv_gn_mish_kernel<K, kVecW>,
+      e = cudaFuncSetAttribute(conv_gn_mish_kernel<K, kVecW, kStats>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return e;
       if (dev < kMaxDevices) configured[dev] = smem;
@@ -614,38 +695,38 @@ cudaError_t configure(const Plan& p, size_t smem, cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-template <int K, bool kVecW>
+template <int K, bool kVecW, bool kStats>
 int launch_as(const float* x, const float* w, const float* bias, const float* gamma,
-              const float* beta, float* out, int B, int H, int Cin, int Cout, int groups,
-              const Plan& p, float eps, cudaStream_t stream) {
+              const float* beta, float* out, float* stats, int B, int H, int Cin, int Cout,
+              int groups, const Plan& p, float eps, cudaStream_t stream) {
   const Layout l = layout(p, H, Cout / groups, K);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   const int grid = ceil_div(B, p.rows) * groups * p.cluster;
-  cudaError_t e = configure<K, kVecW>(p, l.bytes, &cfg, attr, grid, stream);
+  cudaError_t e = configure<K, kVecW, kStats>(p, l.bytes, &cfg, attr, grid, stream);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, conv_gn_mish_kernel<K, kVecW>, x, w, bias, gamma, beta, out, B,
-                         H, Cin, Cout, groups, p, eps);
+  e = cudaLaunchKernelEx(&cfg, conv_gn_mish_kernel<K, kVecW, kStats>, x, w, bias, gamma, beta,
+                         out, stats, B, H, Cin, Cout, groups, p, eps);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int K, bool kVecW>
+template <int K, bool kVecW, bool kStats>
 int max_clusters_as(int H, int Cout, int groups, const Plan& p, int* n) {
   const Layout l = layout(p, H, Cout / groups, K);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = configure<K, kVecW>(p, l.bytes, &cfg, attr, 1024 * p.cluster, nullptr);
+  cudaError_t e = configure<K, kVecW, kStats>(p, l.bytes, &cfg, attr, 1024 * p.cluster, nullptr);
   if (e != cudaSuccess) return (int)e;
   if (p.cluster > 1)
     return (int)cudaOccupancyMaxActiveClusters(
-        n, reinterpret_cast<const void*>(conv_gn_mish_kernel<K, kVecW>), &cfg);
+        n, reinterpret_cast<const void*>(conv_gn_mish_kernel<K, kVecW, kStats>), &cfg);
   // one CTA per "cluster": the CTAs per SM the card holds, times its SMs
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
       (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, conv_gn_mish_kernel<K, kVecW>, p.threads, l.bytes)) != cudaSuccess)
+           &per_sm, conv_gn_mish_kernel<K, kVecW, kStats>, p.threads, l.bytes)) != cudaSuccess)
     return (int)e;
   *n = per_sm * sms;
   return (int)cudaSuccess;
@@ -655,6 +736,38 @@ Plan read_plan(const int* v) { return Plan{v[0], v[1], v[2], v[3], v[4], v[5], v
 
 bool shape_ok(int B, int H, int Cin, int Cout, int groups) {
   return groups > 0 && Cout % groups == 0 && B > 0 && H > 0 && Cin > 0;
+}
+
+// B1 (stats null) or K1 (stats given), dispatched on k and the weight copies.
+int launch_k(const float* x, const float* w, const float* bias, const float* gamma,
+             const float* beta, float* out, float* stats, int B, int H, int Cin, int Cout, int k,
+             int groups, float eps, const int* plan, void* stream) {
+  if (!shape_ok(B, H, Cin, Cout, groups)) return (int)cudaErrorInvalidValue;
+  const Plan p = read_plan(plan);
+  if (!plan_ok(p, H, Cin, Cout / groups, k)) return (int)cudaErrorInvalidValue;
+  const bool vec = (Cout / groups) % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CONV_GN_MISH_LAUNCH(KK, ST)                                                           \
+  return vec ? launch_as<KK, true, ST>(x, w, bias, gamma, beta, out, stats, B, H, Cin, Cout,  \
+                                       groups, p, eps, s)                                     \
+             : launch_as<KK, false, ST>(x, w, bias, gamma, beta, out, stats, B, H, Cin, Cout, \
+                                        groups, p, eps, s);
+#define CONV_GN_MISH_CASE(KK)         \
+  case KK:                            \
+    if (stats != nullptr) {           \
+      CONV_GN_MISH_LAUNCH(KK, true)   \
+    }                                 \
+    CONV_GN_MISH_LAUNCH(KK, false)
+  switch (k) {
+    CONV_GN_MISH_CASE(1)
+    CONV_GN_MISH_CASE(3)
+    CONV_GN_MISH_CASE(5)
+    CONV_GN_MISH_CASE(7)
+    CONV_GN_MISH_CASE(9)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CONV_GN_MISH_CASE
+#undef CONV_GN_MISH_LAUNCH
 }
 
 }  // namespace
@@ -668,26 +781,43 @@ int conv_gn_mish_f32(const float* x, const float* w, const float* bias,
                      const float* gamma, const float* beta, float* out, int B,
                      int H, int Cin, int Cout, int k, int groups, float eps,
                      const int* plan, void* stream) {
-  if (!shape_ok(B, H, Cin, Cout, groups)) return (int)cudaErrorInvalidValue;
-  const Plan p = read_plan(plan);
-  if (!plan_ok(p, H, Cin, Cout / groups, k)) return (int)cudaErrorInvalidValue;
-  const bool vec = (Cout / groups) % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  return launch_k(x, w, bias, gamma, beta, out, nullptr, B, H, Cin, Cout, k, groups, eps, plan,
+                  stream);
+}
+
+// K1: x (B, H + k - 1, Cin) with its halo; pre (B, H, Cout); stats (B,
+// groups, 2), each (batch row, group)'s local (mean, M2). Returns as above.
+int conv_gn_stats_f32(const float* x, const float* w, const float* bias, float* pre,
+                      float* stats, int B, int H, int Cin, int Cout, int k, int groups,
+                      const int* plan, void* stream) {
+  if (stats == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_k(x, w, bias, nullptr, nullptr, pre, stats, B, H, Cin, Cout, k, groups, 0.f,
+                  plan, stream);
+}
+
+// K2: out (B, H, C) = Mish((pre - mean) * rstd * gamma + beta), stats (B,
+// groups, 2) the merged (mean, rstd). `out` may be `pre`.
+int gn_affine_mish_f32(const float* pre, const float* stats, const float* gamma,
+                       const float* beta, float* out, int B, int H, int C, int groups,
+                       void* stream) {
+  if (B <= 0 || H <= 0 || C <= 0 || groups <= 0 || C % groups) return (int)cudaErrorInvalidValue;
+  const int cg = C / groups;
+  const long long n = (long long)B * H * C;
+  const bool vec = cg % 4 == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = vec ? n / 4 : n;
+  const long long most = 8LL * sms;
+  const int grid = (int)((items + 255) / 256 < most ? (items + 255) / 256 : most);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CONV_GN_MISH_LAUNCH(KK)                                                             \
-  case KK:                                                                                  \
-    return vec ? launch_as<KK, true>(x, w, bias, gamma, beta, out, B, H, Cin, Cout, groups, \
-                                     p, eps, s)                                             \
-               : launch_as<KK, false>(x, w, bias, gamma, beta, out, B, H, Cin, Cout, groups, \
-                                      p, eps, s);
-  switch (k) {
-    CONV_GN_MISH_LAUNCH(1)
-    CONV_GN_MISH_LAUNCH(3)
-    CONV_GN_MISH_LAUNCH(5)
-    CONV_GN_MISH_LAUNCH(7)
-    CONV_GN_MISH_LAUNCH(9)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CONV_GN_MISH_LAUNCH
+  if (vec)
+    gn_affine_mish_kernel<4><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C, C, cg);
+  else
+    gn_affine_mish_kernel<1><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C, C, cg);
+  return (int)cudaGetLastError();
 }
 
 // For one plan on the current device: the dynamic shared memory it takes
@@ -695,15 +825,18 @@ int conv_gn_mish_f32(const float* x, const float* w, const float* bias,
 // (cudaOccupancyMaxActiveClusters; 0 means it cannot be scheduled). `vec`
 // selects the 16-byte weight copies. Returns a cudaError_t value.
 int conv_gn_mish_f32_plan_check(int H, int Cin, int Cout, int k, int groups, const int* plan,
-                                int vec, int* smem_bytes, int* max_clusters) {
+                                int vec, int stats, int* smem_bytes, int* max_clusters) {
   if (!shape_ok(1, H, Cin, Cout, groups)) return (int)cudaErrorInvalidValue;
   const Plan p = read_plan(plan);
   if (!plan_ok(p, H, Cin, Cout / groups, k)) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)layout(p, H, Cout / groups, k).bytes;
-#define CONV_GN_MISH_CHECK(KK)                                                   \
-  case KK:                                                                       \
-    return vec ? max_clusters_as<KK, true>(H, Cout, groups, p, max_clusters)     \
-               : max_clusters_as<KK, false>(H, Cout, groups, p, max_clusters);
+#define CONV_GN_MISH_CHECK(KK)                                                            \
+  case KK:                                                                                \
+    if (stats)                                                                            \
+      return vec ? max_clusters_as<KK, true, true>(H, Cout, groups, p, max_clusters)      \
+                 : max_clusters_as<KK, false, true>(H, Cout, groups, p, max_clusters);    \
+    return vec ? max_clusters_as<KK, true, false>(H, Cout, groups, p, max_clusters)       \
+               : max_clusters_as<KK, false, false>(H, Cout, groups, p, max_clusters);
   switch (k) {
     CONV_GN_MISH_CHECK(1)
     CONV_GN_MISH_CHECK(3)

@@ -1,9 +1,21 @@
-// Windowed look-around attention, float32, two entry points on one core:
+// Windowed look-around attention, float32, three entry points on one core:
 //
 //   fused_qkv_local_attention_f32  (B3) qkv (B, N, 3*h*dh) -> out (B, N, h*dh),
 //     all heads, straight from the QKV projection; prefix key lengths and an
 //     attention-dropout keep mask (B, Np, h*K) are optional.
 //   local_attention_heads_f32      (B4) q, k, v (B*h, N, dh) -> out (B*h, N, dh).
+//   local_attention_halo_f32       (K3, B3's halo entry) one rank's share of a
+//     horizon split over ranks (sequence-sharded sampling): qkv (B, Nh,
+//     3*h*dh) is the rank's slab, q0 rows of the previous rank (w, or none at
+//     the trajectory's start), its own Nq rows, then the next rank's rows (w,
+//     or none at the end or when causal) -> out (B, Nq, h*dh) for its own
+//     rows. It is B3 with one chunk of the Nq query rows starting at slab row
+//     q0, P = w: the keys are the slab's rows, the slab's ends are the
+//     trajectory's (masked as B3 masks its clamped edges), prefix lengths
+//     come in slab rows, and the rotary table's row r holds slab row r's
+//     global position, so Q and K rotate where the unsharded kernel rotates
+//     them. A row whose keys are all masked gets the mean of V over the
+//     chunk's Nq + 2w key slots (the unsharded kernel's chunk is 128 rows).
 //
 // Replaces the TPU kernels deepmimic_diffusion_mujoco_tpu/ops/pallas/
 // fused_local_attention.py:fused_qkv_local_attention (B3) and
@@ -96,6 +108,7 @@ struct Args {
   long long keep_z, keep_row;
   int N;                 // real rows (rows in [N, Np) are zero)
   int Np;                // padded rows
+  int q0, Nq;            // query rows [q0, q0 + Nq): chunks start at q0 (0 and Np but in K3)
   int w, lf, causal, exact, rotary;
   int C, P, K;           // chunk rows, neighbour rows per side, keys per chunk
   float scale;           // dh ** -0.5
@@ -113,9 +126,9 @@ __host__ __device__ constexpr int rows_per_warp(bool mma) { return mma ? 16 : 8;
 // The key rows [lo, hi) that query rows [q0, q1) of one chunk can see: the
 // chunk's key range cut to the windows they reach (look_backward 1).
 __host__ __device__ inline void key_band(const Args& a, int q0, int q1, int* lo, int* hi) {
-  const int c = q0 / a.C;
-  int l = c * a.C - a.P;
-  int h = (c + 1) * a.C + a.P;
+  const int base = a.q0 + (q0 - a.q0) / a.C * a.C;  // the chunk's first row
+  int l = base - a.P;
+  int h = base + a.C + a.P;
   const int wl = (q0 / a.w - 1) * a.w;
   int wh = ((q1 - 1) / a.w + a.lf + 1) * a.w;
   if (a.causal && wh > q1) wh = q1;
@@ -129,9 +142,10 @@ __host__ __device__ inline void key_band(const Args& a, int q0, int q1, int* lo,
 // rows, the chunk, the next chunk's first P rows, clamped at the edges.
 __device__ __forceinline__ int chunk_key_row(const Args& a, int c, int kk) {
   if (a.P == 0) return kk;
-  if (kk < a.P) return max(c * a.C - a.P, 0) + kk;
-  if (kk < a.P + a.C) return c * a.C + kk - a.P;
-  return min((c + 1) * a.C, a.Np - a.P) + kk - a.P - a.C;
+  const int base = a.q0 + c * a.C;
+  if (kk < a.P) return max(base - a.P, 0) + kk;
+  if (kk < a.P + a.C) return base + kk - a.P;
+  return min(base + a.C, a.Np - a.P) + kk - a.P - a.C;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -296,8 +310,8 @@ windowed_attention_kernel(const Args a, const Plan p) {
   const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int spc = (a.C + p.slab - 1) / p.slab;  // slabs per chunk
   const int c = blockIdx.x / spc;
-  const int s0 = c * a.C + (blockIdx.x % spc) * p.slab;
-  const int s1 = min(min(s0 + p.slab, (c + 1) * a.C), a.Np);
+  const int s0 = a.q0 + c * a.C + (blockIdx.x % spc) * p.slab;
+  const int s1 = min(min(s0 + p.slab, a.q0 + (c + 1) * a.C), a.q0 + a.Nq);
   const int head = blockIdx.y, z = blockIdx.z;
   const long long in_base = z * a.in_z + head * a.in_y;
   const float* qb = a.q + in_base;
@@ -321,10 +335,10 @@ windowed_attention_kernel(const Args a, const Plan p) {
     rows[u] = q0 + r + 8 * u;
     row_keys(a, rows[u], len, s1, &jlo[u], &jhi[u]);
     keep_row[u] = a.keep != nullptr && rows[u] < s1
-                      ? a.keep + z * a.keep_z + rows[u] * a.keep_row + head * a.K
+                      ? a.keep + z * a.keep_z + (rows[u] - a.q0) * a.keep_row + head * a.K
                       : nullptr;
   }
-  const int slot0 = a.P - c * a.C;  // chunk key slot of key row j: j + slot0
+  const int slot0 = a.P - a.q0 - c * a.C;  // chunk key slot of key row j: j + slot0
 
   if (tid == 0) {  // each thread arrives once a stage: Q, K (and their tables); V
     mbar_init(&bars[0], (a.rotary ? 4 : 2) * nthreads);
@@ -558,7 +572,8 @@ windowed_attention_kernel(const Args a, const Plan p) {
 #pragma unroll
   for (int u = 0; u < R; ++u) {
     if (!(active && rows[u] < min(s1, a.N))) continue;
-    float* out_row = a.out + z * a.out_z + head * a.out_y + (long long)rows[u] * a.out_row;
+    float* out_row =
+        a.out + z * a.out_z + head * a.out_y + (long long)(rows[u] - a.q0) * a.out_row;
     const float inv_l = 1.f / l[u];
     if constexpr (MMA) {
 #pragma unroll
@@ -612,12 +627,13 @@ int launch_dh(const Args& a, const Plan& p, int mma, dim3 grid, cudaStream_t str
 int launch(const Args& a, int dh, const Plan& p, int mma, int batch, int heads,
            cudaStream_t stream) {
   const int rpw = rows_per_warp(mma);
-  if (a.N <= 0 || a.Np < a.N || a.w <= 0 || a.C <= 0 || a.Np % a.C != 0 || p.cap <= 0 ||
+  if (a.N <= 0 || a.Np < a.N || a.w <= 0 || a.C <= 0 || a.Nq % a.C != 0 || a.q0 < 0 ||
+      a.q0 + a.Nq > a.Np || p.cap <= 0 ||
       p.slab <= 0 || p.slab % rpw != 0 || p.slab / rpw > kMaxWarps ||
       (a.rotary && a.rot == nullptr) ||
       smem_bytes(dh, p, a.rotary) + kStaticSmem > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(a.Np / a.C * ((a.C + p.slab - 1) / p.slab), heads, batch);
+  const dim3 grid(a.Nq / a.C * ((a.C + p.slab - 1) / p.slab), heads, batch);
   switch (dh) {
     case 16: return launch_dh<16>(a, p, mma, grid, stream);
     case 32: return launch_dh<32>(a, p, mma, grid, stream);
@@ -671,6 +687,8 @@ int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const fl
   a.keep_z = (long long)Np * a.keep_row;
   a.N = N;
   a.Np = Np;
+  a.q0 = 0;
+  a.Nq = Np;
   a.C = C;
   a.P = P;
   a.K = K;
@@ -691,10 +709,40 @@ int local_attention_heads_f32(const float* q, const float* k, const float* v, co
   a.in_z = a.out_z = (long long)N * dim_head;
   a.in_y = a.out_y = 0;
   a.in_row = a.out_row = dim_head;
-  a.N = a.Np = N;
+  a.N = a.Np = a.Nq = N;
+  a.q0 = 0;
   a.C = a.P = 128;
   a.K = 3 * 128;
   return launch(a, dim_head, Plan{slab, cap}, mma, BH, 1, static_cast<cudaStream_t>(stream));
+}
+
+// K3, B3's halo entry (the header): qkv (B, Nh, 3*h*dh) a rank's slab whose
+// own rows are [q0, q0 + Nq); out (B, Nq, h*dh); lengths (B,) in slab rows,
+// or null; rot the table from the slab's first row's position on.
+int local_attention_halo_f32(const float* qkv, const int* lengths, const float* rot, float* out,
+                             int B, int Nh, int q0, int Nq, int heads, int dim_head, int window,
+                             int causal, int exact, int rotary, int slab, int cap, int mma,
+                             void* stream) {
+  if (q0 != 0 && q0 != window) return (int)cudaErrorInvalidValue;
+  Args a = common(dim_head, window, causal, exact, rotary, rot);
+  const long long hd = (long long)heads * dim_head;
+  a.q = qkv;
+  a.k = qkv + hd;
+  a.v = qkv + 2 * hd;
+  a.out = out;
+  a.lengths = lengths;
+  a.in_z = (long long)Nh * 3 * hd;
+  a.in_y = dim_head;
+  a.in_row = 3 * hd;
+  a.out_z = (long long)Nq * hd;
+  a.out_y = dim_head;
+  a.out_row = hd;
+  a.N = a.Np = Nh;
+  a.q0 = q0;
+  a.Nq = a.C = Nq;
+  a.P = window;
+  a.K = Nq + 2 * window;
+  return launch(a, dim_head, Plan{slab, cap}, mma, B, heads, static_cast<cudaStream_t>(stream));
 }
 
 const char* local_attention_error_string(int code) {

@@ -10,6 +10,13 @@ one masked select,
 with (mask, values) built once in numpy and held on the device as tensors
 that broadcast against (B, H, D). ``chain(c1, c2)`` applies conditioners in
 order, which matches sequential in-place overwrites.
+
+Under sequence-sharded sampling a rank holds frames [lo, hi) of the
+horizon: ``for_frames(cond, lo, hi, horizon)`` is the conditioner of those
+frames alone (masks and values sliced to them; ``clamp_frame0`` only on the
+rank holding frame 0), so every clamped frame stays exact under the split.
+Each conditioner here carries its per-frame form; a callable that does not
+is refused there.
 """
 from __future__ import annotations
 
@@ -28,16 +35,45 @@ def identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+identity.frames = lambda lo, hi, horizon: identity
+
+
+def for_frames(cond: Conditioner | None, lo: int, hi: int, horizon: int):
+    """The conditioner of frames [lo, hi) of a ``horizon``-frame trajectory,
+    acting on (B, hi - lo, D) tensors as ``cond`` acts on those frames of the
+    whole. None stays None; a callable without a per-frame form raises."""
+    if cond is None:
+        return None
+    frames = getattr(cond, "frames", None)
+    if frames is None:
+        raise ValueError(f"conditioner {cond!r} has no per-frame form, so it cannot run on a "
+                         "horizon split over ranks: build it from conditioning's functions")
+    return frames(lo, hi, horizon)
+
+
+def _frame_slice(a: np.ndarray, lo: int, hi: int, horizon: int) -> np.ndarray:
+    """Frames [lo, hi) of an array broadcasting against (B, horizon, D)."""
+    if a.ndim < 2 or a.shape[-2] == 1:
+        return a
+    if a.shape[-2] != horizon:
+        raise ValueError(f"a conditioner of {a.shape[-2]} frames on a {horizon}-frame horizon")
+    return a[..., lo:hi, :]
+
+
 def masked_overwrite(mask, values, device: str | torch.device = "cuda") -> Conditioner:
     """Generic conditioner: overwrite where mask == 1 (mask and values
     broadcast against (B, H, D))."""
     dev = resolve_device(device)
-    mask = torch.as_tensor(np.asarray(mask, np.float32), device=dev)
-    values = torch.as_tensor(np.asarray(values, np.float32), device=dev)
+    mask_np = np.asarray(mask, np.float32)
+    values_np = np.asarray(values, np.float32)
+    mask = torch.as_tensor(mask_np, device=dev)
+    values = torch.as_tensor(values_np, device=dev)
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         return x * (1.0 - mask) + values * mask
 
+    fn.frames = lambda lo, hi, horizon: masked_overwrite(
+        _frame_slice(mask_np, lo, hi, horizon), _frame_slice(values_np, lo, hi, horizon), dev)
     return fn
 
 
@@ -49,6 +85,8 @@ def chain(*conditioners: Conditioner) -> Conditioner:
             x = c(x)
         return x
 
+    fn.frames = lambda lo, hi, horizon: chain(
+        *(for_frames(c, lo, hi, horizon) for c in conditioners))
     return fn
 
 
@@ -82,6 +120,7 @@ def clamp_frame0(frame0, device: str | torch.device = "cuda") -> Conditioner:
         x[:, 0, :D] = frame0.to(x.dtype)
         return x
 
+    fn.frames = lambda lo, hi, horizon: fn if lo == 0 else identity
     return fn
 
 

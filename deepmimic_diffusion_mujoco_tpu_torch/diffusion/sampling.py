@@ -6,6 +6,18 @@ Python loop over the timesteps, with the step's indices computed on the
 host so the loop never waits on the device. Noise comes from an explicit
 ``torch.Generator`` in the order the JAX chain draws it: one initial draw
 (unless ``starting_motion`` is given), then one per step.
+
+``x_sharding`` (``parallel.mesh.seq_sharding(mesh)``, JAX's argument)
+splits the trajectory over the mesh: rows over "data", the horizon over
+"seq". Each rank then holds its share of the chain: every draw is made at
+the global shape and cut to the rank's rows and frames
+(``utils.rng.draw_frames``), the conditioner acts on the rank's frames
+(``conditioning.for_frames``), and the model runs with the split active
+(``utils.seq``), so each rank's frames equal the same frames of the
+one-process chain drawn from the same generator (the local transformer's
+padding frames under a key mask excepted, see ``models.local_attention``;
+the chain passes none). ``x_sharding.gather`` assembles the whole
+trajectory.
 """
 from __future__ import annotations
 
@@ -14,7 +26,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .conditioning import Conditioner
+from ..utils import seq as seqlib
+from ..utils.rng import draw_frames
+from .conditioning import Conditioner, for_frames
 from .process import (
     ddim_step,
     ddpm_step,
@@ -81,6 +95,13 @@ def _timesteps(mode: str, t_start: int, t_end: int, ddim_steps: int | None):
     return list(zip(ts.tolist(), ts_prev.tolist()))
 
 
+def _rows(sharding, a):
+    """This rank's rows of a per-sample label tensor of the global batch."""
+    if sharding is None or not torch.is_tensor(a) or a.dim() == 0 or sharding.data_world == 1:
+        return a
+    return sharding.rows(a)
+
+
 @torch.inference_mode()
 def sample_loop(
     sched: Schedule,
@@ -99,6 +120,7 @@ def sample_loop(
     y: torch.Tensor | None = None,
     uncond_y: torch.Tensor | None = None,
     clip_denoised: bool = False,
+    x_sharding=None,
     ddim_steps: int | None = None,
     eta: float = 0.0,
     cfg_batched: bool = True,
@@ -116,9 +138,14 @@ def sample_loop(
     default derives from ``predict_epsilon``. ``t_start`` truncates the
     chain; with ``starting_motion`` that is motion-to-motion translation.
     ``shape`` may use any horizon the model accepts.
+
+    ``x_sharding`` (``parallel.mesh.seq_sharding``): ``shape`` stays the
+    global (B, H, D); the result (and the chain) hold this rank's rows and
+    frames. ``y`` and ``uncond_y`` of the global batch are cut to its rows.
     """
     if mode not in MODES:
         raise ValueError(f"unknown sampling mode {mode!r}; expected one of {MODES}")
+    shape = tuple(shape)
     device = sched.device
     T = sched.num_timesteps
     if t_start is None:
@@ -127,42 +154,61 @@ def sample_loop(
     if prediction is None:
         prediction = "epsilon" if predict_epsilon else "x0"
 
-    def randn():
-        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    def draw(s):
+        return torch.randn(s, generator=generator, device=device, dtype=torch.float32)
+
+    if x_sharding is None:
+        local = shape
+
+        def randn():
+            return draw(shape)
+    else:
+        local = x_sharding.local_shape(shape)
+        lo, hi = x_sharding.frames(shape[1])
+        conditioning_fn = for_frames(conditioning_fn, lo, hi, shape[1])
+        y, uncond_y = _rows(x_sharding, y), _rows(x_sharding, uncond_y)
+
+        def randn():  # the global draw's rows and frames of this rank
+            frames = draw_frames(generator, (shape[0], local[1], *shape[2:]), draw,
+                                 x_sharding.rank, x_sharding.world)
+            return x_sharding.rows(frames)
 
     if starting_motion is not None:
         x = torch.as_tensor(starting_motion, dtype=torch.float32, device=device)
         x = x.expand(shape).clone()
+        if x_sharding is not None:
+            x = x_sharding.shard(x).contiguous()
     else:
         x = randn()
     if conditioning_fn is not None:
         x = conditioning_fn(x)
 
     chain = []
-    B = shape[0]
-    for t_scalar, t_prev_scalar in _timesteps(mode, t_start, t_end, ddim_steps):
-        t = torch.full((B,), t_scalar, dtype=torch.long, device=device)
-        pred = _model_prediction(model_fn, x, t, y, cfg_scale, uncond_y, cfg_batched)
-        noise = randn()
-        x0_hat, eps_hat = _x0_and_eps(sched, x, t, pred, prediction)
-        if clip_denoised:
-            x0_hat = x0_hat.clamp(-1.0, 1.0)
-            eps_hat = predict_noise_from_start(sched, x, t, x0_hat)
-        if mode in ("v4", "ddpm"):
-            if t_scalar <= t_end:  # no noise on the final step
-                noise = torch.zeros_like(noise)
-            x = ddpm_step(sched, x, t, eps_hat, noise)
-        elif mode == "ddim":
-            t_prev = torch.full((B,), t_prev_scalar, dtype=torch.long, device=device)
-            if t_prev_scalar < 0:
-                noise = torch.zeros_like(noise)
-            x = ddim_step(sched, x, t, t_prev, x0_hat, eps_hat, noise, eta)
-        else:
-            x = posterior_step(sched, x, t, x0_hat, noise)
-        if conditioning_fn is not None:
-            x = conditioning_fn(x)
-        if return_chain:
-            chain.append(x)
+    B = local[0]
+    with seqlib.sharded(x_sharding):  # the models see the split
+        for t_scalar, t_prev_scalar in _timesteps(mode, t_start, t_end, ddim_steps):
+            t = torch.full((B,), t_scalar, dtype=torch.long, device=device)
+            pred = _model_prediction(model_fn, x, t, y, cfg_scale, uncond_y, cfg_batched)
+            noise = randn()
+            x0_hat, eps_hat = _x0_and_eps(sched, x, t, pred, prediction)
+            if clip_denoised:
+                x0_hat = x0_hat.clamp(-1.0, 1.0)
+                eps_hat = predict_noise_from_start(sched, x, t, x0_hat)
+            if mode in ("v4", "ddpm"):
+                if t_scalar <= t_end:  # no noise on the final step
+                    noise = torch.zeros_like(noise)
+                x = ddpm_step(sched, x, t, eps_hat, noise)
+            elif mode == "ddim":
+                t_prev = torch.full((B,), t_prev_scalar, dtype=torch.long, device=device)
+                if t_prev_scalar < 0:
+                    noise = torch.zeros_like(noise)
+                x = ddim_step(sched, x, t, t_prev, x0_hat, eps_hat, noise, eta)
+            else:
+                x = posterior_step(sched, x, t, x0_hat, noise)
+            if conditioning_fn is not None:
+                x = conditioning_fn(x)
+            if return_chain:
+                chain.append(x)
     return SampleResult(trajectories=x, chain=torch.stack(chain) if return_chain else None)
 
 

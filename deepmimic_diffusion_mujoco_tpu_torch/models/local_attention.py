@@ -28,6 +28,23 @@ Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/local_attention.py``:
   relative positions and slots older than the sequence start masked. It
   is plain tensor code: B3 has no single-query form.
 
+Sequence-sharded sampling: under a horizon split (``utils.seq``; the
+chain of ``sample_loop(..., x_sharding=...)``) ``LocalTransformer.forward``
+takes this rank's frames (and ``mask``'s) and returns them. It adds the
+``pos_emb`` rows at the rank's global offset and checks ``max_seq_len``
+against the whole horizon. ``LocalMHA`` takes one window of each
+neighbour's QKV rows (none past the trajectory's ends) and, on every call
+its unsharded twin sends to B3, runs B3's halo entry
+(``ops.fused_local_attention.local_attention_halo``, K3) with rotary at the
+global positions and prefix lengths summed over the ranks; the bias-table,
+xpos and window-override calls run ``local_attention`` on the same slab.
+A ``GlobalMHA`` insert attends over the keys and values of the whole
+horizon, gathered. The KV-cache decode refuses a split. Each rank's frames
+equal the one-process forward's, with one exception under a ``mask``: a
+padding frame whose window holds no valid key gets K3's mean of V over the
+rank's slab, where unsharded B3 averages over its 128-row chunk and halo.
+Sampling passes no mask.
+
 Dropout (training mode, ``attn_dropout`` / ``ff_dropout`` > 0) draws its
 keep masks from the ``generator`` passed to ``forward``, on the
 generator's device, in the order flax draws them: per layer, the
@@ -49,6 +66,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import fused_local_attention as FK
+from ..utils import seq as seqlib
 from . import hyper_connections as hc_lib
 from .embeddings import apply_rotary, mdm_timestep_embedding, rotary_angles, xpos_scale
 from .transformer import MultiHeadAttention, keep_mask
@@ -170,15 +188,21 @@ class LocalMHA(nn.Module):
                 and FK.supports(N, self.window_size, self.use_xpos, self.causal))
 
     def forward(self, x, key_mask=None, window_size=None, bias_table=None, generator=None,
-                cache=None, decode_pos=None):
+                cache=None, decode_pos=None, seq=None, lengths=None):
         """``cache`` (k, v), each (B, h, w, dh): decode the single frame
-        ``x`` (B, 1, D) at sequence position ``decode_pos`` -> (out, cache)."""
+        ``x`` (B, 1, D) at sequence position ``decode_pos`` -> (out, cache).
+        ``seq`` (a ``utils.seq`` shard): ``x`` and ``key_mask`` are this
+        rank's frames of a horizon split, ``lengths`` the whole key mask's
+        (B,) valid frames."""
         B, N, _ = x.shape
         h, dh = self.heads, self.dim_head
         dropout = self.attn_dropout if self.training else 0.0
         qkv = self.to_qkv(self.norm(x))
         if cache is not None:
             return self._decode(qkv, cache, decode_pos)
+        if seq is not None:
+            return self.to_out(self._sharded(qkv, key_mask, window_size, bias_table, seq,
+                                             lengths))
         if self.uses_kernel(N, window_size, bias_table):
             keep = None
             if dropout > 0.0:
@@ -202,6 +226,32 @@ class LocalMHA(nn.Module):
                 attn_dropout=dropout, generator=generator,
             ).transpose(1, 2).reshape(B, N, h * dh)
         return self.to_out(out)
+
+    def _sharded(self, qkv, key_mask, window_size, bias_table, seq, lengths):
+        """This rank's context rows: its QKV rows with one window of each
+        neighbour's (``exchange_halo``; none past the trajectory's ends,
+        none after when causal), through K3 where the whole horizon's call
+        would take B3, else through ``local_attention`` on the slab."""
+        B, n, _ = qkv.shape
+        h, dh = self.heads, self.dim_head
+        w = window_size if window_size is not None else self.window_size
+        if n % w:
+            raise ValueError(f"a horizon split of {n} frames a rank needs whole windows of {w}")
+        rows, q0, pos0 = FK.halo_slab(qkv, w, self.causal, seq)
+        if self.uses_kernel(n * seq.world, window_size, bias_table):
+            lens = None if lengths is None else FK.halo_lengths(lengths, pos0, rows.shape[1])
+            return FK.local_attention_halo(rows, h, dh, w, q0, n, pos0, self.causal,
+                                           self.exact_windowsize, True, lens)
+        km = (None if key_mask is None
+              else FK.halo_slab(key_mask.to(torch.float32), w, self.causal, seq)[0])
+        q, k, v = rows.reshape(B, rows.shape[1], 3, h, dh).permute(2, 0, 3, 1, 4)
+        out = local_attention(
+            q, k, v, w, causal=self.causal, exact_windowsize=self.exact_windowsize,
+            use_rotary=self.use_rotary, use_xpos=self.use_xpos,
+            xpos_scale_base=(self.xpos_scale_base if self.xpos_scale_base is not None
+                             else self.window_size // 2),
+            key_mask=km, mask_window_size=self.window_size, bias_table=bias_table)
+        return out[:, :, q0:q0 + n].transpose(1, 2).reshape(B, n, h * dh)
 
     def _decode(self, qkv, cache, decode_pos):
         """One causal step over the ring buffer: the L = w + 1 keys are the
@@ -235,8 +285,14 @@ class GlobalMHA(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=EPS)
         self.attn = MultiHeadAttention(dim, heads, dropout, inner=heads * dim_head)
 
-    def forward(self, x, key_mask=None, generator=None):
-        return self.attn(self.norm(x), None if key_mask is None else key_mask > 0, generator)
+    def forward(self, x, key_mask=None, generator=None, seq=None):
+        """``seq``: x and key_mask are this rank's frames of a horizon split;
+        its queries attend over every rank's keys and values."""
+        normed = self.norm(x)
+        if seq is None:
+            return self.attn(normed, None if key_mask is None else key_mask > 0, generator)
+        mask = None if key_mask is None else seq.gather_horizon(key_mask.to(torch.float32)) > 0
+        return self.attn(normed, mask, generator, memory=seq.gather_horizon(normed))
 
 
 class GEGLUFeedForward(nn.Module):
@@ -341,19 +397,28 @@ class LocalTransformer(nn.Module):
         ``decode_pos``, and the result is ``(out, cache)``."""
         B, N, _ = x.shape
         decoding = cache is not None
+        seq = seqlib.active()
         if decoding and (N != 1 or not self.causal or self.global_layers):
             raise ValueError("the KV-cache decode takes one frame at a time, of a causal "
                              "model without global-attention inserts")
-        if N > self.max_seq_len:
+        if seq is not None:
+            self._check_sharded(decoding)
+        total = N * (seq.world if seq is not None else 1)  # the whole horizon
+        if total > self.max_seq_len:
             raise ValueError(
-                f"horizon {N} exceeds max_seq_len {self.max_seq_len}: the learned position "
+                f"horizon {total} exceeds max_seq_len {self.max_seq_len}: the learned position "
                 f"table has {self.max_seq_len} rows (the JAX model fails the same way), so "
                 "frames cannot exceed the config's model.max_seq_len")
         h = self.pose_embed(x.to(torch.float32))
         if time is not None:
             t = mdm_timestep_embedding(time, self.dim)
             h = h + self.time_embed_1(F.silu(self.time_embed_0(t)))[:, None, :]
-        h = h + (self.pos_emb[decode_pos][None, None] if decoding else self.pos_emb[None, :N])
+        first = seq.rank * N if seq is not None else 0  # this rank's first frame
+        h = h + (self.pos_emb[decode_pos][None, None] if decoding
+                 else self.pos_emb[None, first:first + N])
+        lengths = None
+        if seq is not None and mask is not None:  # valid frames over the whole horizon
+            lengths = seq.all_reduce((mask > 0).sum(dim=1))
         if self.class_embed is not None:
             if y is None:
                 y = torch.full((B,), self.num_classes, dtype=torch.long, device=x.device)
@@ -372,7 +437,8 @@ class LocalTransformer(nn.Module):
         def attend(i, z):
             if not decoding:
                 return self.attn[i](z, key_mask=mask, window_size=window_size,
-                                    bias_table=bias_table, generator=generator)
+                                    bias_table=bias_table, generator=generator, seq=seq,
+                                    lengths=lengths)
             out, kv = self.attn[i](z, cache=cache[i], decode_pos=decode_pos)
             new_cache.append(kv)
             return out
@@ -381,7 +447,7 @@ class LocalTransformer(nn.Module):
             g = str(i)
             if g in self.global_attn:
                 h = self._branch(h, self.hc_global[g] if use_hc else None,
-                                 lambda z: self.global_attn[g](z, mask, generator))
+                                 lambda z: self.global_attn[g](z, mask, generator, seq))
             h = self._branch(h, self.hc_attn[i] if use_hc else None, lambda z: attend(i, z))
             h = self._branch(h, self.hc_ff[i] if use_hc else None,
                              lambda z: self.ff[i](z, generator))
@@ -389,6 +455,17 @@ class LocalTransformer(nn.Module):
             h = hc_lib.reduce_streams(h)
         out = self.final_layer(self.norm(h))
         return (out, tuple(new_cache)) if decoding else out
+
+    def _check_sharded(self, decoding: bool):
+        """Refuse what the horizon-sharded forward does not take."""
+        if decoding:
+            raise ValueError("the KV-cache decode does not run under a horizon split: it "
+                             "decodes one frame at a time on one rank")
+        if self.training or (torch.is_grad_enabled()
+                             and any(p.requires_grad for p in self.parameters())):
+            raise RuntimeError("the horizon-sharded LocalTransformer serves sampling only: run "
+                               "it in eval mode under torch.no_grad or torch.inference_mode "
+                               "(JAX shards no training over the horizon)")
 
     @staticmethod
     def _branch(h, hc, fn):

@@ -13,6 +13,18 @@ Counterpart of ``deepmimic_diffusion_mujoco_tpu/models/temporal_unet.py``:
 - fully convolutional over the horizon: any H divisible by
   2**(len(dim_mults)-1).
 
+Sequence-sharded sampling: under a horizon split (``utils.seq``: the chain
+of ``sample_loop(..., x_sharding=...)``) ``TemporalUnet.forward`` takes this
+rank's frames and returns them, equal to the same frames of the whole
+horizon's forward. Each conv block takes a k // 2-row halo from its
+neighbours and goes through B1's sharded form
+(``ops.conv_block_kernel.conv_gn_mish_sharded``: conv + local statistics,
+the statistics merged over the ranks, normalise + Mish); the stride-2
+downsample takes one row from the left, the transposed-conv upsample one
+row from each side and crops; LinearAttention's key softmax takes its max
+and sum over the whole horizon and its (d x d) context is summed over the
+ranks. The 1x1 convs and the time MLP stay local.
+
 Submodules are created in the order flax numbers its auto-named children,
 so ``convert.temporal_unet_from_flax`` maps parameters by a fixed table:
 ``res_blocks.i`` is ``ResidualTemporalBlock_i``, ``attentions.i`` is
@@ -35,7 +47,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.conv_block_kernel import conv_gn_mish
+from ..ops.conv_block_kernel import conv_gn_mish, conv_gn_mish_sharded
+from ..utils import seq as seqlib
 from .embeddings import sinusoidal_pos_emb
 
 
@@ -59,9 +72,15 @@ class Conv1dBlock(nn.Module):
         self.gn_weight = nn.Parameter(torch.ones(out_channels))
         self.gn_bias = nn.Parameter(torch.zeros(out_channels))
 
-    def forward(self, x):  # (B, H, Cin) -> (B, H, Cout)
-        return conv_gn_mish(x, self.weight, self.bias, self.gn_weight, self.gn_bias,
-                            self.n_groups)
+    def forward(self, x, seq=None):  # (B, H, Cin) -> (B, H, Cout)
+        if seq is None:
+            return conv_gn_mish(x, self.weight, self.bias, self.gn_weight, self.gn_bias,
+                                self.n_groups)
+        pad = self.weight.shape[0] // 2
+        before, after, _ = seq.exchange_halo(x, pad, pad)
+        return conv_gn_mish_sharded(torch.cat([before, x, after], dim=1), self.weight,
+                                    self.bias, self.gn_weight, self.gn_bias, self.n_groups,
+                                    1e-5, seq)
 
 
 class LinearAttention(nn.Module):
@@ -75,13 +94,18 @@ class LinearAttention(nn.Module):
         self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
         self.to_out = nn.Linear(hidden, dim)
 
-    def forward(self, x):  # (B, H, C)
+    def forward(self, x, seq=None):  # (B, H, C)
         B, H, _ = x.shape
         qkv = self.to_qkv(x).reshape(B, H, 3, self.heads, self.dim_head)
         q, k, v = qkv.unbind(2)  # (B, H, h, d)
         q = q * self.dim_head ** -0.5
-        k = k.softmax(dim=1)  # over the horizon
-        context = torch.einsum("bnhd,bnhe->bhde", k, v)
+        if seq is None:
+            k = k.softmax(dim=1)  # over the horizon
+            context = torch.einsum("bnhd,bnhe->bhde", k, v)
+        else:  # the softmax's max and sum, and the context, over every rank's frames
+            e = (k - seq.all_reduce(k.amax(dim=1, keepdim=True), "max")).exp()
+            k = e / seq.all_reduce(e.sum(dim=1, keepdim=True))
+            context = seq.all_reduce(torch.einsum("bnhd,bnhe->bhde", k, v))
         out = torch.einsum("bhde,bnhd->bnhe", context, q)
         return self.to_out(out.reshape(B, H, self.heads * self.dim_head))
 
@@ -95,11 +119,11 @@ class PreNormResidualAttention(nn.Module):
         self.b = nn.Parameter(torch.zeros(1, 1, dim))
         self.attn = LinearAttention(dim, heads, dim_head)
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
         mean = x.mean(dim=-1, keepdim=True)
         var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
         normed = (x - mean) / torch.sqrt(var + 1e-5) * self.g + self.b
-        return x + self.attn(normed)
+        return x + self.attn(normed, seq)
 
 
 class ResidualTemporalBlock(nn.Module):
@@ -114,10 +138,32 @@ class ResidualTemporalBlock(nn.Module):
         self.residual = (nn.Linear(in_channels, out_channels)
                          if in_channels != out_channels else nn.Identity())
 
-    def forward(self, x, t_emb):  # x: (B, H, C), t_emb: (B, E)
-        h = self.blocks[0](x) + self.time_dense(mish(t_emb))[:, None, :]
-        h = self.blocks[1](h)
+    def forward(self, x, t_emb, seq=None):  # x: (B, H, C), t_emb: (B, E)
+        h = self.blocks[0](x, seq) + self.time_dense(mish(t_emb))[:, None, :]
+        h = self.blocks[1](h, seq)
         return h + self.residual(x)
+
+
+def downsample(conv: nn.Conv1d, x, seq=None):
+    """The k3, stride-2, padding-1 conv on channel-last x; under a horizon
+    split (even frames a rank) it needs one row from the left neighbour."""
+    if seq is None:
+        return conv(x.transpose(1, 2)).transpose(1, 2)
+    before, _, _ = seq.exchange_halo(x, 1, 0)
+    xh = torch.cat([before, x], dim=1).transpose(1, 2)
+    return F.conv1d(xh, conv.weight, conv.bias, stride=2).transpose(1, 2)
+
+
+def upsample(conv: nn.ConvTranspose1d, x, seq=None):
+    """The k4, stride-2, padding-1 transposed conv on channel-last x; under a
+    horizon split it takes one row from each neighbour and crops the two
+    output rows each of them adds on its side."""
+    if seq is None:
+        return conv(x.transpose(1, 2)).transpose(1, 2)
+    before, after, _ = seq.exchange_halo(x, 1, 1)
+    xh = torch.cat([before, x, after], dim=1).transpose(1, 2)
+    y = F.conv_transpose1d(xh, conv.weight, conv.bias, stride=2, padding=1)
+    return y[:, :, 2:2 + 2 * x.shape[1]].transpose(1, 2)
 
 
 class TemporalUnet(nn.Module):
@@ -154,9 +200,14 @@ class TemporalUnet(nn.Module):
 
     def forward(self, x, time, y=None):
         """x: (B, H, transition_dim), time: (B,) -> (B, H, transition_dim).
-        ``y`` (class label) is accepted and ignored, like the JAX model."""
+        ``y`` (class label) is accepted and ignored, like the JAX model.
+        Under a horizon split (``utils.seq.active()``) x holds this rank's
+        frames and so does the result."""
         del y
-        if x.shape[1] % self.down_factor:
+        seq = seqlib.active()
+        if seq is not None:
+            self._check_sharded(x.shape[1], seq.world)
+        elif x.shape[1] % self.down_factor:
             raise ValueError(f"horizon {x.shape[1]} must be divisible by {self.down_factor}")
         t = sinusoidal_pos_emb(time, self.dim)
         t = self.time_mlp[1](mish(self.time_mlp[0](t)))
@@ -167,31 +218,48 @@ class TemporalUnet(nn.Module):
         skips = []
         n_down = len(self.downsamples)
         for i in range(n_down + 1):
-            x = next(res)(x, t)
-            x = next(res)(x, t)
+            x = next(res)(x, t, seq)
+            x = next(res)(x, t, seq)
             if self.attention:
-                x = next(attn)(x)
+                x = next(attn)(x, seq)
             skips.append(x)
             if i < n_down:
-                x = self.downsamples[i](x.transpose(1, 2)).transpose(1, 2)
+                x = downsample(self.downsamples[i], x, seq)
 
-        x = next(res)(x, t)
+        x = next(res)(x, t, seq)
         if self.attention:
-            x = next(attn)(x)
-        x = next(res)(x, t)
+            x = next(attn)(x, seq)
+        x = next(res)(x, t, seq)
 
         # one iteration per down-sampled resolution, each ending in an
         # upsample; the full-resolution skip stays unused (as in the reference)
         for up in self.upsamples:
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = next(res)(x, t)
-            x = next(res)(x, t)
+            x = next(res)(x, t, seq)
+            x = next(res)(x, t, seq)
             if self.attention:
-                x = next(attn)(x)
-            x = up(x.transpose(1, 2)).transpose(1, 2)
+                x = next(attn)(x, seq)
+            x = upsample(up, x, seq)
 
-        x = self.final_block(x)
+        x = self.final_block(x, seq)
         return self.final_conv(x)
+
+    def _check_sharded(self, frames: int, ranks: int):
+        """Refuse a horizon split the sharded forward does not take."""
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            raise RuntimeError("the horizon-sharded TemporalUnet serves sampling only: run it "
+                               "under torch.no_grad or torch.inference_mode (JAX shards no "
+                               "training over the horizon)")
+        if frames % self.down_factor:
+            raise ValueError(f"horizon {frames * ranks} over {ranks} ranks: it must be "
+                             f"divisible by ranks x {self.down_factor} = "
+                             f"{ranks * self.down_factor}")
+        halo = max(b.weight.shape[0] // 2 for b in self.modules() if isinstance(b, Conv1dBlock))
+        if frames // self.down_factor < halo:
+            raise ValueError(f"horizon {frames * ranks} over {ranks} ranks leaves "
+                             f"{frames // self.down_factor} frames a rank at the deepest level, "
+                             f"fewer than the conv blocks' {halo}-row halo (multi-hop halos "
+                             "are not taken)")
 
 
 def _halved(h: int) -> int:
@@ -241,10 +309,10 @@ class ValueFunction(nn.Module):
             x = next(res)(x, t)
             x = next(res)(x, t)
             if i != n_levels - 2:
-                x = next(down)(x.transpose(1, 2)).transpose(1, 2)
+                x = downsample(next(down), x)
         for _ in range(2):  # mid
             x = next(res)(x, t)
-            x = next(down)(x.transpose(1, 2)).transpose(1, 2)
+            x = downsample(next(down), x)
         h = mish(self.head[0](torch.cat([x.reshape(x.shape[0], -1), t], dim=-1)))
         out = self.head[1](h)
         return out[..., 0] if self.out_dim == 1 else out

@@ -37,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import seq as seqlib
 from ..utils.rng import draw_rows
 from .embeddings import mdm_timestep_embedding
 
@@ -210,6 +211,7 @@ class TransformerMotionModel(nn.Module):
 
     def forward(self, x, time, y=None, mask=None, generator=None):
         B, T, _ = x.shape
+        seqlib.refuse_split("the MDM transformer")
         if T > self.max_sequence_length:
             raise ValueError(
                 f"horizon {T} exceeds max_seq_len {self.max_sequence_length}: the learned "

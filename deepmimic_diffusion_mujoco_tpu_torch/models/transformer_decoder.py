@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import seq as seqlib
 from .embeddings import sinusoidal_pos_emb
 from .transformer import EPS, MultiHeadAttention, _lecun_normal_, dense
 
@@ -114,6 +115,7 @@ class TransformerDecoderMotionModel(nn.Module):
     def forward(self, x, time, y=None):
         del y
         B, L, _ = x.shape
+        seqlib.refuse_split("the decoder")
         if L > self.horizon:
             raise ValueError(
                 f"horizon {L} exceeds max_seq_len {self.horizon}: seq_queries has "

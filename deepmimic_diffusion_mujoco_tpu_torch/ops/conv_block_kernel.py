@@ -26,6 +26,21 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
   ``ops/conv_weight_grad.py`` (the B2 kernel for CUDA tensors); dx is the
   transposed conv of the pre-norm gradient (a library call, as XLA's conv
   computes it in the JAX package).
+
+The horizon-sharded form (sequence-sharded sampling; the header of
+``csrc/conv_gn_mish.cu``): each rank holds H / R frames, and GroupNorm's
+statistics span them all.
+
+- ``conv_gn_stats_plain`` / ``conv_gn_stats_cuda`` (K1): the conv of the
+  rank's rows with a k // 2-row halo on each side, plus the bias, and each
+  (batch row, group)'s local mean and M2 (two-pass).
+- ``chan_merge``: every rank's (mean, M2), gathered exactly, merged in
+  float64 with Chan's formula, M2 = sum M2_i + sum n_i (mean_i - mean)^2,
+  into the global (mean, rstd).
+- ``gn_affine_mish_plain`` / ``gn_affine_mish_cuda`` (K2): normalise with
+  the merged statistics, affine, Mish.
+- ``conv_gn_mish_sharded``: K1, the merge, K2; sampling only (it raises
+  where a gradient is asked of it: JAX shards no training over the horizon).
 """
 from __future__ import annotations
 
@@ -55,6 +70,7 @@ STAGES = 3                # ring depth
 CHANNELS_PER_SLICE = 8    # input channels a slice takes from each chunk, at most
 DEEP_TILE_H = 40          # row tiles this short take two batch rows (and two ranks)
 DEEP_MIN_CIN = 256        # ... where each of the two ranks keeps 128+ input channels
+FILL_CTAS = 256           # K1 grows its cluster until its grid has this many CTAs (stats_plan)
 
 
 def conv_gn_mish_plain(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
@@ -79,6 +95,38 @@ def _gn_affine_mish(out, gamma, beta, groups: int, eps: float):
     return out * torch.tanh(F.softplus(out))
 
 
+def conv_gn_stats_plain(x_halo, w, b, groups: int = 8):
+    """K1's plain version: (B, H + k - 1, Cin) -> pre-norm (B, H, Cout) and
+    (B, groups, 2) per-(batch row, group) (mean, M2) over the H local rows."""
+    pre = F.conv1d(x_halo.transpose(1, 2), w.permute(2, 1, 0), b).transpose(1, 2)
+    B, H, C = pre.shape
+    g = pre.reshape(B, H, groups, C // groups)
+    mean = g.mean(dim=(1, 3))
+    m2 = ((g - mean[:, None, :, None]) ** 2).sum(dim=(1, 3))
+    return pre, torch.stack([mean, m2], dim=-1)
+
+
+def gn_affine_mish_plain(pre, stats, gamma, beta, groups: int = 8):
+    """K2's plain version: Mish((pre - mean) * rstd * gamma + beta) with
+    ``stats`` (B, groups, 2) the merged (mean, rstd)."""
+    B, H, C = pre.shape
+    st = stats.repeat_interleave(C // groups, dim=1)  # (B, C, 2)
+    out = (pre - st[:, None, :, 0]) * st[:, None, :, 1] * gamma + beta
+    return out * torch.tanh(F.softplus(out))
+
+
+def chan_merge(parts, count: int, eps: float):
+    """Per-rank (R, B, groups, 2) (mean, M2), each over ``count`` values ->
+    the (B, groups, 2) float32 (mean, rstd) of the union, in float64:
+    mean = sum mean_i / R, M2 = sum M2_i + count sum (mean_i - mean)^2."""
+    p = parts.to(torch.float64)
+    means, m2 = p[..., 0], p[..., 1]
+    mean = means.mean(dim=0)
+    total = m2.sum(dim=0) + count * ((means - mean) ** 2).sum(dim=0)
+    var = total / (count * p.shape[0])
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=-1).to(torch.float32)
+
+
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -99,7 +147,7 @@ class ConvPlan:
     smem_bytes: int  # dynamic shared memory per CTA
     grid: int      # CTAs: ceil(B / rows) * groups * cluster
     ints: object = dataclasses.field(compare=False, repr=False)  # ctypes int[7]
-    # (H, Cin, Cout, k, groups, vec, device index) -> clusters the card holds at once
+    # (H, Cin, Cout, k, groups, vec, stats, device index) -> clusters the card holds at once
     checked: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def rank_channels(self, cin: int) -> list[tuple[int, int]]:
@@ -194,6 +242,23 @@ def conv_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int) -> ConvP
     return make_plan(B, H, Cin, Cout, k, groups)
 
 
+@functools.lru_cache(maxsize=None)
+def stats_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int) -> ConvPlan:
+    """K1's cached plan: B1's, its cluster doubled (up to 8, one channel a
+    rank at least) while the grid has fewer than FILL_CTAS CTAs. Sampling's
+    small batches leave B1's plans few CTAs (B 4 x 8 groups: 32 for 132 SMs);
+    on an H100 clusters of 8 took a rank's 33 K1 launches of the sharded
+    dim-128 forward (B 4, 512 of H 1024) from 5.65 to 2.50 ms (``PERF.md``)."""
+    plan = conv_plan(B, H, Cin, Cout, k, groups)
+    cluster = plan.cluster
+    while cluster < max(CLUSTER_SIZES) and plan.grid // plan.cluster * cluster < FILL_CTAS \
+            and 2 * cluster <= Cin:
+        cluster *= 2
+    if cluster == plan.cluster:
+        return plan
+    return make_plan(B, H, Cin, Cout, k, groups, cluster=cluster, rows=plan.rows)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv_gn_mish")
     if lib.conv_gn_mish_f32.argtypes is None:
@@ -201,29 +266,36 @@ def _library() -> ctypes.CDLL:
             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         lib.conv_gn_mish_f32.restype = ctypes.c_int
         lib.conv_gn_mish_f32_plan_check.argtypes = [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.conv_gn_mish_f32_plan_check.restype = ctypes.c_int
+        lib.conv_gn_stats_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.conv_gn_stats_f32.restype = ctypes.c_int
+        lib.gn_affine_mish_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.gn_affine_mish_f32.restype = ctypes.c_int
         lib.conv_gn_mish_error_string.argtypes = [ctypes.c_int]
         lib.conv_gn_mish_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def max_active_clusters(plan: ConvPlan, H: int, Cin: int, Cout: int, k: int, groups: int,
-                        vec: bool, device: torch.device) -> int:
+                        vec: bool, device: torch.device, stats: bool = False) -> int:
     """How many of the plan's clusters the card holds at once
     (cudaOccupancyMaxActiveClusters; with a cluster of 1, the CTAs it
-    holds), asked on the plan's first launch.
+    holds), asked on the plan's first launch; ``stats`` asks it of K1.
     Raises, with the reason, if that is none, or if the kernel's shared
     memory layout disagrees with smem_bytes()."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (H, Cin, Cout, k, groups, vec, index)
+    key = (H, Cin, Cout, k, groups, vec, stats, index)
     n = plan.checked.get(key)
     if n is None:
         lib = _library()
         smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(index):
             err = lib.conv_gn_mish_f32_plan_check(H, Cin, Cout, k, groups, plan.ints, int(vec),
-                                                  ctypes.byref(smem), ctypes.byref(clusters))
+                                                  int(stats), ctypes.byref(smem),
+                                                  ctypes.byref(clusters))
         if err != 0:
             raise RuntimeError(f"conv_gn_mish plan {plan} refused: "
                                + lib.conv_gn_mish_error_string(err).decode())
@@ -239,33 +311,43 @@ def max_active_clusters(plan: ConvPlan, H: int, Cin: int, Cout: int, k: int, gro
     return n
 
 
-def _check_args(x, w, b, gamma, beta, groups: int):
-    tensors = {"x": x, "w": w, "b": b, "gamma": gamma, "beta": beta}
+def _check_tensors(fn: str, device, **tensors):
     for name, t in tensors.items():
         if not t.is_cuda:
-            raise ValueError(f"conv_gn_mish_cuda: {name} is on {t.device}, needs a CUDA tensor")
+            raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor")
         if t.dtype != torch.float32:
-            raise ValueError(f"conv_gn_mish_cuda: {name} is {t.dtype}, the kernel takes float32")
+            raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes float32")
         if not t.is_contiguous():
-            raise ValueError(f"conv_gn_mish_cuda: {name} is not contiguous")
-        if t.device != x.device:
-            raise ValueError(f"conv_gn_mish_cuda: {name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{fn}: {name} is not contiguous")
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, x on {device}")
+
+
+def _check_args(x, w, b, gamma, beta, groups: int, fn: str = "conv_gn_mish_cuda"):
+    tensors = {"x": x, "w": w, "b": b, "gamma": gamma, "beta": beta}
+    _check_tensors(fn, x.device, **{k: v for k, v in tensors.items() if v is not None})
     if x.dim() != 3 or w.dim() != 3:
-        raise ValueError(f"conv_gn_mish_cuda: x {tuple(x.shape)} must be (B, H, Cin) and "
+        raise ValueError(f"{fn}: x {tuple(x.shape)} must be (B, H, Cin) and "
                          f"w {tuple(w.shape)} (k, Cin, Cout)")
     k, cin, cout = w.shape
     if x.shape[2] != cin:
-        raise ValueError(f"conv_gn_mish_cuda: x has {x.shape[2]} channels, w expects {cin}")
+        raise ValueError(f"{fn}: x has {x.shape[2]} channels, w expects {cin}")
     if k not in KERNEL_SIZES:
-        raise ValueError(f"conv_gn_mish_cuda: kernel size {k} not in {KERNEL_SIZES}")
+        raise ValueError(f"{fn}: kernel size {k} not in {KERNEL_SIZES}")
     if groups <= 0 or cout % groups:
-        raise ValueError(f"conv_gn_mish_cuda: Cout {cout} is not a multiple of groups {groups}")
+        raise ValueError(f"{fn}: Cout {cout} is not a multiple of groups {groups}")
     if cout // groups > MAX_GROUP_CHANNELS:
-        raise ValueError(f"conv_gn_mish_cuda: {cout // groups} channels per group, the "
+        raise ValueError(f"{fn}: {cout // groups} channels per group, the "
                          f"kernel takes at most {MAX_GROUP_CHANNELS}")
     for name in ("b", "gamma", "beta"):
-        if tuple(tensors[name].shape) != (cout,):
-            raise ValueError(f"conv_gn_mish_cuda: {name} must be ({cout},)")
+        if tensors[name] is not None and tuple(tensors[name].shape) != (cout,):
+            raise ValueError(f"{fn}: {name} must be ({cout},)")
+
+
+def _raise_on_error(lib, err: int, fn: str):
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + lib.conv_gn_mish_error_string(err).decode())
 
 
 def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
@@ -291,14 +373,98 @@ def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
             out.data_ptr(), B, H, cin, cout, k, groups, eps, ctypes.addressof(plan.ints),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError("conv_gn_mish kernel launch failed: "
-                           + lib.conv_gn_mish_error_string(err).decode())
+    _raise_on_error(lib, err, "conv_gn_mish")
     conv_gn_mish_cuda.launches += 1
     return out
 
 
 conv_gn_mish_cuda.launches = 0
+
+
+def conv_gn_stats_cuda(x_halo, w, b, groups: int = 8, plan: ConvPlan | None = None):
+    """Launch K1 on PyTorch's current stream: ``x_halo`` (B, H + k - 1, Cin)
+    -> pre-norm (B, H, Cout) and (B, groups, 2) (mean, M2), with ``plan`` or
+    ``stats_plan``'s for the H output rows. Raises on what the kernel does not
+    take."""
+    fn = "conv_gn_stats_cuda"
+    _check_args(x_halo, w, b, None, None, groups, fn)
+    k, cin, cout = w.shape
+    B, H = x_halo.shape[0], x_halo.shape[1] - (k - 1)
+    if H <= 0:
+        raise ValueError(f"{fn}: {x_halo.shape[1]} rows hold no output row of a k {k} conv")
+    pre = torch.empty((B, H, cout), dtype=torch.float32, device=x_halo.device)
+    stats = torch.empty((B, groups, 2), dtype=torch.float32, device=x_halo.device)
+    if pre.numel() == 0:
+        return pre, stats
+    vec = (cout // groups) % 4 == 0 and w.data_ptr() % 16 == 0
+    plan = plan or stats_plan(B, H, cin, cout, k, groups)
+    max_active_clusters(plan, H, cin, cout, k, groups, vec, x_halo.device, stats=True)
+    lib = _library()
+    with torch.cuda.device(x_halo.device):
+        err = lib.conv_gn_stats_f32(
+            x_halo.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr(), stats.data_ptr(),
+            B, H, cin, cout, k, groups, ctypes.addressof(plan.ints),
+            torch.cuda.current_stream(x_halo.device).cuda_stream)
+    _raise_on_error(lib, err, fn)
+    conv_gn_stats_cuda.launches += 1
+    return pre, stats
+
+
+conv_gn_stats_cuda.launches = 0
+
+
+def gn_affine_mish_cuda(pre, stats, gamma, beta, groups: int = 8):
+    """Launch K2 on PyTorch's current stream: (B, H, C) pre-norm values and
+    (B, groups, 2) merged (mean, rstd) -> (B, H, C)."""
+    fn = "gn_affine_mish_cuda"
+    _check_tensors(fn, pre.device, pre=pre, stats=stats, gamma=gamma, beta=beta)
+    if pre.dim() != 3:
+        raise ValueError(f"{fn}: pre {tuple(pre.shape)} must be (B, H, C)")
+    B, H, C = pre.shape
+    if groups <= 0 or C % groups:
+        raise ValueError(f"{fn}: C {C} is not a multiple of groups {groups}")
+    if tuple(stats.shape) != (B, groups, 2):
+        raise ValueError(f"{fn}: stats {tuple(stats.shape)} must be ({B}, {groups}, 2)")
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if tuple(t.shape) != (C,):
+            raise ValueError(f"{fn}: {name} must be ({C},)")
+    out = torch.empty_like(pre)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(pre.device):
+        err = lib.gn_affine_mish_f32(pre.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
+                                     beta.data_ptr(), out.data_ptr(), B, H, C, groups,
+                                     torch.cuda.current_stream(pre.device).cuda_stream)
+    _raise_on_error(lib, err, fn)
+    gn_affine_mish_cuda.launches += 1
+    return out
+
+
+gn_affine_mish_cuda.launches = 0
+
+
+def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, group):
+    """Conv1d + GroupNorm + Mish of this rank's frames of a horizon split
+    over the ranks of ``group`` (a ``utils.seq`` shard): ``x_halo`` is the
+    rank's (B, H, Cin) rows with k // 2 rows of each neighbour (zeros at the
+    trajectory's ends) on each side. K1, the statistics merged over the
+    ranks, K2: the kernels for CUDA tensors, their plain versions for CPU
+    tensors. Sampling only: raises where a gradient is asked of it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_halo, w, b, gamma, beta)):
+        raise RuntimeError("conv_gn_mish_sharded serves sampling only: no gradient flows "
+                           "through the horizon-sharded conv block (run under "
+                           "torch.no_grad or torch.inference_mode)")
+    x_halo = x_halo.contiguous()
+    if x_halo.is_cuda:
+        pre, stats = conv_gn_stats_cuda(x_halo, w, b, groups)
+    else:
+        pre, stats = conv_gn_stats_plain(x_halo, w, b, groups)
+    # every rank's statistics, gathered exactly: the same merged bits on every rank
+    merged = chan_merge(group.all_gather(stats), pre.shape[1] * (pre.shape[2] // groups), eps)
+    if pre.is_cuda:
+        return gn_affine_mish_cuda(pre, merged, gamma, beta, groups)
+    return gn_affine_mish_plain(pre, merged, gamma, beta, groups)
 
 
 class _ConvGnMish(torch.autograd.Function):

@@ -33,6 +33,17 @@ softmax spans the chunk's K keys, so a query whose keys are all masked
 ``key_mask`` (B, N), > 0 marking valid frames, must be PREFIX-valid (valid
 frames first, padding at the end, as jagged batches are): the kernel takes
 per-sequence lengths. ``DMDM_CHECK_MASKS=1`` checks that on every call.
+
+B3's halo entry (K3, sequence-sharded sampling): a rank holding frames
+[g0, g0 + Nq) of a horizon split over ranks attends from its own rows over
+a slab of them with w rows of each neighbour (none at the trajectory's ends;
+none after when causal): ``local_attention_halo_plain`` /
+``local_attention_halo_cuda`` / ``local_attention_halo``. It is B3's chunk
+semantics with one chunk of the Nq own rows and P = w, rotary at the global
+positions, prefix lengths given in slab rows (``halo_lengths``); every
+query whose window holds a valid key gets what the unsharded call gives
+it. A query whose keys are all masked gets the mean of V over the slab's
+key slots, not over B3's 128-row chunk and its halo. Sampling only.
 """
 from __future__ import annotations
 
@@ -170,6 +181,75 @@ def chunked_attention(q, k, v, p: dict, window_size: int, causal: bool, exact_wi
     return torch.einsum("bnhqk,bnkhd->bnqhd", attn, vsel).reshape(B, Np, h, dh)
 
 
+def halo_key_slots(Nh: int, q0: int, Nq: int, w: int):
+    """(K,) slab rows of K3's Nq + 2w key slots and (K,) flags of the
+    clamped ones (no neighbour on that side), as ``chunk_index_sets`` gives
+    them for one chunk of rows [q0, q0 + Nq) with P = w."""
+    kk = np.arange(Nq + 2 * w)
+    seg = (kk >= w).astype(int) + (kk >= w + Nq).astype(int)
+    rows = np.where(seg == 0, max(q0 - w, 0) + kk,
+                    np.where(seg == 1, q0 + kk - w, min(q0 + Nq, Nh - w) + kk - w - Nq))
+    invalid = ((seg == 0) & (q0 == 0)) | ((seg == 2) & (q0 + Nq == Nh))
+    return rows, invalid
+
+
+def halo_lengths(lengths: torch.Tensor, pos0: int, Nh: int) -> torch.Tensor:
+    """Global prefix lengths (B,) -> K3's (B,) int32 lengths in slab rows,
+    for a slab whose row 0 sits at global position ``pos0``."""
+    return (lengths.to(torch.int64) - pos0).clamp(0, Nh).to(torch.int32)
+
+
+def halo_slab(rows: torch.Tensor, window_size: int, causal: bool, shard):
+    """This rank's (B, n, ...) rows with ``window_size`` rows of each
+    neighbour along dim 1 (none past the trajectory's ends; none after when
+    causal), brought by ``shard.exchange_halo`` (a ``utils.seq`` shard) ->
+    (slab, q0: the slab row of the rank's first row, pos0: the slab's first
+    row's global position)."""
+    w, n = window_size, rows.shape[1]
+    before, after, (real_before, real_after) = shard.exchange_halo(rows, w, 0 if causal else w)
+    parts = ([before] if real_before else []) + [rows] + ([after] if real_after else [])
+    q0 = w if real_before else 0
+    return torch.cat(parts, dim=1), q0, shard.rank * n - q0
+
+
+def _check_halo(Nh: int, q0: int, Nq: int, w: int, causal: bool, pos0: int):
+    lf = 0 if causal else 1
+    if q0 not in (0, w) or Nh - q0 - Nq not in (0, lf * w) or Nq % w or pos0 % w:
+        raise ValueError(f"halo slab of {Nh} rows with own rows [{q0}, {q0 + Nq}) at position "
+                         f"{pos0}: K3 takes 0 or w = {w} rows before, 0 or {lf * w} after, "
+                         f"and own rows and position that are multiples of w")
+
+
+def local_attention_halo_plain(qkv, heads: int, dim_head: int, window_size: int, q0: int,
+                               Nq: int, pos0: int, causal: bool = False,
+                               exact_windowsize: bool = True, use_rotary: bool = True,
+                               lengths=None):
+    """K3's plain version: the slab (B, Nh, 3*h*dh) -> (B, Nq, h*dh) for its
+    rows [q0, q0 + Nq), which sit at global positions pos0 + q0 on.
+    ``lengths`` (B,) int: valid keys, in slab rows."""
+    B, Nh, _ = qkv.shape
+    h, dh, w = heads, dim_head, window_size
+    _check_halo(Nh, q0, Nq, w, causal, pos0)
+    lf = 0 if causal else 1
+    x = qkv.reshape(B, Nh, 3, h, dh).to(torch.float32)
+    q = x[:, q0:q0 + Nq, 0] * (dh ** -0.5)
+    k, v = x[:, :, 1], x[:, :, 2]
+    if use_rotary:
+        q = rot_abs(q, pos0 + np.arange(q0, q0 + Nq) + lf * w, dh)
+        k = rot_abs(k, pos0 + np.arange(Nh), dh)
+    rows, invalid = halo_key_slots(Nh, q0, Nq, w)
+    ti = np.arange(q0, q0 + Nq)[:, None]
+    bad = window_mask(ti, rows[None, :], w, 1, lf, causal, exact_windowsize, invalid[None, :])
+    idx = torch.from_numpy(rows).to(qkv.device)
+    sim = torch.einsum("bqhd,bkhd->bhqk", q, k[:, idx])
+    sim = sim.masked_fill(torch.from_numpy(bad).to(qkv.device), NEG_INF)
+    if lengths is not None:
+        beyond = idx[None, :] >= lengths.to(idx.device)[:, None]  # (B, K)
+        sim = sim.masked_fill(beyond[:, None, None, :], NEG_INF)
+    out = torch.einsum("bhqk,bkhd->bqhd", sim.softmax(dim=-1), v[:, idx])
+    return out.reshape(B, Nq, h * dh).to(qkv.dtype)
+
+
 def fused_qkv_local_attention_plain(qkv, heads: int, dim_head: int, window_size: int,
                                     causal: bool = False, exact_windowsize: bool = True,
                                     use_rotary: bool = True, key_mask=None, dropout_keep=None,
@@ -231,6 +311,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             i, i, i, i, i, i, i,       # BH, N, dim_head, window, causal, exact, use_rotary
             i, i, i, vp]               # slab, cap, tensor cores, stream
         lib.local_attention_heads_f32.restype = i
+        lib.local_attention_halo_f32.argtypes = [
+            vp, vp, vp, vp,            # qkv, lengths, rotary table, out
+            i, i, i, i, i, i,          # B, Nh, q0, Nq, heads, dim_head
+            i, i, i, i,                # window, causal, exact, use_rotary
+            i, i, i, vp]               # slab, cap, tensor cores, stream
+        lib.local_attention_halo_f32.restype = i
         lib.local_attention_error_string.argtypes = [i]
         lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -261,23 +347,25 @@ class AttnPlan:
     smem_bytes: int  # dynamic shared memory per block
 
 
-def key_band(q0: int, q1: int, w: int, causal: bool, C: int, P: int, Np: int):
-    """[lo, hi) key rows that query rows [q0, q1) of one chunk can see:
-    key_band() in csrc/local_attention.cu."""
+def key_band(q0: int, q1: int, w: int, causal: bool, C: int, P: int, Np: int, base: int = 0):
+    """[lo, hi) key rows that query rows [q0, q1) of one chunk can see, the
+    chunks starting at row ``base``: key_band() in csrc/local_attention.cu."""
     lf = 0 if causal else 1
-    c = q0 // C
-    lo = max(c * C - P, (q0 // w - 1) * w, 0)
+    first = base + (q0 - base) // C * C
+    lo = max(first - P, (q0 // w - 1) * w, 0)
     wh = ((q1 - 1) // w + lf + 1) * w
     if causal:
         wh = min(wh, q1)
-    return lo, min((c + 1) * C + P, wh, Np)
+    return lo, min(first + C + P, wh, Np)
 
 
-def slab_rows(Np: int, C: int, slab: int):
+def slab_rows(Np: int, C: int, slab: int, base: int = 0, Nq: int | None = None):
     """[s0, s1) query rows of each block, in grid order: the slabs of each
-    chunk, the last one of a chunk cut at the chunk's end."""
-    return [(s0, min(s0 + slab, c * C + C, Np))
-            for c in range(Np // C) for s0 in range(c * C, (c + 1) * C, slab)]
+    chunk of the Nq (default Np) query rows from ``base`` on, the last one of
+    a chunk cut at the chunk's end."""
+    Nq = Np if Nq is None else Nq
+    return [(s0, min(s0 + slab, base + c * C + C, base + Nq))
+            for c in range(Nq // C) for s0 in range(base + c * C, base + (c + 1) * C, slab)]
 
 
 def smem_bytes(dh: int, slab: int, cap: int, rotary: bool) -> int:
@@ -289,9 +377,11 @@ def smem_bytes(dh: int, slab: int, cap: int, rotary: bool) -> int:
 @functools.lru_cache(maxsize=None)
 def attention_plan(Np: int, C: int, P: int, w: int, causal: bool, dh: int,
                    batch_heads: int | None = None, rotary: bool = True, slab: int | None = None,
-                   cap: int | None = None, mma: bool | None = None) -> AttnPlan:
+                   cap: int | None = None, mma: bool | None = None, base: int = 0,
+                   Nq: int | None = None) -> AttnPlan:
     """The plan for one shape; ``batch_heads`` is the launch's (batch row,
-    head) pairs, and a keyword given fixes that choice. The defaults follow
+    head) pairs, and a keyword given fixes that choice (``base`` and ``Nq``:
+    K3's query rows, [base, base + Nq) of the Np). The defaults follow
     the best of the plans ``ops/local_attention_sweep.py`` timed on an H100
     at the served shapes (``PERF.md``).
 
@@ -304,20 +394,21 @@ def attention_plan(Np: int, C: int, P: int, w: int, causal: bool, dh: int,
     - cap: the most key rows any slab's windows reach, so that each block
       stages its band in one round; where that does not fit even at the
       smallest slab, the most that does (the band then comes in segments)."""
+    rows = functools.partial(slab_rows, Np, C, base=base, Nq=Nq)
     default_slab = slab is None
     if default_slab:
-        slab, default_mma = _default_units(Np, C, batch_heads)
+        slab, default_mma = _default_units(rows, batch_heads)
         mma = default_mma if mma is None else mma
     mma = bool(mma)
     rpw = rows_per_warp(mma)
     if default_slab:
         slab = min(slab, MAX_WARPS * rpw, -(-min(C, Np) // rpw) * rpw)
-        while slab > rpw and smem_bytes(dh, slab, _band(Np, C, P, w, causal, slab),
+        while slab > rpw and smem_bytes(dh, slab, _band(rows, Np, C, P, w, causal, slab, base),
                                         rotary) > SMEM_LIMIT:
             slab //= 2
     if slab % rpw or not rpw <= slab <= MAX_WARPS * rpw:
         raise ValueError(f"slab {slab} must be a multiple of {rpw} up to {MAX_WARPS * rpw}")
-    band = _band(Np, C, P, w, causal, slab)
+    band = _band(rows, Np, C, P, w, causal, slab, base)
     fits = (SMEM_LIMIT // (4 * (dh + 4)) - slab * (2 if rotary else 1)) // (3 if rotary else 2)
     if cap is None:
         cap = min(band, fits)
@@ -325,14 +416,13 @@ def attention_plan(Np: int, C: int, P: int, w: int, causal: bool, dh: int,
         raise ValueError(f"cap {cap} rows: between 1 and {fits} fit beside slab {slab} "
                          f"at dh {dh}")
     return AttnPlan(slab=slab, cap=cap, mma=mma, band=band, segments=-(-band // cap),
-                    blocks=len(slab_rows(Np, C, slab)),
-                    smem_bytes=smem_bytes(dh, slab, cap, rotary))
+                    blocks=len(rows(slab)), smem_bytes=smem_bytes(dh, slab, cap, rotary))
 
 
-def _default_units(Np, C, batch_heads):
+def _default_units(rows, batch_heads):
     """(slab, tensor cores?) of the default plan: see ``attention_plan``."""
     def blocks(slab):
-        return len(slab_rows(Np, C, slab)) * (batch_heads or MIN_BLOCKS)
+        return len(rows(slab)) * (batch_heads or MIN_BLOCKS)
 
     for slab in (128, 64):
         if blocks(slab) >= MIN_BLOCKS:
@@ -343,9 +433,9 @@ def _default_units(Np, C, batch_heads):
     return 8, False
 
 
-def _band(Np, C, P, w, causal, slab):
-    return max(hi - lo for lo, hi in (key_band(s0, s1, w, causal, C, P, Np)
-                                      for s0, s1 in slab_rows(Np, C, slab)))
+def _band(rows, Np, C, P, w, causal, slab, base):
+    return max(hi - lo for lo, hi in (key_band(s0, s1, w, causal, C, P, Np, base)
+                                      for s0, s1 in rows(slab)))
 
 
 _TABLES: dict = {}
@@ -435,6 +525,73 @@ def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: 
 
 
 fused_qkv_local_attention_cuda.launches = 0
+
+
+def halo_plan(B: int, heads: int, dim_head: int, window_size: int, q0: int, Nq: int, Nh: int,
+              causal: bool, use_rotary: bool) -> AttnPlan:
+    """K3's default launch plan: ``attention_plan`` for one chunk of the Nq
+    own rows from slab row q0, P = w."""
+    return attention_plan(Nh, Nq, window_size, window_size, causal, dim_head, B * heads,
+                          use_rotary, base=q0, Nq=Nq)
+
+
+def local_attention_halo_cuda(qkv, heads: int, dim_head: int, window_size: int, q0: int,
+                              Nq: int, pos0: int, causal: bool = False,
+                              exact_windowsize: bool = True, use_rotary: bool = True,
+                              lengths=None, launch_plan: AttnPlan | None = None):
+    """Launch K3 on PyTorch's current stream (built on first use): the slab
+    (B, Nh, 3*h*dh) -> (B, Nq, h*dh), as ``local_attention_halo_plain``.
+    Raises on what the kernel does not take."""
+    fn = "local_attention_halo_cuda"
+    check_cuda_f32("qkv", fn, qkv, qkv.device)
+    if qkv.dim() != 3 or qkv.shape[2] != 3 * heads * dim_head:
+        raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} must be (B, Nh, 3*{heads}*{dim_head})")
+    if dim_head not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head width {dim_head} not in {HEAD_DIMS}")
+    if window_size > CHUNK:
+        raise ValueError(f"{fn}: window {window_size} above {CHUNK}")
+    B, Nh, _ = qkv.shape
+    _check_halo(Nh, q0, Nq, window_size, causal, pos0)
+    if lengths is not None:
+        if tuple(lengths.shape) != (B,) or lengths.device != qkv.device:
+            raise ValueError(f"{fn}: lengths {tuple(lengths.shape)} on {lengths.device} must "
+                             f"be ({B},) on {qkv.device}")
+        lengths = lengths.to(torch.int32).contiguous()
+    lp = launch_plan or halo_plan(B, heads, dim_head, window_size, q0, Nq, Nh, causal,
+                                  use_rotary)
+    lib = _library()
+    out = torch.empty((B, Nq, heads * dim_head), dtype=torch.float32, device=qkv.device)
+    if out.numel() == 0:
+        return out
+    lf = 0 if causal else 1
+    with torch.cuda.device(qkv.device):
+        # row r of the table: slab row r's global position, pos0 + r
+        table = (device_rotary_table(pos0 + Nh + lf * window_size, dim_head, qkv.device)[pos0:]
+                 if use_rotary else None)
+        err = lib.local_attention_halo_f32(
+            qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
+            None if table is None else table.data_ptr(), out.data_ptr(), B, Nh, q0, Nq, heads,
+            dim_head, window_size, int(causal), int(exact_windowsize), int(use_rotary),
+            lp.slab, lp.cap, int(lp.mma), torch.cuda.current_stream(qkv.device).cuda_stream)
+    raise_on_error(lib, err, fn)
+    local_attention_halo_cuda.launches += 1
+    return out
+
+
+local_attention_halo_cuda.launches = 0
+
+
+def local_attention_halo(qkv, heads: int, dim_head: int, window_size: int, q0: int, Nq: int,
+                         pos0: int, causal: bool = False, exact_windowsize: bool = True,
+                         use_rotary: bool = True, lengths=None):
+    """K3 for CUDA tensors, its plain version for CPU tensors. Sampling only:
+    raises where a gradient is asked of it."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise RuntimeError("local_attention_halo serves sampling only: run it under "
+                           "torch.no_grad or torch.inference_mode")
+    impl = local_attention_halo_cuda if qkv.is_cuda else local_attention_halo_plain
+    return impl(qkv.contiguous(), heads, dim_head, window_size, q0, Nq, pos0, causal,
+                exact_windowsize, use_rotary, lengths)
 
 
 class _FusedQkvLocalAttention(torch.autograd.Function):

@@ -19,8 +19,17 @@ computes: the SPMD contract.
 
 ``--device`` is ``cuda`` by default (rank r takes card r modulo the cards;
 NCCL, or gloo where ranks share a card: ``parallel.mesh.default_backend``)
-and raises without a card; ``--device cpu`` runs on gloo. JAX's ``--seq`` (a data x seq process grid)
-waits for seq sharding (``parallel.mesh.seq_sharding``).
+and raises without a card; ``--device cpu`` runs on gloo.
+
+``--seq S`` builds JAX's (data, seq) process grid: the R processes form an
+(R / S) x S mesh (``parallel.mesh.make_mesh``), the rows are split over its
+"data" dimension, and the S ranks of one seq group feed the same rows and
+hold the same replicated step (the train step shards nothing over the
+horizon). The loss and checksum are still the one-process run's:
+
+    # four processes, a 2 x 2 (data, seq) grid
+    python -m deepmimic_diffusion_mujoco_tpu_torch.parallel.multihost_check \
+        --coordinator 127.0.0.1:29580 --num-processes 4 --process-id 0 --seq 2
 """
 from __future__ import annotations
 
@@ -33,9 +42,10 @@ import torch
 
 def run_check(coordinator: str | None = None, num_processes: int = 1, process_id: int = 0,
               batch_size: int = 16, horizon: int = 16, dim: int = 32,
-              device: str | torch.device = "cuda") -> dict:
+              device: str | torch.device = "cuda", seq: int = 1) -> dict:
     """One step in this process; a group of ``num_processes`` > 1 is joined
-    first unless one exists. -> the loss, the checksum and launch counts."""
+    first unless one exists. ``seq`` > 1 runs the step on the (data, seq)
+    mesh of the group's ranks. -> the loss, the checksum and launch counts."""
     import torch.distributed as dist
 
     from ..device import resolve_device
@@ -57,6 +67,11 @@ def run_check(coordinator: str | None = None, num_processes: int = 1, process_id
                                                device=dev)
     try:
         group = dist.group.WORLD if dist.is_initialized() else None
+        if seq > 1:
+            if group is None:
+                raise ValueError(f"--seq {seq} needs a group of processes (the one-process "
+                                 "oracle runs without flags)")
+            group = meshlib.make_mesh(seq=seq, device_type=dev.type)
         rank, world = meshlib.rank_and_world(group)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -79,7 +94,9 @@ def run_check(coordinator: str | None = None, num_processes: int = 1, process_id
         b1, b2 = CB.conv_gn_mish_cuda.launches, CW.conv1d_weight_grad_cuda.launches
         loss, _ = train_step(state, loss_fn, x0, t, noise, group=group)
         checksum = sum(float(p.detach().abs().double().sum()) for p in model.parameters())
-        return {"process_id": rank, "process_count": world, "device": str(dev),
+        return {"process_id": dist.get_rank() if group is not None else 0,
+                "process_count": dist.get_world_size() if group is not None else 1,
+                "data_rank": rank, "data_ranks": world, "seq": seq, "device": str(dev),
                 "backend": dist.get_backend() if group is not None else None,
                 "loss": float(loss), "param_checksum": checksum,
                 "conv_gn_mish_launches": CB.conv_gn_mish_cuda.launches - b1,
@@ -97,9 +114,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seq", type=int, default=1,
+                    help="the mesh's seq dimension (data = processes // seq)")
     args = ap.parse_args(argv)
     out = run_check(args.coordinator, args.num_processes, args.process_id,
-                    device=args.device)
+                    device=args.device, seq=args.seq)
     print(json.dumps(out), flush=True)
     return out
 

@@ -14,6 +14,11 @@ keep masks) goes through ``draw_rows``: a draw that does not makes the
 ranks' generators, and then their rows, part from one process's. A plain
 ``torch.Generator`` is one rank of one. The cost: each rank draws R times
 its own rows and keeps one R-th of them.
+
+``draw_frames`` is the horizon's counterpart, for sequence-sharded
+sampling: rank r of R along the horizon draws the (B, R·H, ...) tensor one
+process draws and keeps frames [r·H, (r+1)·H), so the noise of a sharded
+chain is the one-process chain's noise.
 """
 from __future__ import annotations
 
@@ -43,3 +48,15 @@ def draw_rows(generator: torch.Generator, shape, draw):
     n = shape[0]
     rank = generator.rank
     return draw((n * world, *shape[1:]))[rank * n:(rank + 1) * n]
+
+
+def draw_frames(generator: torch.Generator, shape, draw, rank: int, world: int):
+    """``draw(shape)`` for rank ``rank`` of ``world`` ranks along the horizon
+    (dim 1): drawn at the global horizon, ``world`` x ``shape[1]`` frames
+    (through ``draw_rows``, so a ``ShardGenerator``'s rows are cut too), and
+    cut to this rank's frames. The generator advances as one process's."""
+    if world == 1:
+        return draw_rows(generator, shape, draw)
+    n = shape[1]
+    whole = draw_rows(generator, (shape[0], n * world, *shape[2:]), draw)
+    return whole[:, rank * n:(rank + 1) * n]

@@ -34,7 +34,8 @@ PORT = ROOT / "deepmimic_diffusion_mujoco_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepmimic_diffusion_mujoco_tpu"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEW_MODULES = ["parallel/mesh.py", "parallel/tp.py", "parallel/multihost_check.py",
-               "parallel/launch.py", "utils/profiling.py", "utils/rng.py", "cli/scaling.py"]
+               "parallel/launch.py", "utils/profiling.py", "utils/rng.py", "cli/scaling.py",
+               "utils/seq.py"]
 
 
 def _imported_roots(path: Path):

@@ -116,7 +116,8 @@ def test_one_rank_group_and_mesh(tmp_path):
     """In a group of one: initialize_multihost leaves an existing group and a
     flag-free call alone, make_mesh builds ("data", "seq") and checks its
     shape, the data group is found through the mesh, shard_batch keeps every
-    row, the placements are DTensor's, and seq_sharding names its item."""
+    row, the placements are DTensor's (seq_sharding's: rows over data,
+    frames over seq)."""
     from torch.distributed.tensor import Replicate, Shard
 
     assert meshlib.initialize_multihost() is False
@@ -131,8 +132,10 @@ def test_one_rank_group_and_mesh(tmp_path):
         np.testing.assert_array_equal(meshlib.shard_batch(group, {"x": x})["x"], x)
         with pytest.raises(ValueError, match="mesh 2x1"):
             meshlib.make_mesh(data=2, device_type="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.*seq-sharded sampling"):
-            meshlib.seq_sharding(mesh)
+        sharding = meshlib.seq_sharding(mesh)
+        assert sharding.placements == (Shard(0), Shard(1))
+        assert (sharding.rank, sharding.world) == (0, 1)
+        assert sharding.local_shape((4, 32, 35)) == (4, 32, 35)
         t = torch.tensor([1.0, 2.0])
         meshlib.all_reduce_mean([t], group)
         torch.testing.assert_close(t, torch.tensor([1.0, 2.0]), rtol=0, atol=0)
