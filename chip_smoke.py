@@ -5,10 +5,10 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: the four CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B2
-   csrc/conv1d_weight_grad.cu, B3, K3 and B4 csrc/local_attention.cu, B5-B7
-   csrc/humanoid_dynamics.cu), compiled in parallel with nvcc, one process
-   each, with ptxas's register and spill lines.
+2. build: the five CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B1's bf16 form
+   csrc/conv_gn_mish_bf16.cu, B2 csrc/conv1d_weight_grad.cu, B3, its bf16 entry, K3 and B4
+   csrc/local_attention.cu, B5-B7 csrc/humanoid_dynamics.cu), compiled in parallel with nvcc,
+   one process each, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
    the dim-128 U-Net gives it on the main paths: B1 at B 16 for serving
    (H 64 and H 48, plus level 0 at H 192) and at B 32 for a training
@@ -109,9 +109,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    of the run whose chains are cut to B_EVAL_T steps (the T 1000 chain is b_serve's; at T 1000
    the 18 host-bound cfg_eval chains alone took 78-128 s on an NVIDIA H100 80GB HBM3 at 700 W).
 15. guide, run after the serve phase: ``guided_sample_loop`` with the serve phase's dim-128 U-Net
-   run (posterior T 1000, B 16 x H 64, holding_box) and a seeded ``ValueFunction`` (dim 32,
-   mults 1, 2, 4, 8, over H 64, parameters frozen): B1's count set to 0 just before and read
-   just after, 33 + 20 per step, no B2; the final values sorted, the trajectories finite; one
+   run cut to T GUIDE_T (posterior, B 16 x H 64, holding_box) and a seeded ``ValueFunction``
+   (dim 32, mults 1, 2, 4, 8, over H 64, parameters frozen): B1's count set to 0 just before
+   and read just after, 33 + 20 per step, no B2; the final values sorted, the trajectories
+   finite; one
    ``value_gradients`` call and one ``value_diffusion_loss`` step's gradients (B1 and B2)
    against the plain versions; B1's and B2's rows at the ValueFunction's 20 block shapes.
 16. la_train: ``cli.train.main`` on the user config experiments/localattn5k_r3/config.json
@@ -196,6 +197,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    SEQ_LA_STEPS steps of the localattn5k_r3 copy with max_seq_len 1024 at B 4 x H 1024 (K3
    depth a forward a rank, B3 0: nothing takes the bucketed route) against one process with
    B3; the ms a step of both chains, sharded and one-process.
+
+22. bf16, run after phase 21 (``bf16=True`` serving; training at bf16 is not ported): B1's
+   bf16 form (``conv_gn_mish_bf16``, csrc/conv_gn_mish_bf16.cu) against its plain version at
+   every shape of the dim-128 serve forward (B 16 x H 64) and B3's bf16 entry at localattn5k_r3's
+   B 16 x H 128, each within one bf16 ulp of the value plus BF16_TOL, with the error in bf16
+   ulps, timed beside the float32 kernel on the same values, the plain version and the bf16
+   composition, with the bound (B1: bf16 operations at BF16_FLOPS, or bytes; B3: bytes). Then
+   each denoiser served by ``cli.sample.main`` from a float32 run and a copy of it whose
+   config.json says ``"bf16": true`` (same checkpoint, same seed), the counts set to 0 just
+   before each request and read just after, the plain versions refused during it: the train
+   phase's dim-128 run (posterior T 1000, B 16 x H 64: B1's bf16 kernel 33 a forward, its
+   float32 kernel 0) and the la_serve run (v4 T 1000, B 16 x H 128: B3's bf16 entry 6 a
+   forward, its float32 entry 0), each with a DDIM-50 chain of both builds and one forward of
+   each timed; the b_serve run (CFG on class 0) and the dec run at T BF16_SHORT_T, no kernel.
+   The served motions' float32-vs-bf16 distance is reported for each.
 
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -285,7 +301,8 @@ WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
 BACKFLIP = ROOT / "data" / "motions" / "humanoid3d_backflip.txt"
 B_CONFIG = ROOT / "experiments" / "allclips12k_r5" / "config.json"
 MOTIONS = ROOT / "data" / "motions"
-SOURCES = ("conv_gn_mish", "conv1d_weight_grad", "local_attention", "humanoid_dynamics")
+SOURCES = ("conv_gn_mish", "conv_gn_mish_bf16", "conv1d_weight_grad", "local_attention",
+           "humanoid_dynamics")
 
 B, H, D, DIM, T, K, GROUPS = 16, 64, 35, 128, 1000, 5, 8
 TRAIN_B, TRAIN_H, ACCUM, TRAIN_STEPS = 32, 160, 2, 30
@@ -324,6 +341,8 @@ B_GRAD_FLOOR = 1e-4      # the divisor at least this share of the largest gradie
                          # parameters (the key bias's gradient is zero in exact arithmetic)
 DEC_TRAIN_B, DEC_H, DEC_STEPS = 64, 32, 30  # dec: the user config on the walk clip
 GUIDE_DIM = 32           # the ValueFunction's base width (mults 1, 2, 4, 8) over H 64
+GUIDE_T = 100            # the guided chain: a copy of the serve run cut to T 100 (at T 1000 it
+                         # took 28-39 s of a script that phase 22 brings near its 1,200 s limit)
 # workflows: --num where the horizon allows; compare at the walk clip's 39 frames cut to a
 # multiple of 8 (the U-Net's), on CMP_NUM samples a run; a two-point sweep of SWEEP_STEPS
 WF_NUM, CMP_NUM, CMP_FRAMES, SWEEP_STEPS, PLAY_HORIZON, WALK_STEPS = 16, 8, 32, 10, 15, 20
@@ -350,6 +369,13 @@ SEQ_STATS_TOL = 1e-4     # K1's M2 against its plain version, relative (f32 sums
 SEQ_LA_TOL = 1e-3        # the sharded LocalTransformer (K3) against one process (B3) after
                          # 6 layers: LA_FORWARD_TOL's reason
 SEQ_TIMEOUT = 300.0      # seconds for the two gloo ranks' work
+# bf16 (phase 22): B1's and B3's bf16 forms and the four denoisers served at bf16
+BF16_TOL = KERNEL_TOL    # a bf16 kernel against its plain version: |d| <= 2^-7 |ref| + this
+                         # (one bf16 ulp of the value, plus the float32 forms' card tolerance
+                         # for sums taken in another order)
+BF16_FLOPS = 989e12      # dense bf16 on the tensor cores, H100 SXM (B1's bf16 bound)
+BF16_SHORT_T = 100       # the MDM transformer's and the decoder's bf16 requests: T 100 copies
+BF16_DDIM = 50           # the DDIM chain beside each T 1000 request (U-Net, local attention)
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -440,6 +466,8 @@ def build_all():
 
 def reset_counts():
     CB.conv_gn_mish_cuda.launches = 0
+    CB.conv_gn_mish_bf16_cuda.launches = 0
+    FA.fused_qkv_local_attention_bf16_cuda.launches = 0
     CB.conv_gn_stats_cuda.launches = 0
     CB.gn_affine_mish_cuda.launches = 0
     FA.local_attention_halo_cuda.launches = 0
@@ -696,14 +724,22 @@ def check_motions(paths, frames, num):
             raise RuntimeError(f"{p}: holding_box dims not clamped")
 
 
-def request(run_dir, out_dir, frames, num=B, kernel=CB.conv_gn_mish_cuda):
-    """One CLI request, every count set to 0 just before it; -> (paths,
-    seconds, launches of ``kernel`` in the request)."""
+def refuse_plain(*args, **kwargs):
+    raise RuntimeError("a plain version ran on the card's serving path")
+
+
+def request(run_dir, out_dir, frames, num=B, kernel=CB.conv_gn_mish_cuda, extra=()):
+    """One CLI request, every count set to 0 just before it and the plain
+    versions of B1 and B3 refused during it; -> (paths, seconds, launches of
+    ``kernel`` in the request)."""
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):  # the CLI prints every saved path
+    with swapped(CB, conv_gn_mish_plain=refuse_plain), \
+            swapped(FA, fused_qkv_local_attention_plain=refuse_plain), \
+            contextlib.redirect_stdout(io.StringIO()):  # the CLI prints every saved path
         paths = cli.main(["--run", run_dir, "--num", str(num), "--frames", str(frames),
-                          "--conditioner", "holding_box", "--out", out_dir, "--device", "cuda"])
+                          "--conditioner", "holding_box", "--out", out_dir, "--device", "cuda",
+                          *extra])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernel.launches
@@ -1469,8 +1505,9 @@ def la_train_phase(dev, args, tmp, cfg, steps=10):
 def kernel_counts():
     """Every kernel wrapper's launch count."""
     return {f"{mod.__name__.rsplit('.', 1)[-1]}.{fn.__name__}": fn.launches for mod, fn in (
-        (CB, CB.conv_gn_mish_cuda), (CW, CW.conv1d_weight_grad_cuda),
-        (FA, FA.fused_qkv_local_attention_cuda), (LH, LH.local_attention_heads_cuda),
+        (CB, CB.conv_gn_mish_cuda), (CB, CB.conv_gn_mish_bf16_cuda),
+        (CW, CW.conv1d_weight_grad_cuda), (FA, FA.fused_qkv_local_attention_cuda),
+        (FA, FA.fused_qkv_local_attention_bf16_cuda), (LH, LH.local_attention_heads_cuda),
         (DK, DK.control_step_cuda), (DK, DK.rollout_cuda), (DK, DK.tracking_reward_cuda))}
 
 
@@ -1722,13 +1759,18 @@ def b_train_phase(dev, args, tmp, cfg, steps=10):
     return {"runs": runs, "grads": grad, "profile": profile}
 
 
+def run_copy(run, dst, over):
+    """A copy of the run directory (the same checkpoint) with ``over`` applied
+    to its config.json."""
+    shutil.copytree(run, dst)
+    config = os.path.join(dst, "config.json")
+    ExperimentConfig.load(config).override(over).save(config)
+    return dst
+
+
 def short_run(run, steps):
     """A copy of the run directory whose config cuts its chains to ``steps``."""
-    short = run + f"_t{steps}"
-    shutil.copytree(run, short)
-    config = os.path.join(short, "config.json")
-    ExperimentConfig.load(config).override({"diffusion.noise_steps": steps}).save(config)
-    return short
+    return run_copy(run, run + f"_t{steps}", {"diffusion.noise_steps": steps})
 
 
 def b_eval_phase(dev, run):
@@ -1852,19 +1894,19 @@ def dec_phase(dev, timer, args, tmp):
 
 def guide_phase(dev, timer, args, tmp, peaks):
     """Value guidance: ``guided_sample_loop`` with the serve phase's dim-128
-    U-Net run (posterior T 1000, B 16 x H 64, holding_box) and a seeded
+    U-Net run cut to T GUIDE_T (posterior, B 16 x H 64, holding_box) and a seeded
     ValueFunction (dim 32, mults 1, 2, 4, 8, over H 64, parameters frozen):
     B1's launches (33 U-Net + 20 value blocks a step, no B2), the sorted
     values and finite trajectories; one ``value_gradients`` call and one
     ``value_diffusion_loss`` step's gradients (B1 and B2) against the plain
     versions; the profile of 20 guided steps; B1's and B2's rows at the
     ValueFunction's shapes."""
-    unet, sched = load_model(os.path.join(tmp, "serve_run"), dev)
+    unet, sched = load_model(short_run(os.path.join(tmp, "serve_run"), GUIDE_T), dev)
     torch.manual_seed(args.seed)
     value = ValueFunction(D, H, dim=GUIDE_DIM).to(dev).eval().requires_grad_(False)
     g = torch.Generator(device=dev).manual_seed(args.seed + 5)
     x = torch.randn(B, H, D, generator=g, device=dev)
-    t = torch.randint(0, T, (B,), generator=g, device=dev)
+    t = torch.randint(0, GUIDE_T, (B,), generator=g, device=dev)
     shapes = Counter(record_block_shapes(value, x, t))
     per_value, per_unet = sum(shapes.values()), 33
     cond = conditioning.holding_box(D, device=dev)
@@ -1879,15 +1921,15 @@ def guide_phase(dev, timer, args, tmp, peaks):
     seconds = time.perf_counter() - t0
     b1, b2 = counts()
     traj = out.trajectories
-    if (b1, b2) != ((per_unet + per_value) * T, 0):
+    if (b1, b2) != ((per_unet + per_value) * GUIDE_T, 0):
         raise RuntimeError(f"guided sampling launched conv_gn_mish {b1} and conv1d_weight_grad "
-                           f"{b2} times, expected ({per_unet} + {per_value}) x {T} and 0")
+                           f"{b2} times, expected ({per_unet} + {per_value}) x {GUIDE_T} and 0")
     if (traj.shape != (B, H, D) or not torch.isfinite(traj).all()
             or not torch.isfinite(values).all() or not (values[:-1] >= values[1:]).all()):
         raise RuntimeError(f"guided sampling: shape {tuple(traj.shape)}, values {values}")
-    result = {"seconds": seconds, "samples_per_s": B / seconds, "T": T, "B": B, "H": H,
+    result = {"seconds": seconds, "samples_per_s": B / seconds, "T": GUIDE_T, "B": B, "H": H,
               "value_dim": GUIDE_DIM, "conv_gn_mish_launches": b1,
-              "conv_gn_mish_launches_per_step": b1 // T, "conv1d_weight_grad_launches": b2,
+              "conv_gn_mish_launches_per_step": b1 // GUIDE_T, "conv1d_weight_grad_launches": b2,
               "values_sorted": values.tolist()}
 
     reset_counts()
@@ -1933,12 +1975,12 @@ def guide_phase(dev, timer, args, tmp, peaks):
         "launches": {"conv_gn_mish": launched[0], "conv1d_weight_grad": launched[1]},
         "loss_rel_err": loss_rel, "max_grad_rel_err": rel[worst], "worst_param": worst}
 
-    n = min(20, T)
+    n = min(20, GUIDE_T)
 
     def window():
         xs = traj
         for i in range(n):
-            ts = torch.full((B,), T - 1 - i, dtype=torch.long, device=dev)
+            ts = torch.full((B,), GUIDE_T - 1 - i, dtype=torch.long, device=dev)
             with torch.no_grad():
                 xs, _ = guided_step(sched, unet, value, xs, ts, noise, conditioning_fn=cond)
         torch.cuda.synchronize()
@@ -3313,6 +3355,303 @@ def seq_phase(dev, timer, args, tmp, peaks):
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: bf16 serving (B1's and B3's bf16 forms; the four denoisers at bf16)
+
+BF = torch.bfloat16
+
+
+def bf16_ulps(out, ref):
+    """Per element, how many bf16 values lie between out and ref (both bf16)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return (ordered(out) - ordered(ref)).abs()
+
+
+def bf16_agreement(name, out, ref, where):
+    """A bf16 kernel's output against its plain version's: within one bf16
+    ulp of the value plus BF16_TOL, else raise. -> the error in absolute
+    terms and in bf16 ulps (all values; and the values of at least 2^-7 of
+    max |ref|, whose ulp float32 sums in another order cannot reach)."""
+    if out.dtype != BF or ref.dtype != BF or not torch.isfinite(out).all():
+        raise RuntimeError(f"{name} at {where}: dtypes {out.dtype}, {ref.dtype} or not finite")
+    d = (out.float() - ref.float()).abs()
+    beyond = int((d > 2.0 ** -7 * ref.float().abs() + BF16_TOL).sum())
+    if beyond:
+        raise RuntimeError(f"{name} at {where}: {beyond} values beyond one bf16 ulp + "
+                           f"{BF16_TOL} of the plain version (max abs err {d.max().item()})")
+    ulps = bf16_ulps(out, ref)
+    large = ref.float().abs() >= 2.0 ** -7 * ref.float().abs().max()
+    return {"max_abs_err": d.max().item(), "max_ulps": int(ulps.max()),
+            "max_ulps_large_values": int(ulps[large].max()),
+            "bit_equal_share": float((ulps == 0).float().mean())}
+
+
+def bf16_b1_rows(dev, timer, shape_counts, peaks):
+    """B1's bf16 kernel against its plain version at every shape of the
+    dim-128 serve forward (B 16 x H 64), timed beside B1's float32 kernel on
+    the same values in float32, the plain version and the bf16 composition
+    (``F.conv1d`` + ``group_norm`` + ``mish``); the bound: the bf16 operations
+    at BF16_FLOPS or the bytes (bf16 activations and weights, float32 bias,
+    scale and shift)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    for (h, cin, cout), n in shape_counts.items():
+        x = torch.randn(B, h, cin, generator=g, device=dev).to(BF)
+        w = (torch.randn(K, cin, cout, generator=g, device=dev) * (K * cin) ** -0.5).to(BF)
+        b = 0.1 * torch.randn(cout, generator=g, device=dev)
+        gamma = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
+        beta = 0.1 * torch.randn(cout, generator=g, device=dev)
+        args = (x, w, b, gamma, beta, GROUPS)
+        out = CB.conv_gn_mish_bf16_cuda(*args)
+        ref = CB.conv_gn_mish_plain(*args)
+        torch.cuda.synchronize()
+        err = bf16_agreement("conv_gn_mish_bf16", out, ref, f"B {B}, H {h}, {cin}->{cout}")
+        args32 = (x.float(), w.float(), b, gamma, beta, GROUPS)
+        xc, wc = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+        b16, g16, be16 = b.to(BF), gamma.to(BF), beta.to(BF)
+        flops = 2.0 * B * h * cout * K * cin
+        nbytes = 2.0 * (B * h * (cin + cout) + K * cin * cout) + 4.0 * 3 * cout
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
+        rows.append({
+            "B": B, "H": h, "cin": cin, "cout": cout, "per_forward": n,
+            "plan": dict(zip(("ck", "stages"), CB.bf16_plan(h, cin, cout, K, GROUPS))),
+            **err,
+            "ms": timer(lambda: CB.conv_gn_mish_bf16_cuda(*args)),
+            "f32_kernel_ms": timer(lambda: CB.conv_gn_mish_cuda(*args32)),
+            "plain_ms": timer(lambda: CB.conv_gn_mish_plain(*args)),
+            "composition_ms": timer(lambda: F.mish(F.group_norm(
+                F.conv1d(xc, wc, b16, padding=K // 2), GROUPS, g16, be16))),
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "tflops": None})
+        rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
+        emit({"phase": "kernel", "name": "conv_gn_mish_bf16", **rows[-1]})
+    return rows
+
+
+def bf16_b3_row(dev, timer, peaks, mcfg):
+    """B3's bf16 entry against its plain version at the served shape (B 16 x
+    H 128), timed beside B3's float32 entry on the same values in float32,
+    the plain version and the bf16 composition (rotary + one SDPA with the
+    band mask); the bound: bytes (bf16 qkv read, bf16 context written)."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    g = torch.Generator(device=dev).manual_seed(23)
+    p = FA.plan(LA_H, w, causal)
+    Np = p["Np"]
+    qkv = torch.randn(LA_B, LA_H, 3 * h * dh, generator=g, device=dev).to(BF)
+    args = (qkv, h, dh, w, causal, True, True)
+    out = FA.fused_qkv_local_attention_bf16_cuda(*args)
+    ref = FA.fused_qkv_local_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = bf16_agreement("fused_qkv_local_attention (bf16)", out, ref, f"B {LA_B}, N {LA_H}")
+    args32 = (qkv.float(),) + args[1:]
+    tables = tuple(tuple(t.to(BF) for t in rotary_tables(pos, dh, dev))
+                   for pos in (np.arange(Np) + lf * w, np.arange(Np)))
+    mask = band_mask(Np, w, causal, dev)
+    pairs, empty = attention_work(LA_H, Np, w, causal, [Np] * LA_B)
+    flops = h * 4.0 * dh * pairs + 6.0 * LA_B * LA_H * h * dh
+    nbytes = 2.0 * 4 * LA_B * LA_H * h * dh
+    bound_ms, bound_by = bound(flops, nbytes, peaks)
+    row = {"B": LA_B, "N": LA_H, "heads": h, "dim_head": dh, "window": w, **err,
+           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_B * h),
+           "ms": timer(lambda: FA.fused_qkv_local_attention_bf16_cuda(*args)),
+           "f32_kernel_ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args32)),
+           "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args)),
+           "composition_ms": timer(lambda: b3_composition(qkv, h, dh, w, tables, mask)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "mbytes": nbytes / 1e6}
+    emit({"phase": "kernel", "name": "fused_qkv_local_attention_bf16", **row})
+    return row
+
+
+B1_BF16 = "conv_block_kernel.conv_gn_mish_bf16_cuda"
+B1_F32 = "conv_block_kernel.conv_gn_mish_cuda"
+B3_BF16 = "fused_local_attention.fused_qkv_local_attention_bf16_cuda"
+B3_F32 = "fused_local_attention.fused_qkv_local_attention_cuda"
+
+
+def bf16_requests(tmp, name, run32, num, frames, forwards, expect, extra=()):
+    """The same request through the float32 run and its bf16 copy, same
+    seed: the kernels each launches (``expect``: {count name: launches a
+    forward} at bf16; the float32 request launches the float32 forms as
+    often), seconds, and the served motions' distance."""
+    run16 = run_copy(run32, run32 + "_bf16", {"model.bf16": True})
+    out = {}
+    motions = {}
+    for label, run in (("float32", run32), ("bf16", run16)):
+        paths, seconds, _ = request(run, os.path.join(tmp, f"bf16_req_{name}_{label}"), frames,
+                                    num, extra=extra)
+        launched = kernel_counts()
+        motions[label] = np.stack([np.load(q) for q in paths])
+        want = {k: v * forwards for k, v in expect.items()} if label == "bf16" else {
+            {B1_BF16: B1_F32, B3_BF16: B3_F32}[k]: v * forwards for k, v in expect.items()}
+        for key in (B1_BF16, B1_F32, B3_BF16, B3_F32):
+            if launched[key] != want.get(key, 0):
+                raise RuntimeError(f"the {label} {name} request launched {key} "
+                                   f"{launched[key]} times, expected {want.get(key, 0)}")
+        out[label] = {"seconds": seconds, "samples_per_s": num / seconds,
+                      "launches": {k: launched[k] for k in (B1_BF16, B1_F32, B3_BF16, B3_F32)}}
+    ref = motions["float32"]
+    out.update(num=num, frames=frames, forwards=forwards,
+               motions_max_abs_diff=float(np.abs(motions["bf16"] - ref).max()),
+               motions_rel_diff=float(np.abs(motions["bf16"] - ref).max() / np.abs(ref).max()))
+    emit({"phase": "main_path", "path": f"bf16_{name}", **out})
+    return out, run16
+
+
+def bf16_forwards(runs, dev, make_inputs, n=10):
+    """One forward of the float32 model and of its bf16 build on the same
+    inputs, their relative distance, and for each: the device ms a forward
+    (torch.profiler: every kernel's time, summed over n forwards / n), the
+    wall ms a forward (host clock over n, then a sync) and the kernels a
+    forward launches. (CUDA events around a queue of hundreds of small
+    kernels time the host: the launch queue fills.)"""
+    m32, _ = load_model(runs[0], dev)
+    m16, sched = load_model(runs[1], dev)
+    inputs = make_inputs(sched)
+    row = {}
+    with torch.inference_mode():
+        o32, o16 = m32(*inputs), m16(*inputs)
+        if o16.dtype != torch.float32 or not torch.isfinite(o16).all():
+            raise RuntimeError(f"bf16 forward: {o16.dtype}, finite "
+                               f"{bool(torch.isfinite(o16).all())}")
+        row["rel_diff"] = ((o16 - o32).abs().max() / o32.abs().max()).item()
+        for label, m in (("f32", m32), ("bf16", m16)):
+            def fwds(m=m):
+                for _ in range(n):
+                    m(*inputs)
+                torch.cuda.synchronize()
+
+            fwds()
+            t0 = time.perf_counter()
+            fwds()
+            row[f"{label}_wall_ms"] = (time.perf_counter() - t0) * 1e3 / n
+            row[f"{label}_device_ms"], top, _ = device_time_by_kernel(fwds, n)
+            row[f"{label}_top_kernels"] = top[:4]
+            with counted_launches() as launches:
+                m(*inputs)
+            row[f"{label}_kernels"] = launches[0]
+    return row, m32, m16, sched
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """The device kernels launched inside the block (torch.profiler): -> a
+    one-element list, filled when the block ends."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = [0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield out
+        torch.cuda.synchronize()
+    out[0] = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def bf16_ddim(models, sched, shape, seed, dev, **kw):
+    """A DDIM-50 chain of the float32 and the bf16 model from one seed:
+    seconds each and the trajectories' relative distance."""
+    cond = conditioning.holding_box(shape[-1], device=dev)
+    out = {}
+    for label, m in zip(("float32", "bf16"), models):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            x = sample_loop(sched, m, shape, torch.Generator(device=dev).manual_seed(seed),
+                            mode="ddim", ddim_steps=BF16_DDIM, conditioning_fn=cond,
+                            **kw).trajectories
+        torch.cuda.synchronize()
+        out[label] = {"seconds": time.perf_counter() - t0, "x": x,
+                      "launches": {k: v for k, v in kernel_counts().items() if v}}
+    if not torch.isfinite(out["bf16"]["x"]).all():
+        raise RuntimeError("bf16 DDIM chain not finite")
+    ref = out["float32"].pop("x")
+    rel = ((out["bf16"].pop("x") - ref).abs().max() / ref.abs().max()).item()
+    return {**out, "steps": BF16_DDIM, "trajectories_rel_diff": rel}
+
+
+def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
+    """Phase 22: B1's and B3's bf16 forms against their plain versions at the
+    serve shapes, timed beside the float32 kernels; then each denoiser
+    served through ``cli.sample.main`` from a float32 run and its bf16 copy
+    (same checkpoint, same seed): the dim-128 U-Net (the train phase's run,
+    T 1000, B 16 x H 64) and localattn5k_r3 (T 1000 v4, B 16 x H 128), each
+    with a DDIM-50 chain beside it, and the MDM transformer (the b_serve run,
+    CFG on class 0) and the decoder (the dec run) at T BF16_SHORT_T; counts
+    set to 0 just before each request and read just after it. It makes the
+    runs it finds missing (seeded random weights)."""
+    probe = TemporalUnet(D, dim=DIM).to(dev).eval()
+    shape_counts = Counter(record_block_shapes(probe, torch.zeros(B, H, D, device=dev),
+                                               torch.zeros(B, device=dev)))
+    del probe
+    per_fwd = sum(shape_counts.values())
+    b1 = bf16_b1_rows(dev, timer, shape_counts, peaks)
+    b3 = bf16_b3_row(dev, timer, peaks, la_cfg.model)
+
+    unet_run = os.path.join(tmp, "train_run")
+    if not os.path.exists(unet_run):
+        unet_run = os.path.join(tmp, "bf16_unet_run")
+        write_run(unet_run, args.seed)
+    unet_t = ExperimentConfig.load(os.path.join(unet_run, "config.json")).diffusion.noise_steps
+    unet_req, unet16 = bf16_requests(tmp, "unet", unet_run, B, H, unet_t, {B1_BF16: per_fwd})
+    g = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    unet_fwd, m32, m16, sched = bf16_forwards((unet_run, unet16), dev, lambda s: (
+        torch.randn(B, H, D, generator=g, device=dev),
+        torch.randint(0, s.num_timesteps, (B,), generator=g, device=dev)))
+    unet_fwd["ddim"] = bf16_ddim((m32, m16), sched, (B, H, D), args.seed, dev)
+    if unet_fwd["ddim"]["bf16"]["launches"] != {B1_BF16: per_fwd * BF16_DDIM}:
+        raise RuntimeError(f"bf16 U-Net DDIM chain launched {unet_fwd['ddim']['bf16']['launches']}")
+    emit({"phase": "chains", "path": "bf16_unet", **unet_fwd})
+    del m32, m16
+
+    la_run = os.path.join(tmp, "la_run")
+    if not os.path.exists(la_run):
+        write_model_run(la_run, la_cfg, args.seed, hyper_connection_weights)
+    depth, d_la = la_cfg.model.depth, la_cfg.model.input_dim
+    la_steps = la_cfg.diffusion.noise_steps - 1  # v4 runs the model at t = T-1 .. 1
+    la_req, la16 = bf16_requests(tmp, "la", la_run, LA_B, LA_H, la_steps, {B3_BF16: depth})
+    la_fwd, m32, m16, sched = bf16_forwards((la_run, la16), dev, lambda s: (
+        torch.randn(LA_B, LA_H, d_la, generator=g, device=dev),
+        torch.randint(0, s.num_timesteps, (LA_B,), generator=g, device=dev)))
+    la_fwd["ddim"] = bf16_ddim((m32, m16), sched, (LA_B, LA_H, d_la), args.seed, dev,
+                               predict_epsilon=False)
+    if la_fwd["ddim"]["bf16"]["launches"] != {B3_BF16: depth * BF16_DDIM}:
+        raise RuntimeError(f"bf16 local DDIM chain launched {la_fwd['ddim']['bf16']['launches']}")
+    emit({"phase": "chains", "path": "bf16_la", **la_fwd})
+    del m32, m16
+
+    others = {}
+    if b_run is None:
+        b_run = os.path.join(tmp, "b_run")
+        write_model_run(b_run, ExperimentConfig.load(str(B_CONFIG)), args.seed,
+                        adaln_modulations)
+    dec_run = os.path.join(tmp, "dec")
+    if not os.path.exists(dec_run):
+        dec_run = os.path.join(tmp, "bf16_dec_run")
+        write_model_run(dec_run, ExperimentConfig.load(str(DEC_CONFIG)), args.seed,
+                        lambda name: False)
+    for name, run, frames, extra, batch in (("mdm", b_run, B_H, ["--class-id", "0"], 2 * B_B),
+                                            ("dec", dec_run, DEC_H, [], B)):
+        short = run_copy(run, run + "_bf16src", {"diffusion.noise_steps": BF16_SHORT_T})
+        cfg = ExperimentConfig.load(os.path.join(short, "config.json"))
+        req, short16 = bf16_requests(tmp, name, short, B_B if name == "mdm" else B, frames,
+                                     BF16_SHORT_T - 1, {}, extra)
+        c = cfg.model
+        req["forward"] = bf16_forwards((short, short16), dev, lambda s, c=c: (
+            (torch.randn(batch, frames, c.input_dim, generator=g, device=dev),
+             torch.randint(0, s.num_timesteps, (batch,), generator=g, device=dev))
+            + ((torch.arange(batch, device=dev) % c.num_classes,) if name == "mdm" else ())))[0]
+        others[name] = req
+    emit({"phase": "chains", "path": "bf16_mdm_dec",
+          **{k: v["forward"] for k, v in others.items()}})
+    return {"b1_rows": b1, "b3_row": b3, "per_forward": per_fwd,
+            "unet": {"request": unet_req, **unet_fwd}, "la": {"request": la_req, **la_fwd},
+            **others}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -3395,6 +3734,7 @@ def main(argv=None) -> int:
         result["workflows"] = phase("workflows", workflows_phase, dev, tmp, per_step, b_run)
         result["parallel"] = phase("parallel", parallel_phase, dev, args, tmp, per_step)
         result["seq"] = phase("seq", seq_phase, dev, timer, args, tmp, peaks)
+        result["bf16"] = phase("bf16", bf16_phase, dev, timer, args, tmp, peaks, la_cfg, b_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -3582,6 +3922,41 @@ def main(argv=None) -> int:
         "shape": {"B": SEQ_B, "Nh": k3_main["Nh"], "Nq": k3_main["Nq"]},
         "other_rank": {k: seq["k3_rows"][1][k] for k in ("Nh", "q0", "ms", "plain_ms",
                                                          "composition_ms", "bound_ms")}})
+    # phase 22: B1's bf16 form summed over the 33 launches of the dim-128 serve forward (B 16 x
+    # H 64), B3's bf16 entry per launch at B 16 x H 128; launches from the bf16 T 1000 requests
+    bf = result["bf16"]
+    b1b, b3b = bf["b1_rows"], bf["b3_row"]
+    kernels += [{
+        "name": "conv_gn_mish_bf16", "route": "cuda", "status": "ported; matches its plain version",
+        "form": "B1 at bf16 (bf16 x and w, float32 sums, GroupNorm and Mish; a bf16 output)",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv_gn_mish_bf16.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/conv_block_kernel.py:104",
+        "launches": bf["unet"]["request"]["bf16"]["launches"][B1_BF16],
+        "launches_per_forward": bf["per_forward"],
+        "launches_ddim50": bf["unet"]["ddim"]["bf16"]["launches"][B1_BF16],
+        "max_abs_err": max(r["max_abs_err"] for r in b1b),
+        "max_ulps": max(r["max_ulps"] for r in b1b),
+        "max_ulps_large_values": max(r["max_ulps_large_values"] for r in b1b),
+        **{k: per_launch_sum(b1b, k, "per_forward")
+           for k in ("ms", "plain_ms", "bound_ms", "f32_kernel_ms", "composition_ms")},
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in b1b)
+        else "bytes", "library_ms": None,
+        "shape": {"B": B, "H": H, "launches_per_forward": bf["per_forward"]},
+    }, {
+        "name": "fused_qkv_local_attention_bf16", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "form": "B3 at bf16 (a bf16 qkv, float32 inside, a bf16 context)",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/fused_local_attention.py:284",
+        "launches": bf["la"]["request"]["bf16"]["launches"][B3_BF16],
+        "launches_ddim50": bf["la"]["ddim"]["bf16"]["launches"][B3_BF16],
+        **{k: b3b[k] for k in ("max_abs_err", "max_ulps", "max_ulps_large_values", "ms",
+                               "plain_ms", "bound_ms", "bound_by", "f32_kernel_ms",
+                               "composition_ms")},
+        "library_ms": None,
+        "shape": {"B": LA_B, "N": LA_H, "heads": b3b["heads"], "dim_head": b3b["dim_head"],
+                  "window": b3b["window"]},
+    }]
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

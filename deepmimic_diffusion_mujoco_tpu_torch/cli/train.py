@@ -79,6 +79,9 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
     rank, _ = meshlib.rank_and_world(group)
     if cfg.train.timestep_sampler == "loss_aware" and cfg.diffusion.loss != "v4":
         raise ValueError("timestep_sampler=loss_aware requires diffusion.loss=v4")
+    if cfg.model.bf16:
+        raise NotImplementedError("bf16 models serve forwards only: bf16 training waits for "
+                                  "ROADMAP.md Queue A, bf16 training")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
         model, sched = factory.build_experiment(cfg, dev)

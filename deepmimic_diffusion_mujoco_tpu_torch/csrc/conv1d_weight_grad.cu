@@ -78,6 +78,8 @@ constexpr int kMaxStages = 4;
 constexpr int kPortableCluster = 8;
 constexpr int kMaxCluster = 16;        // with the non-portable cluster size
 constexpr int kMaxSmem = 227 * 1024;   // a CTA's shared memory, dynamic and static
+// The kernel's static shared memory: the ring's full and empty mbarriers
+constexpr size_t kStaticSmem = 2 * kMaxStages * sizeof(uint64_t);
 constexpr int kWarpCi = 16;            // a warp's piece of the tile: 16 input channels
 constexpr int kWarpCo = 32;            // ... x 32 output channels
 constexpr int kNT = kWarpCo / 8;       // n8 tiles of a warp's piece
@@ -450,7 +452,7 @@ bool plan_ok(const Plan& p, int K) {
     return false;
   const int threads = plan_threads(p);
   return threads >= 32 && threads <= kMaxThreads &&
-         layout(p, K).bytes + 2 * kMaxStages * sizeof(uint64_t) <= (size_t)kMaxSmem;
+         layout(p, K).bytes + kStaticSmem <= (size_t)kMaxSmem;
 }
 
 template <int K>
@@ -459,6 +461,8 @@ int launch_as(const float* x, const float* dy, float* out, int R, int H, int Cin
   const auto kernel = conv1d_weight_grad_kernel<K>;
   const Layout l = layout(p, K);
   // Attributes set so far, per device: they apply to the current device only.
+  // 48 KB holds static and dynamic bytes together: without the static ones a
+  // plan just under 48 KB of dynamic bytes would be refused at launch.
   constexpr int kMaxDevices = 64;
   static size_t smem_set[kMaxDevices] = {};
   static bool wide_set[kMaxDevices] = {};
@@ -466,7 +470,7 @@ int launch_as(const float* x, const float* dy, float* out, int R, int H, int Cin
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   const bool known = dev < kMaxDevices;
-  if (l.bytes > 48 * 1024 && !(known && l.bytes <= smem_set[dev])) {
+  if (l.bytes + kStaticSmem > 48 * 1024 && !(known && l.bytes <= smem_set[dev])) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.bytes);
     if (e != cudaSuccess) return (int)e;
     if (known) smem_set[dev] = l.bytes;

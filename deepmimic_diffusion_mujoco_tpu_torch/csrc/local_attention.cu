@@ -3,6 +3,13 @@
 //   fused_qkv_local_attention_f32  (B3) qkv (B, N, 3*h*dh) -> out (B, N, h*dh),
 //     all heads, straight from the QKV projection; prefix key lengths and an
 //     attention-dropout keep mask (B, Np, h*K) are optional.
+//     fused_qkv_local_attention_bf16 is its bf16 form (a model built with
+//     bf16=True): bf16 qkv in, bf16 context out, everything between in
+//     float32 exactly as the f32 entry computes it, as the TPU kernel upcasts
+//     a bf16 qkv and writes qkv.dtype. The staging widens each bf16 row to
+//     float32 in shared memory (plain 16-byte loads, then the plain mbarrier
+//     arrive, where the float32 form copies with cp.async), and the final
+//     store rounds once; the float32 instantiation is unchanged.
 //   local_attention_heads_f32      (B4) q, k, v (B*h, N, dh) -> out (B*h, N, dh).
 //   local_attention_halo_f32       (K3, B3's halo entry) one rank's share of a
 //     horizon split over ranks (sequence-sharded sampling): qkv (B, Nh,
@@ -83,9 +90,12 @@
 // Python wrappers (ops/fused_local_attention.py, ops/local_attention_kernel.py)
 // validate shapes, dtypes, contiguity and the plan before they call in.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_tf32.h"
 
@@ -95,11 +105,13 @@ constexpr int kMaxWarps = 8;
 constexpr int kMaxSmem = 232448;  // a block's shared memory, dynamic and static
 constexpr int kStaticSmem = 16;   // the two mbarriers
 
+using bf16 = __nv_bfloat16;
+
 struct Args {
-  const float* q;        // element (row, d) of head y, batch z at
-  const float* k;        //   base + z * in_z + y * in_y + row * in_row + d
-  const float* v;
-  float* out;            //   out + z * out_z + y * out_y + row * out_row + d
+  const void* q;         // element (row, d) of head y, batch z at
+  const void* k;         //   base + z * in_z + y * in_y + row * in_row + d
+  const void* v;         //   (float, or bf16 in the bf16 entry)
+  void* out;             //   out + z * out_z + y * out_y + row * out_row + d
   const int* lengths;    // (batch,) valid keys per sequence, or null
   const float* keep;     // keep + z * keep_z + row * keep_row + y * K + kk, or null
   const float* rot;      // (positions, dh / 2, 2): cos, sin of pos * freq (with rotary)
@@ -182,25 +194,75 @@ __device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
                : "memory");
 }
 
-// Stage rows [0, n) of one operand into dst (row stride DH + 4): row r from
-// src(r), or zeros where src(r) is null. Every thread copies 16-byte pieces
-// with cp.async and arrives on `bar` once its pieces land (one arrival a
-// thread). The zero rows are plain stores: a block barrier makes them
-// visible.
+// Arrives on `bar` (release: this thread's shared-memory stores so far are
+// seen by a thread that waits on it).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 state;\n\t"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Eight bf16 values (16 bytes) widened to float32.
+__device__ __forceinline__ void widen8(uint4 u, float4* lo, float4* hi) {
+  *lo = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                    __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  *hi = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
+                    __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+}
+
+// Two and four context values to `p`, rounded once where T is bf16.
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store4(float* p, float x, float y, float z, float w) {
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+}
+__device__ __forceinline__ void store4(bf16* p, float x, float y, float z, float w) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x, y), b = __floats2bfloat162_rn(z, w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+}
+
+// Stage rows [0, n) of one operand into dst (row stride DH + 4 floats): row
+// r from src(r), or zeros where src(r) is null. Float rows: every thread
+// copies 16-byte pieces with cp.async and arrives on `bar` once its pieces
+// land (one arrival a thread); the zero rows are plain stores, which a block
+// barrier makes visible. bf16 rows: every thread loads 16-byte pieces (8
+// values), widens them to float32, stores them, and arrives on `bar`.
 template <int DH, typename Src>
 __device__ __forceinline__ void stage(float* dst, int n, Src src, uint64_t* bar, int tid,
                                       int nthreads) {
-  constexpr int kVec = DH / 4;
-  for (int e = tid; e < n * kVec; e += nthreads) {
-    const int r = e / kVec, v = e % kVec;
-    const float* row = src(r);
-    float* d = dst + r * (DH + 4) + 4 * v;
-    if (row != nullptr)
-      copy16(d, row + 4 * v);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (std::is_same_v<decltype(src(0)), const float*>) {
+    constexpr int kVec = DH / 4;
+    for (int e = tid; e < n * kVec; e += nthreads) {
+      const int r = e / kVec, v = e % kVec;
+      const float* row = src(r);
+      float* d = dst + r * (DH + 4) + 4 * v;
+      if (row != nullptr)
+        copy16(d, row + 4 * v);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    mbar_arrive_on_copies(bar);
+  } else {
+    constexpr int kVec = DH / 8;
+    for (int e = tid; e < n * kVec; e += nthreads) {
+      const int r = e / kVec, v = e % kVec;
+      const bf16* row = src(r);
+      float4* d = reinterpret_cast<float4*>(dst + r * (DH + 4) + 8 * v);
+      if (row != nullptr) {
+        widen8(*reinterpret_cast<const uint4*>(row + 8 * v), d, d + 1);
+      } else {
+        d[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+        d[1] = d[0];
+      }
+    }
+    mbar_arrive(bar);
   }
-  mbar_arrive_on_copies(bar);
 }
 
 // Scale and, with `tab`, rotate staged rows [0, rows) in place: item (r, g)
@@ -288,7 +350,10 @@ __device__ __forceinline__ void q_fragment(const float* qrow, int k0, int t, uin
 // t0 + 8 n + 2 t and + 1, outputs of dims 8 d + 2 t and + 1. P V reads a
 // k-step's keys 2t and 2t + 1 as its logical keys t and t + 4, so the score
 // fragment is P V's A fragment as it stands.
-template <int DH, bool MMA>
+//
+// T: the element type of qkv and the context (float, or bf16 in the bf16
+// entry); staged rows, scores and sums are float32 either way.
+template <int DH, bool MMA, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 windowed_attention_kernel(const Args a, const Plan p) {
   constexpr int kStride = DH + 4;
@@ -314,9 +379,9 @@ windowed_attention_kernel(const Args a, const Plan p) {
   const int s1 = min(min(s0 + p.slab, a.q0 + (c + 1) * a.C), a.q0 + a.Nq);
   const int head = blockIdx.y, z = blockIdx.z;
   const long long in_base = z * a.in_z + head * a.in_y;
-  const float* qb = a.q + in_base;
-  const float* kb = a.k + in_base;
-  const float* vb = a.v + in_base;
+  const T* qb = static_cast<const T*>(a.q) + in_base;
+  const T* kb = static_cast<const T*>(a.k) + in_base;
+  const T* vb = static_cast<const T*>(a.v) + in_base;
   const int len = a.lengths != nullptr ? a.lengths[z] : a.Np;
   int blo, bhi;
   key_band(a, s0, s1, &blo, &bhi);
@@ -364,13 +429,13 @@ windowed_attention_kernel(const Args a, const Plan p) {
     if (lo > blo) __syncthreads();  // every warp is done with the previous segment's rows
     // 1. one round trip: Q and K under bars[0], V under bars[1]
     const int nq = lo == blo ? s1 - s0 : 0;
-    stage<DH>(qs, nq, [&](int rr) -> const float* {
+    stage<DH>(qs, nq, [&](int rr) -> const T* {
       return s0 + rr < a.N ? qb + (long long)(s0 + rr) * a.in_row : nullptr;
     }, &bars[0], tid, nthreads);
-    stage<DH>(ks, hi - lo, [&](int rr) -> const float* {
+    stage<DH>(ks, hi - lo, [&](int rr) -> const T* {
       return lo + rr < a.N ? kb + (long long)(lo + rr) * a.in_row : nullptr;
     }, &bars[0], tid, nthreads);
-    stage<DH>(vs, hi - lo, [&](int rr) -> const float* {
+    stage<DH>(vs, hi - lo, [&](int rr) -> const T* {
       return lo + rr < a.N ? vb + (long long)(lo + rr) * a.in_row : nullptr;
     }, &bars[1], tid, nthreads);
     const int qpos = s0 + a.lf * a.w;
@@ -537,7 +602,7 @@ windowed_attention_kernel(const Args a, const Plan p) {
       for (int t0 = 0; t0 < a.K; t0 += p.cap, ++phase) {
         if (t0 > 0) __syncthreads();
         const int nt = min(p.cap, a.K - t0);
-        stage<DH>(vs, nt, [&](int rr) -> const float* {
+        stage<DH>(vs, nt, [&](int rr) -> const T* {
           const int j = chunk_key_row(a, c, t0 + rr);
           return j < a.N ? vb + (long long)j * a.in_row : nullptr;
         }, &bars[1], tid, nthreads);
@@ -572,20 +637,18 @@ windowed_attention_kernel(const Args a, const Plan p) {
 #pragma unroll
   for (int u = 0; u < R; ++u) {
     if (!(active && rows[u] < min(s1, a.N))) continue;
-    float* out_row =
-        a.out + z * a.out_z + head * a.out_y + (long long)(rows[u] - a.q0) * a.out_row;
+    T* out_row = static_cast<T*>(a.out) + z * a.out_z + head * a.out_y +
+                 (long long)(rows[u] - a.q0) * a.out_row;
     const float inv_l = 1.f / l[u];
     if constexpr (MMA) {
 #pragma unroll
       for (int d = 0; d < DH / 8; ++d)
-        reinterpret_cast<float2*>(out_row + 8 * d + 2 * h)[0] =
-            make_float2(o[4 * d + 2 * u] * inv_l, o[4 * d + 2 * u + 1] * inv_l);
+        store2(out_row + 8 * d + 2 * h, o[4 * d + 2 * u] * inv_l, o[4 * d + 2 * u + 1] * inv_l);
     } else {
 #pragma unroll
       for (int g = 0; g < kOut / 4; ++g)
-        reinterpret_cast<float4*>(out_row)[g * L + h] =
-            make_float4(o[4 * g] * inv_l, o[4 * g + 1] * inv_l, o[4 * g + 2] * inv_l,
-                        o[4 * g + 3] * inv_l);
+        store4(out_row + 4 * (g * L + h), o[4 * g] * inv_l, o[4 * g + 1] * inv_l,
+               o[4 * g + 2] * inv_l, o[4 * g + 3] * inv_l);
     }
   }
 }
@@ -596,34 +659,38 @@ size_t smem_bytes(int dh, const Plan& p, bool rotary) {
          (dh + 4);
 }
 
-template <int DH, bool MMA>
+template <int DH, bool MMA, typename T>
 int launch_as(const Args& a, const Plan& p, dim3 grid, cudaStream_t stream) {
   const size_t smem = smem_bytes(DH, p, a.rotary);
   // Dynamic shared memory allowed so far, per device: the attribute applies
-  // to the current device only.
+  // to the current device only. 48 KB holds static and dynamic bytes
+  // together: without the static ones a plan just under 48 KB of dynamic
+  // bytes would be refused at launch.
   constexpr int kMaxDevices = 64;
   static size_t configured[kMaxDevices] = {};
-  if (smem > 48 * 1024) {
+  if (smem + kStaticSmem > 48 * 1024) {
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (!(dev < kMaxDevices && smem <= configured[dev])) {
-      e = cudaFuncSetAttribute(windowed_attention_kernel<DH, MMA>,
+      e = cudaFuncSetAttribute(windowed_attention_kernel<DH, MMA, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
       if (dev < kMaxDevices) configured[dev] = smem;
     }
   }
-  windowed_attention_kernel<DH, MMA>
+  windowed_attention_kernel<DH, MMA, T>
       <<<grid, p.slab / rows_per_warp(MMA) * 32, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, typename T>
 int launch_dh(const Args& a, const Plan& p, int mma, dim3 grid, cudaStream_t stream) {
-  return mma ? launch_as<DH, true>(a, p, grid, stream) : launch_as<DH, false>(a, p, grid, stream);
+  return mma ? launch_as<DH, true, T>(a, p, grid, stream)
+             : launch_as<DH, false, T>(a, p, grid, stream);
 }
 
+template <typename T>
 int launch(const Args& a, int dh, const Plan& p, int mma, int batch, int heads,
            cudaStream_t stream) {
   const int rpw = rows_per_warp(mma);
@@ -635,10 +702,10 @@ int launch(const Args& a, int dh, const Plan& p, int mma, int batch, int heads,
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Nq / a.C * ((a.C + p.slab - 1) / p.slab), heads, batch);
   switch (dh) {
-    case 16: return launch_dh<16>(a, p, mma, grid, stream);
-    case 32: return launch_dh<32>(a, p, mma, grid, stream);
-    case 64: return launch_dh<64>(a, p, mma, grid, stream);
-    case 128: return launch_dh<128>(a, p, mma, grid, stream);
+    case 16: return launch_dh<16, T>(a, p, mma, grid, stream);
+    case 32: return launch_dh<32, T>(a, p, mma, grid, stream);
+    case 64: return launch_dh<64, T>(a, p, mma, grid, stream);
+    case 128: return launch_dh<128, T>(a, p, mma, grid, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -656,19 +723,12 @@ Args common(int dh, int window, int causal, int exact, int rotary, const float* 
   return a;
 }
 
-}  // namespace
-
-extern "C" {
-
-// B3. `rot` is the (Np + lf * w, dh / 2, 2) cos/sin table (unused without
-// rotary); slab, cap and mma (the products on the tensor cores) are the
-// launch plan. Returns 0 on success, else a cudaError_t value
-// (cudaErrorInvalidValue for a head width or plan the kernel does not take).
-int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const float* keep,
-                                  const float* rot, float* out, int B, int N, int Np, int heads,
-                                  int dim_head, int window, int causal, int exact, int rotary,
-                                  int C, int P, int K, float inv_keep_prob, int slab, int cap,
-                                  int mma, void* stream) {
+// B3 on qkv and out of element type T.
+template <typename T>
+int fused_qkv(const T* qkv, const int* lengths, const float* keep, const float* rot, T* out,
+              int B, int N, int Np, int heads, int dim_head, int window, int causal, int exact,
+              int rotary, int C, int P, int K, float inv_keep_prob, int slab, int cap, int mma,
+              void* stream) {
   Args a = common(dim_head, window, causal, exact, rotary, rot);
   const long long hd = (long long)heads * dim_head;
   a.q = qkv;
@@ -693,7 +753,36 @@ int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const fl
   a.P = P;
   a.K = K;
   a.inv_keep = inv_keep_prob;
-  return launch(a, dim_head, Plan{slab, cap}, mma, B, heads, static_cast<cudaStream_t>(stream));
+  return launch<T>(a, dim_head, Plan{slab, cap}, mma, B, heads,
+                   static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
+
+extern "C" {
+
+// B3. `rot` is the (Np + lf * w, dh / 2, 2) cos/sin table (unused without
+// rotary); slab, cap and mma (the products on the tensor cores) are the
+// launch plan. Returns 0 on success, else a cudaError_t value
+// (cudaErrorInvalidValue for a head width or plan the kernel does not take).
+int fused_qkv_local_attention_f32(const float* qkv, const int* lengths, const float* keep,
+                                  const float* rot, float* out, int B, int N, int Np, int heads,
+                                  int dim_head, int window, int causal, int exact, int rotary,
+                                  int C, int P, int K, float inv_keep_prob, int slab, int cap,
+                                  int mma, void* stream) {
+  return fused_qkv(qkv, lengths, keep, rot, out, B, N, Np, heads, dim_head, window, causal,
+                   exact, rotary, C, P, K, inv_keep_prob, slab, cap, mma, stream);
+}
+
+// B3's bf16 form: qkv and out bf16 (16-byte aligned), the rest as above.
+int fused_qkv_local_attention_bf16(const void* qkv, const int* lengths, const float* keep,
+                                   const float* rot, void* out, int B, int N, int Np, int heads,
+                                   int dim_head, int window, int causal, int exact, int rotary,
+                                   int C, int P, int K, float inv_keep_prob, int slab, int cap,
+                                   int mma, void* stream) {
+  return fused_qkv(static_cast<const bf16*>(qkv), lengths, keep, rot, static_cast<bf16*>(out),
+                   B, N, Np, heads, dim_head, window, causal, exact, rotary, C, P, K,
+                   inv_keep_prob, slab, cap, mma, stream);
 }
 
 // B4: 128-row chunks, keys the three whole blocks around each (N % 128 == 0).
@@ -713,7 +802,8 @@ int local_attention_heads_f32(const float* q, const float* k, const float* v, co
   a.q0 = 0;
   a.C = a.P = 128;
   a.K = 3 * 128;
-  return launch(a, dim_head, Plan{slab, cap}, mma, BH, 1, static_cast<cudaStream_t>(stream));
+  return launch<float>(a, dim_head, Plan{slab, cap}, mma, BH, 1,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // K3, B3's halo entry (the header): qkv (B, Nh, 3*h*dh) a rank's slab whose
@@ -742,7 +832,8 @@ int local_attention_halo_f32(const float* qkv, const int* lengths, const float* 
   a.Nq = a.C = Nq;
   a.P = window;
   a.K = Nq + 2 * window;
-  return launch(a, dim_head, Plan{slab, cap}, mma, B, heads, static_cast<cudaStream_t>(stream));
+  return launch<float>(a, dim_head, Plan{slab, cap}, mma, B, heads,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* local_attention_error_string(int code) {

@@ -2,8 +2,9 @@
 
 Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``: the MDM
 transformer, the temporal U-Net, the local-attention transformer and the
-decoder. bf16 compute raises ``NotImplementedError`` naming the ROADMAP.md
-item that brings it.
+decoder. ``bf16=True`` builds each with a bf16 compute dtype (parameters
+float32, the output float32), as the JAX factory passes
+``dtype=jnp.bfloat16``; bf16 serves forwards only (``models.precision``).
 """
 from __future__ import annotations
 
@@ -23,21 +24,18 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.
     on the card the conv blocks always launch the CUDA kernel, and every
     local attention call the kernel's semantics cover launches B3."""
     dev = resolve_device(device)
-    if cfg.bf16:
-        raise NotImplementedError(
-            "bf16 compute is not ported yet (ROADMAP.md Queue B, B1's bf16/wgmma variant); "
-            "the port computes in float32 only")
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     if cfg.architecture == "transformer":
         return TransformerMotionModel(
             input_dim=cfg.input_dim, latent_dim=cfg.latent_dim, n_heads=cfg.n_heads,
             num_layers=cfg.num_layers, dropout=cfg.dropout,
             dim_feedforward=cfg.dim_feedforward, max_sequence_length=cfg.max_seq_len,
-            num_classes=cfg.num_classes, conditioning=cfg.conditioning,
+            num_classes=cfg.num_classes, conditioning=cfg.conditioning, dtype=dtype,
         ).to(dev)
     if cfg.architecture == "temporal":
         return TemporalUnet(
             transition_dim=cfg.input_dim, dim=cfg.channel_dim,
-            dim_mults=tuple(cfg.dim_mults), attention=cfg.attention,
+            dim_mults=tuple(cfg.dim_mults), attention=cfg.attention, dtype=dtype,
         ).to(dev)
     if cfg.architecture == "local_attention":
         return LocalTransformer(
@@ -48,11 +46,12 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> torch.
             ff_dropout=cfg.ff_dropout, use_dynamic_pos_bias=cfg.use_dynamic_pos_bias,
             use_global_attn=cfg.use_global_attn,
             global_attn_layers=tuple(cfg.global_attn_layers), num_classes=cfg.num_classes,
+            dtype=dtype,
         ).to(dev)
     if cfg.architecture == "decoder":
         return TransformerDecoderMotionModel(
             horizon=cfg.max_seq_len, transition_dim=cfg.input_dim, dim=cfg.latent_dim,
-            n_heads=cfg.n_heads, num_layers=cfg.num_layers,
+            n_heads=cfg.n_heads, num_layers=cfg.num_layers, dtype=dtype,
         ).to(dev)
     raise ValueError(f"unknown architecture {cfg.architecture!r}")
 

@@ -57,6 +57,16 @@ weights get one mask broadcast over batch and heads, as flax's MHA does.
 Norms use flax's eps 1e-6 and GELU is flax's tanh
 approximation, so ``convert.local_transformer_from_flax`` weights
 reproduce the JAX model.
+
+Compute dtype (``dtype``; ``factory.build_model`` passes bf16 for a
+``bf16=True`` config): parameters stay float32; under bf16 every Dense,
+LayerNorm, RMSNorm and embedding rounds where flax's ``dtype=bf16`` module
+does (``models.precision``), the attention core takes the bf16 QKV and
+returns a bf16 context (B3's bf16 form: float32 inside, as the Pallas
+kernel upcasts), the bucketed path computes in bf16 as JAX's jnp path does,
+and the output is cast to float32. bf16 serves forwards only: the kernel
+entries raise where a gradient or a keep mask is asked of them, and the
+KV-cache decode and the horizon split raise at bf16 (ROADMAP.md Queue A).
 """
 from __future__ import annotations
 
@@ -68,6 +78,7 @@ import torch.nn.functional as F
 from ..ops import fused_local_attention as FK
 from ..utils import seq as seqlib
 from . import hyper_connections as hc_lib
+from . import precision as P
 from .embeddings import apply_rotary, mdm_timestep_embedding, rotary_angles, xpos_scale
 from .transformer import MultiHeadAttention, keep_mask
 
@@ -157,7 +168,7 @@ def local_attention(q, k, v, window_size: int, *, causal: bool = False,
         km = _look_around(key_mask.to(torch.float32).reshape(B, nw, w, 1), look_backward,
                           look_forward, pad_value=0.0)[..., 0]       # (B, nw, jw)
         sim = sim.masked_fill(km[:, None, :, None, :] <= 0, NEG_INF)
-    attn = sim.softmax(dim=-1)
+    attn = P.softmax(sim, dim=-1)
     if attn_dropout > 0.0:
         keep = keep_mask(attn.shape, 1.0 - attn_dropout, generator, dev)
         attn = attn * keep / (1.0 - attn_dropout)
@@ -171,8 +182,9 @@ class LocalMHA(nn.Module):
     def __init__(self, dim: int, window_size: int, heads: int = 8, dim_head: int = 64,
                  causal: bool = False, exact_windowsize: bool = True, use_xpos: bool = False,
                  xpos_scale_base: float | None = None, use_rotary: bool = True,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.window_size, self.heads, self.dim_head = window_size, heads, dim_head
         self.causal, self.exact_windowsize = causal, exact_windowsize
         self.use_xpos, self.xpos_scale_base, self.use_rotary = use_xpos, xpos_scale_base, use_rotary
@@ -197,12 +209,17 @@ class LocalMHA(nn.Module):
         B, N, _ = x.shape
         h, dh = self.heads, self.dim_head
         dropout = self.attn_dropout if self.training else 0.0
-        qkv = self.to_qkv(self.norm(x))
+        dt = self.dtype
+        qkv = P.linear(P.layer_norm(x, self.norm, dt), self.to_qkv, dt)
         if cache is not None:
+            if dt == P.BF16:
+                raise NotImplementedError(
+                    "the KV-cache decode computes in float32 only: bf16 decoding waits for "
+                    "ROADMAP.md Queue A, local attention's leftovers (the KV-cache decode at bf16)")
             return self._decode(qkv, cache, decode_pos)
         if seq is not None:
-            return self.to_out(self._sharded(qkv, key_mask, window_size, bias_table, seq,
-                                             lengths))
+            return P.linear(self._sharded(qkv, key_mask, window_size, bias_table, seq, lengths),
+                            self.to_out, dt)
         if self.uses_kernel(N, window_size, bias_table):
             keep = None
             if dropout > 0.0:
@@ -225,7 +242,7 @@ class LocalMHA(nn.Module):
                 key_mask=key_mask, mask_window_size=self.window_size, bias_table=bias_table,
                 attn_dropout=dropout, generator=generator,
             ).transpose(1, 2).reshape(B, N, h * dh)
-        return self.to_out(out)
+        return P.linear(out, self.to_out, dt)
 
     def _sharded(self, qkv, key_mask, window_size, bias_table, seq, lengths):
         """This rank's context rows: its QKV rows with one window of each
@@ -280,15 +297,17 @@ class GlobalMHA(nn.Module):
     flax's ``MultiHeadDotProductAttention`` (``heads`` x ``dim_head``
     features, biases) with padded keys masked for every query."""
 
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.norm = nn.LayerNorm(dim, eps=EPS)
-        self.attn = MultiHeadAttention(dim, heads, dropout, inner=heads * dim_head)
+        self.attn = MultiHeadAttention(dim, heads, dropout, inner=heads * dim_head, dtype=dtype)
 
     def forward(self, x, key_mask=None, generator=None, seq=None):
         """``seq``: x and key_mask are this rank's frames of a horizon split;
         its queries attend over every rank's keys and values."""
-        normed = self.norm(x)
+        normed = P.layer_norm(x, self.norm, self.dtype)
         if seq is None:
             return self.attn(normed, None if key_mask is None else key_mask > 0, generator)
         mask = None if key_mask is None else seq.gather_horizon(key_mask.to(torch.float32)) > 0
@@ -299,37 +318,40 @@ class GEGLUFeedForward(nn.Module):
     """Pre-norm GEGLU MLP: inner = int(dim * mult * 2/3), gated by GELU
     (tanh), with dropout between the gate and the down-projection."""
 
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = int(dim * mult * 2 / 3)
-        self.dropout = dropout
+        self.dropout, self.dtype = dropout, dtype
         self.norm = nn.LayerNorm(dim, eps=EPS)
         self.proj_in = nn.Linear(dim, 2 * inner, bias=False)
         self.proj_out = nn.Linear(inner, dim, bias=False)
 
     def forward(self, x, generator=None):
-        a, g = self.proj_in(self.norm(x)).chunk(2, dim=-1)
-        h = a * F.gelu(g, approximate="tanh")
+        dt = self.dtype
+        a, g = P.linear(P.layer_norm(x, self.norm, dt), self.proj_in, dt).chunk(2, dim=-1)
+        h = a * P.gelu_tanh(g)
         if self.training and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
             keep = keep_mask(h.shape, keep_prob, generator, h.device)
             h = torch.where(keep, h / keep_prob, torch.zeros_like(h))
-        return self.proj_out(h)
+        return P.linear(h, self.proj_out, dt)
 
 
 class DynamicPositionBias(nn.Module):
     """Relative-distance MLP bias: Linear(1->dim) SiLU Linear(dim->dim) SiLU
     Linear(dim->heads) on integer distances -> (n_dist, heads)."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dense = nn.ModuleList([nn.Linear(1, dim), nn.Linear(dim, dim), nn.Linear(dim, heads)])
 
     def forward(self, n_dist: int):
         d = torch.arange(n_dist, dtype=torch.float32, device=self.dense[0].weight.device)[:, None]
-        h = F.silu(self.dense[0](d))
-        h = F.silu(self.dense[1](h))
-        return self.dense[2](h)
+        h = P.silu(P.linear(d, self.dense[0], self.dtype))
+        h = P.silu(P.linear(h, self.dense[1], self.dtype))
+        return P.linear(h, self.dense[2], self.dtype)
 
 
 class LocalTransformer(nn.Module):
@@ -343,9 +365,9 @@ class LocalTransformer(nn.Module):
                  num_classes: int = 0, num_residual_streams: int = 4,
                  attn_dropout: float = 0.0, ff_dropout: float = 0.0,
                  use_dynamic_pos_bias: bool = False, use_global_attn: bool = False,
-                 global_attn_layers: tuple = ()):
+                 global_attn_layers: tuple = (), dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.causal = causal
+        self.causal, self.dtype = causal, dtype
         self.input_dim, self.max_seq_len, self.dim = input_dim, max_seq_len, dim
         self.depth, self.window_size = depth, window_size
         self.num_classes = num_classes
@@ -356,27 +378,31 @@ class LocalTransformer(nn.Module):
         self.time_embed_1 = nn.Linear(dim, dim)
         self.pos_emb = nn.Parameter(torch.randn(max_seq_len, dim))
         self.class_embed = nn.Embedding(num_classes + 1, dim) if num_classes > 0 else None
-        self.dynamic_pos_bias = (DynamicPositionBias(dim // 2, heads)
+        self.dynamic_pos_bias = (DynamicPositionBias(dim // 2, heads, dtype)
                                  if use_dynamic_pos_bias else None)
         self.attn = nn.ModuleList([
             LocalMHA(dim, window_size, heads, dim_head, causal=causal, use_xpos=use_xpos,
-                     use_rotary=not use_dynamic_pos_bias, attn_dropout=attn_dropout)
+                     use_rotary=not use_dynamic_pos_bias, attn_dropout=attn_dropout,
+                     dtype=dtype)
             for _ in range(depth)])
-        self.ff = nn.ModuleList([GEGLUFeedForward(dim, ff_mult, ff_dropout) for _ in range(depth)])
+        self.ff = nn.ModuleList([GEGLUFeedForward(dim, ff_mult, ff_dropout, dtype)
+                                 for _ in range(depth)])
         # global inserts before the local attention of these 0-based layers
         self.global_layers = (sorted(i - 1 for i in (global_attn_layers or range(1, depth + 1)))
                               if use_global_attn else [])
-        self.global_attn = nn.ModuleDict({str(i): GlobalMHA(dim, heads, dim_head, attn_dropout)
+        self.global_attn = nn.ModuleDict({str(i): GlobalMHA(dim, heads, dim_head, attn_dropout,
+                                                            dtype)
                                           for i in self.global_layers})
         S = num_residual_streams
         if S > 1:
             # width connections of the attention / FF branches: layer indices 2i, 2i+1;
             # the global inserts' after them, 2 depth + i
-            self.hc_attn = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i)
+            self.hc_attn = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i, dtype)
                                           for i in range(depth)])
-            self.hc_ff = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i + 1)
+            self.hc_ff = nn.ModuleList([hc_lib.HyperConnection(dim, S, 2 * i + 1, dtype)
                                         for i in range(depth)])
-            self.hc_global = nn.ModuleDict({str(i): hc_lib.HyperConnection(dim, S, 2 * depth + i)
+            self.hc_global = nn.ModuleDict({str(i): hc_lib.HyperConnection(dim, S, 2 * depth + i,
+                                                                           dtype)
                                             for i in self.global_layers})
         self.norm = nn.LayerNorm(dim, eps=EPS)
         self.final_layer = nn.Linear(dim, input_dim)
@@ -409,20 +435,22 @@ class LocalTransformer(nn.Module):
                 f"horizon {total} exceeds max_seq_len {self.max_seq_len}: the learned position "
                 f"table has {self.max_seq_len} rows (the JAX model fails the same way), so "
                 "frames cannot exceed the config's model.max_seq_len")
-        h = self.pose_embed(x.to(torch.float32))
+        dt = self.dtype
+        h = P.linear(x.to(torch.float32), self.pose_embed, dt)
         if time is not None:
             t = mdm_timestep_embedding(time, self.dim)
-            h = h + self.time_embed_1(F.silu(self.time_embed_0(t)))[:, None, :]
+            t = P.linear(P.silu(P.linear(t, self.time_embed_0, dt)), self.time_embed_1, dt)
+            h = h + t[:, None, :]
         first = seq.rank * N if seq is not None else 0  # this rank's first frame
-        h = h + (self.pos_emb[decode_pos][None, None] if decoding
-                 else self.pos_emb[None, first:first + N])
+        pos = P.cast(self.pos_emb, dt) if dt == P.BF16 else self.pos_emb
+        h = h + (pos[decode_pos][None, None] if decoding else pos[None, first:first + N])
         lengths = None
         if seq is not None and mask is not None:  # valid frames over the whole horizon
             lengths = seq.all_reduce((mask > 0).sum(dim=1))
         if self.class_embed is not None:
             if y is None:
                 y = torch.full((B,), self.num_classes, dtype=torch.long, device=x.device)
-            h = h + self.class_embed(y.long().clamp(0, self.num_classes))[:, None, :]
+            h = h + P.embed(y.long().clamp(0, self.num_classes), self.class_embed, dt)[:, None, :]
 
         bias_table = None
         if self.dynamic_pos_bias is not None:
@@ -453,7 +481,7 @@ class LocalTransformer(nn.Module):
                              lambda z: self.ff[i](z, generator))
         if use_hc:
             h = hc_lib.reduce_streams(h)
-        out = self.final_layer(self.norm(h))
+        out = P.linear(P.layer_norm(h, self.norm, dt), self.final_layer, dt).to(torch.float32)
         return (out, tuple(new_cache)) if decoding else out
 
     def _check_sharded(self, decoding: bool):
@@ -461,6 +489,11 @@ class LocalTransformer(nn.Module):
         if decoding:
             raise ValueError("the KV-cache decode does not run under a horizon split: it "
                              "decodes one frame at a time on one rank")
+        if self.dtype == P.BF16:
+            raise NotImplementedError(
+                "the horizon-sharded LocalTransformer computes in float32 only: bf16 "
+                "sequence-sharded sampling waits for ROADMAP.md Queue A, the sharded "
+                "kernels and B4 at bf16")
         if self.training or (torch.is_grad_enabled()
                              and any(p.requires_grad for p in self.parameters())):
             raise RuntimeError("the horizon-sharded LocalTransformer serves sampling only: run "

@@ -31,6 +31,17 @@ so ``convert.temporal_unet_from_flax`` maps parameters by a fixed table:
 ``PreNormResidualAttention_i``, ``downsamples.i`` is ``Conv_i``,
 ``upsamples.i`` is ``ConvTranspose_i``, ``time_mlp.i`` is ``Dense_i``.
 
+Compute dtype (``dtype``, ``factory.build_model`` passes bf16 for a
+``bf16=True`` config): parameters stay float32; under bf16 the input is cast
+to bf16 and every Dense, conv and conv block computes in bf16 as flax's
+``dtype=bf16`` modules do (``models.precision``), each conv block through
+B1's bf16 form (bf16 x and w, float32 bias, GroupNorm and Mish inside, a
+bf16 output: the Pallas form, ``use_pallas=True``), and the output is cast
+back to float32. The strided downsample and the transposed-conv upsample
+stay library convolutions at bf16, as XLA computes them outside any kernel
+in the JAX package. bf16 serves forwards only (the conv block raises where a
+gradient is asked of it).
+
 ``ValueFunction`` is the U-Net's down path and mid blocks with stride-2
 downsamples, flattened into a Dense head over ``concat([x, t])``: one
 value per trajectory, which ``diffusion/guidance.py`` climbs. Its 20 conv
@@ -49,11 +60,11 @@ import torch.nn.functional as F
 
 from ..ops.conv_block_kernel import conv_gn_mish, conv_gn_mish_sharded
 from ..utils import seq as seqlib
+from . import precision as P
 from .embeddings import sinusoidal_pos_emb
 
 
-def mish(x):
-    return x * torch.tanh(F.softplus(x))
+mish = P.mish
 
 
 class Conv1dBlock(nn.Module):
@@ -61,9 +72,9 @@ class Conv1dBlock(nn.Module):
     kernel's (k, Cin, Cout) layout, the flax kernel's own."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 5,
-                 n_groups: int = 8):
+                 n_groups: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_groups = n_groups
+        self.n_groups, self.dtype = n_groups, dtype
         self.weight = nn.Parameter(
             torch.randn(kernel_size, in_channels, out_channels)
             * (kernel_size * in_channels) ** -0.5
@@ -73,51 +84,55 @@ class Conv1dBlock(nn.Module):
         self.gn_bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x, seq=None):  # (B, H, Cin) -> (B, H, Cout)
+        if self.dtype == P.BF16:  # bf16 x and w, float32 bias, scale and shift
+            x, w = x.to(P.BF16), P.cast(self.weight, P.BF16)
+        else:
+            w = self.weight
         if seq is None:
-            return conv_gn_mish(x, self.weight, self.bias, self.gn_weight, self.gn_bias,
-                                self.n_groups)
+            return conv_gn_mish(x, w, self.bias, self.gn_weight, self.gn_bias, self.n_groups)
         pad = self.weight.shape[0] // 2
         before, after, _ = seq.exchange_halo(x, pad, pad)
-        return conv_gn_mish_sharded(torch.cat([before, x, after], dim=1), self.weight,
-                                    self.bias, self.gn_weight, self.gn_bias, self.n_groups,
-                                    1e-5, seq)
+        return conv_gn_mish_sharded(torch.cat([before, x, after], dim=1), w, self.bias,
+                                    self.gn_weight, self.gn_bias, self.n_groups, 1e-5, seq)
 
 
 class LinearAttention(nn.Module):
     """Softmax-kernel linear attention: keys softmaxed over the horizon, a
     (d x d) context per head, then queried."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.dtype = heads, dim_head, dtype
         hidden = heads * dim_head
         self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
         self.to_out = nn.Linear(hidden, dim)
 
     def forward(self, x, seq=None):  # (B, H, C)
         B, H, _ = x.shape
-        qkv = self.to_qkv(x).reshape(B, H, 3, self.heads, self.dim_head)
+        qkv = P.linear(x, self.to_qkv, self.dtype).reshape(B, H, 3, self.heads, self.dim_head)
         q, k, v = qkv.unbind(2)  # (B, H, h, d)
         q = q * self.dim_head ** -0.5
         if seq is None:
-            k = k.softmax(dim=1)  # over the horizon
+            k = P.softmax(k, dim=1)  # over the horizon
             context = torch.einsum("bnhd,bnhe->bhde", k, v)
         else:  # the softmax's max and sum, and the context, over every rank's frames
             e = (k - seq.all_reduce(k.amax(dim=1, keepdim=True), "max")).exp()
             k = e / seq.all_reduce(e.sum(dim=1, keepdim=True))
             context = seq.all_reduce(torch.einsum("bnhd,bnhe->bhde", k, v))
         out = torch.einsum("bhde,bnhd->bnhe", context, q)
-        return self.to_out(out.reshape(B, H, self.heads * self.dim_head))
+        return P.linear(out.reshape(B, H, self.heads * self.dim_head), self.to_out, self.dtype)
 
 
 class PreNormResidualAttention(nn.Module):
     """x + LinearAttention(LayerNorm_channels(x)), biased variance, eps 1e-5."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.g = nn.Parameter(torch.ones(1, 1, dim))
         self.b = nn.Parameter(torch.zeros(1, 1, dim))
-        self.attn = LinearAttention(dim, heads, dim_head)
+        self.attn = LinearAttention(dim, heads, dim_head, dtype)
 
     def forward(self, x, seq=None):
         mean = x.mean(dim=-1, keepdim=True)
@@ -128,38 +143,41 @@ class PreNormResidualAttention(nn.Module):
 
 class ResidualTemporalBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, embed_dim: int,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.blocks = nn.ModuleList([
-            Conv1dBlock(in_channels, out_channels, kernel_size),
-            Conv1dBlock(out_channels, out_channels, kernel_size),
+            Conv1dBlock(in_channels, out_channels, kernel_size, dtype=dtype),
+            Conv1dBlock(out_channels, out_channels, kernel_size, dtype=dtype),
         ])
         self.time_dense = nn.Linear(embed_dim, out_channels)
         self.residual = (nn.Linear(in_channels, out_channels)
                          if in_channels != out_channels else nn.Identity())
 
     def forward(self, x, t_emb, seq=None):  # x: (B, H, C), t_emb: (B, E)
-        h = self.blocks[0](x, seq) + self.time_dense(mish(t_emb))[:, None, :]
+        h = self.blocks[0](x, seq) + P.linear(mish(t_emb), self.time_dense, self.dtype)[:, None, :]
         h = self.blocks[1](h, seq)
-        return h + self.residual(x)
+        if isinstance(self.residual, nn.Identity):
+            return h + x
+        return h + P.linear(x, self.residual, self.dtype)
 
 
-def downsample(conv: nn.Conv1d, x, seq=None):
+def downsample(conv: nn.Conv1d, x, seq=None, dtype: torch.dtype = torch.float32):
     """The k3, stride-2, padding-1 conv on channel-last x; under a horizon
     split (even frames a rank) it needs one row from the left neighbour."""
     if seq is None:
-        return conv(x.transpose(1, 2)).transpose(1, 2)
+        return P.conv1d(x.transpose(1, 2), conv, dtype).transpose(1, 2)
     before, _, _ = seq.exchange_halo(x, 1, 0)
     xh = torch.cat([before, x], dim=1).transpose(1, 2)
     return F.conv1d(xh, conv.weight, conv.bias, stride=2).transpose(1, 2)
 
 
-def upsample(conv: nn.ConvTranspose1d, x, seq=None):
+def upsample(conv: nn.ConvTranspose1d, x, seq=None, dtype: torch.dtype = torch.float32):
     """The k4, stride-2, padding-1 transposed conv on channel-last x; under a
     horizon split it takes one row from each neighbour and crops the two
     output rows each of them adds on its side."""
     if seq is None:
-        return conv(x.transpose(1, 2)).transpose(1, 2)
+        return P.conv_transpose1d(x.transpose(1, 2), conv, dtype).transpose(1, 2)
     before, after, _ = seq.exchange_halo(x, 1, 1)
     xh = torch.cat([before, x, after], dim=1).transpose(1, 2)
     y = F.conv_transpose1d(xh, conv.weight, conv.bias, stride=2, padding=1)
@@ -168,34 +186,38 @@ def upsample(conv: nn.ConvTranspose1d, x, seq=None):
 
 class TemporalUnet(nn.Module):
     def __init__(self, transition_dim: int, dim: int = 128,
-                 dim_mults: Sequence[int] = (1, 2, 4, 8), attention: bool = False):
+                 dim_mults: Sequence[int] = (1, 2, 4, 8), attention: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = [dim * m for m in dim_mults]
         self.down_factor = 2 ** (len(dims) - 1)
-        self.dim = dim
+        self.dim, self.dtype = dim, dtype
         self.attention = attention
         self.time_mlp = nn.ModuleList([nn.Linear(dim, dim * 4), nn.Linear(dim * 4, dim)])
 
         res, attn = [], []
         c = transition_dim
         for d in dims:                                   # down path
-            res += [ResidualTemporalBlock(c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            res += [ResidualTemporalBlock(c, d, dim, dtype=dtype),
+                    ResidualTemporalBlock(d, d, dim, dtype=dtype)]
             attn.append(d)
             c = d
-        res += [ResidualTemporalBlock(c, c, dim), ResidualTemporalBlock(c, c, dim)]
+        res += [ResidualTemporalBlock(c, c, dim, dtype=dtype),
+                ResidualTemporalBlock(c, c, dim, dtype=dtype)]
         attn.append(c)                                   # mid
         for d in reversed(dims[:-1]):                    # up path
-            res += [ResidualTemporalBlock(2 * c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            res += [ResidualTemporalBlock(2 * c, d, dim, dtype=dtype),
+                    ResidualTemporalBlock(d, d, dim, dtype=dtype)]
             attn.append(d)
             c = d
         self.res_blocks = nn.ModuleList(res)
         self.attentions = nn.ModuleList(
-            [PreNormResidualAttention(a) for a in attn] if attention else [])
+            [PreNormResidualAttention(a, dtype=dtype) for a in attn] if attention else [])
         self.downsamples = nn.ModuleList(
             [nn.Conv1d(d, d, 3, stride=2, padding=1) for d in dims[:-1]])
         self.upsamples = nn.ModuleList(
             [nn.ConvTranspose1d(d, d, 4, stride=2, padding=1) for d in reversed(dims[:-1])])
-        self.final_block = Conv1dBlock(dim, dim, kernel_size=5)
+        self.final_block = Conv1dBlock(dim, dim, kernel_size=5, dtype=dtype)
         self.final_conv = nn.Linear(dim, transition_dim)
 
     def forward(self, x, time, y=None):
@@ -209,12 +231,13 @@ class TemporalUnet(nn.Module):
             self._check_sharded(x.shape[1], seq.world)
         elif x.shape[1] % self.down_factor:
             raise ValueError(f"horizon {x.shape[1]} must be divisible by {self.down_factor}")
+        dt = self.dtype
         t = sinusoidal_pos_emb(time, self.dim)
-        t = self.time_mlp[1](mish(self.time_mlp[0](t)))
+        t = P.linear(mish(P.linear(t, self.time_mlp[0], dt)), self.time_mlp[1], dt)
 
         res = iter(self.res_blocks)
         attn = iter(self.attentions)
-        x = x.to(torch.float32)
+        x = x.to(dt)
         skips = []
         n_down = len(self.downsamples)
         for i in range(n_down + 1):
@@ -224,7 +247,7 @@ class TemporalUnet(nn.Module):
                 x = next(attn)(x, seq)
             skips.append(x)
             if i < n_down:
-                x = downsample(self.downsamples[i], x, seq)
+                x = downsample(self.downsamples[i], x, seq, dt)
 
         x = next(res)(x, t, seq)
         if self.attention:
@@ -239,10 +262,10 @@ class TemporalUnet(nn.Module):
             x = next(res)(x, t, seq)
             if self.attention:
                 x = next(attn)(x, seq)
-            x = upsample(up, x, seq)
+            x = upsample(up, x, seq, dt)
 
         x = self.final_block(x, seq)
-        return self.final_conv(x)
+        return P.linear(x, self.final_conv, dt).to(torch.float32)
 
     def _check_sharded(self, frames: int, ranks: int):
         """Refuse a horizon split the sharded forward does not take."""
@@ -274,21 +297,23 @@ class ValueFunction(nn.Module):
     ``downsamples.i`` ``Conv_i`` and ``head.i`` ``Dense_{i+2}``."""
 
     def __init__(self, transition_dim: int, horizon: int, dim: int = 32,
-                 dim_mults: Sequence[int] = (1, 2, 4, 8), out_dim: int = 1):
+                 dim_mults: Sequence[int] = (1, 2, 4, 8), out_dim: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dims = [dim * m for m in dim_mults]
-        self.dim, self.horizon, self.out_dim = dim, horizon, out_dim
+        self.dim, self.horizon, self.out_dim, self.dtype = dim, horizon, out_dim, dtype
         self.time_mlp = nn.ModuleList([nn.Linear(dim, dim * 4), nn.Linear(dim * 4, dim)])
         res, down = [], []
         c, h = transition_dim, horizon
         for i, d in enumerate(dims):
-            res += [ResidualTemporalBlock(c, d, dim), ResidualTemporalBlock(d, d, dim)]
+            res += [ResidualTemporalBlock(c, d, dim, dtype=dtype),
+                    ResidualTemporalBlock(d, d, dim, dtype=dtype)]
             c = d
             if i != len(dims) - 1:
                 down.append(nn.Conv1d(d, d, 3, stride=2, padding=1))
                 h = _halved(h)
         for width in (dims[-1] // 2, dims[-1] // 4):  # the mid blocks, each halving H
-            res.append(ResidualTemporalBlock(c, width, dim))
+            res.append(ResidualTemporalBlock(c, width, dim, dtype=dtype))
             down.append(nn.Conv1d(width, width, 3, stride=2, padding=1))
             c, h = width, _halved(h)
         self.res_blocks = nn.ModuleList(res)
@@ -300,19 +325,20 @@ class ValueFunction(nn.Module):
         if x.shape[1] != self.horizon:
             raise ValueError(f"horizon {x.shape[1]}: this ValueFunction's head is built for "
                              f"horizon {self.horizon}")
+        dt = self.dtype
         t = sinusoidal_pos_emb(time, self.dim)
-        t = self.time_mlp[1](mish(self.time_mlp[0](t)))
-        x = x.to(torch.float32)
+        t = P.linear(mish(P.linear(t, self.time_mlp[0], dt)), self.time_mlp[1], dt)
+        x = x.to(dt)
         res, down = iter(self.res_blocks), iter(self.downsamples)
         n_levels = len(self.res_blocks) - 2
         for i in range(0, n_levels, 2):
             x = next(res)(x, t)
             x = next(res)(x, t)
             if i != n_levels - 2:
-                x = downsample(next(down), x)
+                x = downsample(next(down), x, dtype=dt)
         for _ in range(2):  # mid
             x = next(res)(x, t)
-            x = downsample(next(down), x)
-        h = mish(self.head[0](torch.cat([x.reshape(x.shape[0], -1), t], dim=-1)))
-        out = self.head[1](h)
+            x = downsample(next(down), x, dtype=dt)
+        h = mish(P.linear(torch.cat([x.reshape(x.shape[0], -1), t], dim=-1), self.head[0], dt))
+        out = P.linear(h, self.head[1], dt).to(torch.float32)
         return out[..., 0] if self.out_dim == 1 else out

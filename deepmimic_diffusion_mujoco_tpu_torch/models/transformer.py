@@ -28,6 +28,14 @@ flax parameter tree onto this module.
 Dropout (training mode, ``dropout > 0``) draws its keep masks from the
 ``generator`` passed to ``forward``, in the order flax draws them: per
 layer, the attention weights' mask, then the feed-forward's.
+
+Compute dtype (``dtype``; ``factory.build_model`` passes bf16 for a
+``bf16=True`` config): parameters stay float32; under bf16 every Dense,
+LayerNorm and embedding rounds where flax's ``dtype=bf16`` module does
+(``models.precision``), and the attention computes as flax's
+``MultiHeadDotProductAttention(dtype=bf16)``: the query divided by the
+bf16 sqrt(dh), bf16 logits filled with ``finfo(bf16).min`` where masked,
+the softmax and P V in bf16. The output is cast to float32.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch.nn.functional as F
 
 from ..utils import seq as seqlib
 from ..utils.rng import draw_rows
+from . import precision as P
 from .embeddings import mdm_timestep_embedding
 
 EPS = 1e-6  # flax LayerNorm
@@ -89,10 +98,12 @@ class MultiHeadAttention(nn.Module):
     so a column-parallel split of query/key/value (``parallel.tp``) runs on
     its share of whole heads."""
 
-    def __init__(self, dim: int, heads: int, dropout: float = 0.0, inner: int | None = None):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0, inner: int | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = dim if inner is None else inner
         self.heads, self.dim_head, self.dropout = heads, inner // heads, dropout
+        self.dtype = dtype
         self.query, self.key, self.value = (dense(dim, inner) for _ in range(3))
         self.out = dense(inner, dim)
 
@@ -105,56 +116,62 @@ class MultiHeadAttention(nn.Module):
         def split(t):
             return t.view(B, t.shape[1], -1, dh).transpose(1, 2)  # (B, h, n, dh)
 
-        q = split(self.query(x)) / math.sqrt(dh)
-        logits = q @ split(self.key(kv)).transpose(-1, -2)  # (B, h, N, M)
-        big_neg = torch.finfo(torch.float32).min
+        dt = self.dtype
+        # flax divides by sqrt(dh) in the compute dtype
+        root = math.sqrt(dh) if dt != P.BF16 else torch.tensor(math.sqrt(dh)).to(dt).item()
+        q = split(P.linear(x, self.query, dt)) / root
+        logits = q @ split(P.linear(kv, self.key, dt)).transpose(-1, -2)  # (B, h, N, M)
+        big_neg = torch.finfo(P.BF16 if dt == P.BF16 else torch.float32).min
         if key_mask is not None:
             logits = logits.masked_fill(~key_mask[:, None, None, :], big_neg)
         if attn_mask is not None:
             logits = logits.masked_fill(~attn_mask, big_neg)
-        w = logits.softmax(dim=-1)
+        w = P.softmax(logits, dim=-1)
         if self.training and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
             keep = keep_mask((1, 1, N, M), keep_prob, generator, x.device, rows=False)
             w = w * (keep.to(w.dtype) / keep_prob)
-        ctx = (w @ split(self.value(kv))).transpose(1, 2).reshape(B, N, -1)
-        return self.out(ctx)
+        ctx = (w @ split(P.linear(kv, self.value, dt))).transpose(1, 2).reshape(B, N, -1)
+        return P.linear(ctx, self.out, dt)
 
 
 class FeedForward(nn.Module):
     """Dense -> ReLU -> dropout -> Dense."""
 
-    def __init__(self, dim: int, hidden: int, dropout: float = 0.0):
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout = dropout
+        self.dropout, self.dtype = dropout, dtype
         self.dense_0, self.dense_1 = dense(dim, hidden), dense(hidden, dim)
 
     def forward(self, x, generator=None):
-        h = F.relu(self.dense_0(x))
+        h = F.relu(P.linear(x, self.dense_0, self.dtype))
         if self.training and self.dropout > 0.0:
             keep_prob = 1.0 - self.dropout
             keep = keep_mask(h.shape, keep_prob, generator, h.device)
             h = torch.where(keep, h / keep_prob, torch.zeros_like(h))
-        return self.dense_1(h)
+        return P.linear(h, self.dense_1, self.dtype)
 
 
 class EncoderLayer(nn.Module):
     """Post-norm torch-style encoder layer."""
 
-    def __init__(self, dim: int, heads: int, dim_feedforward: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dim_feedforward: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.attn = MultiHeadAttention(dim, heads, dropout)
+        self.dtype = dtype
+        self.attn = MultiHeadAttention(dim, heads, dropout, dtype=dtype)
         self.norm_0 = nn.LayerNorm(dim, eps=EPS)
-        self.ff = FeedForward(dim, dim_feedforward, dropout)
+        self.ff = FeedForward(dim, dim_feedforward, dropout, dtype)
         self.norm_1 = nn.LayerNorm(dim, eps=EPS)
 
     def forward(self, x, key_mask=None, generator=None):
-        x = self.norm_0(x + self.attn(x, key_mask, generator))
-        return self.norm_1(x + self.ff(x, generator))
+        x = P.layer_norm(x + self.attn(x, key_mask, generator), self.norm_0, self.dtype)
+        return P.layer_norm(x + self.ff(x, generator), self.norm_1, self.dtype)
 
 
-def _modulate(x, shift, scale):
-    return F.layer_norm(x, x.shape[-1:], eps=EPS) * (1.0 + scale) + shift
+def _modulate(x, shift, scale, dtype=torch.float32):
+    return P.layer_norm(x, None, dtype, eps=EPS) * (1.0 + scale) + shift
 
 
 class AdaLNEncoderLayer(nn.Module):
@@ -162,17 +179,20 @@ class AdaLNEncoderLayer(nn.Module):
     residual gates come from the conditioning vector (adaLN-zero: the
     modulation starts at zero, so every layer starts as identity)."""
 
-    def __init__(self, dim: int, heads: int, dim_feedforward: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, dim_feedforward: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.adaln_mod = dense(dim, 6 * dim, zero=True)
-        self.attn = MultiHeadAttention(dim, heads, dropout)
-        self.ff = FeedForward(dim, dim_feedforward, dropout)
+        self.attn = MultiHeadAttention(dim, heads, dropout, dtype=dtype)
+        self.ff = FeedForward(dim, dim_feedforward, dropout, dtype)
 
     def forward(self, x, c, key_mask=None, generator=None):
-        (sa_shift, sa_scale, sa_gate,
-         ff_shift, ff_scale, ff_gate) = self.adaln_mod(F.silu(c))[:, None, :].chunk(6, dim=-1)
-        x = x + sa_gate * self.attn(_modulate(x, sa_shift, sa_scale), key_mask, generator)
-        return x + ff_gate * self.ff(_modulate(x, ff_shift, ff_scale), generator)
+        dt = self.dtype
+        (sa_shift, sa_scale, sa_gate, ff_shift, ff_scale,
+         ff_gate) = P.linear(P.silu(c), self.adaln_mod, dt)[:, None, :].chunk(6, dim=-1)
+        x = x + sa_gate * self.attn(_modulate(x, sa_shift, sa_scale, dt), key_mask, generator)
+        return x + ff_gate * self.ff(_modulate(x, ff_shift, ff_scale, dt), generator)
 
 
 class TransformerMotionModel(nn.Module):
@@ -185,8 +205,9 @@ class TransformerMotionModel(nn.Module):
     def __init__(self, input_dim: int, latent_dim: int = 256, n_heads: int = 4,
                  num_layers: int = 8, dropout: float = 0.1, dim_feedforward: int = 1024,
                  max_sequence_length: int = 128, num_classes: int = 0,
-                 conditioning: str = "add"):
+                 conditioning: str = "add", dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if conditioning not in CONDITIONING:
             raise ValueError(f"unknown conditioning {conditioning!r}; expected one of "
                              f"{CONDITIONING}")
@@ -203,7 +224,7 @@ class TransformerMotionModel(nn.Module):
             nn.init.normal_(self.class_embed.weight, 0.0, math.sqrt(1.0 / D))
             self.class_embed_0, self.class_embed_1 = dense(D, D), dense(D, D)
         layer = AdaLNEncoderLayer if self.adaln else EncoderLayer
-        self.layers = nn.ModuleList([layer(D, n_heads, dim_feedforward, dropout)
+        self.layers = nn.ModuleList([layer(D, n_heads, dim_feedforward, dropout, dtype)
                                      for _ in range(num_layers)])
         if self.adaln:
             self.final_mod = dense(D, 2 * D, zero=True)
@@ -217,19 +238,23 @@ class TransformerMotionModel(nn.Module):
                 f"horizon {T} exceeds max_seq_len {self.max_sequence_length}: the learned "
                 f"position table has {self.max_sequence_length} rows (the JAX model fails the "
                 "same way), so frames cannot exceed the config's model.max_seq_len")
-        dtype = self.pose_embed.weight.dtype  # float32; float64 for a reference forward
-        h = self.pose_embed(x.to(dtype))
-        t_emb = self.time_embed_1(F.silu(self.time_embed_0(
-            mdm_timestep_embedding(time, self.latent_dim).to(dtype))))
+        dt = self.dtype
+        # float32, float64 for a reference forward; bf16 computes from float32 inputs
+        dtype = self.pose_embed.weight.dtype
+        h = P.linear(x.to(dtype), self.pose_embed, dt)
+        t_emb = P.linear(P.silu(P.linear(
+            mdm_timestep_embedding(time, self.latent_dim).to(dtype), self.time_embed_0, dt)),
+            self.time_embed_1, dt)
         if self.add_tokens:
             h = h + t_emb[:, None, :]
-        h = h + self.position_embed[None, :T]
+        h = h + (P.cast(self.position_embed, dt) if dt == P.BF16
+                 else self.position_embed)[None, :T]
         cond = t_emb
         if self.num_classes > 0:
             if y is None:
                 y = torch.full((B,), self.num_classes, dtype=torch.long, device=x.device)
-            c = self.class_embed(y.long().clamp(0, self.num_classes))
-            c = self.class_embed_1(F.silu(self.class_embed_0(c)))
+            c = P.embed(y.long().clamp(0, self.num_classes), self.class_embed, dt)
+            c = P.linear(P.silu(P.linear(c, self.class_embed_0, dt)), self.class_embed_1, dt)
             if self.add_tokens:
                 h = h + c[:, None, :]
             if self.adaln:
@@ -241,6 +266,8 @@ class TransformerMotionModel(nn.Module):
             else:
                 h = layer(h, key_mask, generator)
         if self.adaln:
-            f_shift, f_scale = self.final_mod(F.silu(cond))[:, None, :].chunk(2, dim=-1)
-            h = _modulate(h, f_shift, f_scale)
-        return self.final_layer(h)
+            f_shift, f_scale = P.linear(P.silu(cond), self.final_mod, dt)[:, None, :].chunk(2,
+                                                                                       dim=-1)
+            h = _modulate(h, f_shift, f_scale, dt)
+        out = P.linear(h, self.final_layer, dt)
+        return out.to(torch.float32) if dt == P.BF16 else out

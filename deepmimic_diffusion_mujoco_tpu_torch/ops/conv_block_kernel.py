@@ -27,6 +27,14 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
   transposed conv of the pre-norm gradient (a library call, as XLA's conv
   computes it in the JAX package).
 
+bf16 (a model built with ``bf16=True``): ``conv_gn_mish_plain`` takes bf16 x
+and w with float32 b / gamma / beta (the Pallas kernel's types) and returns
+bf16; ``conv_gn_mish_bf16_cuda`` is the hand-written kernel of that form
+(``csrc/conv_gn_mish_bf16.cu``, bf16 ``mma.sync`` with float32 accumulation;
+``.launches`` counts it; ``bf16_plan`` its launch plan), and
+``conv_gn_mish`` sends bf16 CUDA tensors to it. bf16 serves forwards only:
+the autograd entry and the sharded form raise at bf16.
+
 The horizon-sharded form (sequence-sharded sampling; the header of
 ``csrc/conv_gn_mish.cu``): each rank holds H / R frames, and GroupNorm's
 statistics span them all.
@@ -75,7 +83,14 @@ FILL_CTAS = 256           # K1 grows its cluster until its grid has this many CT
 
 def conv_gn_mish_plain(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
     """Channel-last conv + bias -> GroupNorm (two-pass statistics) ->
-    affine -> Mish, in plain PyTorch."""
+    affine -> Mish, in plain PyTorch. At bf16 (x and w bf16; b, gamma and
+    beta float32) it is the Pallas kernel's function: the bf16 values
+    multiplied and summed in float32 (a product of two bf16 values is exact
+    in float32), the bias, GroupNorm, affine and Mish in float32, and one
+    rounding to bf16."""
+    if x.dtype == torch.bfloat16:
+        return _gn_affine_mish(_conv(x.float(), w.float(), b), gamma, beta, groups,
+                               eps).to(x.dtype)
     return _gn_affine_mish(_conv(x, w, b), gamma, beta, groups, eps)
 
 
@@ -381,6 +396,124 @@ def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
 conv_gn_mish_cuda.launches = 0
 
 
+# B1's bf16 form (csrc/conv_gn_mish_bf16.cu): one CTA of 8 warps per (group,
+# batch row), bf16 products on the tensor cores.
+BF16_CHUNKS = (64, 32, 16)  # input channels a ring stage takes
+BF16_MAX_STAGES = 4       # kMaxStages
+BF16_STATIC_SMEM = 4 * 8  # kStaticSmem: the block reduction's partials
+
+
+def bf16_stage_bytes(H: int, cg: int, k: int, ck: int) -> int:
+    """One ring stage of the bf16 kernel: the batch row's staged input and
+    the chunk's weights, bf16, rows padded by 8 values."""
+    return 2 * ((H + k - 1) * (ck + 8) + k * ck * (_ceil(cg, 8) * 8 + 8))
+
+
+def bf16_smem_bytes(H: int, cg: int, k: int, ck: int, stages: int) -> int:
+    """Dynamic shared memory of one bf16 plan: layout() in
+    csrc/conv_gn_mish_bf16.cu (the ring, a zero row, the float32 output
+    tile)."""
+    cgp = _ceil(cg, 8) * 8
+    return (stages * bf16_stage_bytes(H, cg, k, ck) + 2 * (ck + 8)
+            + 4 * 16 * _ceil(H, 16) * (cgp + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(H: int, Cin: int, Cout: int, k: int, groups: int) -> tuple[int, int]:
+    """(ck, stages) of the bf16 kernel for one shape (one CTA a group and
+    batch row, whatever B), the rule that ``ops/conv_block_sweep.py --bf16``
+    supports at the 14 shapes of the dim-128 serve forward on an H100
+    (``PERF.md``), where it is the fastest plan or within 2 % of it: the
+    chunk that pads Cin least, the larger on a tie (at 35 channels 64 took
+    17-18 % longer than 16; elsewhere 64 was fastest); the deepest ring that
+    fits (the depth moved the time by 4.4 % at most). Raises where no plan fits (the CTA keeps
+    its float32 output tile in shared memory, so the horizon a shape takes
+    is bounded)."""
+    cg = Cout // groups
+    fits = [(ck, st) for ck in BF16_CHUNKS for st in range(2, BF16_MAX_STAGES + 1)
+            if bf16_smem_bytes(H, cg, k, ck, st) + BF16_STATIC_SMEM <= MAX_SMEM]
+    if not fits:
+        raise ValueError(f"conv_gn_mish_bf16_cuda: no plan fits {MAX_SMEM} bytes of shared "
+                         f"memory at H {H}, {cg} channels per group, k {k}")
+    return min(fits, key=lambda f: (_ceil(Cin, f[0]) * f[0], -f[0], -f[1]))
+
+
+def _library_bf16() -> ctypes.CDLL:
+    lib = _build.load("conv_gn_mish_bf16")
+    if lib.conv_gn_mish_bf16.argtypes is None:
+        lib.conv_gn_mish_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        lib.conv_gn_mish_bf16.restype = ctypes.c_int
+        lib.conv_gn_mish_bf16_smem_bytes.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.conv_gn_mish_bf16_smem_bytes.restype = ctypes.c_longlong
+        lib.conv_gn_mish_bf16_error_string.argtypes = [ctypes.c_int]
+        lib.conv_gn_mish_bf16_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_BF16_CHECKED: set = set()
+
+
+def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
+                           plan: tuple[int, int] | None = None):
+    """Launch B1's bf16 kernel on PyTorch's current stream (built on first
+    use): bf16 x (B, H, Cin) and w (k, Cin, Cout), float32 b, gamma, beta
+    -> bf16 (B, H, Cout), with ``plan`` (ck, stages) or ``bf16_plan``'s.
+    Raises on a tensor or shape the kernel does not take, and if the launch
+    is refused."""
+    fn = "conv_gn_mish_bf16_cuda"
+    for name, t, dtype in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),
+                           ("b", b, torch.float32), ("gamma", gamma, torch.float32),
+                           ("beta", beta, torch.float32)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor on {x.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"{fn}: x {tuple(x.shape)} must be (B, H, Cin) and "
+                         f"w {tuple(w.shape)} (k, Cin, Cout)")
+    B, H, cin = x.shape
+    k, _, cout = w.shape
+    if w.shape[1] != cin:
+        raise ValueError(f"{fn}: x has {cin} channels, w expects {w.shape[1]}")
+    if k not in KERNEL_SIZES:
+        raise ValueError(f"{fn}: kernel size {k} not in {KERNEL_SIZES}")
+    if groups <= 0 or cout % groups or cout // groups > MAX_GROUP_CHANNELS:
+        raise ValueError(f"{fn}: Cout {cout} in {groups} groups of at most "
+                         f"{MAX_GROUP_CHANNELS} channels")
+    for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
+        if tuple(t.shape) != (cout,):
+            raise ValueError(f"{fn}: {name} must be ({cout},)")
+    out = torch.empty((B, H, cout), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    ints = (ctypes.c_int * 2)(*(plan or bf16_plan(H, cin, cout, k, groups)))
+    lib = _library_bf16()
+    key = (H, cin, cout, k, groups, tuple(ints))
+    if key not in _BF16_CHECKED:
+        smem = lib.conv_gn_mish_bf16_smem_bytes(H, cin, cout, k, groups, ctypes.addressof(ints))
+        mirror = bf16_smem_bytes(H, cout // groups, k, *ints)
+        if smem != mirror:
+            raise RuntimeError(f"{fn}: the kernel lays out {smem} bytes of shared memory for "
+                               f"plan {tuple(ints)} (-1: refused), bf16_smem_bytes {mirror}")
+        _BF16_CHECKED.add(key)
+    with torch.cuda.device(x.device):
+        err = lib.conv_gn_mish_bf16(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), B, H, cin, cout, k, groups, eps, ctypes.addressof(ints),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + lib.conv_gn_mish_bf16_error_string(err).decode())
+    conv_gn_mish_bf16_cuda.launches += 1
+    return out
+
+
+conv_gn_mish_bf16_cuda.launches = 0
+
+
 def conv_gn_stats_cuda(x_halo, w, b, groups: int = 8, plan: ConvPlan | None = None):
     """Launch K1 on PyTorch's current stream: ``x_halo`` (B, H + k - 1, Cin)
     -> pre-norm (B, H, Cout) and (B, groups, 2) (mean, M2), with ``plan`` or
@@ -451,6 +584,10 @@ def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, gro
     trajectory's ends) on each side. K1, the statistics merged over the
     ranks, K2: the kernels for CUDA tensors, their plain versions for CPU
     tensors. Sampling only: raises where a gradient is asked of it."""
+    if x_halo.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "conv_gn_mish_sharded (K1/K2) computes in float32 only: bf16 sequence-sharded "
+            "sampling waits for ROADMAP.md Queue A, the sharded kernels and B4 at bf16")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_halo, w, b, gamma, beta)):
         raise RuntimeError("conv_gn_mish_sharded serves sampling only: no gradient flows "
                            "through the horizon-sharded conv block (run under "
@@ -472,9 +609,11 @@ class _ConvGnMish(torch.autograd.Function):
     def forward(ctx, x, w, b, gamma, beta, groups, eps):
         ctx.groups, ctx.eps = groups, eps
         ctx.save_for_backward(x, w, b, gamma, beta)
-        if x.is_cuda:
-            return conv_gn_mish_cuda(x, w, b, gamma, beta, groups, eps)
-        return conv_gn_mish_plain(x, w, b, gamma, beta, groups, eps)
+        if not x.is_cuda:
+            return conv_gn_mish_plain(x, w, b, gamma, beta, groups, eps)
+        if x.dtype == torch.bfloat16:
+            return conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups, eps)
+        return conv_gn_mish_cuda(x, w, b, gamma, beta, groups, eps)
 
     @staticmethod
     def backward(ctx, grad):
@@ -498,5 +637,12 @@ class _ConvGnMish(torch.autograd.Function):
 
 def conv_gn_mish(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
     """Fused Conv1d + GroupNorm + Mish with gradients (dW from the B2
-    kernel on the card)."""
+    kernel on the card). At bf16 (x and w bf16) it serves forwards only:
+    raises where a gradient is asked of it."""
+    if (x.dtype == torch.bfloat16 and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x, w, b, gamma, beta))):
+        raise NotImplementedError(
+            "conv_gn_mish at bf16 has no backward yet: bf16 training waits for ROADMAP.md "
+            "Queue A, bf16 training; run bf16 forwards under torch.no_grad or "
+            "torch.inference_mode")
     return _ConvGnMish.apply(x.contiguous(), w.contiguous(), b, gamma, beta, groups, eps)

@@ -30,6 +30,15 @@ softmax spans the chunk's K keys, so a query whose keys are all masked
   for CPU tensors; its backward differentiates the plain version with the
   same masks and keep bits.
 
+bf16 (a model built with ``bf16=True``): a bf16 qkv gives a bf16 context,
+computed in float32 between (the TPU kernel upcasts its bf16 qkv and writes
+``qkv.dtype``). The plain version converts to float32, runs the same chunk
+semantics and rounds once; ``fused_qkv_local_attention_bf16_cuda`` launches
+the kernel's bf16 entry (the same core, templated on the element type: the
+staging widens, the store rounds) and counts it in its own ``.launches``.
+bf16 serves forwards only:
+the keep mask, the backward and the halo entry raise at bf16.
+
 ``key_mask`` (B, N), > 0 marking valid frames, must be PREFIX-valid (valid
 frames first, padding at the end, as jagged batches are): the kernel takes
 per-sequence lengths. ``DMDM_CHECK_MASKS=1`` checks that on every call.
@@ -306,6 +315,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_float,            # 1 / keep_prob
             i, i, i, vp]               # slab, cap, tensor cores, stream
         lib.fused_qkv_local_attention_f32.restype = i
+        lib.fused_qkv_local_attention_bf16.argtypes = lib.fused_qkv_local_attention_f32.argtypes
+        lib.fused_qkv_local_attention_bf16.restype = i
         lib.local_attention_heads_f32.argtypes = [
             vp, vp, vp, vp, vp,        # q, k, v, rotary table, out
             i, i, i, i, i, i, i,       # BH, N, dim_head, window, causal, exact, use_rotary
@@ -453,13 +464,15 @@ def device_rotary_table(positions: int, dh: int, device: torch.device) -> torch.
     return _TABLES[key]
 
 
-def check_cuda_f32(name: str, fn: str, t: torch.Tensor, device: torch.device):
+def check_cuda_f32(name: str, fn: str, t: torch.Tensor, device: torch.device,
+                   dtypes: tuple = (torch.float32,)):
     if not t.is_cuda:
         raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor")
     if t.device != device:
         raise ValueError(f"{fn}: {name} is on {t.device}, the other operands on {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes float32")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes "
+                         + " or ".join(str(d) for d in dtypes))
     if not t.is_contiguous():
         raise ValueError(f"{fn}: {name} is not contiguous")
     if t.data_ptr() % 16:
@@ -472,17 +485,13 @@ def raise_on_error(lib, err: int, fn: str):
                            + lib.local_attention_error_string(err).decode())
 
 
-def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: int,
-                                   causal: bool = False, exact_windowsize: bool = True,
-                                   use_rotary: bool = True, key_mask=None, dropout_keep=None,
-                                   keep_prob: float = 1.0,
-                                   launch_plan: AttnPlan | None = None):
-    """Launch the kernel on PyTorch's current stream (built on first use),
-    with ``launch_plan`` or ``attention_plan``'s default for the shape.
-    Raises on a tensor or shape the kernel does not take, and if the launch
-    is refused."""
-    fn = "fused_qkv_local_attention_cuda"
-    check_cuda_f32("qkv", fn, qkv, qkv.device)
+def _launch_fused_qkv(wrapper, dtype, qkv, heads, dim_head, window_size, causal,
+                      exact_windowsize, use_rotary, key_mask, dropout_keep, keep_prob,
+                      launch_plan):
+    """B3's launch for the entry of ``dtype`` (its output dtype too), counted
+    in ``wrapper.launches``."""
+    fn = wrapper.__name__
+    check_cuda_f32("qkv", fn, qkv, qkv.device, (dtype,))
     if qkv.dim() != 3 or qkv.shape[2] != 3 * heads * dim_head:
         raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} must be (B, N, 3*{heads}*{dim_head})")
     if dim_head not in HEAD_DIMS:
@@ -505,14 +514,16 @@ def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: 
     lp = launch_plan or attention_plan(p["Np"], p["C"], p["P"], window_size, causal, dim_head,
                                        B * heads, use_rotary)
     lib = _library()
-    out = torch.empty((B, N, heads * dim_head), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((B, N, heads * dim_head), dtype=dtype, device=qkv.device)
     if out.numel() == 0:
         return out
     lf = 0 if causal else 1
+    entry = (lib.fused_qkv_local_attention_bf16 if dtype == torch.bfloat16
+             else lib.fused_qkv_local_attention_f32)
     with torch.cuda.device(qkv.device):
         table = (device_rotary_table(p["Np"] + lf * window_size, dim_head, qkv.device)
                  if use_rotary else None)
-        err = lib.fused_qkv_local_attention_f32(
+        err = entry(
             qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
             None if dropout_keep is None else dropout_keep.data_ptr(),
             None if table is None else table.data_ptr(), out.data_ptr(), B, N, p["Np"], heads,
@@ -520,11 +531,44 @@ def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: 
             p["P"], p["K"], 1.0 / keep_prob, lp.slab, lp.cap, int(lp.mma),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, err, fn)
-    fused_qkv_local_attention_cuda.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def fused_qkv_local_attention_cuda(qkv, heads: int, dim_head: int, window_size: int,
+                                   causal: bool = False, exact_windowsize: bool = True,
+                                   use_rotary: bool = True, key_mask=None, dropout_keep=None,
+                                   keep_prob: float = 1.0,
+                                   launch_plan: AttnPlan | None = None):
+    """Launch the kernel on PyTorch's current stream (built on first use),
+    with ``launch_plan`` or ``attention_plan``'s default for the shape.
+    Raises on a tensor or shape the kernel does not take, and if the launch
+    is refused."""
+    return _launch_fused_qkv(fused_qkv_local_attention_cuda, torch.float32, qkv, heads,
+                             dim_head, window_size, causal, exact_windowsize, use_rotary,
+                             key_mask, dropout_keep, keep_prob, launch_plan)
+
+
 fused_qkv_local_attention_cuda.launches = 0
+
+
+def fused_qkv_local_attention_bf16_cuda(qkv, heads: int, dim_head: int, window_size: int,
+                                        causal: bool = False, exact_windowsize: bool = True,
+                                        use_rotary: bool = True, key_mask=None,
+                                        dropout_keep=None, keep_prob: float = 1.0,
+                                        launch_plan: AttnPlan | None = None):
+    """The kernel's bf16 entry, as ``fused_qkv_local_attention_cuda``: a bf16
+    qkv, float32 inside, a bf16 context. It takes no dropout keep mask."""
+    if dropout_keep is not None:
+        raise NotImplementedError("fused_qkv_local_attention_bf16_cuda takes no dropout keep "
+                                  "mask: bf16 training waits for ROADMAP.md Queue A, bf16 "
+                                  "training")
+    return _launch_fused_qkv(fused_qkv_local_attention_bf16_cuda, torch.bfloat16, qkv, heads,
+                             dim_head, window_size, causal, exact_windowsize, use_rotary,
+                             key_mask, None, keep_prob, launch_plan)
+
+
+fused_qkv_local_attention_bf16_cuda.launches = 0
 
 
 def halo_plan(B: int, heads: int, dim_head: int, window_size: int, q0: int, Nq: int, Nh: int,
@@ -585,7 +629,11 @@ def local_attention_halo(qkv, heads: int, dim_head: int, window_size: int, q0: i
                          pos0: int, causal: bool = False, exact_windowsize: bool = True,
                          use_rotary: bool = True, lengths=None):
     """K3 for CUDA tensors, its plain version for CPU tensors. Sampling only:
-    raises where a gradient is asked of it."""
+    raises where a gradient is asked of it; float32 only."""
+    if qkv.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "local_attention_halo (K3) computes in float32 only: bf16 sequence-sharded "
+            "sampling waits for ROADMAP.md Queue A, the sharded kernels and B4 at bf16")
     if torch.is_grad_enabled() and qkv.requires_grad:
         raise RuntimeError("local_attention_halo serves sampling only: run it under "
                            "torch.no_grad or torch.inference_mode")
@@ -601,7 +649,12 @@ class _FusedQkvLocalAttention(torch.autograd.Function):
         ctx.args = (heads, dim_head, window_size, causal, exact_windowsize, use_rotary)
         ctx.keep_prob = keep_prob
         ctx.save_for_backward(qkv, key_mask, dropout_keep)
-        impl = fused_qkv_local_attention_cuda if qkv.is_cuda else fused_qkv_local_attention_plain
+        if not qkv.is_cuda:
+            impl = fused_qkv_local_attention_plain
+        elif qkv.dtype == torch.bfloat16:
+            impl = fused_qkv_local_attention_bf16_cuda
+        else:
+            impl = fused_qkv_local_attention_cuda
         return impl(qkv, *ctx.args, key_mask, dropout_keep, keep_prob)
 
     @staticmethod
@@ -620,7 +673,14 @@ def fused_qkv_local_attention(qkv, heads: int, dim_head: int, window_size: int,
                               use_rotary: bool = True, key_mask=None, dropout_keep=None,
                               keep_prob: float = 1.0):
     """(B, N, 3*h*dh) -> (B, N, h*dh) with gradients: the kernel on the card,
-    the plain version on the CPU. Gate callers with ``supports``."""
+    the plain version on the CPU. Gate callers with ``supports``. A bf16 qkv
+    gives a bf16 context, forwards only: with a keep mask or where a gradient
+    is asked of it, it raises."""
+    if qkv.dtype == torch.bfloat16 and (dropout_keep is not None or (
+            torch.is_grad_enabled() and qkv.requires_grad)):
+        raise NotImplementedError(
+            "fused_qkv_local_attention at bf16 serves forwards only (no keep mask, no "
+            "backward): bf16 training waits for ROADMAP.md Queue A, bf16 training")
     if plan(qkv.shape[1], window_size, causal) is None:
         raise ValueError(f"no chunk plan for N {qkv.shape[1]}, window {window_size}; "
                          "gate callers with supports()")

@@ -1,0 +1,211 @@
+"""B1's and B3's bf16 forms against their plain versions, on the card, and
+the shared-memory opt-in of the launchers.
+
+Each bf16 kernel computes its plain version's function (float32 sums, one
+bf16 rounding), so the two agree within one bf16 ulp of the value plus the
+float32 forms' card tolerance for sums in another order: |d| <= 2^-7 |ref|
++ TOL elementwise. The dim-128 U-Net at bf16 sends every conv block to B1's
+bf16 kernel, and the local transformer every attention call to B3's bf16
+entry; no float32 launch happens on either path.
+
+Marked ``cuda``; each test skips where no CUDA device is present. This file
+imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_bf16_cuda_kernels.py
+"""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
+from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
+from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
+from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
+
+BF = torch.bfloat16
+ULP = 2.0 ** -7  # one bf16 ulp of a value v is at most 2^-7 |v|
+TOL = 1e-4       # B1's and B3's float32 card tolerance: sums in another order
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _within_one_ulp(out, ref):
+    assert out.dtype == ref.dtype == BF
+    d = (out.float() - ref.float()).abs()
+    bound = ULP * ref.float().abs() + TOL
+    beyond = int((d > bound).sum())
+    assert beyond == 0, f"max |d| {d.max().item()}, {beyond} values beyond the bound"
+
+
+def _conv_inputs(cuda, B, H, Cin, Cout, k, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(B, H, Cin, generator=g, device=cuda).to(BF)
+    w = (torch.randn(k, Cin, Cout, generator=g, device=cuda) * (k * Cin) ** -0.5).to(BF)
+    b, beta = (torch.randn(Cout, generator=g, device=cuda) * 0.1 for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(Cout, generator=g, device=cuda)
+    return x, w, b, gamma, beta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [
+    # the dim-128 U-Net's levels when serving (H 64 down to 8), the first block's 35
+    # channels, the up path's concatenations; odd shapes: a group width under 8 and no
+    # multiple of 8, H no multiple of 16, an odd batch, k 1 and 9
+    (16, 64, 35, 128, 5), (16, 32, 256, 256, 5), (16, 16, 512, 512, 5), (16, 8, 1024, 1024, 5),
+    (16, 8, 2048, 512, 5), (16, 64, 256, 128, 5), (3, 8, 64, 64, 5), (3, 21, 37, 24, 3),
+    (2, 5, 8, 16, 1), (1, 100, 70, 1024, 9), (2, 1024, 35, 128, 5),
+])
+def test_conv_gn_mish_bf16_matches_plain(cuda, B, H, Cin, Cout, k):
+    args = _conv_inputs(cuda, B, H, Cin, Cout, k)
+    n, n32 = CB.conv_gn_mish_bf16_cuda.launches, CB.conv_gn_mish_cuda.launches
+    out = CB.conv_gn_mish_bf16_cuda(*args, 8)
+    torch.cuda.synchronize()
+    assert CB.conv_gn_mish_bf16_cuda.launches == n + 1 and CB.conv_gn_mish_cuda.launches == n32
+    _within_one_ulp(out, CB.conv_gn_mish_plain(*args, 8))
+    # bit-identical reruns: sums in a fixed order
+    assert torch.equal(out, CB.conv_gn_mish_bf16_cuda(*args, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [2, 3, 4])
+@pytest.mark.parametrize("ck", [16, 32, 64])
+def test_conv_gn_mish_bf16_every_plan(cuda, ck, stages):
+    args = _conv_inputs(cuda, 5, 8, 96, 256, 5, seed=ck + stages)
+    _within_one_ulp(CB.conv_gn_mish_bf16_cuda(*args, 8, plan=(ck, stages)),
+                    CB.conv_gn_mish_plain(*args, 8))
+
+
+@pytest.mark.cuda
+def test_conv_gn_mish_bf16_refuses_what_it_does_not_take(cuda):
+    x, w, b, gamma, beta = _conv_inputs(cuda, 1, 8, 16, 16, 5)
+    with pytest.raises(ValueError, match="takes torch.bfloat16"):
+        CB.conv_gn_mish_bf16_cuda(x.float(), w, b, gamma, beta, 8)
+    with pytest.raises(ValueError, match="takes torch.float32"):
+        CB.conv_gn_mish_bf16_cuda(x, w, b.to(BF), gamma, beta, 8)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        CB.conv_gn_mish_bf16_cuda(x.cpu(), w, b, gamma, beta, 8)
+    with pytest.raises(RuntimeError, match="conv_gn_mish_bf16_cuda"):
+        CB.conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, 8, plan=(24, 2))
+
+
+def _qkv(cuda, B, N, heads, dh, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(B, N, 3 * heads * dh, generator=g, device=cuda).to(BF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,N,heads,dh,w", [(16, 128, 8, 64, 16), (4, 1024, 8, 64, 16),
+                                            (4, 120, 8, 64, 16), (2, 96, 2, 16, 16),
+                                            (2, 384, 4, 32, 32), (1, 256, 2, 128, 16)])
+def test_b3_bf16_matches_plain(cuda, B, N, heads, dh, w, causal):
+    qkv = _qkv(cuda, B, N, heads, dh, seed=N + dh)
+    lengths = torch.linspace(N, 3, B, device=cuda).round()
+    masks = (None, (torch.arange(N, device=cuda)[None] < lengths[:, None]).float())
+    for key_mask in masks:
+        n, n32 = FA.fused_qkv_local_attention_bf16_cuda.launches, \
+            FA.fused_qkv_local_attention_cuda.launches
+        args = (qkv, heads, dh, w, causal, True, True, key_mask)
+        out = FA.fused_qkv_local_attention_bf16_cuda(*args)
+        torch.cuda.synchronize()
+        assert FA.fused_qkv_local_attention_bf16_cuda.launches == n + 1
+        assert FA.fused_qkv_local_attention_cuda.launches == n32
+        _within_one_ulp(out, FA.fused_qkv_local_attention_plain(*args))
+
+
+@pytest.mark.cuda
+def test_b3_bf16_every_plan(cuda):
+    """Tensor and CUDA cores, each slab, at the serving shape."""
+    B, N, heads, dh, w = 16, 128, 8, 64, 16
+    qkv = _qkv(cuda, B, N, heads, dh, seed=5)
+    ref = FA.fused_qkv_local_attention_plain(qkv, heads, dh, w)
+    p = FA.plan(N, w, False)
+    for mma in (True, False):
+        for slab in (16, 32, 64, 128) if mma else (8, 16, 32, 64):
+            lp = FA.attention_plan(p["Np"], p["C"], p["P"], w, False, dh, B * heads, True,
+                                   slab=slab, mma=mma)
+            _within_one_ulp(FA.fused_qkv_local_attention_bf16_cuda(qkv, heads, dh, w,
+                                                                   launch_plan=lp), ref)
+
+
+@pytest.mark.cuda
+def test_bf16_models_launch_only_the_bf16_kernels(cuda):
+    """The dim-128 U-Net: 33 launches of B1's bf16 kernel a forward; the
+    local transformer (depth 6): 6 of B3's bf16 entry; no float32 launch."""
+    torch.manual_seed(0)
+    unet = TemporalUnet(35, dim=128, dtype=BF).to(cuda).eval()
+    la = LocalTransformer(69, 128, dim=512, depth=6, heads=8, dim_head=64, window_size=16,
+                          dtype=BF).to(cuda).eval()
+
+    def counts():
+        return (CB.conv_gn_mish_bf16_cuda.launches, CB.conv_gn_mish_cuda.launches,
+                FA.fused_qkv_local_attention_bf16_cuda.launches,
+                FA.fused_qkv_local_attention_cuda.launches)
+    with torch.inference_mode():
+        c0 = counts()
+        u = unet(torch.randn(4, 64, 35, device=cuda), torch.randint(0, 1000, (4,), device=cuda))
+        c1 = counts()
+        a = la(torch.randn(4, 128, 69, device=cuda), torch.randint(0, 1000, (4,), device=cuda))
+        c2 = counts()
+    assert [x - y for x, y in zip(c1, c0)] == [33, 0, 0, 0]
+    assert [x - y for x, y in zip(c2, c1)] == [0, 0, 6, 0]
+    assert u.dtype == a.dtype == torch.float32
+    assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(a).all())
+
+
+FIRST_PLAN = """
+import json, sys, torch
+from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
+from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
+g = torch.Generator(device="cuda").manual_seed(0)
+if sys.argv[1] == "b2":
+    # 49,152 dynamic bytes: 48 KB exactly, over it with the 64 static bytes
+    x = torch.randn(2, 96, 16, generator=g, device="cuda")
+    dy = torch.randn(2, 96, 64, generator=g, device="cuda")
+    plan = CW.make_wgrad_plan(2, 96, 16, 64, 1, 132, tci=16, tco=64, rows=64, stages=2,
+                              cluster=1, slices=1)
+    ref = CW.conv1d_weight_grad_plain(x, dy, 1)
+    err = (CW.conv1d_weight_grad_cuda(x, dy, 1, plan=plan) - ref).abs().max() / ref.abs().max()
+    smem, static = plan.smem_bytes, CW.STATIC_SMEM
+else:
+    # B3's bf16 entry first, at a plan over 48 KB (its own instantiation opts in)
+    qkv = torch.randn(2, 256, 3 * 2 * 128, generator=g, device="cuda").to(torch.bfloat16)
+    p = FA.plan(256, 16, False)
+    lp = FA.attention_plan(p["Np"], p["C"], p["P"], 16, False, 128, 4, True, slab=64, mma=True)
+    out = FA.fused_qkv_local_attention_bf16_cuda(qkv, 2, 128, 16, launch_plan=lp)
+    err = (out.float() - FA.fused_qkv_local_attention_plain(qkv, 2, 128, 16).float()).abs().max()
+    smem, static = lp.smem_bytes, 16
+torch.cuda.synchronize()
+print(json.dumps({"smem": smem, "static": static, "err": err.item()}))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b2", "b3_bf16"])
+def test_first_plan_in_a_fresh_process_runs(cuda, kind):
+    """B2's launcher opts in above 48 KB by its static and dynamic bytes
+    together: a fresh process whose first B2 plan takes exactly 48 KB of
+    dynamic shared memory (over it with the 64 static bytes) runs. B3's
+    dynamic bytes are multiples of 80, 144, 272 or 528 and none lies within
+    16 bytes under 48 KB, so its fresh process runs the bf16 entry's first
+    launch at a plan above 48 KB: each instantiation opts in on its own."""
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", FIRST_PLAN, kind], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if kind == "b2":
+        assert got["smem"] <= 48 * 1024 < got["smem"] + got["static"]
+        assert got["err"] <= 1e-5
+    else:
+        assert got["smem"] > 48 * 1024 and got["err"] <= 0.05

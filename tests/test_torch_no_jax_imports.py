@@ -35,7 +35,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "deepmimic_diffusion_muj
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEW_MODULES = ["parallel/mesh.py", "parallel/tp.py", "parallel/multihost_check.py",
                "parallel/launch.py", "utils/profiling.py", "utils/rng.py", "cli/scaling.py",
-               "utils/seq.py"]
+               "utils/seq.py", "models/precision.py"]
 
 
 def _imported_roots(path: Path):
@@ -95,9 +95,18 @@ def test_default_device_raises_without_cuda(tmp_path, name):
         ENTRY_POINTS[name](tmp_path)
 
 
-def test_bf16_config_is_refused():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        factory.build_model(ModelConfig(architecture="temporal", bf16=True), device="cpu")
+@pytest.mark.parametrize("arch", ["temporal", "transformer", "decoder", "local_attention"])
+def test_bf16_config_builds(arch):
+    """Each architecture builds at bf16 on the CPU: float32 parameters, a
+    bf16 compute dtype, a float32 output."""
+    cfg = ModelConfig(architecture=arch, bf16=True, channel_dim=16, latent_dim=32, depth=1,
+                      num_layers=1, n_heads=2, dim_head=16, max_seq_len=16)
+    model = factory.build_model(cfg, device="cpu").eval()
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 and not p.is_cuda for p in model.parameters())
+    with torch.no_grad():
+        out = model(torch.zeros(1, 16, cfg.input_dim), torch.zeros(1))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("arch", ["transformer", "decoder", "local_attention"])
