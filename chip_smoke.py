@@ -6,8 +6,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the five CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B1's bf16 form
-   csrc/conv_gn_mish_bf16.cu, B2 csrc/conv1d_weight_grad.cu, B3, its bf16 entry, K3 and B4
-   csrc/local_attention.cu, B5-B7 csrc/humanoid_dynamics.cu), compiled in parallel with nvcc,
+   csrc/conv_gn_mish_bf16.cu, B2 and its bf16 form csrc/conv1d_weight_grad.cu, B3, its bf16
+   entry, K3 and B4 csrc/local_attention.cu, B5-B7 csrc/humanoid_dynamics.cu), compiled in
+   parallel with nvcc,
    one process each, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
    the dim-128 U-Net gives it on the main paths: B1 at B 16 for serving
@@ -43,7 +44,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    step with both plain versions: the loss and every parameter's gradient.
 7. train profile: ms per optimizer step (host clock, 10 steps), device
    kernel time per step by name, the host operators with the most CPU time
-   and the device's busy share (torch.profiler over 10 steps), and peak
+   and the device's busy share (torch.profiler over PROFILE_STEPS steps), and peak
    device memory.
 8. local-attention kernels: B3 (``fused_qkv_local_attention``) against its
    plain version at every shape the requests below give it (B 16 x H 128,
@@ -120,8 +121,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    optimizer steps with EMA, saves and logs firing: B3's count set to 0 just before and read
    just after, 6 a micro-step, each launch with a keep mask; one B 64 step with B3 against the
    same step through B3's plain version with the same keep masks (loss and every gradient);
-   ms per optimizer step, busy share and peak memory over 10 steps; one request answered from
-   the trained run (B 4 x H 96, 999 forwards).
+   ms per optimizer step and peak memory over 10 steps, the busy share over PROFILE_STEPS; one
+   request answered from the trained run (B 4 x H 96, 999 forwards).
 17. dec: ``cli.train.main`` on the user config experiments/decoder10k/config.json (dim 256, 4
    heads, 4 layers, angle + velocity loss, walk H 32, B 64) for 30 steps, one ``cli.sample``
    request from the run (v4 T 1000, B 16 x H 32, 999 forwards) and one forward against float64
@@ -198,20 +199,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    depth a forward a rank, B3 0: nothing takes the bucketed route) against one process with
    B3; the ms a step of both chains, sharded and one-process.
 
-22. bf16, run after phase 21 (``bf16=True`` serving; training at bf16 is not ported): B1's
+22. bf16, run after phase 21 (``bf16=True`` serving; training at bf16 is phase 23): B1's
    bf16 form (``conv_gn_mish_bf16``, csrc/conv_gn_mish_bf16.cu) against its plain version at
    every shape of the dim-128 serve forward (B 16 x H 64) and B3's bf16 entry at localattn5k_r3's
    B 16 x H 128, each within one bf16 ulp of the value plus BF16_TOL, with the error in bf16
    ulps, timed beside the float32 kernel on the same values, the plain version and the bf16
    composition, with the bound (B1: bf16 operations at BF16_FLOPS, or bytes; B3: bytes). Then
    each denoiser served by ``cli.sample.main`` from a float32 run and a copy of it whose
-   config.json says ``"bf16": true`` (same checkpoint, same seed), the counts set to 0 just
-   before each request and read just after, the plain versions refused during it: the train
-   phase's dim-128 run (posterior T 1000, B 16 x H 64: B1's bf16 kernel 33 a forward, its
-   float32 kernel 0) and the la_serve run (v4 T 1000, B 16 x H 128: B3's bf16 entry 6 a
-   forward, its float32 entry 0), each with a DDIM-50 chain of both builds and one forward of
-   each timed; the b_serve run (CFG on class 0) and the dec run at T BF16_SHORT_T, no kernel.
+   config.json says ``"bf16": true`` (same checkpoint, same seed), each cut to T BF16_SHORT_T,
+   the counts set to 0 just before each request and read just after, the plain versions
+   refused during it: the train phase's dim-128 run (posterior, B 16 x H 64: B1's bf16 kernel
+   33 a forward, its float32 kernel 0) and the la_serve run (v4, B 16 x H 128: B3's bf16 entry
+   6 a forward, its float32 entry 0), each with a DDIM-50 chain of both builds (T 1000) and
+   one forward of each timed; the b_serve run (CFG on class 0) and the dec run, no kernel.
    The served motions' float32-vs-bf16 distance is reported for each.
+
+23. bf16_train, run after phase 22 (``bf16=True`` training): B2's bf16 form
+   (``conv1d_weight_grad_bf16``, bf16 x and dy, float32 dW) against its plain version at each
+   of the 33 shapes of a dim-128 micro-step (B 32 x H 160) within WGRAD_TOL, timed beside the
+   plain version, cuDNN's bf16 weight gradient and the float32 kernel on the widened values,
+   with the bound (operations at BF16_FLOPS, or bytes); B3's bf16 entry with the keep mask at
+   la_train's B 64 x N 96 (within one bf16 ulp plus BF16_TOL), timed beside the float32 entry
+   with the same mask, the plain version and the bf16 composition. One micro-step of the bf16
+   dim-128 U-Net and of the bf16 localattn5k_r3 model (same t, noise and keep masks), one
+   ``value_gradients`` call and one ``value_diffusion_loss`` step of a bf16 ValueFunction (dim
+   32, H 64), each with the kernels against the same step through their plain versions
+   (BF16_LOSS_TOL, BF16_GRAD_TOL). Then ``cli.train.main`` on the train phase's arguments and
+   on la_train's with ``model.bf16=true``, BF16_TRAIN_STEPS optimizer steps each (saves, logs
+   and the EMA firing), the counts set to 0 just before and read just after: B1's and B2's
+   bf16 forms 33 a micro-step, B3's bf16 entry 6 a micro-step each with a keep mask, every
+   float32 form 0; parameters and EMA float32. ms per optimizer step, busy share and peak
+   memory of each, beside the float32 figures of phases 7 and 16.
 
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
@@ -374,8 +392,22 @@ BF16_TOL = KERNEL_TOL    # a bf16 kernel against its plain version: |d| <= 2^-7 
                          # (one bf16 ulp of the value, plus the float32 forms' card tolerance
                          # for sums taken in another order)
 BF16_FLOPS = 989e12      # dense bf16 on the tensor cores, H100 SXM (B1's bf16 bound)
-BF16_SHORT_T = 100       # the MDM transformer's and the decoder's bf16 requests: T 100 copies
+BF16_SHORT_T = 100       # phase 22's requests run T 100 copies of each run (at T 1000 the
+                         # U-Net's and the local transformer's four requests took 45 s; the
+                         # T 1000 chains are phases 4 and 9's)
 BF16_DDIM = 50           # the DDIM chain beside each T 1000 request (U-Net, local attention)
+# bf16 training (phase 23)
+BF16_TRAIN_STEPS = 10    # optimizer steps of each bf16 cli.train run
+BF16_LOSS_TOL = 2e-3     # a bf16 step with the kernels against the same step through their
+BF16_GRAD_TOL = (2.5e-2, 5e-4)  # plain versions: |loss| relative; (max, median) over every
+                         # gradient element of |d| / max |plain|. The bf16 forwards agree within
+                         # one bf16 ulp and 99.9 % to the bit (phase 22); a flipped rounding
+                         # moves its GroupNorm group's statistics and spreads through the layers.
+                         # Measured on an H100 80GB HBM3 at 700 W: loss 4.6e-4 at most (the
+                         # value sum), gradients 1.0e-2 and 6.0e-5 at most
+PROFILE_STEPS = 3        # optimizer steps traced by torch.profiler in the training profiles
+                         # (tracing and reading back 10 steps of the dim-128 U-Net took most of
+                         # phase 7's 50 s on an H100; device ms a step vary by about 1 %)
 TRAIN_SET = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
              "train.save_every=15", "train.ema_start=20", "train.ema_every=10"]
 
@@ -472,6 +504,7 @@ def reset_counts():
     CB.gn_affine_mish_cuda.launches = 0
     FA.local_attention_halo_cuda.launches = 0
     CW.conv1d_weight_grad_cuda.launches = 0
+    CW.conv1d_weight_grad_bf16_cuda.launches = 0
     FA.fused_qkv_local_attention_cuda.launches = 0
     LH.local_attention_heads_cuda.launches = 0
     DK.control_step_cuda.launches = 0
@@ -967,19 +1000,18 @@ def grads_phase(dev, seed):
     return result
 
 
-def train_profile_phase(dev, seed, steps=10):
-    """Optimizer steps of the CLI's trainer without checkpoints: host-clock
-    ms per step, and device kernel time by name under torch.profiler. The
-    best-model window is kept shut so that no step waits for its loss."""
-    cfg = ExperimentConfig.load(str(USER_CONFIG)).override({
-        "data.path": str(CARTWHEEL), "train.batch_size": TRAIN_B,
-        "train.gradient_accumulate_every": ACCUM, "train.seed": seed})
+def step_profile(cfg, dev, steps=10, traced=PROFILE_STEPS):
+    """Optimizer steps of the CLI's trainer on ``cfg`` without checkpoints:
+    host-clock ms per step (``steps`` after as many to warm), device kernel
+    time by name under torch.profiler (``traced`` more) and the busy share
+    (device over host ms a step), peak memory. The best-model window is kept
+    shut so that no step waits for its loss."""
     trainer = train_cli.build_trainer(cfg, device=dev)
     trainer.config = dataclasses.replace(trainer.config, log_every=10 ** 9,
                                          best_window_frac=-1e6)
 
-    def window():
-        trainer.train(num_steps=steps)
+    def window(n=steps):
+        trainer.train(num_steps=n)
         torch.cuda.synchronize()
 
     window()
@@ -988,11 +1020,20 @@ def train_profile_phase(dev, seed, steps=10):
     window()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     peak = torch.cuda.max_memory_allocated()
-    device_ms, top, host = device_time_by_kernel(window, steps)
-    result = {"ms_per_optimizer_step": wall_ms, "optimizer_steps_per_s": 1e3 / wall_ms,
-              "device_ms_per_step": device_ms,
-              "device_busy_share": device_ms / wall_ms if device_ms else None,
-              "top_kernels": top, "top_host_ops": host, "peak_memory_bytes": peak}
+    device_ms, top, host = device_time_by_kernel(lambda: window(traced), traced)
+    del trainer
+    return {"ms_per_optimizer_step": wall_ms, "optimizer_steps_per_s": 1e3 / wall_ms,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms if device_ms else None,
+            "top_kernels": top, "top_host_ops": host, "peak_memory_bytes": peak}
+
+
+def train_profile_phase(dev, seed, steps=10):
+    """``step_profile`` of the train phase's configuration."""
+    cfg = ExperimentConfig.load(str(USER_CONFIG)).override({
+        "data.path": str(CARTWHEEL), "train.batch_size": TRAIN_B,
+        "train.gradient_accumulate_every": ACCUM, "train.seed": seed})
+    result = step_profile(cfg, dev, steps)
     emit({"phase": "profile", "path": "train", **result})
     return result
 
@@ -1335,21 +1376,23 @@ def la_serve_phase(dev, timer, args, tmp, cfg):
 
 
 @contextlib.contextmanager
-def keep_mask_launches():
-    """Record, for every B3 launch inside the block, whether it carried a
-    dropout keep mask: -> a list of bools. The wrapper still counts its own
-    launches: it adds to the count of the name it is reached by, the
+def keep_mask_launches(entry="fused_qkv_local_attention_cuda"):
+    """Record, for every launch of B3's ``entry`` (the float32 one, or
+    ``fused_qkv_local_attention_bf16_cuda``) inside the block, whether it
+    carried a dropout keep mask: -> a list of bools. The wrapper still counts
+    its own launches: it adds to the count of the name it is reached by, the
     recorder's inside the block, which is added to its own after."""
-    seen, real = [], FA.fused_qkv_local_attention_cuda
+    seen, real = [], getattr(FA, entry)
 
     def recorder(qkv, *args, **kw):
         keep = args[7] if len(args) > 7 else kw.get("dropout_keep")
         seen.append(keep is not None)
         return real(qkv, *args, **kw)
 
+    recorder.__name__ = real.__name__
     recorder.launches = 0
     try:
-        with swapped(FA, fused_qkv_local_attention_cuda=recorder):
+        with swapped(FA, **{entry: recorder}):
             yield seen
     finally:
         real.launches += recorder.launches
@@ -1460,29 +1503,10 @@ def la_train_phase(dev, args, tmp, cfg, steps=10):
 
     result["grads"] = la_grad_check(dev, cfg, args.seed)
 
-    trainer = train_cli.build_trainer(cfg.override({"data.path": str(LA_DATA),
-                                                    "train.seed": args.seed}), device=dev)
-    trainer.config = dataclasses.replace(trainer.config, log_every=10 ** 9,
-                                         best_window_frac=-1e6)
-
-    def window():
-        trainer.train(num_steps=steps)
-        torch.cuda.synchronize()
-
-    window()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    window()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    peak = torch.cuda.max_memory_allocated()
-    device_ms, top, host = device_time_by_kernel(window, steps)
-    del trainer
     p = FA.plan(LA_TRAIN_H, cfg.model.window_size, cfg.model.causal)
     result["profile"] = {
-        "ms_per_optimizer_step": wall_ms, "optimizer_steps_per_s": 1e3 / wall_ms,
-        "device_ms_per_step": device_ms,
-        "device_busy_share": device_ms / wall_ms if device_ms else None,
-        "top_kernels": top, "top_host_ops": host, "peak_memory_bytes": peak,
+        **step_profile(cfg.override({"data.path": str(LA_DATA), "train.seed": args.seed}), dev,
+                       steps),
         "keep_mask_bytes_per_layer": 4 * LA_TRAIN_B * p["Np"] * cfg.model.n_heads * p["K"]}
 
     with counted_forwards() as calls:
@@ -1506,7 +1530,8 @@ def kernel_counts():
     """Every kernel wrapper's launch count."""
     return {f"{mod.__name__.rsplit('.', 1)[-1]}.{fn.__name__}": fn.launches for mod, fn in (
         (CB, CB.conv_gn_mish_cuda), (CB, CB.conv_gn_mish_bf16_cuda),
-        (CW, CW.conv1d_weight_grad_cuda), (FA, FA.fused_qkv_local_attention_cuda),
+        (CW, CW.conv1d_weight_grad_cuda), (CW, CW.conv1d_weight_grad_bf16_cuda),
+        (FA, FA.fused_qkv_local_attention_cuda),
         (FA, FA.fused_qkv_local_attention_bf16_cuda), (LH, LH.local_attention_heads_cuda),
         (DK, DK.control_step_cuda), (DK, DK.rollout_cuda), (DK, DK.tracking_reward_cuda))}
 
@@ -3573,16 +3598,22 @@ def bf16_ddim(models, sched, shape, seed, dev, **kw):
     return {**out, "steps": BF16_DDIM, "trajectories_rel_diff": rel}
 
 
+def bf16_source(run):
+    """A copy of the run whose chains are cut to BF16_SHORT_T, the float32
+    side of phase 22's requests."""
+    return run_copy(run, run + "_bf16src", {"diffusion.noise_steps": BF16_SHORT_T})
+
+
 def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
     """Phase 22: B1's and B3's bf16 forms against their plain versions at the
     serve shapes, timed beside the float32 kernels; then each denoiser
     served through ``cli.sample.main`` from a float32 run and its bf16 copy
-    (same checkpoint, same seed): the dim-128 U-Net (the train phase's run,
-    T 1000, B 16 x H 64) and localattn5k_r3 (T 1000 v4, B 16 x H 128), each
-    with a DDIM-50 chain beside it, and the MDM transformer (the b_serve run,
-    CFG on class 0) and the decoder (the dec run) at T BF16_SHORT_T; counts
-    set to 0 just before each request and read just after it. It makes the
-    runs it finds missing (seeded random weights)."""
+    (same checkpoint, same seed), each cut to T BF16_SHORT_T: the dim-128
+    U-Net (the train phase's run, B 16 x H 64) and localattn5k_r3 (v4, B 16 x
+    H 128), each with a T 1000 DDIM-50 chain beside it, and the MDM
+    transformer (the b_serve run, CFG on class 0) and the decoder (the dec
+    run); counts set to 0 just before each request and read just after it.
+    It makes the runs it finds missing (seeded random weights)."""
     probe = TemporalUnet(D, dim=DIM).to(dev).eval()
     shape_counts = Counter(record_block_shapes(probe, torch.zeros(B, H, D, device=dev),
                                                torch.zeros(B, device=dev)))
@@ -3595,8 +3626,9 @@ def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
     if not os.path.exists(unet_run):
         unet_run = os.path.join(tmp, "bf16_unet_run")
         write_run(unet_run, args.seed)
-    unet_t = ExperimentConfig.load(os.path.join(unet_run, "config.json")).diffusion.noise_steps
-    unet_req, unet16 = bf16_requests(tmp, "unet", unet_run, B, H, unet_t, {B1_BF16: per_fwd})
+    unet_req, _ = bf16_requests(tmp, "unet", bf16_source(unet_run), B, H, BF16_SHORT_T,
+                                {B1_BF16: per_fwd})
+    unet16 = run_copy(unet_run, unet_run + "_bf16", {"model.bf16": True})
     g = torch.Generator(device=dev).manual_seed(args.seed + 22)
     unet_fwd, m32, m16, sched = bf16_forwards((unet_run, unet16), dev, lambda s: (
         torch.randn(B, H, D, generator=g, device=dev),
@@ -3611,8 +3643,10 @@ def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
     if not os.path.exists(la_run):
         write_model_run(la_run, la_cfg, args.seed, hyper_connection_weights)
     depth, d_la = la_cfg.model.depth, la_cfg.model.input_dim
-    la_steps = la_cfg.diffusion.noise_steps - 1  # v4 runs the model at t = T-1 .. 1
-    la_req, la16 = bf16_requests(tmp, "la", la_run, LA_B, LA_H, la_steps, {B3_BF16: depth})
+    # v4 runs the model at t = T-1 .. 1
+    la_req, _ = bf16_requests(tmp, "la", bf16_source(la_run), LA_B, LA_H, BF16_SHORT_T - 1,
+                              {B3_BF16: depth})
+    la16 = run_copy(la_run, la_run + "_bf16", {"model.bf16": True})
     la_fwd, m32, m16, sched = bf16_forwards((la_run, la16), dev, lambda s: (
         torch.randn(LA_B, LA_H, d_la, generator=g, device=dev),
         torch.randint(0, s.num_timesteps, (LA_B,), generator=g, device=dev)))
@@ -3635,7 +3669,7 @@ def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
                         lambda name: False)
     for name, run, frames, extra, batch in (("mdm", b_run, B_H, ["--class-id", "0"], 2 * B_B),
                                             ("dec", dec_run, DEC_H, [], B)):
-        short = run_copy(run, run + "_bf16src", {"diffusion.noise_steps": BF16_SHORT_T})
+        short = bf16_source(run)
         cfg = ExperimentConfig.load(os.path.join(short, "config.json"))
         req, short16 = bf16_requests(tmp, name, short, B_B if name == "mdm" else B, frames,
                                      BF16_SHORT_T - 1, {}, extra)
@@ -3650,6 +3684,360 @@ def bf16_phase(dev, timer, args, tmp, peaks, la_cfg, b_run=None):
     return {"b1_rows": b1, "b3_row": b3, "per_forward": per_fwd,
             "unet": {"request": unet_req, **unet_fwd}, "la": {"request": la_req, **la_fwd},
             **others}
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: bf16 training (B1's bf16 backward, B2's bf16 form, B3's bf16 entry with the keep
+# mask; cli.train on bf16 configs)
+
+B2_BF16 = "conv_weight_grad.conv1d_weight_grad_bf16_cuda"
+B2_F32 = "conv_weight_grad.conv1d_weight_grad_cuda"
+
+
+def bf16_b2_rows(dev, timer, per_step, peaks, batch):
+    """B2's bf16 form against its plain version at every (H, Cin, Cout) of
+    ``per_step`` (Counter of launches a micro-step) at ``batch``, with bf16 x
+    and dy: within WGRAD_TOL of max |dW|, and where the plan splits the rows
+    over a cluster a second launch gives the same bits. Timed beside the
+    plain version, cuDNN's bf16 weight gradient (``torch.nn.grad.conv1d_weight``
+    on channel-first copies made outside the timed call; it rounds dW to
+    bf16) and the float32 kernel on the float32 widenings; the bound: the
+    operations at BF16_FLOPS or the bytes (bf16 x and dy read, float32 dW
+    written), whichever is larger."""
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(24)
+    for (h, cin, cout), n in per_step.items():
+        x = torch.randn(batch, h, cin, generator=g, device=dev).to(BF)
+        dy = torch.randn(batch, h, cout, generator=g, device=dev).to(BF)
+        plan = CW.wgrad_plan(batch, h, cin, cout, K, CW.sm_count(x.device), True)
+        out = CW.conv1d_weight_grad_bf16_cuda(x, dy, K)
+        ref = CW.conv1d_weight_grad_plain(x, dy, K)
+        xc, dyc = x.transpose(1, 2).contiguous(), dy.transpose(1, 2).contiguous()
+        x32, dy32 = x.float(), dy.float()
+
+        def library():
+            return torch.nn.grad.conv1d_weight(xc, (cout, cin, K), dyc, padding=K // 2)
+
+        lib = library().permute(2, 1, 0).float()
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        err = (out - ref).abs().max().item()
+        if not (err <= WGRAD_TOL * scale and torch.isfinite(out).all()):
+            raise RuntimeError(f"conv1d_weight_grad_bf16 disagrees at B {batch}, H {h}, "
+                               f"{cin}->{cout}: max abs err {err}, max |dW| {scale}")
+        identical = None
+        if plan.cluster > 1:
+            identical = torch.equal(out, CW.conv1d_weight_grad_bf16_cuda(x, dy, K))
+            if not identical:
+                raise RuntimeError(f"conv1d_weight_grad_bf16 at B {batch}, H {h}, {cin}->{cout}"
+                                   f" (cluster {plan.cluster}): two launches differ")
+        flops = 2.0 * K * cin * cout * batch * h
+        nbytes = 2.0 * batch * h * (cin + cout) + 4.0 * K * cin * cout
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
+        rows.append({
+            "B": batch, "H": h, "cin": cin, "cout": cout, "per_micro_step": n,
+            "plan": {"tci": plan.tci, "tco": plan.tco, "rows": plan.rows,
+                     "stages": plan.stages, "cluster": plan.cluster, "slices": plan.slices,
+                     "ctas": plan.grid, "threads": plan.threads, "smem_bytes": plan.smem_bytes},
+            "path": plan.path, "bit_identical": identical, "max_abs_err": err,
+            "max_rel_err": err / scale, "library_rel_err": (lib - ref).abs().max().item() / scale,
+            "ms": timer(lambda: CW.conv1d_weight_grad_bf16_cuda(x, dy, K)),
+            "plain_ms": timer(lambda: CW.conv1d_weight_grad_plain(x, dy, K)),
+            "library_ms": timer(library),
+            "f32_kernel_ms": timer(lambda: CW.conv1d_weight_grad_cuda(x32, dy32, K)),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "mbytes": nbytes / 1e6})
+        rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
+        emit({"phase": "kernel", "name": "conv1d_weight_grad_bf16", **rows[-1]})
+    if not any(r["bit_identical"] for r in rows):
+        raise RuntimeError("conv1d_weight_grad_bf16: no shape's plan splits the rows over a "
+                           "cluster, so no launch was checked for determinism")
+    return rows
+
+
+def bf16_b3_keep_row(dev, timer, peaks, mcfg):
+    """B3's bf16 entry with the dropout keep mask against its plain version at
+    la_train's shape (B 64 x N 96), timed beside the float32 entry with the
+    same mask on the float32 widening, the plain version and the bf16
+    composition (rotary + one SDPA with the band mask; it applies no keep
+    mask); the bound: bytes (bf16 qkv read, the float32 mask read, the bf16
+    context written) or the operations at the float32 rate (the kernel
+    computes in float32), whichever is larger."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    g = torch.Generator(device=dev).manual_seed(25)
+    p = FA.plan(LA_TRAIN_H, w, causal)
+    Np, Kk = p["Np"], p["K"]
+    qkv = torch.randn(LA_TRAIN_B, LA_TRAIN_H, 3 * h * dh, generator=g, device=dev).to(BF)
+    keep = FA.dropout_keep_mask(g, KEEP_PROB, LA_TRAIN_B, LA_TRAIN_H, h, w, causal)
+    args = (qkv, h, dh, w, causal, True, True, None, keep, KEEP_PROB)
+    out = FA.fused_qkv_local_attention_bf16_cuda(*args)
+    ref = FA.fused_qkv_local_attention_plain(*args)
+    torch.cuda.synchronize()
+    err = bf16_agreement("fused_qkv_local_attention (bf16, keep mask)", out, ref,
+                         f"B {LA_TRAIN_B}, N {LA_TRAIN_H}")
+    args32 = (qkv.float(),) + args[1:]
+    tables = tuple(tuple(t.to(BF) for t in rotary_tables(pos, dh, dev))
+                   for pos in (np.arange(Np) + lf * w, np.arange(Np)))
+    mask = band_mask(Np, w, causal, dev)
+    pairs, _ = attention_work(LA_TRAIN_H, Np, w, causal, [Np] * LA_TRAIN_B)
+    flops = h * 4.0 * dh * pairs + 6.0 * LA_TRAIN_B * LA_TRAIN_H * h * dh
+    nbytes = 2.0 * 4 * LA_TRAIN_B * LA_TRAIN_H * h * dh + 4.0 * LA_TRAIN_B * Np * h * Kk
+    bound_ms, bound_by = bound(flops, nbytes, peaks)
+    row = {"B": LA_TRAIN_B, "N": LA_TRAIN_H, "heads": h, "dim_head": dh, "window": w,
+           "keep_prob": KEEP_PROB, **err,
+           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_TRAIN_B * h),
+           "ms": timer(lambda: FA.fused_qkv_local_attention_bf16_cuda(*args)),
+           "f32_kernel_ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args32)),
+           "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args)),
+           "composition_ms": timer(lambda: b3_composition(qkv, h, dh, w, tables, mask)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "mbytes": nbytes / 1e6}
+    emit({"phase": "kernel", "name": "fused_qkv_local_attention_bf16_keep", **row})
+    return row
+
+
+@contextlib.contextmanager
+def bf16_plain():
+    """Every kernel of a bf16 training step through its plain version: B1's
+    bf16 forward, B2 (either form) and B3's bf16 entry."""
+    with swapped(CB, conv_gn_mish_bf16_cuda=CB.conv_gn_mish_plain,
+                 conv1d_weight_grad=CW.conv1d_weight_grad_plain), \
+            swapped(FA, fused_qkv_local_attention_bf16_cuda=FA.fused_qkv_local_attention_plain):
+        yield
+
+
+def bf16_distance(grads_k, grads_p):
+    """(max, median) over every element of |kernels - plain| / max |plain|."""
+    scale = max(v.abs().max().item() for v in grads_p.values())
+    d = torch.cat([(grads_k[k] - v).abs().flatten() for k, v in grads_p.items()]) / scale
+    return d.max().item(), d.median().item()
+
+
+def bf16_held(name, loss_k, loss_p, grads_k, grads_p):
+    """The loss and every gradient of a bf16 step with the kernels against
+    the same step with the plain versions; raises beyond BF16_LOSS_TOL and
+    BF16_GRAD_TOL."""
+    dist = bf16_distance(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    finite = all(torch.isfinite(g).all() for g in grads_k.values())
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_err": loss_rel,
+           "grad_max_rel_err": dist[0], "grad_median_rel_err": dist[1],
+           "grad_dtypes": sorted({str(g.dtype) for g in grads_k.values()}),
+           "tolerance": {"loss": BF16_LOSS_TOL, "grad": list(BF16_GRAD_TOL)}}
+    emit({"phase": "bf16_grads", "path": name, **out})
+    if not (finite and loss_rel <= BF16_LOSS_TOL and dist[0] <= BF16_GRAD_TOL[0]
+            and dist[1] <= BF16_GRAD_TOL[1] and out["grad_dtypes"] == ["torch.float32"]):
+        raise RuntimeError(f"bf16 {name} step with the kernels vs plain: {out}")
+    return out
+
+
+def bf16_grad_checks(dev, seed, la_cfg):
+    """One micro-step of the bf16 dim-128 U-Net (B 32 x H 160, cartwheel) and
+    of the bf16 localattn5k_r3 model (B 64 x H 96, dance_a, dropout live)
+    with the kernels, against the same micro-step through the plain
+    versions (same t, noise and keep masks); then one ``value_gradients``
+    call and one ``value_diffusion_loss`` step of a bf16 ValueFunction (dim
+    GUIDE_DIM, H 64), held the same way. Launch counts of each."""
+    out = {}
+    ds = MotionDataset.from_path(str(CARTWHEEL), include_velocity=False, augment="cyclic",
+                                 horizon_multiple=8)
+    x0 = torch.from_numpy(next(ds.epochs(TRAIN_B, seed=seed)).trajectories).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randint(0, T, (TRAIN_B,), generator=gen, device=dev)
+    noise = torch.randn(x0.shape, generator=gen, device=dev)
+    torch.manual_seed(seed)
+    unet = TemporalUnet(D, dim=DIM, dtype=BF).to(dev).train()
+    loss_fn = make_loss_fn(make_schedule("cosine", T, convention="diffuser", device=dev), unet,
+                           weights=process.diffuser_loss_weights(ds.horizon, D, device=dev))
+
+    def unet_step():
+        unet.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(x0, t, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in unet.named_parameters()}
+
+    reset_counts()
+    loss_k, grads_k = unet_step()
+    launched = kernel_counts()
+    with bf16_plain():
+        loss_p, grads_p = unet_step()
+    want = {B1_BF16: 33, B2_BF16: 33}
+    if {k: v for k, v in launched.items() if v} != want or kernel_counts() != launched:
+        raise RuntimeError(f"the bf16 U-Net micro-step launched {launched}, expected {want}")
+    out["unet"] = {"batch": TRAIN_B, "H": x0.shape[1], "launches": want,
+                   **bf16_held("unet", loss_k, loss_p, grads_k, grads_p)}
+    del unet, grads_k, grads_p
+
+    mcfg = dataclasses.replace(la_cfg.model, bf16=True)
+    lx0, lt, lnoise = la_batch(la_cfg, seed, dev)
+    torch.manual_seed(seed)
+    la = factory.build_model(mcfg, dev).train()
+    la_loss = make_loss_fn(factory.build_schedule(la_cfg.diffusion, dev), la, kind="v4",
+                           predict_epsilon=False, use_mask=True,
+                           dropout=train_cli.has_dropout(mcfg))
+
+    def la_step():
+        la.zero_grad(set_to_none=True)
+        loss, _ = la_loss(lx0, lt, lnoise, generator=torch.Generator(device=dev).manual_seed(seed))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in la.named_parameters()}
+
+    reset_counts()
+    with keep_mask_launches("fused_qkv_local_attention_bf16_cuda") as kept:
+        loss_k, grads_k = la_step()
+    launched = kernel_counts()
+    with bf16_plain():
+        loss_p, grads_p = la_step()
+    depth = mcfg.depth
+    if ({k: v for k, v in launched.items() if v} != {B3_BF16: depth} or not all(kept)
+            or len(kept) != depth):
+        raise RuntimeError(f"the bf16 la micro-step launched {launched}, keep masks {kept}")
+    out["la"] = {"batch": LA_TRAIN_B, "H": lx0.shape[1], "launches": {B3_BF16: depth},
+                 "launches_with_keep_mask": sum(kept),
+                 **bf16_held("la", loss_k, loss_p, grads_k, grads_p)}
+    del la, grads_k, grads_p
+
+    torch.manual_seed(seed)
+    value = ValueFunction(D, H, dim=GUIDE_DIM, dtype=BF).to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    x = torch.randn(B, H, D, generator=g, device=dev)
+    tv = torch.randint(0, GUIDE_T, (B,), generator=g, device=dev)
+    reset_counts()
+    y_k, dx_k = value_gradients(value, x, tv)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    with bf16_plain():
+        y_p, dx_p = value_gradients(value, x, tv)
+    per_value = launched.get(B1_BF16, 0)
+    if set(launched) != {B1_BF16} or per_value != 20:
+        raise RuntimeError(f"bf16 value_gradients launched {launched}")
+    out["value_gradients"] = {"launches": launched, **bf16_held(
+        "value_gradients", y_k.sum().item(), y_p.sum().item(), {"x": dx_k}, {"x": dx_p}),
+        "value_max_rel_err": ((y_k - y_p).abs().max() / y_p.abs().max()).item()}
+    trainable = copy.deepcopy(value).requires_grad_(True).train()
+    vx0 = torch.randn(B, H, D, generator=g, device=dev)
+    target = torch.randn(B, generator=g, device=dev)
+    vnoise = torch.randn(B, H, D, generator=g, device=dev)
+    vsched = make_schedule("cosine", GUIDE_T, convention="diffuser", device=dev)
+
+    def value_step():
+        trainable.zero_grad(set_to_none=True)
+        loss, _ = value_diffusion_loss(vsched, trainable, vx0, target, tv, vnoise)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in trainable.named_parameters()}
+
+    reset_counts()
+    loss_k, grads_k = value_step()
+    launched = {k: v for k, v in kernel_counts().items() if v}
+    with bf16_plain():
+        loss_p, grads_p = value_step()
+    if launched != {B1_BF16: 20, B2_BF16: 20}:
+        raise RuntimeError(f"the bf16 value_diffusion_loss step launched {launched}")
+    out["value_diffusion_loss"] = {"launches": launched, **bf16_held(
+        "value_diffusion_loss", loss_k, loss_p, grads_k, grads_p)}
+    return out
+
+
+def bf16_train_run(tmp, name, argv, micro_expect, entry=None):
+    """``cli.train.main`` on a bf16 config: every kernel's count set to 0
+    just before and read just after (``micro_expect``: {count: launches a
+    micro-step}; every other count 0), with ``entry``'s launches recorded for
+    their keep masks; checkpoints, logs and the EMA; float32 parameters and
+    EMA. -> (result, trainer config)."""
+    run = os.path.join(tmp, name)
+    reset_counts()
+    t0 = time.perf_counter()
+    with (keep_mask_launches(entry) if entry else contextlib.nullcontext([])) as kept, \
+            contextlib.redirect_stdout(io.StringIO()):
+        trainer = train_cli.main(argv + ["--out", run])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = kernel_counts()
+    cfg = ExperimentConfig.load(os.path.join(run, "config.json"))
+    accum = cfg.train.gradient_accumulate_every
+    micro = BF16_TRAIN_STEPS * accum
+    want = {k: v * micro for k, v in micro_expect.items()}
+    if ({k: v for k, v in launched.items() if v} != want
+            or (entry and (len(kept) != want[B3_BF16] or not all(kept)))):
+        raise RuntimeError(f"the bf16 {name} run launched {launched}, expected {want}"
+                           + (f"; keep masks on {sum(kept)} of {len(kept)}" if entry else ""))
+    ckpts = Path(run) / "checkpoints"
+    saved = sorted(p.name for p in ckpts.glob("*.pt"))
+    half = BF16_TRAIN_STEPS // 2 * accum
+    for ck in ("best_model.pt", f"state_{half}.pt", f"state_{micro}.pt"):
+        if not (ckpts / ck).exists():
+            raise RuntimeError(f"the bf16 {name} run wrote no {ck}: {saved}")
+    metrics = json.loads((Path(run) / "training_metrics.json").read_text())
+    losses = [r["loss"] for r in metrics["metrics"]]
+    logged = log_steps(micro, accum, cfg.train.scan_chunk, cfg.train.log_every)
+    state = trainer.state
+    ema_moved = any((state.ema_params[k] != v).any().item()
+                    for k, v in state.model.state_dict().items())
+    f32 = (all(p.dtype == torch.float32 for p in state.model.parameters())
+           and all(v.dtype == torch.float32 for v in state.ema_params.values()
+                   if v.is_floating_point()))
+    if (not cfg.model.bf16 or [r["step"] for r in metrics["metrics"]] != logged
+            or not np.isfinite(losses).all() or not ema_moved or not f32):
+        raise RuntimeError(f"the bf16 {name} run: metrics {metrics}, expected records at "
+                           f"{logged}; EMA moved {ema_moved}; float32 state {f32}")
+    result = {"seconds": seconds, "optimizer_steps": BF16_TRAIN_STEPS, "micro_steps": micro,
+              "micro_batch": cfg.train.batch_size, "accum": accum,
+              "horizon": trainer.dataset.horizon, "launches": want,
+              "launches_per_micro_step": micro_expect, "losses": losses,
+              "best_loss": metrics["best_loss"], "checkpoints": saved,
+              "ema_differs_from_params": ema_moved}
+    if entry:
+        result["launches_with_keep_mask"] = sum(kept)
+    return result, cfg
+
+
+def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
+    """Phase 23: B2's bf16 form at the 33 shapes of a dim-128 micro-step and
+    B3's bf16 entry with the keep mask at la_train's shape, each against its
+    plain version and timed; the bf16 micro-steps' and value guidance's
+    gradients against the plain path; then ``cli.train.main`` on the train
+    phase's run and on la_train's, each with ``model.bf16=true``, for
+    BF16_TRAIN_STEPS optimizer steps (saves, logs and the EMA firing), the
+    counts set to 0 just before and read just after; ms per optimizer step,
+    busy share and peak memory of each."""
+    probe = TemporalUnet(D, dim=DIM).to(dev).eval()
+    per_step = Counter(record_block_shapes(probe, torch.zeros(TRAIN_B, TRAIN_H, D, device=dev),
+                                           torch.zeros(TRAIN_B, device=dev)))
+    del probe
+    n_blocks = sum(per_step.values())
+    out = {"per_micro_step": n_blocks,
+           "b2_rows": bf16_b2_rows(dev, timer, per_step, peaks, TRAIN_B),
+           "b3_keep_row": bf16_b3_keep_row(dev, timer, peaks, la_cfg.model)}
+    out["grads"] = bf16_grad_checks(dev, args.seed, la_cfg)
+
+    unet_set = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
+                f"train.save_every={BF16_TRAIN_STEPS // 2}", "train.ema_start=4",
+                "train.ema_every=2", f"train.seed={args.seed}", "model.bf16=true"]
+    out["unet"], unet_cfg = bf16_train_run(
+        tmp, "bf16_train_run",
+        ["--config", str(USER_CONFIG), "--data", str(CARTWHEEL), "--batch-size", str(TRAIN_B),
+         "--steps", str(BF16_TRAIN_STEPS), "--device", "cuda", "--set", *unet_set],
+        {B1_BF16: n_blocks, B2_BF16: n_blocks})
+    out["unet"]["profile"] = step_profile(unet_cfg, dev)
+    emit({"phase": "main_path", "path": "bf16_train_unet", **out["unet"]})
+
+    la_set = ["train.log_every=10", f"train.save_every={BF16_TRAIN_STEPS // 2}",
+              "train.ema_start=4", "train.ema_every=2", f"train.seed={args.seed}",
+              "model.bf16=true"]
+    out["la"], la_run_cfg = bf16_train_run(
+        tmp, "bf16_la_train",
+        ["--config", str(LA_CONFIG), "--data", str(LA_DATA), "--steps", str(BF16_TRAIN_STEPS),
+         "--device", "cuda", "--set", *la_set],
+        {B3_BF16: la_cfg.model.depth}, entry="fused_qkv_local_attention_bf16_cuda")
+    if (out["la"]["horizon"], out["la"]["micro_batch"]) != (LA_TRAIN_H, LA_TRAIN_B):
+        raise RuntimeError(f"the bf16 la run took H {out['la']['horizon']}, "
+                           f"B {out['la']['micro_batch']}")
+    out["la"]["profile"] = step_profile(la_run_cfg, dev)
+    emit({"phase": "main_path", "path": "bf16_train_la", **out["la"]})
+    return out
 
 
 def main(argv=None) -> int:
@@ -3735,6 +4123,8 @@ def main(argv=None) -> int:
         result["parallel"] = phase("parallel", parallel_phase, dev, args, tmp, per_step)
         result["seq"] = phase("seq", seq_phase, dev, timer, args, tmp, peaks)
         result["bf16"] = phase("bf16", bf16_phase, dev, timer, args, tmp, peaks, la_cfg, b_run)
+        result["bf16_train"] = phase("bf16_train", bf16_train_phase, dev, timer, args, tmp,
+                                     peaks, la_cfg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -3923,7 +4313,7 @@ def main(argv=None) -> int:
         "other_rank": {k: seq["k3_rows"][1][k] for k in ("Nh", "q0", "ms", "plain_ms",
                                                          "composition_ms", "bound_ms")}})
     # phase 22: B1's bf16 form summed over the 33 launches of the dim-128 serve forward (B 16 x
-    # H 64), B3's bf16 entry per launch at B 16 x H 128; launches from the bf16 T 1000 requests
+    # H 64), B3's bf16 entry per launch at B 16 x H 128; launches from the bf16 T 100 requests
     bf = result["bf16"]
     b1b, b3b = bf["b1_rows"], bf["b3_row"]
     kernels += [{
@@ -3957,6 +4347,50 @@ def main(argv=None) -> int:
         "shape": {"B": LA_B, "N": LA_H, "heads": b3b["heads"], "dim_head": b3b["dim_head"],
                   "window": b3b["window"]},
     }]
+    # phase 23: B2's bf16 form summed over one dim-128 micro-step's 33 launches (B 32 x H 160),
+    # B3's bf16 entry with the keep mask per launch at B 64 x N 96; launches from the bf16
+    # cli.train runs
+    bt = result["bf16_train"]
+    b2b, b3k = bt["b2_rows"], bt["b3_keep_row"]
+    kernels[-2]["launches_train"] = bt["unet"]["launches"][B1_BF16]
+    kernels[-1]["launches_train"] = bt["la"]["launches"][B3_BF16]
+    kernels += [{
+        "name": "conv1d_weight_grad_bf16", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "form": "B2 at bf16 (bf16 x and dy, float32 sums and dW)",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv1d_weight_grad.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/conv_weight_grad.py:63",
+        "launches": bt["unet"]["launches"][B2_BF16],
+        "launches_per_micro_step": bt["per_micro_step"],
+        "launches_value_step": bt["grads"]["value_diffusion_loss"]["launches"][B2_BF16],
+        "max_abs_err": max(r["max_abs_err"] for r in b2b),
+        "max_rel_err": max(r["max_rel_err"] for r in b2b),
+        **{k: per_launch_sum(b2b, k, "per_micro_step")
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms", "f32_kernel_ms")},
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in b2b)
+        else "bytes", "library": "torch.nn.grad.conv1d_weight on the bf16 tensors (cuDNN)",
+        "shape": {"B": TRAIN_B, "H": TRAIN_H, "launches_per_micro_step": bt["per_micro_step"]},
+    }, {
+        "name": "fused_qkv_local_attention_bf16_keep", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "form": "B3 at bf16 with the dropout keep mask (float32 mask, P keep / keep_prob)",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/fused_local_attention.py:284",
+        "launches": bt["la"]["launches"][B3_BF16],
+        "launches_with_keep_mask": bt["la"]["launches_with_keep_mask"],
+        **{k: b3k[k] for k in ("max_abs_err", "max_ulps", "max_ulps_large_values", "ms",
+                               "plain_ms", "bound_ms", "bound_by", "f32_kernel_ms",
+                               "composition_ms")},
+        "library_ms": None,
+        "shape": {"B": LA_TRAIN_B, "N": LA_TRAIN_H, "heads": b3k["heads"],
+                  "dim_head": b3k["dim_head"], "window": b3k["window"]},
+    }]
+    steps = {"unet": {"bf16": bt["unet"]["profile"], "float32": result["train_profile"]},
+             "la": {"bf16": bt["la"]["profile"], "float32": result["la_train"]["profile"]}}
+    emit({"phase": "bf16_train_vs_float32", **{
+        m: {prec: {k: v[k] for k in ("ms_per_optimizer_step", "device_ms_per_step",
+                                     "device_busy_share", "peak_memory_bytes")}
+            for prec, v in pair.items()} for m, pair in steps.items()}})
     result.update(device={"kind": kind, "nvidia_smi": smi}, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -24,7 +24,11 @@ v4, x0, kl, angle_velocity), CFG label drop toward the null label
 ``num_classes``, dropout where the config turns it on (as the JAX CLI's
 ``has_dropout``: ``transformer`` with ``dropout``, ``local_attention`` with
 ``attn_dropout`` or ``ff_dropout`` > 0), and
-``train.timestep_sampler="loss_aware"`` (v4 only, as in JAX).
+``train.timestep_sampler="loss_aware"`` (v4 only, as in JAX). A config
+with ``model.bf16`` trains as the JAX CLI trains it: the model computes at
+bf16 (``models/precision.py``) and returns float32; the loss, the
+parameters, the gradients, the AdamW moments and the EMA stay float32, so
+its checkpoints are a float32 run's.
 
 Data-parallel: launched by ``torchrun`` (``WORLD_SIZE``, ``RANK``,
 ``LOCAL_RANK``), or given the JAX CLI's ``--coordinator host:port
@@ -79,9 +83,6 @@ def build_trainer(cfg: ExperimentConfig, out_dir: str | None = None, resume: boo
     rank, _ = meshlib.rank_and_world(group)
     if cfg.train.timestep_sampler == "loss_aware" and cfg.diffusion.loss != "v4":
         raise ValueError("timestep_sampler=loss_aware requires diffusion.loss=v4")
-    if cfg.model.bf16:
-        raise NotImplementedError("bf16 models serve forwards only: bf16 training waits for "
-                                  "ROADMAP.md Queue A, bf16 training")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.train.seed)
         model, sched = factory.build_experiment(cfg, dev)

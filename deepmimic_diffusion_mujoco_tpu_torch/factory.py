@@ -4,7 +4,8 @@ Counterpart of ``deepmimic_diffusion_mujoco_tpu/factory.py``: the MDM
 transformer, the temporal U-Net, the local-attention transformer and the
 decoder. ``bf16=True`` builds each with a bf16 compute dtype (parameters
 float32, the output float32), as the JAX factory passes
-``dtype=jnp.bfloat16``; bf16 serves forwards only (``models.precision``).
+``dtype=jnp.bfloat16`` (``models.precision``); such a model serves and
+trains.
 """
 from __future__ import annotations
 

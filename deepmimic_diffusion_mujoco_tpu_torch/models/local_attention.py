@@ -64,8 +64,9 @@ LayerNorm, RMSNorm and embedding rounds where flax's ``dtype=bf16`` module
 does (``models.precision``), the attention core takes the bf16 QKV and
 returns a bf16 context (B3's bf16 form: float32 inside, as the Pallas
 kernel upcasts), the bucketed path computes in bf16 as JAX's jnp path does,
-and the output is cast to float32. bf16 serves forwards only: the kernel
-entries raise where a gradient or a keep mask is asked of them, and the
+and the output is cast to float32. It trains at bf16 too: B3's bf16 entry
+takes the attention's keep mask, its backward returns a bf16 gradient, and
+the feed-forward's dropout divides in bf16 as flax's ``Dropout`` does. The
 KV-cache decode and the horizon split raise at bf16 (ROADMAP.md Queue A).
 """
 from __future__ import annotations

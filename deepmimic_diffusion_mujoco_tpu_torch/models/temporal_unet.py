@@ -39,8 +39,9 @@ B1's bf16 form (bf16 x and w, float32 bias, GroupNorm and Mish inside, a
 bf16 output: the Pallas form, ``use_pallas=True``), and the output is cast
 back to float32. The strided downsample and the transposed-conv upsample
 stay library convolutions at bf16, as XLA computes them outside any kernel
-in the JAX package. bf16 serves forwards only (the conv block raises where a
-gradient is asked of it).
+in the JAX package. The model trains at bf16 too: each conv block's backward
+is B1's bf16 backward (its dW through B2's bf16 form), and each parameter's
+gradient arrives float32 through the backward of its bf16 cast.
 
 ``ValueFunction`` is the U-Net's down path and mid blocks with stride-2
 downsamples, flattened into a Dense head over ``concat([x, t])``: one

@@ -32,8 +32,16 @@ and w with float32 b / gamma / beta (the Pallas kernel's types) and returns
 bf16; ``conv_gn_mish_bf16_cuda`` is the hand-written kernel of that form
 (``csrc/conv_gn_mish_bf16.cu``, bf16 ``mma.sync`` with float32 accumulation;
 ``.launches`` counts it; ``bf16_plan`` its launch plan), and
-``conv_gn_mish`` sends bf16 CUDA tensors to it. bf16 serves forwards only:
-the autograd entry and the sharded form raise at bf16.
+``conv_gn_mish`` sends bf16 CUDA tensors to it. Its backward at bf16 follows
+the types of the Pallas kernel's custom VJP (the vjp of
+``conv_gn_mish_reference`` with bf16 x and w, the cotangent widened to
+float32): the recomputed pre-norm value is the bf16 conv output (a
+library conv of bf16 operands: float32 sums, one rounding), rounded before
+the float32 bias is added; GroupNorm, the affine and Mish are
+differentiated in float32; the cotangent reaching the conv is rounded to
+bf16; dx is the transposed conv of bf16 operands (bf16), dW the B2 kernel's
+bf16 form rounded to w's dtype, and db, dgamma, dbeta float32 sums. The
+sharded form raises at bf16.
 
 The horizon-sharded form (sequence-sharded sampling; the header of
 ``csrc/conv_gn_mish.cu``): each rank holds H / R frames, and GroupNorm's
@@ -620,29 +628,26 @@ class _ConvGnMish(torch.autograd.Function):
         x, w, b, gamma, beta = ctx.saved_tensors
         need_x, need_w, need_b, need_gamma, need_beta = ctx.needs_input_grad[:5]
         k = w.shape[0]
-        pre = _conv(x, w, b).detach().requires_grad_()
+        if x.dtype == torch.bfloat16:  # the conv's bf16 output, then the float32 bias
+            pre = _conv(x, w, None).float() + b
+        else:
+            pre = _conv(x, w, b)
+        pre = pre.detach().requires_grad_()
         with torch.enable_grad():
             affine = [t.detach().requires_grad_() for t in (gamma, beta)]
             out = _gn_affine_mish(pre, *affine, ctx.groups, ctx.eps)
-            g, dgamma, dbeta = torch.autograd.grad(out, [pre, *affine], grad)
-        g = g.contiguous()
+            g, dgamma, dbeta = torch.autograd.grad(out, [pre, *affine], grad.to(out.dtype))
+        db = g.sum((0, 1)) if need_b else None
+        g = g.to(x.dtype).contiguous()  # the conv's cotangent, in its output's dtype
         dx = (torch.nn.grad.conv1d_input(x.transpose(1, 2).shape, w.permute(2, 1, 0),
                                          g.transpose(1, 2), padding=k // 2).transpose(1, 2)
               if need_x else None)
-        dw = conv1d_weight_grad(x, g, k) if need_w else None
-        db = g.sum((0, 1)) if need_b else None
+        dw = conv1d_weight_grad(x, g, k).to(w.dtype) if need_w else None
         return (dx, dw, db, dgamma if need_gamma else None,
                 dbeta if need_beta else None, None, None)
 
 
 def conv_gn_mish(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5):
     """Fused Conv1d + GroupNorm + Mish with gradients (dW from the B2
-    kernel on the card). At bf16 (x and w bf16) it serves forwards only:
-    raises where a gradient is asked of it."""
-    if (x.dtype == torch.bfloat16 and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (x, w, b, gamma, beta))):
-        raise NotImplementedError(
-            "conv_gn_mish at bf16 has no backward yet: bf16 training waits for ROADMAP.md "
-            "Queue A, bf16 training; run bf16 forwards under torch.no_grad or "
-            "torch.inference_mode")
+    kernel on the card; at bf16 from its bf16 form)."""
     return _ConvGnMish.apply(x.contiguous(), w.contiguous(), b, gamma, beta, groups, eps)

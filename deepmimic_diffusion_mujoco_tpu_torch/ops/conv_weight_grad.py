@@ -23,6 +23,14 @@ dW (k, Cin, Cout) float32, with ``pad_l = (k - 1) // 2``:
   ``ops/conv_weight_grad_sweep.py`` do).
 - ``conv1d_weight_grad``: the kernel for CUDA tensors, the plain version
   for CPU tensors.
+
+bf16 (the backward of a conv block in a model built with ``bf16=True``):
+bf16 x and dy, float32 dW, as the Pallas kernel takes and writes them.
+``conv1d_weight_grad_plain`` sums the products of their float32 widenings;
+``conv1d_weight_grad_bf16_cuda`` is the kernel's bf16 form (the same source,
+bf16 ``mma.sync`` m16n8k16 with float32 sums; ``.launches`` counts it; its
+plans come from ``wgrad_plan(..., bf16=True)``), and ``conv1d_weight_grad``
+sends bf16 CUDA tensors to it.
 """
 from __future__ import annotations
 
@@ -46,7 +54,9 @@ MAX_SMEM = 227 * 1024      # kMaxSmem: a CTA's shared memory, dynamic and static
 STATIC_SMEM = 2 * MAX_STAGES * 8  # the ring's full and empty mbarriers
 PAD_COLS = 8               # kPadCols
 MAX_ROWS = 64              # kMaxRows: dy rows per chunk
-PATH = "3xtf32"            # the kernel's only path: 3xTF32 mma.sync on the tensor cores
+PATH = "3xtf32"            # the float32 path: 3xTF32 mma.sync on the tensor cores
+BF16_PATH = "bf16"         # the bf16 path: bf16 mma.sync m16n8k16, float32 sums
+STEP, BF16_STEP = 8, 16    # kStepF32, kStepBf16: rows of a k-step (the mma's k)
 # The plan's defaults (make_wgrad_plan), fitted to ops/conv_weight_grad_sweep.py's
 # timings of every plan at the 26 main-path shapes on an H100 (PERF.md)
 SMALL_WORK = 1 << 26       # B H Cin Cout up to this: SMALL_TILE, clusters up to MAX_CLUSTER
@@ -60,7 +70,10 @@ _SMS: dict[int, int] = {}
 
 
 def conv1d_weight_grad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dL/dW of the SAME-padded conv, as k (Cin, B*H) x (B*H, Cout) products."""
+    """dL/dW of the SAME-padded conv, as k (Cin, B*H) x (B*H, Cout) products;
+    bf16 x and dy are summed as their float32 widenings."""
+    if x.dtype == torch.bfloat16:
+        x, dy = x.float(), dy.float()
     B, H, cin = x.shape
     pad_l = (k - 1) // 2
     xp = F.pad(x, (0, 0, pad_l, k - 1 - pad_l))
@@ -80,7 +93,7 @@ class WgradPlan:
     distributed shared memory: no plan has a workspace in device memory."""
     tci: int       # input channels per tile, a multiple of WARP_CI
     tco: int       # output channels per tile, a multiple of WARP_CO
-    rows: int      # dy rows per chunk (flattened (b, h) rows), a multiple of 8
+    rows: int      # dy rows per chunk (flattened (b, h) rows), a multiple of the k-step
     stages: int    # ring depth
     cluster: int   # CTAs per tile, each taking a contiguous range of chunks
     slices: int    # warps per piece of the tile, taking every slices-th k-step of a chunk
@@ -89,8 +102,13 @@ class WgradPlan:
     tiles: int     # channel tiles: ceil(Cin / tci) * ceil(Cout / tco)
     chunks: int    # ceil(R / rows)
     smem_bytes: int  # dynamic shared memory per CTA
+    path: str      # PATH (float32 x and dy) or BF16_PATH
     ints: object = dataclasses.field(compare=False, repr=False)  # ctypes int[6]
-    path = PATH
+
+    @property
+    def esize(self) -> int:
+        """Bytes of a staged element."""
+        return 2 if self.path == BF16_PATH else 4
 
     @property
     def grid(self) -> int:
@@ -107,20 +125,24 @@ class WgradPlan:
 
 
 def smem_bytes(tci: int, tco: int, rows: int, stages: int, cluster: int, slices: int,
-               k: int) -> int:
-    """Dynamic shared memory of one plan: layout() in the kernel's source."""
+               k: int, esize: int = 4) -> int:
+    """Dynamic shared memory of one plan: layout() in the kernel's source
+    (the ring in elements of ``esize`` bytes, the partial tile float32)."""
     stage = (rows + k - 1) * (tci + PAD_COLS) + rows * (tco + PAD_COLS)
     part = k * tci * (tco + PAD_COLS) if cluster > 1 or slices > 1 else 0
-    return 4 * max(stages * stage, part)
+    return max(esize * stages * stage, 4 * part)
 
 
 def make_wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
                     tci: int | None = None, tco: int | None = None, rows: int | None = None,
                     stages: int | None = None, cluster: int | None = None,
-                    slices: int | None = None) -> WgradPlan:
-    """The plan for one shape; a keyword given fixes that choice. The
-    defaults follow the best plans ``ops/conv_weight_grad_sweep.py`` timed
-    at the main-path shapes on an H100 (``PERF.md``):
+                    slices: int | None = None, bf16: bool = False) -> WgradPlan:
+    """The plan for one shape; a keyword given fixes that choice; ``bf16``
+    plans the bf16 form (k-steps of BF16_STEP rows, a ring of 2-byte
+    elements). The defaults follow the best plans
+    ``ops/conv_weight_grad_sweep.py`` timed at the main-path shapes on an
+    H100 (``PERF.md``; the bf16 form keeps the float32 form's rules, with
+    its own k-step):
 
     - Tile and cluster cap. Up to SMALL_WORK (B H Cin Cout) the narrow
       SMALL_TILE and clusters of up to MAX_CLUSTER CTAs: the work is a few
@@ -131,14 +153,15 @@ def make_wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
       memory, so a cluster pays off only where the rows are many.
     - Cluster: a power of two up to the cap, doubled while the grid stays
       within one CTA per SM and each rank keeps two k-steps or more.
-    - Rows per chunk: a rank's share of the rows rounded up to 8, at most
-      MAX_ROWS (the tensor cores' round-toward-zero chain).
+    - Rows per chunk: a rank's share of the rows rounded up to the k-step,
+      at most MAX_ROWS (the tensor cores' round-toward-zero chain).
     - Slices: doubled while the CTA stays within WARPS warps and each slice
       keeps two k-steps of a chunk.
     - Stages: a rank's chunks, at most MAX_STAGES (all loads in flight at
       once where they fit), fewer where shared memory runs out.
     """
     R = B * H
+    step, esize = (BF16_STEP, 2) if bf16 else (STEP, 4)
     cap = MAX_CLUSTER
     if tci is None or tco is None:
         if R * Cin * Cout <= SMALL_WORK:
@@ -159,26 +182,27 @@ def make_wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
     tiles = _ceil(Cin, tci) * _ceil(Cout, tco)
     if cluster is None:
         cluster = 1
-        while cluster < cap and 2 * tiles * cluster <= sms and 16 * cluster <= R:
+        while cluster < cap and 2 * tiles * cluster <= sms and 2 * step * cluster <= R:
             cluster *= 2
     if not 1 <= cluster <= MAX_CLUSTER:
         raise ValueError(f"conv1d_weight_grad_cuda: cluster size {cluster} not in "
                          f"1..{MAX_CLUSTER}")
     if rows is None:
-        rows = min(MAX_ROWS, _ceil(_ceil(R, cluster), 8) * 8)
-    if rows <= 0 or rows % 8 or rows > MAX_ROWS:
+        rows = min(MAX_ROWS, _ceil(_ceil(R, cluster), step) * step)
+    if rows <= 0 or rows % step or rows > MAX_ROWS:
         raise ValueError(f"conv1d_weight_grad_cuda: {rows} rows per chunk is not a multiple "
-                         f"of 8 up to {MAX_ROWS}")
+                         f"of {step} up to {MAX_ROWS}")
     if slices is None:
         slices = 1
-        while 2 * pieces * slices <= WARPS and 16 * slices <= rows:
+        while 2 * pieces * slices <= WARPS and 2 * step * slices <= rows:
             slices *= 2
     threads = slices * pieces * 32
     if slices < 1 or threads > MAX_THREADS:
         raise ValueError(f"conv1d_weight_grad_cuda: {slices} slices of a {tci} x {tco} tile "
                          f"take {threads} threads, more than {MAX_THREADS}")
     chunks = _ceil(R, rows)
-    size = functools.partial(smem_bytes, tci, tco, rows, cluster=cluster, slices=slices, k=k)
+    size = functools.partial(smem_bytes, tci, tco, rows, cluster=cluster, slices=slices, k=k,
+                             esize=esize)
     if stages is None:
         stages = min(MAX_STAGES, max(1, _ceil(chunks, cluster)))
         while stages > 1 and size(stages) + STATIC_SMEM > MAX_SMEM:
@@ -188,22 +212,26 @@ def make_wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
                          f"{rows} rows do not fit {MAX_SMEM} bytes of shared memory")
     fields = (tci, tco, rows, stages, cluster, slices)
     return WgradPlan(*fields, R=R, threads=threads, tiles=tiles, chunks=chunks,
-                     smem_bytes=size(stages), ints=(ctypes.c_int * 6)(*fields))
+                     smem_bytes=size(stages), path=BF16_PATH if bf16 else PATH,
+                     ints=(ctypes.c_int * 6)(*fields))
 
 
 @functools.lru_cache(maxsize=None)
-def wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int) -> WgradPlan:
+def wgrad_plan(B: int, H: int, Cin: int, Cout: int, k: int, sms: int,
+               bf16: bool = False) -> WgradPlan:
     """The cached plan for one shape on a card of ``sms`` SMs."""
-    return make_wgrad_plan(B, H, Cin, Cout, k, sms)
+    return make_wgrad_plan(B, H, Cin, Cout, k, sms, bf16=bf16)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("conv1d_weight_grad")
     if lib.conv1d_weight_grad_f32.argtypes is None:
-        lib.conv1d_weight_grad_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.conv1d_weight_grad_f32.restype = ctypes.c_int
-        lib.conv1d_weight_grad_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        for entry in (lib.conv1d_weight_grad_f32, lib.conv1d_weight_grad_bf16):
+            entry.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p, ctypes.c_void_p]
+            entry.restype = ctypes.c_int
+        lib.conv1d_weight_grad_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                                      ctypes.c_int]
         lib.conv1d_weight_grad_smem_bytes.restype = ctypes.c_int
         lib.conv1d_weight_grad_error_string.argtypes = [ctypes.c_int]
         lib.conv1d_weight_grad_error_string.restype = ctypes.c_char_p
@@ -214,32 +242,29 @@ def _library() -> ctypes.CDLL:
 def _check_layout(plan: WgradPlan, k: int) -> None:
     """Raises once per plan if the kernel refuses it or lays out another
     amount of shared memory than ``plan.smem_bytes``."""
-    n = _library().conv1d_weight_grad_smem_bytes(k, plan.ints)
+    n = _library().conv1d_weight_grad_smem_bytes(k, plan.ints, plan.esize)
     if n != plan.smem_bytes:
         raise RuntimeError(f"conv1d_weight_grad plan {plan} at k {k}: the kernel lays out "
                            f"{n} bytes of shared memory (-1: refused), the plan "
                            f"{plan.smem_bytes}")
 
 
-def _check_args(x, dy, k: int):
+def _check_args(x, dy, k: int, dtype: torch.dtype, fn: str):
     for name, t in (("x", x), ("dy", dy)):
         if not t.is_cuda:
-            raise ValueError(f"conv1d_weight_grad_cuda: {name} is on {t.device}, "
-                             "needs a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise ValueError(f"conv1d_weight_grad_cuda: {name} is {t.dtype}, "
-                             "the kernel takes float32")
+            raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor")
+        if t.dtype != dtype:
+            raise ValueError(f"{fn}: {name} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"conv1d_weight_grad_cuda: {name} is not contiguous")
+            raise ValueError(f"{fn}: {name} is not contiguous")
         if t.dim() != 3:
-            raise ValueError(f"conv1d_weight_grad_cuda: {name} {tuple(t.shape)} must be 3-D")
+            raise ValueError(f"{fn}: {name} {tuple(t.shape)} must be 3-D")
     if dy.device != x.device:
-        raise ValueError(f"conv1d_weight_grad_cuda: dy is on {dy.device}, x on {x.device}")
+        raise ValueError(f"{fn}: dy is on {dy.device}, x on {x.device}")
     if dy.shape[:2] != x.shape[:2]:
-        raise ValueError(f"conv1d_weight_grad_cuda: x {tuple(x.shape)} and dy "
-                         f"{tuple(dy.shape)} differ in (B, H)")
+        raise ValueError(f"{fn}: x {tuple(x.shape)} and dy {tuple(dy.shape)} differ in (B, H)")
     if k not in KERNEL_SIZES:
-        raise ValueError(f"conv1d_weight_grad_cuda: kernel size {k} not in {KERNEL_SIZES}")
+        raise ValueError(f"{fn}: kernel size {k} not in {KERNEL_SIZES}")
 
 
 def sm_count(device: torch.device) -> int:
@@ -249,12 +274,11 @@ def sm_count(device: torch.device) -> int:
     return _SMS[index]
 
 
-def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int,
-                            plan: WgradPlan | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream (builds it on first
-    use), under ``plan`` or the shape's ``wgrad_plan``. Raises on a tensor,
-    shape or plan the kernel does not take, and if the launch is refused."""
-    _check_args(x, dy, k)
+def _launch(wrapper, bf16: bool, x: torch.Tensor, dy: torch.Tensor, k: int,
+            plan: WgradPlan | None) -> torch.Tensor:
+    """B2's launch for the entry of ``bf16``, counted in ``wrapper.launches``."""
+    fn = wrapper.__name__
+    _check_args(x, dy, k, torch.bfloat16 if bf16 else torch.float32, fn)
     lib = _library()
     B, H, cin = x.shape
     cout = dy.shape[-1]
@@ -262,28 +286,48 @@ def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int,
     if B * H == 0:
         return out.zero_()
     if plan is None:
-        plan = wgrad_plan(B, H, cin, cout, k, sm_count(x.device))
-    elif plan.R != B * H:
-        raise ValueError(f"conv1d_weight_grad_cuda: plan made for {plan.R} rows, x has {B * H}")
+        plan = wgrad_plan(B, H, cin, cout, k, sm_count(x.device), bf16)
+    elif plan.R != B * H or plan.path != (BF16_PATH if bf16 else PATH):
+        raise ValueError(f"{fn}: plan made for {plan.R} rows on the {plan.path} path, x has "
+                         f"{B * H} rows of {x.dtype}")
     _check_layout(plan, k)
+    entry = lib.conv1d_weight_grad_bf16 if bf16 else lib.conv1d_weight_grad_f32
     with torch.cuda.device(x.device):
-        err = lib.conv1d_weight_grad_f32(
-            x.data_ptr(), dy.data_ptr(), out.data_ptr(), B, H, cin, cout, k, plan.ints,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        err = entry(x.data_ptr(), dy.data_ptr(), out.data_ptr(), B, H, cin, cout, k, plan.ints,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError("conv1d_weight_grad kernel launch failed: "
+        raise RuntimeError(f"{fn} kernel launch failed: "
                            + lib.conv1d_weight_grad_error_string(err).decode())
-    conv1d_weight_grad_cuda.launches += 1
+    wrapper.launches += 1
     return out
+
+
+def conv1d_weight_grad_cuda(x: torch.Tensor, dy: torch.Tensor, k: int,
+                            plan: WgradPlan | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream (builds it on first
+    use), under ``plan`` or the shape's ``wgrad_plan``. Raises on a tensor,
+    shape or plan the kernel does not take, and if the launch is refused."""
+    return _launch(conv1d_weight_grad_cuda, False, x, dy, k, plan)
 
 
 conv1d_weight_grad_cuda.launches = 0
 
 
+def conv1d_weight_grad_bf16_cuda(x: torch.Tensor, dy: torch.Tensor, k: int,
+                                 plan: WgradPlan | None = None) -> torch.Tensor:
+    """The kernel's bf16 form, as ``conv1d_weight_grad_cuda``: bf16 x and
+    dy, float32 dW, under ``plan`` or ``wgrad_plan(..., bf16=True)``'s."""
+    return _launch(conv1d_weight_grad_bf16_cuda, True, x, dy, k, plan)
+
+
+conv1d_weight_grad_bf16_cuda.launches = 0
+
+
 def conv1d_weight_grad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dW (k, Cin, Cout): the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if x.is_cuda:
-        return conv1d_weight_grad_cuda(x, dy, k)
-    return conv1d_weight_grad_plain(x, dy, k)
+    """dW (k, Cin, Cout) float32: the CUDA kernel for CUDA tensors (its bf16
+    form for bf16 ones), the plain version for CPU tensors."""
+    if not x.is_cuda:
+        return conv1d_weight_grad_plain(x, dy, k)
+    if x.dtype == torch.bfloat16:
+        return conv1d_weight_grad_bf16_cuda(x, dy, k)
+    return conv1d_weight_grad_cuda(x, dy, k)

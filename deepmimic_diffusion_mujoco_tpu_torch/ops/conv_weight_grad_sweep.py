@@ -2,7 +2,7 @@
 main-path shapes, on one CUDA card:
 
     python -m deepmimic_diffusion_mujoco_tpu_torch.ops.conv_weight_grad_sweep \\
-        [--out sweep.json] [--shapes N]
+        [--out sweep.json] [--shapes N] [--bf16]
 
 The 26 shapes are every (H, Cin, Cout) that B2 takes on a main path: the
 dim-128 U-Net's 14 in a training micro-step (B 32, H 160) and the dim-32
@@ -15,6 +15,13 @@ CUDA cores, a workspace and a second kernel that adds the splits), and
 cuDNN's weight gradient
 (``torch.nn.grad.conv1d_weight`` on channel-first copies made outside the
 timed call), each held against the plain version too.
+
+``--bf16`` sweeps the kernel's bf16 form instead (bf16 x and dy, float32 dW;
+chunk rows a multiple of its 16-row k-step) at the same shapes, beside
+cuDNN's bf16 weight gradient (which rounds dW to bf16, so it is held to
+BF16_LIB_TOL) and the float32 kernel's default plan on the float32
+widenings; its bounds are the bf16 operations at the tensor cores' rate
+and the bytes of bf16 inputs and a float32 output.
 
 Times: CUDA events, median of 15 launches with L2 flushed before each and
 the card held busy while they queue, after 2 s of matrix products; two
@@ -39,6 +46,7 @@ from . import conv_weight_grad as CW
 from .conv_block_sweep import time_ms, warm
 
 TOL = 1e-5   # of max |dW|: float32 sums over up to B*H = 5,120 rows in another order
+BF16_LIB_TOL = 2.0 ** -8  # cuDNN's bf16 dW, rounded to bf16: half an ulp of max |dW| and sums
 K = 5
 TRAIN_B, VALUE_B = 32, 16
 # (H, Cin, Cout) of a dim-128 U-Net training micro-step at H 160 (14) and of
@@ -57,8 +65,8 @@ CLUSTERS = (1, 2, 4, 8, 16)
 ROWS = (8, 16, 32, 64)  # up to CW.MAX_ROWS
 SLICES = (1, 2, 4, 8)
 # Published dense peaks of an H100 SXM: float32 outside the tensor cores,
-# TF32 on them, HBM bandwidth
-F32_FLOPS, TF32_FLOPS, HBM_BYTES = 67.0e12, 495.0e12, 3.35e12
+# TF32 and bf16 on them, HBM bandwidth
+F32_FLOPS, TF32_FLOPS, BF16_FLOPS, HBM_BYTES = 67.0e12, 495.0e12, 989.0e12, 3.35e12
 
 
 def splitk_splits(B: int, H: int, cin: int, cout: int, sms: int) -> int:
@@ -89,12 +97,14 @@ class SplitK:
         return out
 
 
-def plans(B, H, cin, cout, sms):
+def plans(B, H, cin, cout, sms, bf16=False):
     """The default plan and every plan of the tiles, clusters, chunk rows and
-    slices above that the kernel takes (duplicates once)."""
-    base = CW.wgrad_plan(B, H, cin, cout, K, sms)
+    slices above that the kernel (its bf16 form with ``bf16``) takes
+    (duplicates once)."""
+    base = CW.wgrad_plan(B, H, cin, cout, K, sms, bf16)
     seen = {base: None}
     R = B * H
+    step = CW.BF16_STEP if bf16 else CW.STEP
     for tci in TILES_CI:
         if tci > -(-cin // 16) * 16:
             continue
@@ -102,25 +112,28 @@ def plans(B, H, cin, cout, sms):
             if tco > -(-cout // 32) * 32:
                 continue
             for c in CLUSTERS:
-                if c > -(-R // 8):
+                if c > -(-R // step):
                     continue
                 for rows in ROWS:
-                    if rows > -(-R // (8 * c)) * 8:  # longer than a rank's share
+                    if rows % step or rows > -(-R // (step * c)) * step:  # a rank's share
                         continue
                     for sl in SLICES:
-                        if 8 * sl > rows:  # a slice without k-steps
+                        if step * sl > rows:  # a slice without k-steps
                             continue
                         try:
                             p = CW.make_wgrad_plan(B, H, cin, cout, K, sms, tci=tci, tco=tco,
-                                                   rows=rows, cluster=c, slices=sl)
+                                                   rows=rows, cluster=c, slices=sl, bf16=bf16)
                         except ValueError:
                             continue
                         seen.setdefault(p, None)
     return base, list(seen)
 
 
-def bounds(B, H, cin, cout):
+def bounds(B, H, cin, cout, bf16=False):
     flops = 2.0 * K * cin * cout * B * H
+    if bf16:
+        t_bytes = (2.0 * B * H * (cin + cout) + 4.0 * K * cin * cout) / HBM_BYTES * 1e3
+        return {"flops": flops, "bound_ms": max(flops / BF16_FLOPS * 1e3, t_bytes)}
     t_bytes = 4.0 * (B * H * (cin + cout) + K * cin * cout) / HBM_BYTES * 1e3
     return {"flops": flops, "bound_ms": max(flops / F32_FLOPS * 1e3, t_bytes),
             "bound_3xtf32_ms": max(flops / (TF32_FLOPS / 3) * 1e3, t_bytes)}
@@ -130,6 +143,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", default=None)
     ap.add_argument("--shapes", type=int, default=len(SHAPES), help="first N shapes only")
+    ap.add_argument("--bf16", action="store_true", help="sweep the kernel's bf16 form")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("conv_weight_grad_sweep: no CUDA device available", file=sys.stderr)
@@ -143,39 +157,46 @@ def main(argv=None) -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flush.zero_()  # the flush and spin kernels load here, not inside a timed window
     torch.cuda._sleep(1000)
-    splitk = SplitK()
+    splitk = None if args.bf16 else SplitK()
+    kernel = CW.conv1d_weight_grad_bf16_cuda if args.bf16 else CW.conv1d_weight_grad_cuda
     g = torch.Generator(device=dev).manual_seed(0)
     results = []
     warm(dev)
     for B, H, cin, cout in SHAPES[:args.shapes]:
         x = torch.randn(B, H, cin, generator=g, device=dev)
         dy = torch.randn(B, H, cout, generator=g, device=dev)
+        if args.bf16:
+            x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
         ref = CW.conv1d_weight_grad_plain(x, dy, K)
         scale = ref.abs().max().item()
         xc, dyc = x.transpose(1, 2).contiguous(), dy.transpose(1, 2).contiguous()
-        splits = splitk_splits(B, H, cin, cout, sms)
-        ws = torch.empty(splits, K, cin, cout, device=dev)
 
-        def check(out, what):
+        def check(out, what, tol=TOL):
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            if not (err <= TOL * scale and torch.isfinite(out).all()):
+            err = (out.float() - ref).abs().max().item()
+            if not (err <= tol * scale and torch.isfinite(out).all()):
                 raise RuntimeError(f"{what} disagrees at {(B, H, cin, cout)}: max abs err "
                                    f"{err}, max |dW| {scale}")
             return err / scale
 
-        yardsticks = {
-            "splitk": functools.partial(splitk, x, dy, splits, ws),
-            "cudnn": lambda: torch.nn.grad.conv1d_weight(xc, (cout, cin, K), dyc,
-                                                         padding=K // 2),
-        }
-        errs = {"splitk": check(yardsticks["splitk"](), "the split-K kernel"),
-                "cudnn": check(yardsticks["cudnn"]().permute(2, 1, 0), "cuDNN")}
-        base, cands = plans(B, H, cin, cout, sms)
+        yardsticks = {"cudnn": lambda: torch.nn.grad.conv1d_weight(xc, (cout, cin, K), dyc,
+                                                                   padding=K // 2)}
+        errs = {"cudnn": check(yardsticks["cudnn"]().permute(2, 1, 0), "cuDNN",
+                               BF16_LIB_TOL if args.bf16 else TOL)}
+        if args.bf16:
+            x32, dy32 = x.float(), dy.float()
+            yardsticks["f32_kernel"] = functools.partial(CW.conv1d_weight_grad_cuda, x32, dy32, K)
+            errs["f32_kernel"] = check(yardsticks["f32_kernel"](), "the float32 kernel")
+        else:
+            splits = splitk_splits(B, H, cin, cout, sms)
+            ws = torch.empty(splits, K, cin, cout, device=dev)
+            yardsticks["splitk"] = functools.partial(splitk, x, dy, splits, ws)
+            errs["splitk"] = check(yardsticks["splitk"](), "the split-K kernel")
+        base, cands = plans(B, H, cin, cout, sms, args.bf16)
         rows = []
         for p in cands:
             try:
-                out = CW.conv1d_weight_grad_cuda(x, dy, K, plan=p)
+                out = kernel(x, dy, K, plan=p)
             except RuntimeError as e:  # a cluster the card cannot schedule
                 rows.append({"plan": repr(p), "error": str(e)[:200]})
                 continue
@@ -185,8 +206,8 @@ def main(argv=None) -> int:
         lib_ms = {}
         for rnd in ("first", "second"):  # plans and yardsticks in turns, twice
             for r in timed:
-                r[f"ms_{rnd}"] = time_ms(functools.partial(CW.conv1d_weight_grad_cuda, x, dy, K,
-                                                           plan=r["_plan"]), flush)
+                r[f"ms_{rnd}"] = time_ms(functools.partial(kernel, x, dy, K, plan=r["_plan"]),
+                                         flush)
             for name, fn in yardsticks.items():
                 lib_ms.setdefault(name, []).append(time_ms(fn, flush))
         for r in timed:
@@ -194,13 +215,14 @@ def main(argv=None) -> int:
             r["ms"] = min(r["ms_first"], r["ms_second"])
         best = min(timed, key=lambda r: r["ms"])
         default = next(r for r in timed if r["default"])
-        line = {"shape": [B, H, cin, cout, K], "default_ms": default["ms"],
+        line = {"shape": [B, H, cin, cout, K], "path": base.path, "default_ms": default["ms"],
                 "default_plan": default["plan"], "default_rel_err": default["rel_err"],
                 "best_ms": best["ms"], "best_plan": best["plan"],
-                "splitk_ms": min(lib_ms["splitk"]), "splitk_splits": splits,
-                "cudnn_ms": min(lib_ms["cudnn"]),
+                **{f"{name}_ms": min(ms) for name, ms in lib_ms.items()},
+                **({} if args.bf16 else {"splitk_splits": splits}),
                 **{f"{name}_rel_err": e for name, e in errs.items()},
-                **bounds(B, H, cin, cout), "plans": len(rows), "refused": len(rows) - len(timed)}
+                **bounds(B, H, cin, cout, args.bf16), "plans": len(rows),
+                "refused": len(rows) - len(timed)}
         print(json.dumps(line), flush=True)
         results.append({**line, "rows": rows})
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)

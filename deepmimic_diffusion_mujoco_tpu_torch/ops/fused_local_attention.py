@@ -35,9 +35,11 @@ computed in float32 between (the TPU kernel upcasts its bf16 qkv and writes
 ``qkv.dtype``). The plain version converts to float32, runs the same chunk
 semantics and rounds once; ``fused_qkv_local_attention_bf16_cuda`` launches
 the kernel's bf16 entry (the same core, templated on the element type: the
-staging widens, the store rounds) and counts it in its own ``.launches``.
-bf16 serves forwards only:
-the keep mask, the backward and the halo entry raise at bf16.
+staging widens, the store rounds) and counts it in its own ``.launches``;
+the float32 keep mask goes with it. The backward at bf16 differentiates the
+plain version on the float32 widening of qkv and returns the gradient in
+qkv's dtype, as JAX's vjp of its chunk transcription does. The halo entry
+raises at bf16.
 
 ``key_mask`` (B, N), > 0 marking valid frames, must be PREFIX-valid (valid
 frames first, padding at the end, as jagged batches are): the kernel takes
@@ -558,14 +560,10 @@ def fused_qkv_local_attention_bf16_cuda(qkv, heads: int, dim_head: int, window_s
                                         dropout_keep=None, keep_prob: float = 1.0,
                                         launch_plan: AttnPlan | None = None):
     """The kernel's bf16 entry, as ``fused_qkv_local_attention_cuda``: a bf16
-    qkv, float32 inside, a bf16 context. It takes no dropout keep mask."""
-    if dropout_keep is not None:
-        raise NotImplementedError("fused_qkv_local_attention_bf16_cuda takes no dropout keep "
-                                  "mask: bf16 training waits for ROADMAP.md Queue A, bf16 "
-                                  "training")
+    qkv, float32 inside (the float32 keep mask too), a bf16 context."""
     return _launch_fused_qkv(fused_qkv_local_attention_bf16_cuda, torch.bfloat16, qkv, heads,
                              dim_head, window_size, causal, exact_windowsize, use_rotary,
-                             key_mask, None, keep_prob, launch_plan)
+                             key_mask, dropout_keep, keep_prob, launch_plan)
 
 
 fused_qkv_local_attention_bf16_cuda.launches = 0
@@ -674,13 +672,7 @@ def fused_qkv_local_attention(qkv, heads: int, dim_head: int, window_size: int,
                               keep_prob: float = 1.0):
     """(B, N, 3*h*dh) -> (B, N, h*dh) with gradients: the kernel on the card,
     the plain version on the CPU. Gate callers with ``supports``. A bf16 qkv
-    gives a bf16 context, forwards only: with a keep mask or where a gradient
-    is asked of it, it raises."""
-    if qkv.dtype == torch.bfloat16 and (dropout_keep is not None or (
-            torch.is_grad_enabled() and qkv.requires_grad)):
-        raise NotImplementedError(
-            "fused_qkv_local_attention at bf16 serves forwards only (no keep mask, no "
-            "backward): bf16 training waits for ROADMAP.md Queue A, bf16 training")
+    gives a bf16 context and a bf16 gradient."""
     if plan(qkv.shape[1], window_size, causal) is None:
         raise ValueError(f"no chunk plan for N {qkv.shape[1]}, window {window_size}; "
                          "gate callers with supports()")

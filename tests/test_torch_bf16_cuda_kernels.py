@@ -1,12 +1,15 @@
-"""B1's and B3's bf16 forms against their plain versions, on the card, and
-the shared-memory opt-in of the launchers.
+"""B1's, B2's and B3's bf16 forms against their plain versions, on the
+card, B1's bf16 backward and B3's bf16 entry with the keep mask, and the
+shared-memory opt-in of the launchers.
 
 Each bf16 kernel computes its plain version's function (float32 sums, one
 bf16 rounding), so the two agree within one bf16 ulp of the value plus the
 float32 forms' card tolerance for sums in another order: |d| <= 2^-7 |ref|
 + TOL elementwise. The dim-128 U-Net at bf16 sends every conv block to B1's
 bf16 kernel, and the local transformer every attention call to B3's bf16
-entry; no float32 launch happens on either path.
+entry; no float32 launch happens on either path. B2's bf16 form sums the
+exact products of bf16 values in float32, as its plain version does: within
+WGRAD_TOL of max |dW| (the float32 form's card tolerance).
 
 Marked ``cuda``; each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package:
@@ -24,11 +27,18 @@ import torch
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
 from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
+from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 
 BF = torch.bfloat16
 ULP = 2.0 ** -7  # one bf16 ulp of a value v is at most 2^-7 |v|
 TOL = 1e-4       # B1's and B3's float32 card tolerance: sums in another order
+WGRAD_TOL = 1e-5  # B2: of max |dW|, float32 sums of the same products in another order
+# B1's bf16 backward with its kernels against the same backward through their plain versions
+# (the recompute and dx are cuDNN's in both): (max, median) of |d| / max |ref| for each
+# gradient. A value where the two forwards' bf16 roundings flip moves the GroupNorm
+# statistics of its group, so the largest difference is a few bf16 ulps of the largest value.
+BWD_TOL = (4 * ULP, 1e-3)
 
 
 @pytest.fixture
@@ -98,6 +108,86 @@ def test_conv_gn_mish_bf16_refuses_what_it_does_not_take(cuda):
         CB.conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, 8, plan=(24, 2))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Cin,Cout,k", [
+    # a bf16 training micro-step of the dim-128 U-Net (B 32, H 160 down to 20) and the
+    # ValueFunction's value step (B 16, H 64 down to 4); odd shapes: Cin or Cout no multiple
+    # of 8 (staged through registers), k 1, 3 and 9, an odd batch
+    (32, 160, 35, 128, 5), (32, 160, 128, 128, 5), (32, 80, 256, 256, 5),
+    (32, 40, 512, 512, 5), (32, 20, 1024, 1024, 5), (32, 20, 2048, 512, 5),
+    (32, 160, 256, 128, 5), (16, 64, 35, 32, 5), (16, 4, 256, 256, 5), (16, 8, 128, 128, 5),
+    (3, 21, 37, 24, 3), (2, 5, 8, 16, 1), (1, 100, 70, 64, 9),
+])
+def test_b2_bf16_matches_plain(cuda, B, H, Cin, Cout, k):
+    g = torch.Generator(device=cuda).manual_seed(B + H + Cin)
+    x = torch.randn(B, H, Cin, generator=g, device=cuda).to(BF)
+    dy = torch.randn(B, H, Cout, generator=g, device=cuda).to(BF)
+    n, n32 = CW.conv1d_weight_grad_bf16_cuda.launches, CW.conv1d_weight_grad_cuda.launches
+    out = CW.conv1d_weight_grad(x, dy, k)
+    torch.cuda.synchronize()
+    assert CW.conv1d_weight_grad_bf16_cuda.launches == n + 1
+    assert CW.conv1d_weight_grad_cuda.launches == n32
+    ref = CW.conv1d_weight_grad_plain(x, dy, k)
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= WGRAD_TOL * ref.abs().max().item()
+    # no atomics: a rerun gives the same bits
+    assert torch.equal(out, CW.conv1d_weight_grad_bf16_cuda(x, dy, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [
+    dict(tci=16, tco=32, rows=16, stages=1, cluster=1, slices=1),
+    dict(tci=16, tco=64, rows=64, stages=4, cluster=16, slices=2),
+    dict(tci=64, tco=64, rows=32, stages=2, cluster=4, slices=1),
+    dict(tci=32, tco=32, rows=64, stages=3, cluster=2, slices=4),
+    dict(tci=32, tco=128, rows=64, stages=2, cluster=8, slices=1),
+])
+def test_b2_bf16_plans(cuda, plan):
+    """Tiles, chunk rows, ring depths, clusters (to the non-portable 16) and
+    slices, at a training shape whose Cin (35) is staged through registers
+    and one staged in 16-byte pieces."""
+    for B, H, Cin, Cout in ((32, 160, 35, 128), (32, 40, 512, 256)):
+        g = torch.Generator(device=cuda).manual_seed(Cin)
+        x = torch.randn(B, H, Cin, generator=g, device=cuda).to(BF)
+        dy = torch.randn(B, H, Cout, generator=g, device=cuda).to(BF)
+        p = CW.make_wgrad_plan(B, H, Cin, Cout, 5, CW.sm_count(x.device), bf16=True, **plan)
+        out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 5, plan=p)
+        ref = CW.conv1d_weight_grad_plain(x, dy, 5)
+        assert (out - ref).abs().max().item() <= WGRAD_TOL * ref.abs().max().item(), (B, H)
+    with pytest.raises(ValueError, match="bf16 path"):
+        CW.conv1d_weight_grad_cuda(x.float(), dy.float(), 5, plan=p)
+
+
+@pytest.mark.cuda
+def test_b1_bf16_backward_matches_the_plain_versions(cuda):
+    """One bf16 ``conv_gn_mish`` backward at a training shape with B1's and
+    B2's bf16 kernels against the same backward with their plain versions:
+    dx, dW (bf16), db, dgamma, dbeta (float32); B2's bf16 form launched once."""
+    x, w, b, gamma, beta = _conv_inputs(cuda, 32, 80, 256, 256, 5, seed=3)
+    cot = torch.randn(32, 80, 256, device=cuda).to(BF)
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (x, w, b, gamma, beta)]
+        CB.conv_gn_mish(*leaves, 8).backward(cot)
+        torch.cuda.synchronize()
+        return [t.grad for t in leaves]
+
+    n = CW.conv1d_weight_grad_bf16_cuda.launches
+    ours = grads()
+    assert CW.conv1d_weight_grad_bf16_cuda.launches == n + 1
+    real = CB.conv_gn_mish_bf16_cuda, CB.conv1d_weight_grad
+    CB.conv_gn_mish_bf16_cuda, CB.conv1d_weight_grad = (CB.conv_gn_mish_plain,
+                                                        CW.conv1d_weight_grad_plain)
+    try:
+        ref = grads()
+    finally:
+        CB.conv_gn_mish_bf16_cuda, CB.conv1d_weight_grad = real
+    assert [t.dtype for t in ours] == [BF, BF] + [torch.float32] * 3
+    for o, r in zip(ours, ref):
+        d = (o.float() - r.float()).abs() / r.float().abs().max()
+        assert d.max().item() <= BWD_TOL[0] and d.median().item() <= BWD_TOL[1]
+
+
 def _qkv(cuda, B, N, heads, dh, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     return torch.randn(B, N, 3 * heads * dh, generator=g, device=cuda).to(BF)
@@ -121,6 +211,30 @@ def test_b3_bf16_matches_plain(cuda, B, N, heads, dh, w, causal):
         assert FA.fused_qkv_local_attention_bf16_cuda.launches == n + 1
         assert FA.fused_qkv_local_attention_cuda.launches == n32
         _within_one_ulp(out, FA.fused_qkv_local_attention_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,heads,dh", [(64, 96, 8, 64), (4, 1024, 8, 64), (2, 40, 2, 16)])
+def test_b3_bf16_with_the_keep_mask_matches_plain(cuda, B, N, heads, dh):
+    """la_train's shape (B 64 x N 96), a sliced plan and an autopad plan, with
+    the float32 keep mask and a prefix key mask; the gradient through the
+    autograd entry (the plain version's backward) comes back bf16."""
+    w = 16
+    qkv = _qkv(cuda, B, N, heads, dh, seed=B + N)
+    keep = FA.dropout_keep_mask(torch.Generator(device=cuda).manual_seed(N), 0.7, B, N, heads,
+                                w)
+    lengths = torch.linspace(N, 3, B, device=cuda).round()
+    for key_mask in (None, (torch.arange(N, device=cuda)[None] < lengths[:, None]).float()):
+        args = (qkv, heads, dh, w, False, True, True, key_mask, keep, 0.7)
+        n = FA.fused_qkv_local_attention_bf16_cuda.launches
+        out = FA.fused_qkv_local_attention_bf16_cuda(*args)
+        torch.cuda.synchronize()
+        assert FA.fused_qkv_local_attention_bf16_cuda.launches == n + 1
+        _within_one_ulp(out, FA.fused_qkv_local_attention_plain(*args))
+    x = qkv.clone().requires_grad_()
+    FA.fused_qkv_local_attention(x, heads, dh, w, dropout_keep=keep,
+                                 keep_prob=0.7).float().sum().backward()
+    assert x.grad.dtype == BF and bool(torch.isfinite(x.grad.float()).all())
 
 
 @pytest.mark.cuda
@@ -168,7 +282,18 @@ import json, sys, torch
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 g = torch.Generator(device="cuda").manual_seed(0)
-if sys.argv[1] == "b2":
+if sys.argv[1] == "b2_bf16":
+    # the bf16 ring at 49,152 dynamic bytes (4 stages of 6,144 bf16): the bf16 instantiation
+    # opts in on its own
+    x = torch.randn(2, 96, 16, generator=g, device="cuda").to(torch.bfloat16)
+    dy = torch.randn(2, 96, 64, generator=g, device="cuda").to(torch.bfloat16)
+    plan = CW.make_wgrad_plan(2, 96, 16, 64, 1, 132, tci=16, tco=64, rows=64, stages=4,
+                              cluster=1, slices=1, bf16=True)
+    ref = CW.conv1d_weight_grad_plain(x, dy, 1)
+    out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 1, plan=plan)
+    err = (out - ref).abs().max() / ref.abs().max()
+    smem, static = plan.smem_bytes, CW.STATIC_SMEM
+elif sys.argv[1] == "b2":
     # 49,152 dynamic bytes: 48 KB exactly, over it with the 64 static bytes
     x = torch.randn(2, 96, 16, generator=g, device="cuda")
     dy = torch.randn(2, 96, 64, generator=g, device="cuda")
@@ -191,11 +316,12 @@ print(json.dumps({"smem": smem, "static": static, "err": err.item()}))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["b2", "b3_bf16"])
+@pytest.mark.parametrize("kind", ["b2", "b2_bf16", "b3_bf16"])
 def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     """B2's launcher opts in above 48 KB by its static and dynamic bytes
     together: a fresh process whose first B2 plan takes exactly 48 KB of
-    dynamic shared memory (over it with the 64 static bytes) runs. B3's
+    dynamic shared memory (over it with the 64 static bytes) runs, in the
+    float32 form and in the bf16 form (its 2-byte ring counted as such). B3's
     dynamic bytes are multiples of 80, 144, 272 or 528 and none lies within
     16 bytes under 48 KB, so its fresh process runs the bf16 entry's first
     launch at a plan above 48 KB: each instantiation opts in on its own."""
@@ -204,7 +330,7 @@ def test_first_plan_in_a_fresh_process_runs(cuda, kind):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    if kind == "b2":
+    if kind.startswith("b2"):
         assert got["smem"] <= 48 * 1024 < got["smem"] + got["static"]
         assert got["err"] <= 1e-5
     else:

@@ -13,9 +13,10 @@ Where a value is small beside the terms summed into it (2.9e-06 out of
 terms of order 1 in B3's sliced plan), that order moves its float32 value by
 more than its own bf16 ulp, and the two roundings land up to 3 ulps apart
 (measured); everywhere else they are equal or adjacent bf16 values.
-bf16 serves forwards only, so every entry
-that would need a gradient, a keep mask, a horizon split or the KV cache
-raises, naming its ROADMAP.md item. Inputs are numpy arrays from a seed.
+The entries that a horizon split or the KV cache would need raise at bf16,
+naming their ROADMAP.md item (their gradients, B3's keep mask and training
+at bf16: tests/test_torch_bf16_backward.py and test_torch_bf16_train.py).
+Inputs are numpy arrays from a seed.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,13 +25,9 @@ import torch
 
 from deepmimic_diffusion_mujoco_tpu.ops.pallas import conv_block_kernel as CK
 from deepmimic_diffusion_mujoco_tpu.ops.pallas import fused_local_attention as JFK
-from deepmimic_diffusion_mujoco_tpu_torch.cli import train as train_cli
-from deepmimic_diffusion_mujoco_tpu_torch.diffusion.guidance import value_gradients
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
-from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import ValueFunction
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as TK
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FK
-from deepmimic_diffusion_mujoco_tpu_torch.train.config import ExperimentConfig
 
 torch.set_num_threads(2)
 
@@ -149,49 +146,32 @@ def test_b1_bf16_plan_refuses_what_does_not_fit():
         TK.bf16_plan(8192, 35, 2048, K, GROUPS)
 
 
-def _conv_tensors(grad: bool):
+def _conv_tensors():
     x, w, b, g, be = (torch.from_numpy(a) for a in _conv_inputs(1, 8, 16, 16, 0))
-    x, w = x.to(BF).requires_grad_(grad), w.to(BF)
-    return x, w, b, g, be
+    return x.to(BF), w.to(BF), b, g, be
 
 
 def _refuse(case):
-    if case == "b1_gradient":
-        TK.conv_gn_mish(*_conv_tensors(True), GROUPS)
-    elif case == "b1_sharded":
-        TK.conv_gn_mish_sharded(*_conv_tensors(False), GROUPS, 1e-5, None)
-    elif case in ("b3_gradient", "b3_keep", "k3"):
-        qkv = torch.zeros(1, 32, 3 * H3 * DH3, dtype=BF, requires_grad=case == "b3_gradient")
-        if case == "k3":
-            FK.local_attention_halo(qkv, H3, DH3, 16, 0, 16, 0)
-        keep = (FK.dropout_keep_mask(torch.Generator().manual_seed(0), 0.7, 1, 32, H3, 16)
-                if case == "b3_keep" else None)
-        FK.fused_qkv_local_attention(qkv, H3, DH3, 16, dropout_keep=keep,
-                                     keep_prob=0.7 if keep is not None else 1.0)
+    if case == "b1_sharded":
+        TK.conv_gn_mish_sharded(*_conv_tensors(), GROUPS, 1e-5, None)
+    elif case == "k3":
+        qkv = torch.zeros(1, 32, 3 * H3 * DH3, dtype=BF)
+        FK.local_attention_halo(qkv, H3, DH3, 16, 0, 16, 0)
     elif case == "kv_decode":
         model = LocalTransformer(8, 32, dim=32, depth=1, heads=2, dim_head=16, causal=True,
                                  dtype=BF).eval()
         with torch.no_grad():
             model(torch.zeros(1, 1, 8), torch.zeros(1), cache=model.init_decode_cache(1),
                   decode_pos=0)
-    elif case == "guided":
-        vf = ValueFunction(8, 16, dim=8, dtype=BF).requires_grad_(False)
-        value_gradients(vf, torch.zeros(2, 16, 8), torch.zeros(2, dtype=torch.long))
-    elif case == "train":
-        cfg = ExperimentConfig.from_dict({"model": {"architecture": "transformer",
-                                                    "bf16": True}})
-        train_cli.build_trainer(cfg, device="cpu")
 
 
-REFUSALS = {"b1_gradient": "bf16 training", "b1_sharded": "sharded kernels",
-            "b3_gradient": "bf16 training", "b3_keep": "bf16 training",
-            "k3": "sharded kernels", "kv_decode": "KV-cache decode at bf16",
-            "guided": "bf16 training", "train": "bf16 training"}
+REFUSALS = {"b1_sharded": "sharded kernels", "k3": "sharded kernels",
+            "kv_decode": "KV-cache decode at bf16"}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_bf16_refusals_name_their_roadmap_item(case):
-    """Gradients (B1, B3, value guidance, the trainer), B3's keep mask, the
-    sharded kernels (K1/K2, K3) and the KV-cache decode raise at bf16."""
+    """The sharded kernels (K1/K2, K3) and the KV-cache decode raise at
+    bf16."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, .*{REFUSALS[case]}"):
         _refuse(case)
