@@ -6,8 +6,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: the five CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B1's bf16 form
-   csrc/conv_gn_mish_bf16.cu, B2 and its bf16 form csrc/conv1d_weight_grad.cu, B3, its bf16
-   entry, K3 and B4 csrc/local_attention.cu, B5-B7 csrc/humanoid_dynamics.cu), compiled in
+   csrc/conv_gn_mish_bf16.cu (and K1's bf16 form), B2 and its bf16 form
+   csrc/conv1d_weight_grad.cu, B3, K3 and B4 with their bf16 forms csrc/local_attention.cu,
+   B5-B7 csrc/humanoid_dynamics.cu), compiled in
    parallel with nvcc,
    one process each, with ptxas's register and spill lines.
 3. kernels: each kernel against its plain PyTorch version at every shape
@@ -231,6 +232,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    float32 form 0; parameters and EMA float32. ms per optimizer step, busy share and peak
    memory of each, beside the float32 figures of phases 7 and 16.
 
+24. seq_bf16, run after phase 23 (phase 21's horizon split with both models built at bf16, B4 at
+   bf16, the bf16 KV-cache decode): K1's bf16 form (``conv_gn_stats_bf16``, B1's bf16 kernel
+   with a statistics epilogue) and K2's (``gn_affine_mish_bf16``) against their plain versions
+   at every shape of a rank's sharded dim-128 forward (B 4, 512 of H 1024 a rank), bf16 K1 + K2
+   over one rank against B1's bf16 form; K3's bf16 form (``local_attention_halo_bf16``) at both
+   ranks' slabs of one bf16 qkv, each rank's rows against B3's bf16 entry on the whole horizon;
+   B4's bf16 form through ``windowed_attention`` at B 16 x H 128 and B 4 x H 1024 (dh 64) and at
+   dh 32, its launches counted. Each bf16 output within one bf16 ulp plus BF16_TOL with its
+   error in ulps, timed beside its float32 form on the same values, its plain version and the
+   bf16 composition, with the bound. Then phase 21's two ranks and chains at bf16 (K1 and K2's
+   bf16 forms 33 a forward a rank, K3's 6, every float32 form and B1 / B3 0) against one process
+   with B1's and B3's bf16 forms (SEQ_BF16_TOL), the clamped dims exact, and the float32
+   chains' distance reported; then SEQ_BF16_DECODE frames of localattn5k_r3 with
+   ``model.causal=true`` at bf16 decoded through the KV cache against its causal forward
+   (SEQ_BF16_DECODE_TOL).
+
 Each phase's seconds print on a line of their own. Then a line with the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. ``--out`` also writes
 every phase's results to one JSON file. Timings use CUDA events with the
@@ -396,6 +413,18 @@ BF16_SHORT_T = 100       # phase 22's requests run T 100 copies of each run (at 
                          # U-Net's and the local transformer's four requests took 45 s; the
                          # T 1000 chains are phases 4 and 9's)
 BF16_DDIM = 50           # the DDIM chain beside each T 1000 request (U-Net, local attention)
+BF = torch.bfloat16
+# seq_bf16 (phase 24): phase 21's horizon split at bf16, B4 at bf16, the bf16 KV-cache decode
+SEQ_BF16_TOL = (5e-2, 2e-3)  # the split bf16 forwards and chains against one process (B1's
+                         # and B3's bf16 forms): (max, median) of |d| / max |ref|. K1 / K2 and
+                         # K3 sum in another order than B1 and B3 and the statistics merge in
+                         # float64; a flipped bf16 rounding moves its GroupNorm group and
+                         # spreads (on the CPU the dim-16 U-Net's 5-step split chain: 7.6e-3,
+                         # 0). The bf16-vs-float32 distance of the same chains is reported
+SEQ_BF16_DECODE = 32     # frames of the causal bf16 model decoded through the KV cache, at B 4
+SEQ_BF16_DECODE_TOL = (2e-2, 5e-4)  # against its full causal bf16 forward, whose attention is
+                         # B3 in float32 where the decode rounds rotary, scores and softmax to
+                         # bf16 as JAX's decode does (the CPU at this config: 3.3e-3, 1.0e-4)
 # bf16 training (phase 23)
 BF16_TRAIN_STEPS = 10    # optimizer steps of each bf16 cli.train run
 BF16_LOSS_TOL = 2e-3     # a bf16 step with the kernels against the same step through their
@@ -497,6 +526,10 @@ def build_all():
 
 
 def reset_counts():
+    CB.conv_gn_stats_bf16_cuda.launches = 0
+    CB.gn_affine_mish_bf16_cuda.launches = 0
+    FA.local_attention_halo_bf16_cuda.launches = 0
+    LH.local_attention_heads_bf16_cuda.launches = 0
     CB.conv_gn_mish_cuda.launches = 0
     CB.conv_gn_mish_bf16_cuda.launches = 0
     FA.fused_qkv_local_attention_bf16_cuda.launches = 0
@@ -3063,11 +3096,11 @@ def parallel_phase(dev, args, tmp, per_step):
     return result
 
 
-def seq_unet(seed, dev):
-    """The dim-128 serve-config U-Net from a seeded init, its schedule, and
-    inputs for one forward."""
+def seq_unet(seed, dev, bf16=False):
+    """The dim-128 serve-config U-Net from a seeded init (built at bf16 with
+    ``bf16``: the same parameters), its schedule, and inputs for one forward."""
     torch.manual_seed(seed)
-    model = TemporalUnet(D, dim=DIM).to(dev).eval()
+    model = TemporalUnet(D, dim=DIM, dtype=BF if bf16 else torch.float32).to(dev).eval()
     g = torch.Generator().manual_seed(seed + 33)
     x = torch.randn(SEQ_B, SEQ_H, D, generator=g).to(dev)
     t = torch.randint(0, T, (SEQ_B,), generator=g).to(dev)
@@ -3088,10 +3121,12 @@ def seq_unet_chain(model, sched, seed, dev, x_sharding=None, prediction="x0", t_
                        x_sharding=x_sharding).trajectories
 
 
-def seq_la_model(seed, dev):
+def seq_la_model(seed, dev, bf16=False):
     """The localattn5k_r3 copy with max_seq_len SEQ_H (la_serve's long run),
-    seeded, with its schedule and inputs for one forward."""
-    cfg = ExperimentConfig.load(str(LA_CONFIG)).override({"model.max_seq_len": SEQ_H})
+    seeded (built at bf16 with ``bf16``), with its schedule and inputs for one
+    forward."""
+    cfg = ExperimentConfig.load(str(LA_CONFIG)).override({"model.max_seq_len": SEQ_H,
+                                                          "model.bf16": bf16})
     model = seeded_model(cfg, seed, hyper_connection_weights).to(dev).eval()
     g = torch.Generator().manual_seed(seed + 31)
     x = torch.randn(SEQ_B, SEQ_H, cfg.model.input_dim, generator=g).to(dev)
@@ -3107,12 +3142,24 @@ def seq_la_chain(model, sched, seed, dev, x_sharding=None):
                        x_sharding=x_sharding).trajectories
 
 
+SEQ_WRAPPERS = {"conv_gn_stats": CB.conv_gn_stats_cuda,
+                "gn_affine_mish": CB.gn_affine_mish_cuda, "conv_gn_mish": CB.conv_gn_mish_cuda,
+                "local_attention_halo": FA.local_attention_halo_cuda,
+                "fused_qkv_local_attention": FA.fused_qkv_local_attention_cuda,
+                "conv_gn_stats_bf16": CB.conv_gn_stats_bf16_cuda,
+                "gn_affine_mish_bf16": CB.gn_affine_mish_bf16_cuda,
+                "conv_gn_mish_bf16": CB.conv_gn_mish_bf16_cuda,
+                "local_attention_halo_bf16": FA.local_attention_halo_bf16_cuda,
+                "fused_qkv_local_attention_bf16": FA.fused_qkv_local_attention_bf16_cuda}
+
+
 def seq_counts():
-    return {"conv_gn_stats": CB.conv_gn_stats_cuda.launches,
-            "gn_affine_mish": CB.gn_affine_mish_cuda.launches,
-            "conv_gn_mish": CB.conv_gn_mish_cuda.launches,
-            "local_attention_halo": FA.local_attention_halo_cuda.launches,
-            "fused_qkv_local_attention": FA.fused_qkv_local_attention_cuda.launches}
+    return {name: fn.launches for name, fn in SEQ_WRAPPERS.items()}
+
+
+def only(**launches):
+    """seq_counts() as it must read when just ``launches`` happened."""
+    return {name: launches.get(name, 0) for name in SEQ_WRAPPERS}
 
 
 def counted(fn):
@@ -3126,11 +3173,12 @@ def counted(fn):
     return out, time.perf_counter() - t0, seq_counts()
 
 
-def seq_worker(rank, world, seed, device="cuda"):
-    """One of phase 21's two gloo ranks on the one card, the horizon split
-    SEQ_H / world frames a rank: the U-Net's DDIM chain (K1, K2), then the
-    local transformer's forward and v4 chain (K3), each run once before
-    the counted run. -> numpy results."""
+def seq_worker(rank, world, seed, device="cuda", bf16=False):
+    """One of phase 21's (or, with ``bf16``, phase 24's) two gloo ranks on the
+    one card, the horizon split SEQ_H / world frames a rank: the U-Net's
+    DDIM chain (K1, K2), then the local transformer's forward and v4 chain
+    (K3), each run once before the counted run; the models at bf16 with
+    ``bf16``. -> numpy results."""
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -3138,17 +3186,18 @@ def seq_worker(rank, world, seed, device="cuda"):
     torch.backends.cudnn.allow_tf32 = False
     shard = meshlib.seq_sharding(meshlib.make_mesh(data=1, seq=world, device_type=dev.type))
     out = {}
-    unet, sched, x, t = seq_unet(seed, dev)
+    unet, sched, x, t = seq_unet(seed, dev, bf16)
     with torch.inference_mode(), seqlib.sharded(shard):
         y = unet(shard.shard(x).contiguous(), t)
     out["unet_forward"] = y.cpu().numpy()
     seq_unet_chain(unet, sched, seed, dev, shard)
     traj, seconds, n = counted(lambda: seq_unet_chain(unet, sched, seed, dev, shard))
     out["unet"] = {"seconds": seconds, "counts": n, "traj": traj.cpu().numpy()}
-    out["unet_epsilon"] = seq_unet_chain(unet, sched, seed, dev, shard, "epsilon",
-                                         SEQ_EPS_T).cpu().numpy()
+    if not bf16:
+        out["unet_epsilon"] = seq_unet_chain(unet, sched, seed, dev, shard, "epsilon",
+                                             SEQ_EPS_T).cpu().numpy()
     del unet
-    model, la_sched, x, t = seq_la_model(seed, dev)
+    model, la_sched, x, t = seq_la_model(seed, dev, bf16)
     xs = shard.shard(x).contiguous()
 
     def forward():
@@ -3319,8 +3368,7 @@ def seq_phase(dev, timer, args, tmp, peaks):
     got = np.concatenate([r["unet"]["traj"] for r in ranks], axis=1)
     ref = one.cpu().numpy()
     counts = [r["unet"]["counts"] for r in ranks]
-    want = {"conv_gn_stats": per_forward * SEQ_DDIM, "gn_affine_mish": per_forward * SEQ_DDIM,
-            "conv_gn_mish": 0, "local_attention_halo": 0, "fused_qkv_local_attention": 0}
+    want = only(conv_gn_stats=per_forward * SEQ_DDIM, gn_affine_mish=per_forward * SEQ_DDIM)
     box = np.abs(got[:, :, BOX_ZERO]).max(), np.abs(got[:, :, BOX_ELBOW] - np.float32(1.57)).max()
     close = np.allclose(got, ref, rtol=SEQ_CHAIN_RTOL, atol=SEQ_CHAIN_ATOL)
     if not (fwd_err <= FORWARD_TOL and close and np.isfinite(got).all() and max(box) == 0.0
@@ -3357,13 +3405,9 @@ def seq_phase(dev, timer, args, tmp, peaks):
     fwd_counts = [r["la_forward"]["counts"] for r in ranks]
     chain_counts = [r["la_chain"]["counts"] for r in ranks]
 
-    def k3_only(n):
-        return {"conv_gn_stats": 0, "gn_affine_mish": 0, "conv_gn_mish": 0,
-                "local_attention_halo": n, "fused_qkv_local_attention": 0}
-
     if not (fwd_err <= SEQ_LA_TOL and close and np.isfinite(got_chain).all()
-            and all(c == k3_only(depth) for c in fwd_counts)
-            and all(c == k3_only(depth * SEQ_LA_STEPS) for c in chain_counts)
+            and all(c == only(local_attention_halo=depth) for c in fwd_counts)
+            and all(c == only(local_attention_halo=depth * SEQ_LA_STEPS) for c in chain_counts)
             and fwd_n["fused_qkv_local_attention"] == depth):
         raise RuntimeError(f"the sharded local transformer: forward off by {fwd_err}, chain "
                            f"allclose {close}, counts {fwd_counts} / {chain_counts}")
@@ -3382,8 +3426,6 @@ def seq_phase(dev, timer, args, tmp, peaks):
 
 # ---------------------------------------------------------------------------
 # Phase 22: bf16 serving (B1's and B3's bf16 forms; the four denoisers at bf16)
-
-BF = torch.bfloat16
 
 
 def bf16_ulps(out, ref):
@@ -4040,6 +4082,343 @@ def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the horizon split at bf16 (K1, K2 and K3 in their bf16 forms), B4 at bf16, and the
+# bf16 KV-cache decode
+
+
+def rel_dist(got, ref):
+    """(max, median) of |got - ref| / max |ref|."""
+    d = np.abs(got - ref) / np.abs(ref).max()
+    return float(d.max()), float(np.median(d))
+
+
+def within(dist, tol):
+    return dist[0] <= tol[0] and dist[1] <= tol[1]
+
+
+def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
+    """K1's and K2's bf16 forms against their plain versions at every (H,
+    Cin, Cout) of a rank's sharded dim-128 forward (``shapes``: Counter of
+    launches a forward), bf16 K1 + K2 over one rank (zero halo rows) against
+    B1's bf16 form, each timed beside its float32 form on the same values
+    (widened), its plain version and the bf16 composition."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    k1, k2 = [], []
+    for (h, cin, cout), n in shapes.items():
+        where = f"B {SEQ_B}, H {h}, {cin}->{cout}"
+        xh = torch.randn(SEQ_B, h + K - 1, cin, generator=g, device=dev).to(BF)
+        w = (torch.randn(K, cin, cout, generator=g, device=dev) * (K * cin) ** -0.5).to(BF)
+        b, gamma, beta = (m + 0.1 * torch.randn(cout, generator=g, device=dev)
+                          for m in (0.0, 1.0, 0.0))
+        pre, st = CB.conv_gn_stats_bf16_cuda(xh, w, b, GROUPS)
+        pre_p, st_p = CB.conv_gn_stats_plain(xh, w, b, GROUPS)
+        count = h * (cout // GROUPS)
+        merged = CB.chan_merge(st[None], count, 1e-5)
+        y = CB.gn_affine_mish_bf16_cuda(pre, merged, gamma, beta, GROUPS)
+        y_p = CB.gn_affine_mish_plain(pre, merged, gamma, beta, GROUPS, BF)
+        xz = xh.clone()  # one rank holding the whole horizon: zero halo rows, then B1 at bf16
+        xz[:, :K // 2] = 0
+        xz[:, h + K // 2:] = 0
+        pz, sz = CB.conv_gn_stats_bf16_cuda(xz, w, b, GROUPS)
+        via = CB.gn_affine_mish_bf16_cuda(pz, CB.chan_merge(sz[None], count, 1e-5), gamma, beta,
+                                          GROUPS)
+        b1 = CB.conv_gn_mish_bf16_cuda(xz[:, K // 2:h + K // 2].contiguous(), w, b, gamma, beta,
+                                       GROUPS)
+        torch.cuda.synchronize()
+        errs = {"pre": (pre - pre_p).abs().max().item(),
+                "mean": (st[..., 0] - st_p[..., 0]).abs().max().item(),
+                "m2_rel": ((st[..., 1] - st_p[..., 1]).abs()
+                           / st_p[..., 1].abs().clamp_min(1e-30)).max().item()}
+        if not (max(errs["pre"], errs["mean"]) <= KERNEL_TOL and errs["m2_rel"] <= SEQ_STATS_TOL
+                and pre.dtype == torch.float32 and torch.isfinite(pre).all()):
+            raise RuntimeError(f"conv_gn_stats_bf16 disagrees at {where}: {errs}")
+        k2_err = bf16_agreement("gn_affine_mish_bf16", y, y_p, where)
+        vs_b1 = bf16_agreement("bf16 K1 + K2 over one rank against conv_gn_mish_bf16", via, b1,
+                               where)
+        x32, w32 = xh.float(), w.float()
+        xc, wc, b16 = xh.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(), b.to(BF)
+
+        def k1_comp():
+            o = F.conv1d(xc, wc, b16)
+            return o, torch.var_mean(o.view(SEQ_B, GROUPS, -1), dim=-1, correction=0)
+
+        flops = 2.0 * SEQ_B * h * cout * K * cin
+        nbytes = (2.0 * (SEQ_B * (h + K - 1) * cin + K * cin * cout)
+                  + 4.0 * (cout + SEQ_B * h * cout + 2 * SEQ_B * GROUPS))
+        t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
+        row = {"B": SEQ_B, "H": h, "cin": cin, "cout": cout, "per_forward": n,
+               "plan": dict(zip(("ck", "stages"), CB.bf16_plan(h, cin, cout, K, GROUPS))),
+               "max_abs_err": errs["pre"], "errors": errs,
+               "ms": timer(lambda: CB.conv_gn_stats_bf16_cuda(xh, w, b, GROUPS)),
+               "f32_kernel_ms": timer(lambda: CB.conv_gn_stats_cuda(x32, w32, b, GROUPS)),
+               "plain_ms": timer(lambda: CB.conv_gn_stats_plain(xh, w, b, GROUPS)),
+               "composition_ms": timer(k1_comp), "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        k1.append(row)
+        emit({"phase": "kernel", "name": "conv_gn_stats_bf16", **row})
+        elems = SEQ_B * h * cout
+        cg = cout // GROUPS
+        mean_c, rstd_c = (merged[..., i].repeat_interleave(cg, dim=1)[:, None, :] for i in (0, 1))
+        row = {"B": SEQ_B, "H": h, "C": cout, "per_forward": n, **k2_err,
+               "k1_k2_vs_b1_bf16": vs_b1,
+               "ms": timer(lambda: CB.gn_affine_mish_bf16_cuda(pre, merged, gamma, beta, GROUPS)),
+               "f32_kernel_ms": timer(lambda: CB.gn_affine_mish_cuda(pre, merged, gamma, beta,
+                                                                     GROUPS)),
+               "plain_ms": timer(lambda: CB.gn_affine_mish_plain(pre, merged, gamma, beta,
+                                                                 GROUPS, BF)),
+               "composition_ms": timer(lambda: F.mish(torch.addcmul(
+                   beta, (pre - mean_c) * rstd_c, gamma)).to(BF))}
+        # the K2 function's 11 operations a value (see seq_k1_k2_rows); float32 in, bf16 out
+        row["bound_ms"], row["bound_by"] = bound(11.0 * elems, 6.0 * elems + 4.0 * (
+            2 * cout + 2 * SEQ_B * GROUPS), peaks)
+        k2.append(row)
+        emit({"phase": "kernel", "name": "gn_affine_mish_bf16", **row})
+    return k1, k2
+
+
+def seq_bf16_k3_rows(dev, timer, peaks, mcfg):
+    """K3's bf16 form against its plain version at both ranks' slabs of one
+    bf16 qkv over the whole horizon, each rank's rows against B3's bf16
+    entry on the whole horizon (K3 is B3's bf16 core from slab row q0), timed
+    beside its float32 form on the same values, the plain version and the
+    bf16 composition (rotary at the global positions, then one SDPA with the
+    band mask)."""
+    h, dh, w, causal = mcfg.n_heads, mcfg.dim_head, mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    n = SEQ_H // SEQ_RANKS
+    g = torch.Generator(device=dev).manual_seed(25)
+    whole_qkv = torch.randn(SEQ_B, SEQ_H, 3 * h * dh, generator=g, device=dev).to(BF)
+    whole = FA.fused_qkv_local_attention_bf16_cuda(whole_qkv, h, dh, w, causal)
+    rows = []
+    for rank in range(SEQ_RANKS):
+        q0 = w if rank > 0 else 0
+        end = (rank + 1) * n + (lf * w if rank < SEQ_RANKS - 1 else 0)
+        qkv = whole_qkv[:, rank * n - q0:end].contiguous()
+        Nh, pos0 = qkv.shape[1], rank * n - q0
+        args = (qkv, h, dh, w, q0, n, pos0, causal, True, True, None)
+        out = FA.local_attention_halo_bf16_cuda(*args)
+        ref = FA.local_attention_halo_plain(*args)
+        torch.cuda.synchronize()
+        where = f"rank {rank}'s slab (B {SEQ_B}, Nh {Nh})"
+        err = bf16_agreement("local_attention_halo_bf16", out, ref, where)
+        vs_b3 = bf16_agreement("local_attention_halo_bf16 against B3's bf16 entry", out,
+                               whole[:, rank * n:(rank + 1) * n], where)
+        ti, tj = np.arange(q0, q0 + n)[:, None], np.arange(Nh)[None, :]
+        ok = ~FA.window_mask(ti, tj, w, 1, lf, causal, True, False)
+        x = qkv.view(SEQ_B, Nh, 3, h, dh).permute(2, 0, 3, 1, 4)
+        q_tab = tuple(t.to(BF) for t in rotary_tables(pos0 + np.arange(q0, q0 + n) + lf * w, dh,
+                                                      dev))
+        k_tab = tuple(t.to(BF) for t in rotary_tables(pos0 + np.arange(Nh), dh, dev))
+        mask = torch.from_numpy(ok).to(dev)
+
+        def comp():
+            o = F.scaled_dot_product_attention(rotate(x[0][:, :, q0:q0 + n], q_tab),
+                                               rotate(x[1], k_tab), x[2], attn_mask=mask)
+            return o.transpose(1, 2).reshape(SEQ_B, n, h * dh)
+
+        args32 = (qkv.float(),) + args[1:]
+        pairs = int(ok.sum()) * SEQ_B
+        flops = h * 4.0 * dh * pairs + 6.0 * SEQ_B * (n + Nh) * h * dh
+        row = {"rank": rank, "B": SEQ_B, "Nh": Nh, "q0": q0, "Nq": n, "pos0": pos0, **err,
+               "vs_b3_bf16": vs_b3,
+               "plan": dataclasses.asdict(FA.halo_plan(SEQ_B, h, dh, w, q0, n, Nh, causal, True)),
+               "ms": timer(lambda: FA.local_attention_halo_bf16_cuda(*args)),
+               "f32_kernel_ms": timer(lambda: FA.local_attention_halo_cuda(*args32)),
+               "plain_ms": timer(lambda: FA.local_attention_halo_plain(*args)),
+               "composition_ms": timer(comp), "pairs_per_head": pairs}
+        # bytes: bf16 Q of the rank's n rows, K and V of the slab's Nh, the n output rows
+        row["bound_ms"], row["bound_by"] = bound(flops, 2.0 * SEQ_B * h * dh * (2 * Nh + 2 * n),
+                                                 peaks)
+        rows.append(row)
+        emit({"phase": "kernel", "name": "local_attention_halo_bf16", **row})
+    return rows
+
+
+def bf16_b4_rows(dev, timer, peaks, mcfg):
+    """B4's bf16 form through its front door ``windowed_attention`` at
+    la_serve's aligned shapes (B 16 x H 128, B 4 x H 1024; dh 64) and once at
+    dh 32 (16 heads of the same width), against its plain version, timed
+    beside its float32 form on the same values, the plain version and the
+    bf16 composition (rotary, then one SDPA with the band mask). -> (rows,
+    the front door's launches of the bf16 form)."""
+    w, causal = mcfg.window_size, mcfg.causal
+    lf = 0 if causal else 1
+    width = mcfg.n_heads * mcfg.dim_head
+    g = torch.Generator(device=dev).manual_seed(26)
+    cases = []
+    for batch, n, dh in ((LA_B, LA_H, mcfg.dim_head), (LA_SMALL_B, LA_LONG, mcfg.dim_head),
+                         (LA_B, LA_H, 32)):
+        h = width // dh
+        cases.append((batch, n, dh, h, *(torch.randn(batch, h, n, dh, generator=g,
+                                                     device=dev).to(BF) for _ in range(3))))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.inference_mode():
+        outs = [LH.windowed_attention(q, k, v, w, causal=causal) for *_, q, k, v in cases]
+    torch.cuda.synchronize()
+    launches = LH.local_attention_heads_bf16_cuda.launches
+    if launches != len(cases) or LH.local_attention_heads_cuda.launches:
+        raise RuntimeError(f"windowed_attention at bf16 launched B4's bf16 form {launches} "
+                           f"times, its float32 form {LH.local_attention_heads_cuda.launches}")
+    rows = []
+    for (batch, n, dh, h, q, k, v), out in zip(cases, outs):
+        ref = LH.local_attention_heads_plain(q, k, v, w, causal)
+        err = bf16_agreement("local_attention_heads_bf16", out, ref, f"B {batch}, N {n}, dh {dh}")
+        qt, kt = (tuple(t.to(BF) for t in rotary_tables(pos, dh, dev))
+                  for pos in (np.arange(n) + lf * w, np.arange(n)))
+        mask = band_mask(n, w, causal, dev)
+
+        def composition(q=q, k=k, v=v, qt=qt, kt=kt, mask=mask):
+            return F.scaled_dot_product_attention(rotate(q, qt), rotate(k, kt), v, attn_mask=mask)
+
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        pairs, _ = attention_work(n, n, w, causal, [n] * batch)
+        flops = h * 4.0 * dh * pairs + 6.0 * batch * h * n * dh
+        bound_ms, bound_by = bound(flops, 2.0 * 4 * batch * h * n * dh, peaks)
+        rows.append({"B": batch, "heads": h, "N": n, "dh": dh, **err,
+                     "plan": attention_plan_row(n, LH.CHUNK, LH.CHUNK, w, causal, dh, batch * h),
+                     "ms": timer(lambda: LH.local_attention_heads_bf16_cuda(q, k, v, w, causal)),
+                     "f32_kernel_ms": timer(lambda: LH.local_attention_heads_cuda(q32, k32, v32,
+                                                                                  w, causal)),
+                     "plain_ms": timer(lambda: LH.local_attention_heads_plain(q, k, v, w, causal)),
+                     "composition_ms": timer(composition),
+                     "composition_max_abs_err": (composition().float() - ref.float()).abs()
+                     .max().item(), "bound_ms": bound_ms, "bound_by": bound_by})
+        emit({"phase": "kernel", "name": "local_attention_heads_bf16", **rows[-1]})
+    return rows, launches
+
+
+def bf16_decode(dev, seed):
+    """localattn5k_r3 with model.causal=true at bf16: SEQ_BF16_DECODE frames at
+    B 4 decoded through the KV cache (bf16 ring buffers) against its full
+    causal bf16 forward (SEQ_BF16_DECODE_TOL), and both beside the float32
+    build's causal forward of the same weights."""
+    cfg = ExperimentConfig.load(str(LA_CONFIG)).override({"model.causal": True})
+    g = torch.Generator().manual_seed(seed + 24)
+    x = torch.randn(LA_SMALL_B, SEQ_BF16_DECODE, cfg.model.input_dim, generator=g).to(dev)
+    t = torch.randint(0, T, (LA_SMALL_B,), generator=g).to(dev)
+    model = seeded_model(cfg.override({"model.bf16": True}), seed,
+                         hyper_connection_weights).to(dev).eval()
+    f32 = seeded_model(cfg, seed, hyper_connection_weights).to(dev).eval()
+    with torch.inference_mode():
+        full32 = f32(x, t).cpu().numpy()
+        reset_counts()
+        full = model(x, t)
+        b3 = FA.fused_qkv_local_attention_bf16_cuda.launches
+        cache = model.init_decode_cache(LA_SMALL_B)
+        steps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SEQ_BF16_DECODE):
+            out, cache = model(x[:, i:i + 1], t, cache=cache, decode_pos=i)
+            steps.append(out)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    dec, full = torch.cat(steps, dim=1).cpu().numpy(), full.cpu().numpy()
+    dist = rel_dist(dec, full)
+    if not (within(dist, SEQ_BF16_DECODE_TOL) and np.isfinite(dec).all()
+            and all(k.dtype == v.dtype == BF for k, v in cache)):
+        raise RuntimeError(f"the bf16 KV-cache decode: {dist} from the causal bf16 forward "
+                           f"(bound {SEQ_BF16_DECODE_TOL}), cache {cache[0][0].dtype}")
+    return {"B": LA_SMALL_B, "frames": SEQ_BF16_DECODE, "rel_dist_vs_forward": dist,
+            "rel_dist_vs_float32_forward": rel_dist(dec, full32),
+            "forward_rel_dist_vs_float32": rel_dist(full, full32),
+            "ms_per_frame": seconds * 1e3 / SEQ_BF16_DECODE, "causal_forward_b3_bf16_launches": b3}
+
+
+def seq_bf16_phase(dev, timer, args, tmp, peaks):
+    """Phase 24: K1, K2 and K3 at bf16 at the shapes of phase 21's split, B4
+    at bf16, then two gloo ranks running phase 21's chains with both models
+    built at bf16 (seq_worker) against this process alone (B1's and B3's bf16
+    forms), and the bf16 KV-cache decode. It makes its own references and
+    needs no earlier phase's files."""
+    la_cfg = ExperimentConfig.load(str(LA_CONFIG))
+    probe = TemporalUnet(D, dim=DIM).to(dev).eval()
+    x = torch.zeros(SEQ_B, SEQ_H // SEQ_RANKS, D, device=dev)
+    shapes = Counter(record_block_shapes(probe, x, torch.zeros(SEQ_B, device=dev)))
+    del probe
+    k1, k2 = seq_bf16_k1_k2_rows(dev, timer, peaks, shapes)
+    k3 = seq_bf16_k3_rows(dev, timer, peaks, la_cfg.model)
+    b4, b4_launches = bf16_b4_rows(dev, timer, peaks, la_cfg.model)
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(seq_worker, SEQ_RANKS, os.path.join(tmp, "seq_bf16_store"),
+                        device=dev.type, args=(args.seed, dev.type, True), timeout=SEQ_TIMEOUT)
+    result = {"ranks": SEQ_RANKS, "ranks_seconds": time.perf_counter() - t0,
+              "note": "gloo on one card, not scaling"}
+    per_forward = sum(shapes.values())  # 33
+
+    unet, sched, x, t = seq_unet(args.seed, dev, bf16=True)
+    with torch.inference_mode():
+        fwd = rel_dist(np.concatenate([r["unet_forward"] for r in ranks], axis=1),
+                       unet(x, t).cpu().numpy())
+    seq_unet_chain(unet, sched, args.seed, dev)
+    one, one_s, one_n = counted(lambda: seq_unet_chain(unet, sched, args.seed, dev))
+    ref = one.cpu().numpy()
+    del unet
+    f32_chain = seq_unet_chain(seq_unet(args.seed, dev)[0], sched, args.seed, dev).cpu().numpy()
+    got = np.concatenate([r["unet"]["traj"] for r in ranks], axis=1)
+    counts = [r["unet"]["counts"] for r in ranks]
+    want = only(conv_gn_stats_bf16=per_forward * SEQ_DDIM,
+                gn_affine_mish_bf16=per_forward * SEQ_DDIM)
+    box = np.abs(got[:, :, BOX_ZERO]).max(), np.abs(got[:, :, BOX_ELBOW] - np.float32(1.57)).max()
+    chain = rel_dist(got, ref)
+    if not (within(fwd, SEQ_BF16_TOL) and within(chain, SEQ_BF16_TOL) and np.isfinite(got).all()
+            and max(box) == 0.0 and all(c == want for c in counts)
+            and one_n == only(conv_gn_mish_bf16=per_forward * SEQ_DDIM)):
+        raise RuntimeError(f"the bf16 sharded U-Net: forward {fwd}, chain {chain} (bound "
+                           f"{SEQ_BF16_TOL}), clamped dims off by {box}; counts {counts} "
+                           f"(expected {want}), one process {one_n}")
+    result["unet_ddim"] = {
+        "B": SEQ_B, "H": SEQ_H, "steps": SEQ_DDIM, "counts_per_rank": counts,
+        "one_process_counts": one_n, "forward_rel_dist": fwd, "chain_rel_dist": chain,
+        "float32_chain_rel_dist": rel_dist(f32_chain, ref),
+        "ms_per_step_sharded": [r["unet"]["seconds"] * 1e3 / SEQ_DDIM for r in ranks],
+        "ms_per_step_one_process": one_s * 1e3 / SEQ_DDIM}
+    emit({"phase": "main_path", "path": "seq_bf16_unet", **result["unet_ddim"]})
+
+    model, la_sched, x, t = seq_la_model(args.seed, dev, bf16=True)
+    depth = model.depth
+    with torch.inference_mode():
+        model(x, t)
+        y, fwd_s, fwd_n = counted(lambda: model(x, t))
+    fwd = rel_dist(np.concatenate([r["la_forward"]["out"] for r in ranks], axis=1),
+                   y.cpu().numpy())
+    traj, chain_s, chain_n = counted(lambda: seq_la_chain(model, la_sched, args.seed, dev))
+    del model
+    ref = traj.cpu().numpy()
+    f32_model = seq_la_model(args.seed, dev)[0]
+    f32_chain = seq_la_chain(f32_model, la_sched, args.seed, dev).cpu().numpy()
+    del f32_model
+    chain = rel_dist(np.concatenate([r["la_chain"]["traj"] for r in ranks], axis=1), ref)
+    fwd_counts = [r["la_forward"]["counts"] for r in ranks]
+    chain_counts = [r["la_chain"]["counts"] for r in ranks]
+    if not (within(fwd, SEQ_BF16_TOL) and within(chain, SEQ_BF16_TOL)
+            and all(c == only(local_attention_halo_bf16=depth) for c in fwd_counts)
+            and all(c == only(local_attention_halo_bf16=depth * SEQ_LA_STEPS)
+                    for c in chain_counts)
+            and fwd_n == only(fused_qkv_local_attention_bf16=depth)):
+        raise RuntimeError(f"the bf16 sharded local transformer: forward {fwd}, chain {chain} "
+                           f"(bound {SEQ_BF16_TOL}), counts {fwd_counts} / {chain_counts}, one "
+                           f"process {fwd_n}")
+    result["local_attention"] = {
+        "B": SEQ_B, "H": SEQ_H, "depth": depth, "forward_rel_dist": fwd,
+        "forward_counts_per_rank": fwd_counts, "chain_counts_per_rank": chain_counts,
+        "chain_steps": SEQ_LA_STEPS, "chain_rel_dist": chain,
+        "float32_chain_rel_dist": rel_dist(f32_chain, ref),
+        "forward_ms_sharded": [r["la_forward"]["seconds"] * 1e3 for r in ranks],
+        "forward_ms_one_process": fwd_s * 1e3,
+        "ms_per_step_sharded": [r["la_chain"]["seconds"] * 1e3 / SEQ_LA_STEPS for r in ranks],
+        "ms_per_step_one_process": chain_s * 1e3 / SEQ_LA_STEPS}
+    emit({"phase": "main_path", "path": "seq_bf16_local_attention", **result["local_attention"]})
+    result["decode"] = bf16_decode(dev, args.seed)
+    emit({"phase": "main_path", "path": "bf16_decode", **result["decode"]})
+    result.update(k1_rows=k1, k2_rows=k2, k3_rows=k3, b4_rows=b4, b4_launches=b4_launches,
+                  per_forward=per_forward)
+    return result
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--seed", type=int, default=0)
@@ -4125,6 +4504,7 @@ def main(argv=None) -> int:
         result["bf16"] = phase("bf16", bf16_phase, dev, timer, args, tmp, peaks, la_cfg, b_run)
         result["bf16_train"] = phase("bf16_train", bf16_train_phase, dev, timer, args, tmp,
                                      peaks, la_cfg)
+        result["seq_bf16"] = phase("seq_bf16", seq_bf16_phase, dev, timer, args, tmp, peaks)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["grads"] = phase("grads", grads_phase, dev, args.seed)
@@ -4384,6 +4764,53 @@ def main(argv=None) -> int:
         "library_ms": None,
         "shape": {"B": LA_TRAIN_B, "N": LA_TRAIN_H, "heads": b3k["heads"],
                   "dim_head": b3k["dim_head"], "window": b3k["window"]},
+    }]
+    # phase 24: K1's and K2's bf16 forms summed over one sharded bf16 forward's 33 launches (B 4,
+    # 512 rows a rank), K3's per launch at rank 0's slab, B4's per launch at B 16 x H 128
+    sb = result["seq_bf16"]
+    for name, rows, source in (
+            ("conv_gn_stats_bf16", sb["k1_rows"], "conv_gn_mish_bf16.cu"),
+            ("gn_affine_mish_bf16", sb["k2_rows"], "conv_gn_mish.cu")):
+        kernels.append({
+            "name": name, "route": "cuda", "status": "ported; matches its plain version",
+            "form": "B1's horizon-sharded form at bf16",
+            "source": f"deepmimic_diffusion_mujoco_tpu_torch/csrc/{source}",
+            "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/conv_block_kernel.py:104",
+            "launches": sb["unet_ddim"]["counts_per_rank"][0][name],
+            "launches_per_rank": [c[name] for c in sb["unet_ddim"]["counts_per_rank"]],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: per_launch_sum(rows, k, "per_forward")
+               for k in ("ms", "plain_ms", "bound_ms", "f32_kernel_ms", "composition_ms")},
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
+            else "bytes", "library_ms": None,
+            "shape": {"B": SEQ_B, "H_per_rank": SEQ_H // SEQ_RANKS,
+                      "launches_per_forward": sb["per_forward"]}})
+    k3b, b4b = sb["k3_rows"][0], sb["b4_rows"][0]
+    kernels += [{
+        "name": "local_attention_halo_bf16", "route": "cuda",
+        "status": "ported; matches its plain version", "form": "B3's halo entry at bf16",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/fused_local_attention.py:284",
+        "launches": sb["local_attention"]["chain_counts_per_rank"][0]["local_attention_halo_bf16"],
+        "launches_forward_per_rank": [c["local_attention_halo_bf16"] for c in
+                                      sb["local_attention"]["forward_counts_per_rank"]],
+        "max_abs_err": max(r["max_abs_err"] for r in sb["k3_rows"]),
+        **{k: k3b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "f32_kernel_ms",
+                               "composition_ms", "max_ulps")},
+        "library_ms": None, "shape": {"B": SEQ_B, "Nh": k3b["Nh"], "Nq": k3b["Nq"]},
+    }, {
+        "name": "local_attention_heads_bf16", "route": "cuda",
+        "status": "ported; matches its plain version",
+        "form": "B4 at bf16 (q * scale rounded to bf16, float32 rotary, scores and sums)",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/local_attention.cu",
+        "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/local_attention_kernel.py:113",
+        # its own path: the front door windowed_attention (B4 is not on the serving path)
+        "launches": sb["b4_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in sb["b4_rows"]),
+        **{k: b4b[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "f32_kernel_ms",
+                               "composition_ms", "max_ulps")},
+        "library_ms": None,
+        "shape": {"B": b4b["B"], "heads": b4b["heads"], "N": b4b["N"], "dim_head": b4b["dh"]},
     }]
     steps = {"unet": {"bf16": bt["unet"]["profile"], "float32": result["train_profile"]},
              "la": {"bf16": bt["la"]["profile"], "float32": result["la_train"]["profile"]}}

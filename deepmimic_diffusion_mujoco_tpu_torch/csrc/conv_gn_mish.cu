@@ -74,6 +74,9 @@
 //      then Mish in step 4's form, with the merged (mean, rstd) of each
 //      (batch row, group). It reads and writes each value once: bytes bound
 //      it. A float4 a thread where the groups' widths are multiples of 4.
+//      gn_affine_mish_bf16 is K2 of a bf16 model: the same float32 values
+//      (from K1's bf16 form, csrc/conv_gn_mish_bf16.cu), one bf16 rounding
+//      at the store.
 // The merge (Chan's parallel variance in float64) is ops/conv_block_kernel.py's.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
@@ -81,9 +84,12 @@
 // contiguity, chooses the plan once per shape and passes it in.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace coop = cooperative_groups;
 
@@ -608,12 +614,13 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // K2: out = Mish((pre - mean) * rstd * gamma + beta) with `stats` (B, groups,
 // 2) holding each (batch row, group)'s (mean, rstd); kV values a thread
-// (4 where C and the group width are multiples of 4), grid-stride.
-template <int kV>
+// (4 where C and the group width are multiples of 4), grid-stride. TOut is
+// float, or bf16 (each value rounded once at the store).
+template <int kV, typename TOut>
 __global__ void __launch_bounds__(256)
 gn_affine_mish_kernel(const float* __restrict__ pre, const float* __restrict__ stats,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
-                      float* __restrict__ out, long long n, int HC, int C, int cg) {
+                      TOut* __restrict__ out, long long n, int HC, int C, int cg) {
   const int groups = C / cg;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / kV; i += stride) {
@@ -638,12 +645,47 @@ gn_affine_mish_kernel(const float* __restrict__ pre, const float* __restrict__ s
       const float sp = fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)));
       v[q] = y * tanhf(sp);
     }
-    if constexpr (kV == 4) {
-      reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (std::is_same_v<TOut, float>) {
+      if constexpr (kV == 4) {
+        reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        out[e] = v[0];
+      }
+    } else if constexpr (kV == 4) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      reinterpret_cast<uint2*>(out)[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                    *reinterpret_cast<const uint32_t*>(&hi));
     } else {
-      out[e] = v[0];
+      out[e] = __float2bfloat16_rn(v[0]);
     }
   }
+}
+
+// K2's launch for an output of type TOut (`out` may be `pre` where TOut is float).
+template <typename TOut>
+int launch_k2(const float* pre, const float* stats, const float* gamma, const float* beta,
+              TOut* out, int B, int H, int C, int groups, void* stream) {
+  if (B <= 0 || H <= 0 || C <= 0 || groups <= 0 || C % groups) return (int)cudaErrorInvalidValue;
+  const int cg = C / groups;
+  const long long n = (long long)B * H * C;
+  const bool vec = cg % 4 == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TOut)) == 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long items = vec ? n / 4 : n;
+  const long long most = 8LL * sms;
+  const int grid = (int)((items + 255) / 256 < most ? (items + 255) / 256 : most);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    gn_affine_mish_kernel<4, TOut><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C,
+                                                        C, cg);
+  else
+    gn_affine_mish_kernel<1, TOut><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C,
+                                                        C, cg);
+  return (int)cudaGetLastError();
 }
 
 // The plan's own consistency; false for a plan the kernel does not take.
@@ -800,24 +842,15 @@ int conv_gn_stats_f32(const float* x, const float* w, const float* bias, float* 
 int gn_affine_mish_f32(const float* pre, const float* stats, const float* gamma,
                        const float* beta, float* out, int B, int H, int C, int groups,
                        void* stream) {
-  if (B <= 0 || H <= 0 || C <= 0 || groups <= 0 || C % groups) return (int)cudaErrorInvalidValue;
-  const int cg = C / groups;
-  const long long n = (long long)B * H * C;
-  const bool vec = cg % 4 == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const long long items = vec ? n / 4 : n;
-  const long long most = 8LL * sms;
-  const int grid = (int)((items + 255) / 256 < most ? (items + 255) / 256 : most);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    gn_affine_mish_kernel<4><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C, C, cg);
-  else
-    gn_affine_mish_kernel<1><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C, C, cg);
-  return (int)cudaGetLastError();
+  return launch_k2(pre, stats, gamma, beta, out, B, H, C, groups, stream);
+}
+
+// K2's bf16 form: the same, `out` (B, H, C) bf16.
+int gn_affine_mish_bf16(const float* pre, const float* stats, const float* gamma,
+                        const float* beta, void* out, int B, int H, int C, int groups,
+                        void* stream) {
+  return launch_k2(pre, stats, gamma, beta, static_cast<__nv_bfloat16*>(out), B, H, C, groups,
+                   stream);
 }
 
 // For one plan on the current device: the dynamic shared memory it takes

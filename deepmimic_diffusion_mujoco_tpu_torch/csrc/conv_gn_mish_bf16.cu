@@ -46,6 +46,16 @@
 // A CTA's output tile lives in shared memory, so the longest horizon a shape
 // takes is bounded by it: the wrapper refuses a shape whose plan does not fit.
 //
+// K1 at bf16 (conv_gn_stats_bf16; the horizon-sharded form of a bf16 model,
+// csrc/conv_gn_mish.cu's header): the same kernel on a rank's rows with their
+// k / 2-row halo on each side, (B, H + k - 1, Cin), read without padding (the
+// ring stages the same H + k - 1 rows, so a plan's layout is B1's at H). After
+// step 3 and step 4's two reductions it writes the float32 pre-norm tile
+// (conv + bias: the values B1's bf16 form normalises) and each (batch row,
+// group)'s local mean and M2 (the sum of squared deviations), and stops. K2
+// (csrc/conv_gn_mish.cu, gn_affine_mish_bf16) normalises with the merged
+// statistics and rounds once to bf16.
+//
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrapper (ops/conv_block_kernel.py: conv_gn_mish_bf16_cuda) checks
 // shapes, dtypes and contiguity and chooses the plan (bf16_plan).
@@ -146,14 +156,16 @@ __device__ __forceinline__ float block_sum(float v, float* red, int lane, int wa
 __global__ void __launch_bounds__(kThreads)
 conv_gn_mish_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const float* __restrict__ bias, const float* __restrict__ gamma,
-                         const float* __restrict__ beta, bf16* __restrict__ out, int H,
-                         int Cin, int Cout, int K, int groups, float eps, const Plan p) {
+                         const float* __restrict__ beta, bf16* __restrict__ out,
+                         float* __restrict__ pre_out, float* __restrict__ stats_out, int H,
+                         int Hx, int off, int Cin, int Cout, int K, int groups, float eps,
+                         const Plan p) {
   extern __shared__ uint4 smem16[];
   __shared__ float red[kMaxWarps];
   char* smem = reinterpret_cast<char*>(smem16);
   const int cg = Cout / groups;
   const Layout l = layout(p, H, cg, K);
-  const int CK = p.ck, pad = K / 2;
+  const int CK = p.ck;
   const int g = blockIdx.x % groups, b = blockIdx.x / groups;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
   const int ntiles = l.cgp / 8, nj = ceil_div(ntiles, 4);
@@ -186,19 +198,19 @@ conv_gn_mish_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int pieces = CK / 8, v = tid % pieces, step = blockDim.x / pieces;
       const int ci = c0 + 8 * v;
       for (int row = tid / pieces; row < l.hp; row += step) {
-        const int h = row - pad;
+        const int h = row - off;
         bf16* dst = xs_ + row * l.xs + 8 * v;
-        if (h >= 0 && h < H && ci < Cin)
-          copy16(dst, x + ((size_t)b * H + h) * Cin + ci);
+        if (h >= 0 && h < Hx && ci < Cin)
+          copy16(dst, x + ((size_t)b * Hx + h) * Cin + ci);
         else
           *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
       }
     } else {
       for (int e = tid; e < l.hp * CK; e += blockDim.x) {
         const int row = e / CK, c = e % CK;
-        const int h = row - pad, ci = c0 + c;
+        const int h = row - off, ci = c0 + c;
         xs_[row * l.xs + c] =
-            (h >= 0 && h < H && ci < Cin) ? x[((size_t)b * H + h) * Cin + ci] : zero;
+            (h >= 0 && h < Hx && ci < Cin) ? x[((size_t)b * Hx + h) * Cin + ci] : zero;
       }
     }
     if (w_vec && blockDim.x % (l.cgp / 8) == 0) {  // one column a thread, as above
@@ -340,7 +352,19 @@ conv_gn_mish_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float d = pre[(e / cg) * l.ps + e % cg] - mean;
     v += d * d;
   }
-  const float rstd = 1.f / sqrtf(block_sum(v, red, lane, warp, warps) * n_inv + eps);
+  const float m2 = block_sum(v, red, lane, warp, warps);
+  if (stats_out != nullptr) {  // K1: the pre-norm rows and the local (mean, M2)
+    for (int e = tid; e < H * cg; e += blockDim.x) {
+      const int m = e / cg, n = e % cg;
+      pre_out[((size_t)b * H + m) * Cout + gc + n] = pre[m * l.ps + n];
+    }
+    if (tid == 0) {
+      stats_out[((size_t)b * groups + g) * 2] = mean;
+      stats_out[((size_t)b * groups + g) * 2 + 1] = m2;
+    }
+    return;
+  }
+  const float rstd = 1.f / sqrtf(m2 * n_inv + eps);
   for (int e = tid; e < H * cg; e += blockDim.x) {
     const int m = e / cg, n = e % cg;
     const float y = (pre[m * l.ps + n] - mean) * rstd * gamma[gc + n] + beta[gc + n];
@@ -356,16 +380,11 @@ bool plan_ok(const Plan& p, int H, int Cin, int cg, int K) {
   return layout(p, H, cg, K).bytes + kStaticSmem <= kMaxSmem;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Returns 0 on success, else a cudaError_t value (cudaErrorInvalidValue for
-// a shape or plan the kernel does not take). `plan` points to the 2 ints of
-// struct Plan.
-int conv_gn_mish_bf16(const void* x, const void* w, const float* bias, const float* gamma,
-                      const float* beta, void* out, int B, int H, int Cin, int Cout, int k,
-                      int groups, float eps, const int* plan, void* stream) {
+// B1 (x of Hx = H rows, read from row -k/2: off = k/2) or K1 (x of Hx = H +
+// k - 1 rows with their halo, off 0; pre and stats written, out unused).
+int launch(const void* x, const void* w, const float* bias, const float* gamma,
+           const float* beta, void* out, float* pre, float* stats, int B, int H, int Hx, int off,
+           int Cin, int Cout, int k, int groups, float eps, const int* plan, void* stream) {
   if (B <= 0 || groups <= 0 || Cout % groups != 0) return (int)cudaErrorInvalidValue;
   const Plan p{plan[0], plan[1]};
   const int cg = Cout / groups;
@@ -389,8 +408,33 @@ int conv_gn_mish_bf16(const void* x, const void* w, const float* bias, const flo
   const int grid = B * groups;
   conv_gn_mish_bf16_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, gamma, beta,
-      static_cast<bf16*>(out), H, Cin, Cout, k, groups, eps, p);
+      static_cast<bf16*>(out), pre, stats, H, Hx, off, Cin, Cout, k, groups, eps, p);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns 0 on success, else a cudaError_t value (cudaErrorInvalidValue for
+// a shape or plan the kernel does not take). `plan` points to the 2 ints of
+// struct Plan.
+int conv_gn_mish_bf16(const void* x, const void* w, const float* bias, const float* gamma,
+                      const float* beta, void* out, int B, int H, int Cin, int Cout, int k,
+                      int groups, float eps, const int* plan, void* stream) {
+  return launch(x, w, bias, gamma, beta, out, nullptr, nullptr, B, H, H, k / 2, Cin, Cout, k,
+                groups, eps, plan, stream);
+}
+
+// K1 at bf16: x (B, H + k - 1, Cin) bf16 with its halo, w bf16, bias float32;
+// pre (B, H, Cout) float32 (conv + bias, before the norm); stats (B, groups,
+// 2) float32, each (batch row, group)'s local (mean, M2). Returns as above.
+int conv_gn_stats_bf16(const void* x, const void* w, const float* bias, float* pre,
+                       float* stats, int B, int H, int Cin, int Cout, int k, int groups,
+                       const int* plan, void* stream) {
+  if (pre == nullptr || stats == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(x, w, bias, nullptr, nullptr, nullptr, pre, stats, B, H, H + k - 1, 0, Cin, Cout,
+                k, groups, 0.f, plan, stream);
 }
 
 // The dynamic shared memory one plan lays out (bytes), or -1 for a plan the

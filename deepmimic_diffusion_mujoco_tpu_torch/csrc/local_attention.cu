@@ -1,4 +1,5 @@
-// Windowed look-around attention, float32, three entry points on one core:
+// Windowed look-around attention: three entry points on one core, each in a
+// float32 and a bf16 form:
 //
 //   fused_qkv_local_attention_f32  (B3) qkv (B, N, 3*h*dh) -> out (B, N, h*dh),
 //     all heads, straight from the QKV projection; prefix key lengths and an
@@ -11,6 +12,13 @@
 //     arrive, where the float32 form copies with cp.async), and the final
 //     store rounds once; the float32 instantiation is unchanged.
 //   local_attention_heads_f32      (B4) q, k, v (B*h, N, dh) -> out (B*h, N, dh).
+//     local_attention_heads_bf16 is its bf16 form: bf16 q, k, v and out. The
+//     TPU kernel scales q in q's dtype (`q_ref * scale`: bf16 q times the
+//     scale rounded to bf16, the product rounded to bf16) and only then
+//     rotates in float32, so this entry rounds q * scale to bf16 in step 2
+//     (`round_q`); scores, softmax and P V are float32 and the store rounds
+//     once, as in B3's bf16 entry. (B3's TPU kernel upcasts q before it
+//     scales: its bf16 entry does not round there.)
 //   local_attention_halo_f32       (K3, B3's halo entry) one rank's share of a
 //     horizon split over ranks (sequence-sharded sampling): qkv (B, Nh,
 //     3*h*dh) is the rank's slab, q0 rows of the previous rank (w, or none at
@@ -23,6 +31,9 @@
 //     global position, so Q and K rotate where the unsharded kernel rotates
 //     them. A row whose keys are all masked gets the mean of V over the
 //     chunk's Nq + 2w key slots (the unsharded kernel's chunk is 128 rows).
+//     local_attention_halo_bf16 is its bf16 form (a bf16 model's horizon
+//     split): B3's bf16 core from slab row q0, a bf16 slab in, a bf16
+//     context out.
 //
 // Replaces the TPU kernels deepmimic_diffusion_mujoco_tpu/ops/pallas/
 // fused_local_attention.py:fused_qkv_local_attention (B3) and
@@ -94,6 +105,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -123,7 +135,8 @@ struct Args {
   int q0, Nq;            // query rows [q0, q0 + Nq): chunks start at q0 (0 and Np but in K3)
   int w, lf, causal, exact, rotary;
   int C, P, K;           // chunk rows, neighbour rows per side, keys per chunk
-  float scale;           // dh ** -0.5
+  float scale;           // dh ** -0.5 (B4's bf16 entry: rounded to bf16)
+  int round_q;           // B4's bf16 entry: q * scale rounded to bf16 before the rotation
   float inv_keep;        // 1 / keep_prob
 };
 
@@ -265,21 +278,29 @@ __device__ __forceinline__ void stage(float* dst, int n, Src src, uint64_t* bar,
   }
 }
 
-// Scale and, with `tab`, rotate staged rows [0, rows) in place: item (r, g)
-// is the four (dim, dim + DH/2) pairs 4g .. 4g + 3 of row r, so no two
-// threads touch one value; `tab` row r holds those pairs' (cos, sin) at row
-// r's position.
+// x * mul, rounded to bf16 (nearest even) where `round` is set.
+__device__ __forceinline__ float scaled(float x, float mul, bool round) {
+  const float y = x * mul;
+  return round ? __bfloat162float(__float2bfloat16_rn(y)) : y;
+}
+
+// Scale (the product rounded to bf16 where `round` is set) and, with `tab`,
+// rotate staged rows [0, rows) in place: item (r, g) is the four (dim, dim +
+// DH/2) pairs 4g .. 4g + 3 of row r, so no two threads touch one value;
+// `tab` row r holds those pairs' (cos, sin) at row r's position.
 template <int DH>
 __device__ __forceinline__ void rotate_rows(float* base, const float* tab, int rows, float mul,
-                                            int tid, int nthreads) {
+                                            bool round, int tid, int nthreads) {
   constexpr int kItems = DH / 8;
 #pragma unroll 4
   for (int e = tid; e < rows * kItems; e += nthreads) {
     const int r = e / kItems, g = e % kItems;
     float4* x1p = reinterpret_cast<float4*>(base + r * (DH + 4)) + g;
     float4* x2p = x1p + kItems;
-    float x1[4] = {x1p->x * mul, x1p->y * mul, x1p->z * mul, x1p->w * mul};
-    float x2[4] = {x2p->x * mul, x2p->y * mul, x2p->z * mul, x2p->w * mul};
+    float x1[4] = {scaled(x1p->x, mul, round), scaled(x1p->y, mul, round),
+                   scaled(x1p->z, mul, round), scaled(x1p->w, mul, round)};
+    float x2[4] = {scaled(x2p->x, mul, round), scaled(x2p->y, mul, round),
+                   scaled(x2p->z, mul, round), scaled(x2p->w, mul, round)};
     if (tab != nullptr) {
       const float4* t = reinterpret_cast<const float4*>(tab + r * (DH + 4)) + 2 * g;
       const float4 t01 = t[0], t23 = t[1];
@@ -451,8 +472,9 @@ windowed_attention_kernel(const Args a, const Plan p) {
 
     // 2. scale Q, rotate Q and K (the zero rows stay zero), then the one barrier
     const int q_real = max(0, min(s0 + nq, a.N) - s0);
-    if (q_real > 0) rotate_rows<DH>(qs, a.rotary ? qt : nullptr, q_real, a.scale, tid, nthreads);
-    if (a.rotary) rotate_rows<DH>(ks, kt, max(0, min(hi, a.N) - lo), 1.f, tid, nthreads);
+    if (q_real > 0)
+      rotate_rows<DH>(qs, a.rotary ? qt : nullptr, q_real, a.scale, a.round_q, tid, nthreads);
+    if (a.rotary) rotate_rows<DH>(ks, kt, max(0, min(hi, a.N) - lo), 1.f, false, tid, nthreads);
     __syncthreads();
 
     if constexpr (kKeepQ) {
@@ -757,6 +779,68 @@ int fused_qkv(const T* qkv, const int* lengths, const float* keep, const float* 
                    static_cast<cudaStream_t>(stream));
 }
 
+// x rounded to bf16, nearest even, on the host (x finite).
+float round_bf16(float x) {
+  uint32_t u;
+  memcpy(&u, &x, sizeof u);
+  u = (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u;
+  memcpy(&x, &u, sizeof x);
+  return x;
+}
+
+// B4 on q, k, v and out of element type T.
+template <typename T>
+int per_head(const T* q, const T* k, const T* v, const float* rot, T* out, int BH, int N,
+             int dim_head, int window, int causal, int exact, int rotary, int slab, int cap, int mma,
+             void* stream) {
+  if (N % 128 != 0) return (int)cudaErrorInvalidValue;
+  Args a = common(dim_head, window, causal, exact, rotary, rot);
+  if (std::is_same_v<T, bf16>) {  // the TPU kernel's bf16 `q * scale`
+    a.scale = round_bf16(a.scale);
+    a.round_q = 1;
+  }
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.out = out;
+  a.in_z = a.out_z = (long long)N * dim_head;
+  a.in_y = a.out_y = 0;
+  a.in_row = a.out_row = dim_head;
+  a.N = a.Np = a.Nq = N;
+  a.q0 = 0;
+  a.C = a.P = 128;
+  a.K = 3 * 128;
+  return launch<T>(a, dim_head, Plan{slab, cap}, mma, BH, 1, static_cast<cudaStream_t>(stream));
+}
+
+// K3 on a slab and out of element type T.
+template <typename T>
+int halo(const T* qkv, const int* lengths, const float* rot, T* out, int B, int Nh, int q0,
+         int Nq, int heads, int dim_head, int window, int causal, int exact, int rotary, int slab,
+         int cap, int mma, void* stream) {
+  if (q0 != 0 && q0 != window) return (int)cudaErrorInvalidValue;
+  Args a = common(dim_head, window, causal, exact, rotary, rot);
+  const long long hd = (long long)heads * dim_head;
+  a.q = qkv;
+  a.k = qkv + hd;
+  a.v = qkv + 2 * hd;
+  a.out = out;
+  a.lengths = lengths;
+  a.in_z = (long long)Nh * 3 * hd;
+  a.in_y = dim_head;
+  a.in_row = 3 * hd;
+  a.out_z = (long long)Nq * hd;
+  a.out_y = dim_head;
+  a.out_row = hd;
+  a.N = a.Np = Nh;
+  a.q0 = q0;
+  a.Nq = a.C = Nq;
+  a.P = window;
+  a.K = Nq + 2 * window;
+  return launch<T>(a, dim_head, Plan{slab, cap}, mma, B, heads,
+                   static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -789,21 +873,17 @@ int fused_qkv_local_attention_bf16(const void* qkv, const int* lengths, const fl
 int local_attention_heads_f32(const float* q, const float* k, const float* v, const float* rot,
                               float* out, int BH, int N, int dim_head, int window, int causal,
                               int exact, int rotary, int slab, int cap, int mma, void* stream) {
-  if (N % 128 != 0) return (int)cudaErrorInvalidValue;
-  Args a = common(dim_head, window, causal, exact, rotary, rot);
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.out = out;
-  a.in_z = a.out_z = (long long)N * dim_head;
-  a.in_y = a.out_y = 0;
-  a.in_row = a.out_row = dim_head;
-  a.N = a.Np = a.Nq = N;
-  a.q0 = 0;
-  a.C = a.P = 128;
-  a.K = 3 * 128;
-  return launch<float>(a, dim_head, Plan{slab, cap}, mma, BH, 1,
-                       static_cast<cudaStream_t>(stream));
+  return per_head(q, k, v, rot, out, BH, N, dim_head, window, causal, exact, rotary, slab, cap,
+                  mma, stream);
+}
+
+// B4's bf16 form: q, k, v and out bf16 (16-byte aligned), the rest as above.
+int local_attention_heads_bf16(const void* q, const void* k, const void* v, const float* rot,
+                               void* out, int BH, int N, int dim_head, int window, int causal,
+                               int exact, int rotary, int slab, int cap, int mma, void* stream) {
+  return per_head(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), rot, static_cast<bf16*>(out), BH, N, dim_head,
+                  window, causal, exact, rotary, slab, cap, mma, stream);
 }
 
 // K3, B3's halo entry (the header): qkv (B, Nh, 3*h*dh) a rank's slab whose
@@ -813,27 +893,17 @@ int local_attention_halo_f32(const float* qkv, const int* lengths, const float* 
                              int B, int Nh, int q0, int Nq, int heads, int dim_head, int window,
                              int causal, int exact, int rotary, int slab, int cap, int mma,
                              void* stream) {
-  if (q0 != 0 && q0 != window) return (int)cudaErrorInvalidValue;
-  Args a = common(dim_head, window, causal, exact, rotary, rot);
-  const long long hd = (long long)heads * dim_head;
-  a.q = qkv;
-  a.k = qkv + hd;
-  a.v = qkv + 2 * hd;
-  a.out = out;
-  a.lengths = lengths;
-  a.in_z = (long long)Nh * 3 * hd;
-  a.in_y = dim_head;
-  a.in_row = 3 * hd;
-  a.out_z = (long long)Nq * hd;
-  a.out_y = dim_head;
-  a.out_row = hd;
-  a.N = a.Np = Nh;
-  a.q0 = q0;
-  a.Nq = a.C = Nq;
-  a.P = window;
-  a.K = Nq + 2 * window;
-  return launch<float>(a, dim_head, Plan{slab, cap}, mma, B, heads,
-                       static_cast<cudaStream_t>(stream));
+  return halo(qkv, lengths, rot, out, B, Nh, q0, Nq, heads, dim_head, window, causal, exact,
+              rotary, slab, cap, mma, stream);
+}
+
+// K3's bf16 form: qkv and out bf16 (16-byte aligned), the rest as above.
+int local_attention_halo_bf16(const void* qkv, const int* lengths, const float* rot, void* out,
+                              int B, int Nh, int q0, int Nq, int heads, int dim_head, int window,
+                              int causal, int exact, int rotary, int slab, int cap, int mma,
+                              void* stream) {
+  return halo(static_cast<const bf16*>(qkv), lengths, rot, static_cast<bf16*>(out), B, Nh, q0,
+              Nq, heads, dim_head, window, causal, exact, rotary, slab, cap, mma, stream);
 }
 
 const char* local_attention_error_string(int code) {

@@ -66,8 +66,14 @@ returns a bf16 context (B3's bf16 form: float32 inside, as the Pallas
 kernel upcasts), the bucketed path computes in bf16 as JAX's jnp path does,
 and the output is cast to float32. It trains at bf16 too: B3's bf16 entry
 takes the attention's keep mask, its backward returns a bf16 gradient, and
-the feed-forward's dropout divides in bf16 as flax's ``Dropout`` does. The
-KV-cache decode and the horizon split raise at bf16 (ROADMAP.md Queue A).
+the feed-forward's dropout divides in bf16 as flax's ``Dropout`` does. Under
+a horizon split at bf16 the QKV slab goes to K3's bf16 form and a
+``GlobalMHA`` insert attends over the gathered bf16 rows (the gather is
+exact), so each rank rounds where the one-process forward rounds. The bf16
+KV-cache decode keeps its ring buffers in bf16 and computes as JAX's
+decode does: the rotary angles rounded to bf16, the rotation, the
+scale, the scores and flax's softmax each rounded to bf16, and a bf16
+out-projection.
 """
 from __future__ import annotations
 
@@ -213,10 +219,6 @@ class LocalMHA(nn.Module):
         dt = self.dtype
         qkv = P.linear(P.layer_norm(x, self.norm, dt), self.to_qkv, dt)
         if cache is not None:
-            if dt == P.BF16:
-                raise NotImplementedError(
-                    "the KV-cache decode computes in float32 only: bf16 decoding waits for "
-                    "ROADMAP.md Queue A, local attention's leftovers (the KV-cache decode at bf16)")
             return self._decode(qkv, cache, decode_pos)
         if seq is not None:
             return P.linear(self._sharded(qkv, key_mask, window_size, bias_table, seq, lengths),
@@ -285,12 +287,12 @@ class LocalMHA(nn.Module):
         v_buf = torch.cat([cache[1], v], dim=2)
         L = k_buf.shape[2]
         ang = rotary_angles(L, dh, device=qkv.device).to(qkv.dtype)
-        qr = apply_rotary(q, ang[L - 1:L]) * dh ** -0.5
+        qr = apply_rotary(q, ang[L - 1:L]) * P.scalar(dh ** -0.5, qkv.dtype)
         sim = qr @ apply_rotary(k_buf, ang).transpose(-1, -2)      # (B, h, 1, L)
         valid = torch.arange(L, device=qkv.device) >= L - 1 - decode_pos
-        attn = sim.masked_fill(~valid, NEG_INF).softmax(dim=-1)
+        attn = P.softmax(sim.masked_fill(~valid, NEG_INF), dim=-1)
         out = (attn @ v_buf).transpose(1, 2).reshape(B, 1, h * dh)
-        return self.to_out(out), (k_buf[:, :, 1:], v_buf[:, :, 1:])
+        return P.linear(out, self.to_out, self.dtype), (k_buf[:, :, 1:], v_buf[:, :, 1:])
 
 
 class GlobalMHA(nn.Module):
@@ -409,11 +411,12 @@ class LocalTransformer(nn.Module):
         self.final_layer = nn.Linear(dim, input_dim)
 
     def init_decode_cache(self, batch: int) -> tuple:
-        """Empty per-layer (k, v) ring buffers, each (batch, h, w, dh), for
-        the KV-cache decode (look-back one window)."""
+        """Empty per-layer (k, v) ring buffers, each (batch, h, w, dh) in the
+        compute dtype, for the KV-cache decode (look-back one window)."""
         mha = self.attn[0]
         shape = (batch, mha.heads, self.window_size, mha.dim_head)
-        return tuple((self.pos_emb.new_zeros(shape), self.pos_emb.new_zeros(shape))
+        return tuple((self.pos_emb.new_zeros(shape, dtype=self.dtype),
+                      self.pos_emb.new_zeros(shape, dtype=self.dtype))
                      for _ in range(self.depth))
 
     def forward(self, x, time=None, y=None, mask=None, window_size=None, cache=None,
@@ -490,11 +493,6 @@ class LocalTransformer(nn.Module):
         if decoding:
             raise ValueError("the KV-cache decode does not run under a horizon split: it "
                              "decodes one frame at a time on one rank")
-        if self.dtype == P.BF16:
-            raise NotImplementedError(
-                "the horizon-sharded LocalTransformer computes in float32 only: bf16 "
-                "sequence-sharded sampling waits for ROADMAP.md Queue A, the sharded "
-                "kernels and B4 at bf16")
         if self.training or (torch.is_grad_enabled()
                              and any(p.requires_grad for p in self.parameters())):
             raise RuntimeError("the horizon-sharded LocalTransformer serves sampling only: run "

@@ -65,6 +65,12 @@ def _bf16_const(v: float) -> float:
     return torch.tensor(v, dtype=BF16).item()
 
 
+def scalar(v: float, dtype: torch.dtype) -> float:
+    """The Python scalar v as JAX takes it against an array of ``dtype``:
+    rounded to bf16 at bf16, else as it is."""
+    return _bf16_const(v) if dtype == BF16 else v
+
+
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     if x.dtype != BF16:
         return x.softmax(dim=dim)
@@ -99,11 +105,14 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return y if layer.bias is None else y + cast(layer.bias, dtype)
 
 
-def conv1d(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype) -> torch.Tensor:
-    """``conv`` on channel-first x."""
+def conv1d(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
+           padding: int | None = None) -> torch.Tensor:
+    """``conv`` on channel-first x, with ``padding`` in place of the
+    module's where given."""
+    padding = conv.padding if padding is None else padding
     if dtype != BF16:
-        return conv(x)
-    y = F.conv1d(x.to(dtype), cast(conv.weight, dtype), None, conv.stride, conv.padding)
+        return F.conv1d(x, conv.weight, conv.bias, conv.stride, padding)
+    y = F.conv1d(x.to(dtype), cast(conv.weight, dtype), None, conv.stride, padding)
     return y if conv.bias is None else y + cast(conv.bias, dtype)[:, None]
 
 

@@ -23,7 +23,11 @@ the statistics merged over the ranks, normalise + Mish); the stride-2
 downsample takes one row from the left, the transposed-conv upsample one
 row from each side and crops; LinearAttention's key softmax takes its max
 and sum over the whole horizon and its (d x d) context is summed over the
-ranks. The 1x1 convs and the time MLP stay local.
+ranks. The 1x1 convs and the time MLP stay local. At bf16 the split rounds
+where the one-process forward does: the conv blocks take B1's sharded form
+at bf16, the strided and transposed convs round as ``models.precision``'s,
+and LinearAttention reduces float32 partial sums over the ranks and rounds
+the softmax's sum and the context once each.
 
 Submodules are created in the order flax numbers its auto-named children,
 so ``convert.temporal_unet_from_flax`` maps parameters by a fixed table:
@@ -57,7 +61,6 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.conv_block_kernel import conv_gn_mish, conv_gn_mish_sharded
 from ..utils import seq as seqlib
@@ -117,10 +120,13 @@ class LinearAttention(nn.Module):
         if seq is None:
             k = P.softmax(k, dim=1)  # over the horizon
             context = torch.einsum("bnhd,bnhe->bhde", k, v)
-        else:  # the softmax's max and sum, and the context, over every rank's frames
+        else:  # the softmax's max and sum, and the context, over every rank's frames:
+            # float32 partial sums, reduced, then rounded once (as the one-process sum and
+            # product round at bf16)
             e = (k - seq.all_reduce(k.amax(dim=1, keepdim=True), "max")).exp()
-            k = e / seq.all_reduce(e.sum(dim=1, keepdim=True))
-            context = seq.all_reduce(torch.einsum("bnhd,bnhe->bhde", k, v))
+            k = e / seq.all_reduce(e.sum(dim=1, keepdim=True, dtype=torch.float32)).to(e.dtype)
+            context = seq.all_reduce(torch.einsum("bnhd,bnhe->bhde", k.float(),
+                                                  v.float())).to(k.dtype)
         out = torch.einsum("bhde,bnhd->bnhe", context, q)
         return P.linear(out.reshape(B, H, self.heads * self.dim_head), self.to_out, self.dtype)
 
@@ -170,7 +176,7 @@ def downsample(conv: nn.Conv1d, x, seq=None, dtype: torch.dtype = torch.float32)
         return P.conv1d(x.transpose(1, 2), conv, dtype).transpose(1, 2)
     before, _, _ = seq.exchange_halo(x, 1, 0)
     xh = torch.cat([before, x], dim=1).transpose(1, 2)
-    return F.conv1d(xh, conv.weight, conv.bias, stride=2).transpose(1, 2)
+    return P.conv1d(xh, conv, dtype, padding=0).transpose(1, 2)
 
 
 def upsample(conv: nn.ConvTranspose1d, x, seq=None, dtype: torch.dtype = torch.float32):
@@ -181,7 +187,7 @@ def upsample(conv: nn.ConvTranspose1d, x, seq=None, dtype: torch.dtype = torch.f
         return P.conv_transpose1d(x.transpose(1, 2), conv, dtype).transpose(1, 2)
     before, after, _ = seq.exchange_halo(x, 1, 1)
     xh = torch.cat([before, x, after], dim=1).transpose(1, 2)
-    y = F.conv_transpose1d(xh, conv.weight, conv.bias, stride=2, padding=1)
+    y = P.conv_transpose1d(xh, conv, dtype)
     return y[:, :, 2:2 + 2 * x.shape[1]].transpose(1, 2)
 
 

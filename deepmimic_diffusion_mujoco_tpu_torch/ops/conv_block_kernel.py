@@ -40,8 +40,7 @@ library conv of bf16 operands: float32 sums, one rounding), rounded before
 the float32 bias is added; GroupNorm, the affine and Mish are
 differentiated in float32; the cotangent reaching the conv is rounded to
 bf16; dx is the transposed conv of bf16 operands (bf16), dW the B2 kernel's
-bf16 form rounded to w's dtype, and db, dgamma, dbeta float32 sums. The
-sharded form raises at bf16.
+bf16 form rounded to w's dtype, and db, dgamma, dbeta float32 sums.
 
 The horizon-sharded form (sequence-sharded sampling; the header of
 ``csrc/conv_gn_mish.cu``): each rank holds H / R frames, and GroupNorm's
@@ -57,6 +56,16 @@ statistics span them all.
   the merged statistics, affine, Mish.
 - ``conv_gn_mish_sharded``: K1, the merge, K2; sampling only (it raises
   where a gradient is asked of it: JAX shards no training over the horizon).
+
+At bf16 (a bf16 model's horizon split) the same three steps take bf16
+x_halo and w: K1's plain version multiplies their float32 widenings (exact
+products, float32 sums, as B1's bf16 form does) and keeps the pre-norm rows
+and the statistics float32; K2's rounds its float32 result once to bf16.
+``conv_gn_stats_bf16_cuda`` (K1's bf16 form: B1's bf16 kernel with a
+statistics epilogue, ``csrc/conv_gn_mish_bf16.cu``, on B1's bf16 plan at the
+rank's rows) and ``gn_affine_mish_bf16_cuda`` (K2 storing bf16,
+``csrc/conv_gn_mish.cu``) are their kernels, each with its own
+``.launches``.
 """
 from __future__ import annotations
 
@@ -120,7 +129,11 @@ def _gn_affine_mish(out, gamma, beta, groups: int, eps: float):
 
 def conv_gn_stats_plain(x_halo, w, b, groups: int = 8):
     """K1's plain version: (B, H + k - 1, Cin) -> pre-norm (B, H, Cout) and
-    (B, groups, 2) per-(batch row, group) (mean, M2) over the H local rows."""
+    (B, groups, 2) per-(batch row, group) (mean, M2) over the H local rows.
+    bf16 x_halo and w are multiplied as their float32 widenings; the results
+    are float32 either way."""
+    if x_halo.dtype == torch.bfloat16:
+        x_halo, w = x_halo.float(), w.float()
     pre = F.conv1d(x_halo.transpose(1, 2), w.permute(2, 1, 0), b).transpose(1, 2)
     B, H, C = pre.shape
     g = pre.reshape(B, H, groups, C // groups)
@@ -129,13 +142,15 @@ def conv_gn_stats_plain(x_halo, w, b, groups: int = 8):
     return pre, torch.stack([mean, m2], dim=-1)
 
 
-def gn_affine_mish_plain(pre, stats, gamma, beta, groups: int = 8):
+def gn_affine_mish_plain(pre, stats, gamma, beta, groups: int = 8,
+                         dtype: torch.dtype = torch.float32):
     """K2's plain version: Mish((pre - mean) * rstd * gamma + beta) with
-    ``stats`` (B, groups, 2) the merged (mean, rstd)."""
+    ``stats`` (B, groups, 2) the merged (mean, rstd), in float32, rounded
+    once to ``dtype``."""
     B, H, C = pre.shape
     st = stats.repeat_interleave(C // groups, dim=1)  # (B, C, 2)
     out = (pre - st[:, None, :, 0]) * st[:, None, :, 1] * gamma + beta
-    return out * torch.tanh(F.softplus(out))
+    return (out * torch.tanh(F.softplus(out))).to(dtype)
 
 
 def chan_merge(parts, count: int, eps: float):
@@ -297,6 +312,8 @@ def _library() -> ctypes.CDLL:
         lib.gn_affine_mish_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         lib.gn_affine_mish_f32.restype = ctypes.c_int
+        lib.gn_affine_mish_bf16.argtypes = lib.gn_affine_mish_f32.argtypes
+        lib.gn_affine_mish_bf16.restype = ctypes.c_int
         lib.conv_gn_mish_error_string.argtypes = [ctypes.c_int]
         lib.conv_gn_mish_error_string.restype = ctypes.c_char_p
     return lib
@@ -452,6 +469,9 @@ def _library_bf16() -> ctypes.CDLL:
         lib.conv_gn_mish_bf16.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
         lib.conv_gn_mish_bf16.restype = ctypes.c_int
+        lib.conv_gn_stats_bf16.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.conv_gn_stats_bf16.restype = ctypes.c_int
         lib.conv_gn_mish_bf16_smem_bytes.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.conv_gn_mish_bf16_smem_bytes.restype = ctypes.c_longlong
         lib.conv_gn_mish_bf16_error_string.argtypes = [ctypes.c_int]
@@ -462,17 +482,13 @@ def _library_bf16() -> ctypes.CDLL:
 _BF16_CHECKED: set = set()
 
 
-def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
-                           plan: tuple[int, int] | None = None):
-    """Launch B1's bf16 kernel on PyTorch's current stream (built on first
-    use): bf16 x (B, H, Cin) and w (k, Cin, Cout), float32 b, gamma, beta
-    -> bf16 (B, H, Cout), with ``plan`` (ck, stages) or ``bf16_plan``'s.
-    Raises on a tensor or shape the kernel does not take, and if the launch
-    is refused."""
-    fn = "conv_gn_mish_bf16_cuda"
+def _bf16_args(fn, x, w, floats: dict, groups: int, halo: bool = False):
+    """Check the bf16 kernel's operands (bf16 x (B, rows, Cin) and w (k, Cin,
+    Cout), float32 ``floats`` of shape (Cout,), all contiguous on one card;
+    Cout in ``groups`` groups) -> (B, H, Cin, Cout, k): H = rows, or rows -
+    (k - 1) where x holds a k // 2-row ``halo`` on each side."""
     for name, t, dtype in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),
-                           ("b", b, torch.float32), ("gamma", gamma, torch.float32),
-                           ("beta", beta, torch.float32)):
+                           *((n, t, torch.float32) for n, t in floats.items())):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, needs a CUDA tensor on {x.device}")
         if t.dtype != dtype:
@@ -482,7 +498,7 @@ def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"{fn}: x {tuple(x.shape)} must be (B, H, Cin) and "
                          f"w {tuple(w.shape)} (k, Cin, Cout)")
-    B, H, cin = x.shape
+    B, rows, cin = x.shape
     k, _, cout = w.shape
     if w.shape[1] != cin:
         raise ValueError(f"{fn}: x has {cin} channels, w expects {w.shape[1]}")
@@ -491,14 +507,19 @@ def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1
     if groups <= 0 or cout % groups or cout // groups > MAX_GROUP_CHANNELS:
         raise ValueError(f"{fn}: Cout {cout} in {groups} groups of at most "
                          f"{MAX_GROUP_CHANNELS} channels")
-    for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
+    for name, t in floats.items():
         if tuple(t.shape) != (cout,):
             raise ValueError(f"{fn}: {name} must be ({cout},)")
-    out = torch.empty((B, H, cout), dtype=torch.bfloat16, device=x.device)
-    if out.numel() == 0:
-        return out
+    H = rows - (k - 1 if halo else 0)
+    if halo and H <= 0:
+        raise ValueError(f"{fn}: {rows} rows hold no output row of a k {k} conv")
+    return B, H, cin, cout, k
+
+
+def _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan):
+    """The plan's ctypes ints, its shared-memory layout checked against
+    ``bf16_smem_bytes`` on its first use."""
     ints = (ctypes.c_int * 2)(*(plan or bf16_plan(H, cin, cout, k, groups)))
-    lib = _library_bf16()
     key = (H, cin, cout, k, groups, tuple(ints))
     if key not in _BF16_CHECKED:
         smem = lib.conv_gn_mish_bf16_smem_bytes(H, cin, cout, k, groups, ctypes.addressof(ints))
@@ -507,6 +528,23 @@ def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1
             raise RuntimeError(f"{fn}: the kernel lays out {smem} bytes of shared memory for "
                                f"plan {tuple(ints)} (-1: refused), bf16_smem_bytes {mirror}")
         _BF16_CHECKED.add(key)
+    return ints
+
+
+def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
+                           plan: tuple[int, int] | None = None):
+    """Launch B1's bf16 kernel on PyTorch's current stream (built on first
+    use): bf16 x (B, H, Cin) and w (k, Cin, Cout), float32 b, gamma, beta
+    -> bf16 (B, H, Cout), with ``plan`` (ck, stages) or ``bf16_plan``'s.
+    Raises on a tensor or shape the kernel does not take, and if the launch
+    is refused."""
+    fn = "conv_gn_mish_bf16_cuda"
+    B, H, cin, cout, k = _bf16_args(fn, x, w, {"b": b, "gamma": gamma, "beta": beta}, groups)
+    out = torch.empty((B, H, cout), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _library_bf16()
+    ints = _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan)
     with torch.cuda.device(x.device):
         err = lib.conv_gn_mish_bf16(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
@@ -554,10 +592,38 @@ def conv_gn_stats_cuda(x_halo, w, b, groups: int = 8, plan: ConvPlan | None = No
 conv_gn_stats_cuda.launches = 0
 
 
-def gn_affine_mish_cuda(pre, stats, gamma, beta, groups: int = 8):
-    """Launch K2 on PyTorch's current stream: (B, H, C) pre-norm values and
-    (B, groups, 2) merged (mean, rstd) -> (B, H, C)."""
-    fn = "gn_affine_mish_cuda"
+def conv_gn_stats_bf16_cuda(x_halo, w, b, groups: int = 8, plan: tuple[int, int] | None = None):
+    """Launch K1's bf16 form on PyTorch's current stream: bf16 ``x_halo``
+    (B, H + k - 1, Cin) and w, float32 b -> float32 pre-norm (B, H, Cout)
+    and (B, groups, 2) (mean, M2), with ``plan`` or ``bf16_plan``'s at the H
+    output rows (the ring stages the same H + k - 1 rows as B1's bf16 form
+    at H). Raises on what the kernel does not take."""
+    fn = "conv_gn_stats_bf16_cuda"
+    B, H, cin, cout, k = _bf16_args(fn, x_halo, w, {"b": b}, groups, halo=True)
+    pre = torch.empty((B, H, cout), dtype=torch.float32, device=x_halo.device)
+    stats = torch.empty((B, groups, 2), dtype=torch.float32, device=x_halo.device)
+    if pre.numel() == 0:
+        return pre, stats
+    lib = _library_bf16()
+    ints = _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan)
+    with torch.cuda.device(x_halo.device):
+        err = lib.conv_gn_stats_bf16(
+            x_halo.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr(), stats.data_ptr(),
+            B, H, cin, cout, k, groups, ctypes.addressof(ints),
+            torch.cuda.current_stream(x_halo.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           + lib.conv_gn_mish_bf16_error_string(err).decode())
+    conv_gn_stats_bf16_cuda.launches += 1
+    return pre, stats
+
+
+conv_gn_stats_bf16_cuda.launches = 0
+
+
+def _launch_k2(wrapper, dtype, pre, stats, gamma, beta, groups: int):
+    """K2's launch for the output ``dtype``, counted in ``wrapper.launches``."""
+    fn = wrapper.__name__
     _check_tensors(fn, pre.device, pre=pre, stats=stats, gamma=gamma, beta=beta)
     if pre.dim() != 3:
         raise ValueError(f"{fn}: pre {tuple(pre.shape)} must be (B, H, C)")
@@ -569,20 +635,36 @@ def gn_affine_mish_cuda(pre, stats, gamma, beta, groups: int = 8):
     for name, t in (("gamma", gamma), ("beta", beta)):
         if tuple(t.shape) != (C,):
             raise ValueError(f"{fn}: {name} must be ({C},)")
-    out = torch.empty_like(pre)
+    out = torch.empty_like(pre, dtype=dtype)
     if out.numel() == 0:
         return out
     lib = _library()
+    entry = lib.gn_affine_mish_bf16 if dtype == torch.bfloat16 else lib.gn_affine_mish_f32
     with torch.cuda.device(pre.device):
-        err = lib.gn_affine_mish_f32(pre.data_ptr(), stats.data_ptr(), gamma.data_ptr(),
-                                     beta.data_ptr(), out.data_ptr(), B, H, C, groups,
-                                     torch.cuda.current_stream(pre.device).cuda_stream)
+        err = entry(pre.data_ptr(), stats.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    out.data_ptr(), B, H, C, groups,
+                    torch.cuda.current_stream(pre.device).cuda_stream)
     _raise_on_error(lib, err, fn)
-    gn_affine_mish_cuda.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def gn_affine_mish_cuda(pre, stats, gamma, beta, groups: int = 8):
+    """Launch K2 on PyTorch's current stream: (B, H, C) pre-norm values and
+    (B, groups, 2) merged (mean, rstd) -> (B, H, C)."""
+    return _launch_k2(gn_affine_mish_cuda, torch.float32, pre, stats, gamma, beta, groups)
+
+
 gn_affine_mish_cuda.launches = 0
+
+
+def gn_affine_mish_bf16_cuda(pre, stats, gamma, beta, groups: int = 8):
+    """K2's bf16 form: the same float32 inputs -> bf16 (B, H, C), each value
+    rounded once."""
+    return _launch_k2(gn_affine_mish_bf16_cuda, torch.bfloat16, pre, stats, gamma, beta, groups)
+
+
+gn_affine_mish_bf16_cuda.launches = 0
 
 
 def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, group):
@@ -591,25 +673,25 @@ def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, gro
     rank's (B, H, Cin) rows with k // 2 rows of each neighbour (zeros at the
     trajectory's ends) on each side. K1, the statistics merged over the
     ranks, K2: the kernels for CUDA tensors, their plain versions for CPU
-    tensors. Sampling only: raises where a gradient is asked of it."""
-    if x_halo.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "conv_gn_mish_sharded (K1/K2) computes in float32 only: bf16 sequence-sharded "
-            "sampling waits for ROADMAP.md Queue A, the sharded kernels and B4 at bf16")
+    tensors; at bf16 (bf16 x_halo and w) their bf16 forms, returning bf16.
+    Sampling only: raises where a gradient is asked of it."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x_halo, w, b, gamma, beta)):
         raise RuntimeError("conv_gn_mish_sharded serves sampling only: no gradient flows "
                            "through the horizon-sharded conv block (run under "
                            "torch.no_grad or torch.inference_mode)")
     x_halo = x_halo.contiguous()
-    if x_halo.is_cuda:
-        pre, stats = conv_gn_stats_cuda(x_halo, w, b, groups)
+    bf16 = x_halo.dtype == torch.bfloat16
+    if not x_halo.is_cuda:
+        stats_fn, affine_fn = conv_gn_stats_plain, functools.partial(gn_affine_mish_plain,
+                                                                     dtype=x_halo.dtype)
+    elif bf16:
+        stats_fn, affine_fn = conv_gn_stats_bf16_cuda, gn_affine_mish_bf16_cuda
     else:
-        pre, stats = conv_gn_stats_plain(x_halo, w, b, groups)
+        stats_fn, affine_fn = conv_gn_stats_cuda, gn_affine_mish_cuda
+    pre, stats = stats_fn(x_halo, w, b, groups)
     # every rank's statistics, gathered exactly: the same merged bits on every rank
     merged = chan_merge(group.all_gather(stats), pre.shape[1] * (pre.shape[2] // groups), eps)
-    if pre.is_cuda:
-        return gn_affine_mish_cuda(pre, merged, gamma, beta, groups)
-    return gn_affine_mish_plain(pre, merged, gamma, beta, groups)
+    return affine_fn(pre, merged, gamma, beta, groups)
 
 
 class _ConvGnMish(torch.autograd.Function):

@@ -38,8 +38,7 @@ the kernel's bf16 entry (the same core, templated on the element type: the
 staging widens, the store rounds) and counts it in its own ``.launches``;
 the float32 keep mask goes with it. The backward at bf16 differentiates the
 plain version on the float32 widening of qkv and returns the gradient in
-qkv's dtype, as JAX's vjp of its chunk transcription does. The halo entry
-raises at bf16.
+qkv's dtype, as JAX's vjp of its chunk transcription does.
 
 ``key_mask`` (B, N), > 0 marking valid frames, must be PREFIX-valid (valid
 frames first, padding at the end, as jagged batches are): the kernel takes
@@ -54,7 +53,11 @@ semantics with one chunk of the Nq own rows and P = w, rotary at the global
 positions, prefix lengths given in slab rows (``halo_lengths``); every
 query whose window holds a valid key gets what the unsharded call gives
 it. A query whose keys are all masked gets the mean of V over the slab's
-key slots, not over B3's 128-row chunk and its halo. Sampling only.
+key slots, not over B3's 128-row chunk and its halo. Sampling only. At
+bf16 (a bf16 model's horizon split) a bf16 slab gives a bf16 context: the
+plain version widens, computes and rounds once, and
+``local_attention_halo_bf16_cuda`` is B3's bf16 core started from slab row
+q0 (its own ``.launches``).
 """
 from __future__ import annotations
 
@@ -162,14 +165,16 @@ def rot_abs(x: torch.Tensor, pos: np.ndarray, dh: int) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, p: dict, window_size: int, causal: bool, exact_windowsize: bool,
-                      use_rotary: bool, key_mask=None, dropout_keep=None, keep_prob: float = 1.0):
+                      use_rotary: bool, key_mask=None, dropout_keep=None, keep_prob: float = 1.0,
+                      scale: float | None = None):
     """The chunk semantics over padded (B, Np, h, dh) float32 q, k, v ->
-    (B, Np, h, dh). ``key_mask`` (B, Np) float, ``dropout_keep`` (B, Np, h*K)."""
+    (B, Np, h, dh). ``key_mask`` (B, Np) float, ``dropout_keep`` (B, Np, h*K);
+    q is multiplied by ``scale`` (default dh ** -0.5) before the rotary."""
     B, Np, h, dh = q.shape
     w, lb, lf = window_size, 1, (0 if causal else 1)
     C, nc, K = p["C"], p["nc"], p["K"]
     dev = q.device
-    q = q * (dh ** -0.5)
+    q = q * (dh ** -0.5 if scale is None else scale)
     if use_rotary:
         q = rot_abs(q, np.arange(Np) + lf * w, dh)
         k = rot_abs(k, np.arange(Np), dh)
@@ -330,6 +335,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             i, i, i, i,                # window, causal, exact, use_rotary
             i, i, i, vp]               # slab, cap, tensor cores, stream
         lib.local_attention_halo_f32.restype = i
+        lib.local_attention_heads_bf16.argtypes = lib.local_attention_heads_f32.argtypes
+        lib.local_attention_heads_bf16.restype = i
+        lib.local_attention_halo_bf16.argtypes = lib.local_attention_halo_f32.argtypes
+        lib.local_attention_halo_bf16.restype = i
         lib.local_attention_error_string.argtypes = [i]
         lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -577,15 +586,12 @@ def halo_plan(B: int, heads: int, dim_head: int, window_size: int, q0: int, Nq: 
                           use_rotary, base=q0, Nq=Nq)
 
 
-def local_attention_halo_cuda(qkv, heads: int, dim_head: int, window_size: int, q0: int,
-                              Nq: int, pos0: int, causal: bool = False,
-                              exact_windowsize: bool = True, use_rotary: bool = True,
-                              lengths=None, launch_plan: AttnPlan | None = None):
-    """Launch K3 on PyTorch's current stream (built on first use): the slab
-    (B, Nh, 3*h*dh) -> (B, Nq, h*dh), as ``local_attention_halo_plain``.
-    Raises on what the kernel does not take."""
-    fn = "local_attention_halo_cuda"
-    check_cuda_f32("qkv", fn, qkv, qkv.device)
+def _launch_halo(wrapper, dtype, qkv, heads, dim_head, window_size, q0, Nq, pos0, causal,
+                 exact_windowsize, use_rotary, lengths, launch_plan):
+    """K3's launch for the entry of ``dtype`` (its output dtype too), counted
+    in ``wrapper.launches``."""
+    fn = wrapper.__name__
+    check_cuda_f32("qkv", fn, qkv, qkv.device, (dtype,))
     if qkv.dim() != 3 or qkv.shape[2] != 3 * heads * dim_head:
         raise ValueError(f"{fn}: qkv {tuple(qkv.shape)} must be (B, Nh, 3*{heads}*{dim_head})")
     if dim_head not in HEAD_DIMS:
@@ -602,40 +608,69 @@ def local_attention_halo_cuda(qkv, heads: int, dim_head: int, window_size: int, 
     lp = launch_plan or halo_plan(B, heads, dim_head, window_size, q0, Nq, Nh, causal,
                                   use_rotary)
     lib = _library()
-    out = torch.empty((B, Nq, heads * dim_head), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((B, Nq, heads * dim_head), dtype=dtype, device=qkv.device)
     if out.numel() == 0:
         return out
     lf = 0 if causal else 1
+    entry = (lib.local_attention_halo_bf16 if dtype == torch.bfloat16
+             else lib.local_attention_halo_f32)
     with torch.cuda.device(qkv.device):
         # row r of the table: slab row r's global position, pos0 + r
         table = (device_rotary_table(pos0 + Nh + lf * window_size, dim_head, qkv.device)[pos0:]
                  if use_rotary else None)
-        err = lib.local_attention_halo_f32(
+        err = entry(
             qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
             None if table is None else table.data_ptr(), out.data_ptr(), B, Nh, q0, Nq, heads,
             dim_head, window_size, int(causal), int(exact_windowsize), int(use_rotary),
             lp.slab, lp.cap, int(lp.mma), torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, err, fn)
-    local_attention_halo_cuda.launches += 1
+    wrapper.launches += 1
     return out
+
+
+def local_attention_halo_cuda(qkv, heads: int, dim_head: int, window_size: int, q0: int,
+                              Nq: int, pos0: int, causal: bool = False,
+                              exact_windowsize: bool = True, use_rotary: bool = True,
+                              lengths=None, launch_plan: AttnPlan | None = None):
+    """Launch K3 on PyTorch's current stream (built on first use): the slab
+    (B, Nh, 3*h*dh) -> (B, Nq, h*dh), as ``local_attention_halo_plain``.
+    Raises on what the kernel does not take."""
+    return _launch_halo(local_attention_halo_cuda, torch.float32, qkv, heads, dim_head,
+                        window_size, q0, Nq, pos0, causal, exact_windowsize, use_rotary, lengths,
+                        launch_plan)
 
 
 local_attention_halo_cuda.launches = 0
 
 
+def local_attention_halo_bf16_cuda(qkv, heads: int, dim_head: int, window_size: int, q0: int,
+                                   Nq: int, pos0: int, causal: bool = False,
+                                   exact_windowsize: bool = True, use_rotary: bool = True,
+                                   lengths=None, launch_plan: AttnPlan | None = None):
+    """K3's bf16 form, as ``local_attention_halo_cuda``: a bf16 slab, float32
+    inside, a bf16 context."""
+    return _launch_halo(local_attention_halo_bf16_cuda, torch.bfloat16, qkv, heads, dim_head,
+                        window_size, q0, Nq, pos0, causal, exact_windowsize, use_rotary, lengths,
+                        launch_plan)
+
+
+local_attention_halo_bf16_cuda.launches = 0
+
+
 def local_attention_halo(qkv, heads: int, dim_head: int, window_size: int, q0: int, Nq: int,
                          pos0: int, causal: bool = False, exact_windowsize: bool = True,
                          use_rotary: bool = True, lengths=None):
-    """K3 for CUDA tensors, its plain version for CPU tensors. Sampling only:
-    raises where a gradient is asked of it; float32 only."""
-    if qkv.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "local_attention_halo (K3) computes in float32 only: bf16 sequence-sharded "
-            "sampling waits for ROADMAP.md Queue A, the sharded kernels and B4 at bf16")
+    """K3 for CUDA tensors (its bf16 form for a bf16 slab), its plain version
+    for CPU tensors. Sampling only: raises where a gradient is asked of it."""
     if torch.is_grad_enabled() and qkv.requires_grad:
         raise RuntimeError("local_attention_halo serves sampling only: run it under "
                            "torch.no_grad or torch.inference_mode")
-    impl = local_attention_halo_cuda if qkv.is_cuda else local_attention_halo_plain
+    if not qkv.is_cuda:
+        impl = local_attention_halo_plain
+    elif qkv.dtype == torch.bfloat16:
+        impl = local_attention_halo_bf16_cuda
+    else:
+        impl = local_attention_halo_cuda
     return impl(qkv.contiguous(), heads, dim_head, window_size, q0, Nq, pos0, causal,
                 exact_windowsize, use_rotary, lengths)
 

@@ -15,18 +15,28 @@ N % w == 0, w <= 128 and no xpos; no key mask, dropout or autopad.
   rounding of the rotary angles. The CPU path and the CUDA kernel's oracle.
 - ``local_attention_heads_cuda``: the kernel, the second entry point of
   ``csrc/local_attention.cu`` (the same core as B3). CUDA tensors only;
-  ``.launches`` counts its launches.
+  ``.launches`` counts its launches. A bf16 q, k, v goes to
+  ``local_attention_heads_bf16_cuda``, the kernel's bf16 entry (its own
+  ``.launches``).
 - ``local_attention_heads``: the autograd entry: the kernel for CUDA tensors,
   the plain version for CPU tensors, the backward through the plain version.
 - ``windowed_attention``: the front door: the entry for the shapes it takes,
   the bucketed ``local_attention`` for the others (xpos, unaligned N).
 
 Nothing on the serving path calls it: the transformer's attention is B3.
+
+bf16: the TPU kernel follows its inputs' dtype. It scales q in q's dtype
+(bf16 q times the scale rounded to bf16, the product rounded to bf16), then
+rotates, scores and sums in float32 and writes a bf16 output. The plain
+version and the bf16 entry do the same; at dh 16 and 64 the scale is a power
+of two and the rounding changes no bit, at dh 32 and 128 it does. (B3 widens
+q before it scales.)
 """
 from __future__ import annotations
 
 import torch
 
+from ..models import precision as P
 from ..models.local_attention import local_attention
 from . import fused_local_attention as FK
 
@@ -48,23 +58,25 @@ def local_attention_heads_plain(q, k, v, window_size: int, causal: bool = False,
                                 exact_windowsize: bool = True, use_rotary: bool = True):
     """The kernel's semantics in plain PyTorch, rotary at absolute positions
     as in the kernel. Equal to the bucketed ``local_attention`` up to f32
-    rounding of the rotary angles (about 1e-4 at N 1024)."""
+    rounding of the rotary angles (about 1e-4 at N 1024). At bf16, q * scale
+    is taken in bf16 first (the module's docstring)."""
+    scale = None
+    if q.dtype == torch.bfloat16:
+        q = q * P.scalar(q.shape[-1] ** -0.5, q.dtype)
+        scale = 1.0
     x = [t.transpose(1, 2).to(torch.float32) for t in (q, k, v)]  # (B, N, h, dh)
     out = FK.chunked_attention(*x, plan(q.shape[2]), window_size, causal, exact_windowsize,
-                               use_rotary)
+                               use_rotary, scale=scale)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def local_attention_heads_cuda(q, k, v, window_size: int, causal: bool = False,
-                               exact_windowsize: bool = True, use_rotary: bool = True,
-                               launch_plan: FK.AttnPlan | None = None):
-    """Launch the kernel on PyTorch's current stream (built on first use),
-    with ``launch_plan`` or ``FK.attention_plan``'s default for these blocks.
-    Raises on a tensor or shape the kernel does not take, and if the launch
-    is refused."""
-    fn = "local_attention_heads_cuda"
+def _launch_heads(wrapper, dtype, q, k, v, window_size, causal, exact_windowsize, use_rotary,
+                  launch_plan):
+    """B4's launch for the entry of ``dtype`` (its output dtype too), counted
+    in ``wrapper.launches``."""
+    fn = wrapper.__name__
     for name, t in (("q", q), ("k", k), ("v", v)):
-        FK.check_cuda_f32(name, fn, t, q.device)
+        FK.check_cuda_f32(name, fn, t, q.device, (dtype,))
         if t.dim() != 4 or t.shape != q.shape:
             raise ValueError(f"{fn}: q, k, v must share one (B, h, N, dh) shape, "
                              f"{name} is {tuple(t.shape)}")
@@ -81,19 +93,47 @@ def local_attention_heads_cuda(q, k, v, window_size: int, causal: bool = False,
     if out.numel() == 0:
         return out
     lf = 0 if causal else 1
+    entry = (lib.local_attention_heads_bf16 if dtype == torch.bfloat16
+             else lib.local_attention_heads_f32)
     with torch.cuda.device(q.device):
         table = FK.device_rotary_table(N + lf * window_size, dh, q.device) if use_rotary else None
-        err = lib.local_attention_heads_f32(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if table is None else table.data_ptr(),
             out.data_ptr(), B * h, N, dh, window_size, int(causal), int(exact_windowsize),
             int(use_rotary), lp.slab, lp.cap, int(lp.mma),
             torch.cuda.current_stream(q.device).cuda_stream)
     FK.raise_on_error(lib, err, fn)
-    local_attention_heads_cuda.launches += 1
+    wrapper.launches += 1
     return out
 
 
+def local_attention_heads_cuda(q, k, v, window_size: int, causal: bool = False,
+                               exact_windowsize: bool = True, use_rotary: bool = True,
+                               launch_plan: FK.AttnPlan | None = None):
+    """Launch the kernel on PyTorch's current stream (built on first use),
+    with ``launch_plan`` or ``FK.attention_plan``'s default for these blocks;
+    a bf16 q goes to ``local_attention_heads_bf16_cuda``. Raises on a tensor
+    or shape the kernel does not take, and if the launch is refused."""
+    if q.dtype == torch.bfloat16:
+        return local_attention_heads_bf16_cuda(q, k, v, window_size, causal, exact_windowsize,
+                                               use_rotary, launch_plan)
+    return _launch_heads(local_attention_heads_cuda, torch.float32, q, k, v, window_size, causal,
+                         exact_windowsize, use_rotary, launch_plan)
+
+
 local_attention_heads_cuda.launches = 0
+
+
+def local_attention_heads_bf16_cuda(q, k, v, window_size: int, causal: bool = False,
+                                    exact_windowsize: bool = True, use_rotary: bool = True,
+                                    launch_plan: FK.AttnPlan | None = None):
+    """The kernel's bf16 entry: bf16 q, k, v -> bf16 (B, h, N, dh), q * scale
+    rounded to bf16 before the float32 rotary, scores and sums."""
+    return _launch_heads(local_attention_heads_bf16_cuda, torch.bfloat16, q, k, v, window_size,
+                         causal, exact_windowsize, use_rotary, launch_plan)
+
+
+local_attention_heads_bf16_cuda.launches = 0
 
 
 class _LocalAttentionHeads(torch.autograd.Function):

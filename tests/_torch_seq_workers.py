@@ -11,11 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deepmimic_diffusion_mujoco_tpu_torch import factory
 from deepmimic_diffusion_mujoco_tpu_torch.diffusion import conditioning, sampling, schedules
 from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
 from deepmimic_diffusion_mujoco_tpu_torch.models.temporal_unet import TemporalUnet
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FK
 from deepmimic_diffusion_mujoco_tpu_torch.parallel import mesh as meshlib
+from deepmimic_diffusion_mujoco_tpu_torch.train.config import ModelConfig
 from deepmimic_diffusion_mujoco_tpu_torch.utils import seq as seqlib
 
 D = 35
@@ -128,4 +130,28 @@ def seq_attention_worker(rank, world, qkv, state, global_state, x, t):
                 xs, tt, mask=meshlib.shard_horizon(mask, mesh)).numpy()
             out["model_causal"] = local_transformer(state, causal=True)(xs, tt).numpy()
             out["model_global"] = local_transformer(global_state, **GLOBAL)(xs, tt).numpy()
+    return out
+
+
+def built(cfg: dict, state: dict):
+    """The model of a ``ModelConfig`` dict (bf16 or not) with ``state``."""
+    model = factory.build_model(ModelConfig(**cfg), device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model.eval()
+
+
+def bf16_seq_worker(rank, world, models, chain_shape):
+    """bf16 models on this rank's frames: ``models`` maps a name to (config
+    dict, state, (x, t[, y])) for one forward each; the first is also run
+    through a posterior chain of ``chain_shape`` with holding_box."""
+    shard = meshlib.seq_sharding(meshlib.make_mesh(data=1, seq=world, device_type="cpu"))
+    out = {}
+    for name, (cfg, state, inputs) in models.items():
+        model = built(cfg, state)
+        x, *rest = (torch.from_numpy(a) for a in inputs)
+        with torch.inference_mode(), seqlib.sharded(shard):
+            out[name] = model(shard.shard(x).contiguous(), *rest).numpy()
+    cfg, state, _ = next(iter(models.values()))
+    out["chain"] = chain(built(cfg, state), chain_shape, 3, shard,
+                         conditioning.holding_box(D, device="cpu")).numpy()
     return out

@@ -1,5 +1,5 @@
-"""B1 and B3 in their bf16 forms against the JAX package's kernels, and what
-bf16 refuses, on the CPU.
+"""B1, B3 and B4 in their bf16 forms, and the horizon-split forms of B1 (K1,
+K2) and B3 (K3) at bf16, against the JAX package's kernels on the CPU.
 
 A model built with ``bf16=True`` hands B1 bf16 x and w with float32 bias,
 scale and shift, and B3 a bf16 qkv; both Pallas kernels compute in float32
@@ -13,21 +13,38 @@ Where a value is small beside the terms summed into it (2.9e-06 out of
 terms of order 1 in B3's sliced plan), that order moves its float32 value by
 more than its own bf16 ulp, and the two roundings land up to 3 ulps apart
 (measured); everywhere else they are equal or adjacent bf16 values.
-The entries that a horizon split or the KV cache would need raise at bf16,
-naming their ROADMAP.md item (their gradients, B3's keep mask and training
-at bf16: tests/test_torch_bf16_backward.py and test_torch_bf16_train.py).
+(Their gradients, B3's keep mask and training at bf16:
+tests/test_torch_bf16_backward.py and test_torch_bf16_train.py.)
+
+B4 follows its inputs' dtype: it scales q in bf16 (`q_ref * scale`, the
+scale a bf16 constant) before its float32 rotary. Its reference is compiled
+with ``xla_allow_excess_precision`` off, so that XLA keeps every bf16
+rounding the kernel's source writes (the order as written, the rule of
+``models/precision.py``). With XLA's default the CPU keeps q * scale
+unrounded where it meets cos and rounded in the rotated half (measured at
+dh 32: 1,392 of 16,384 values of the port beyond the bound, none with the
+option off). At dh 32 and 128, where the scale is no power of two, q
+widened before the scale lands beyond the bound (1,567 to 7,390 values).
+
+K1, K2 and K3 at bf16 run through their plain versions on each of R slices
+of the horizon (R 1 through ``conv_gn_mish_sharded`` itself), against the
+unsharded bf16 plain forms and the interpreted Pallas kernels on the whole
+horizon, to the same one-ulp bound.
 Inputs are numpy arrays from a seed.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from deepmimic_diffusion_mujoco_tpu.ops.pallas import conv_block_kernel as CK
 from deepmimic_diffusion_mujoco_tpu.ops.pallas import fused_local_attention as JFK
-from deepmimic_diffusion_mujoco_tpu_torch.models.local_attention import LocalTransformer
+from deepmimic_diffusion_mujoco_tpu.ops.pallas import local_attention_kernel as JLK
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as TK
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FK
+from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
 
 torch.set_num_threads(2)
 
@@ -146,32 +163,146 @@ def test_b1_bf16_plan_refuses_what_does_not_fit():
         TK.bf16_plan(8192, 35, 2048, K, GROUPS)
 
 
-def _conv_tensors():
-    x, w, b, g, be = (torch.from_numpy(a) for a in _conv_inputs(1, 8, 16, 16, 0))
-    return x.to(BF), w.to(BF), b, g, be
+def _interpreted(module, fn, *args, **compiler_options):
+    """``fn(*args)`` with ``module``'s Pallas kernel through the interpreter,
+    compiled with ``compiler_options``."""
+    old = module.INTERPRET
+    module.INTERPRET = True
+    try:
+        lowered = jax.jit(fn).lower(*args)
+    finally:
+        module.INTERPRET = old
+    return lowered.compile(compiler_options=compiler_options or None)(*args)
 
 
-def _refuse(case):
-    if case == "b1_sharded":
-        TK.conv_gn_mish_sharded(*_conv_tensors(), GROUPS, 1e-5, None)
-    elif case == "k3":
-        qkv = torch.zeros(1, 32, 3 * H3 * DH3, dtype=BF)
-        FK.local_attention_halo(qkv, H3, DH3, 16, 0, 16, 0)
-    elif case == "kv_decode":
-        model = LocalTransformer(8, 32, dim=32, depth=1, heads=2, dim_head=16, causal=True,
-                                 dtype=BF).eval()
-        with torch.no_grad():
-            model(torch.zeros(1, 1, 8), torch.zeros(1), cache=model.init_decode_cache(1),
-                  decode_pos=0)
+# -- B4 at bf16 ------------------------------------------------------------
+
+N4, W4 = 256, 16
 
 
-REFUSALS = {"b1_sharded": "sharded kernels", "k3": "sharded kernels",
-            "kv_decode": "KV-cache decode at bf16"}
+@pytest.mark.parametrize("rotary", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_b4_bf16_plain_matches_interpreted_kernel(dh, causal, rotary):
+    """B4's front door ``windowed_attention`` on bf16 q, k, v (its plain
+    version on the CPU) against ``local_attention_tpu`` on the same bf16
+    values; at dh 32 and 128, q widened before the scale falls outside."""
+    rng = np.random.default_rng(dh + 2 * causal + rotary)
+    (qj, qt), (kj, kt), (vj, vt) = (_bf16(rng.normal(size=(1, 2, N4, dh)).astype(np.float32))
+                                    for _ in range(3))
+    ref = _interpreted(JLK, lambda q, k, v: JLK.local_attention_tpu(q, k, v, W4, causal, True,
+                                                                       rotary),
+                       qj, kj, vj, xla_allow_excess_precision=False)
+    assert ref.dtype == jnp.bfloat16
+    with torch.no_grad():
+        out = LH.windowed_attention(qt, kt, vt, W4, causal=causal, use_rotary=rotary)
+    assert out.dtype == BF and LH.local_attention_heads_bf16_cuda.launches == 0
+    _within_one_ulp(out, ref, B3_TOL)
+    if dh in (32, 128):
+        wide = LH.local_attention_heads_plain(qt.float(), kt.float(), vt.float(), W4, causal,
+                                              True, rotary).to(BF)
+        with pytest.raises(AssertionError, match="beyond"):
+            _within_one_ulp(wide, ref, B3_TOL)
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_bf16_refusals_name_their_roadmap_item(case):
-    """The sharded kernels (K1/K2, K3) and the KV-cache decode raise at
-    bf16."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue A, .*{REFUSALS[case]}"):
-        _refuse(case)
+def test_b4_bf16_plain_scales_in_bf16():
+    """At bf16 the plain version takes q * bf16(dh ** -0.5) rounded to bf16,
+    then the float32 function with the scale 1."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, 128, 32)).astype(np.float32)).to(BF)
+               for _ in range(3))
+    scaled = (q * torch.tensor(32 ** -0.5, dtype=BF)).float()
+    x = [t.transpose(1, 2).float() for t in (scaled, k, v)]
+    ref = FK.chunked_attention(*x, LH.plan(128), 16, False, True, True, scale=1.0)
+    out = LH.local_attention_heads_plain(q, k, v, 16)
+    assert torch.equal(out, ref.transpose(1, 2).to(BF))
+
+
+# -- K1, K2 and K3 at bf16 over rank slices ------------------------------------
+
+class _OneRank:
+    """A horizon split over one rank: the group ``conv_gn_mish_sharded``
+    gathers statistics from."""
+
+    @staticmethod
+    def all_gather(t):
+        return t[None]
+
+
+def _sharded_bf16_block(x, w, b, gamma, beta, ranks):
+    """bf16 K1 on each of ``ranks`` slices with its zero-padded halo, the
+    statistics merged, bf16 K2 on each; one rank through
+    ``conv_gn_mish_sharded``."""
+    pad = w.shape[0] // 2
+    padded = F.pad(x, (0, 0, pad, pad))
+    if ranks == 1:
+        return TK.conv_gn_mish_sharded(padded, w, b, gamma, beta, GROUPS, 1e-5, _OneRank)
+    n = x.shape[1] // ranks
+    parts = [TK.conv_gn_stats_plain(padded[:, r * n:(r + 1) * n + 2 * pad], w, b, GROUPS)
+             for r in range(ranks)]
+    assert all(p.dtype == s.dtype == torch.float32 for p, s in parts)
+    merged = TK.chan_merge(torch.stack([s for _, s in parts]), n * (w.shape[2] // GROUPS), 1e-5)
+    return torch.cat([TK.gn_affine_mish_plain(p, merged, gamma, beta, GROUPS, BF)
+                      for p, _ in parts], dim=1)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("B,H,Cin,Cout", [(2, 32, 35, 64), (2, 16, 64, 128)])
+def test_k1_k2_bf16_over_rank_slices(B, H, Cin, Cout, ranks):
+    """The first block's 35 channels and a wider level, split over 1, 2 and
+    4 slices: the unsharded bf16 plain form and JAX's interpreted bf16 conv
+    block on the whole horizon, within one bf16 ulp plus B1_TOL."""
+    x, w, b, g, be = _conv_inputs(B, H, Cin, Cout, 7 * ranks + H)
+    xj, xt = _bf16(x)
+    wj, wt = _bf16(w)
+    b, g, be = map(torch.from_numpy, (b, g, be))
+    with torch.no_grad():
+        out = _sharded_bf16_block(xt, wt, b, g, be, ranks)
+    assert out.dtype == BF and out.shape == (B, H, Cout)
+    assert TK.conv_gn_stats_bf16_cuda.launches == TK.gn_affine_mish_bf16_cuda.launches == 0
+    _within_one_ulp(out, TK.conv_gn_mish_plain(xt, wt, b, g, be, GROUPS).float().numpy(), B1_TOL)
+    ref = _interpreted(CK, lambda x, w: CK.conv_gn_mish(x, w, jnp.asarray(b.numpy()),
+                                                         jnp.asarray(g.numpy()),
+                                                         jnp.asarray(be.numpy()), GROUPS),
+                       xj, wj)
+    _within_one_ulp(out, ref, B1_TOL)
+
+
+def test_k2_bf16_plain_rounds_once():
+    rng = np.random.default_rng(8)
+    pre = torch.from_numpy(rng.normal(size=(2, 8, 16)).astype(np.float32))
+    stats = torch.from_numpy(np.stack([rng.normal(size=(2, 8)),
+                                       1 + rng.random(size=(2, 8))], -1).astype(np.float32))
+    gamma, beta = torch.ones(16), torch.zeros(16)
+    out = TK.gn_affine_mish_plain(pre, stats, gamma, beta, 8, BF)
+    assert out.dtype == BF
+    assert torch.equal(out, TK.gn_affine_mish_plain(pre, stats, gamma, beta, 8).to(BF))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_k3_bf16_over_rank_slabs(ranks, causal):
+    """Each rank's slab (its rows with a window of each neighbour's) through
+    ``local_attention_halo`` (K3's plain version at bf16), put together:
+    the unsharded bf16 B3 plain form (B3's sliced plan at N 512) and JAX's
+    interpreted B3 on the whole horizon, within one bf16 ulp plus B3_TOL."""
+    N, w = 512, 16
+    lf = 0 if causal else 1
+    rng = np.random.default_rng(ranks + 3 * causal)
+    qkvj, qkvt = _bf16(rng.normal(size=(2, N, 3 * H3 * DH3)).astype(np.float32))
+    n = N // ranks
+    outs = []
+    with torch.no_grad():
+        for r in range(ranks):
+            q0 = w if r > 0 else 0
+            end = (r + 1) * n + (lf * w if r < ranks - 1 else 0)
+            slab = qkvt[:, r * n - q0:end]
+            outs.append(FK.local_attention_halo(slab, H3, DH3, w, q0, n, r * n - q0, causal))
+    out = torch.cat(outs, dim=1)
+    assert out.dtype == BF and FK.local_attention_halo_bf16_cuda.launches == 0
+    with torch.no_grad():
+        _within_one_ulp(out, FK.fused_qkv_local_attention_plain(qkvt, H3, DH3, w, causal)
+                        .float().numpy(), B3_TOL)
+    ref = _interpreted(JFK, lambda qkv: JFK.fused_qkv_local_attention(qkv, H3, DH3, w, causal,
+                                                                        True, True), qkvj)
+    _within_one_ulp(out, ref, B3_TOL)
