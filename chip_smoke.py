@@ -204,8 +204,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    bf16 form (``conv_gn_mish_bf16``, csrc/conv_gn_mish_bf16.cu) against its plain version at
    every shape of the dim-128 serve forward (B 16 x H 64) and B3's bf16 entry at localattn5k_r3's
    B 16 x H 128, each within one bf16 ulp of the value plus BF16_TOL, with the error in bf16
-   ulps, timed beside the float32 kernel on the same values, the plain version and the bf16
-   composition, with the bound (B1: bf16 operations at BF16_FLOPS, or bytes; B3: bytes). Then
+   ulps (B1: two launches to the bit, and each shape's plan: rows, cluster, split, ring depth,
+   the wgmma or mma.sync instance), timed beside the float32 kernel on the same values, the
+   plain version and the bf16 composition, with the bound (B1: bf16 operations at BF16_FLOPS,
+   or bytes; B3: bytes). Then
    each denoiser served by ``cli.sample.main`` from a float32 run and a copy of it whose
    config.json says ``"bf16": true`` (same checkpoint, same seed), each cut to T BF16_SHORT_T,
    the counts set to 0 just before each request and read just after, the plain versions
@@ -215,7 +217,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    one forward of each timed; the b_serve run (CFG on class 0) and the dec run, no kernel.
    The served motions' float32-vs-bf16 distance is reported for each.
 
-23. bf16_train, run after phase 22 (``bf16=True`` training): B2's bf16 form
+23. bf16_train, run after phase 22 (``bf16=True`` training): B1's bf16 form as phase 22 times it,
+   at the 33 forward shapes of a dim-128 micro-step (B 32 x H 160) and the 20 of the dim-32
+   ValueFunction (B 16 x H 64); B2's bf16 form
    (``conv1d_weight_grad_bf16``, bf16 x and dy, float32 dW) against its plain version at each
    of the 33 shapes of a dim-128 micro-step (B 32 x H 160) within WGRAD_TOL, timed beside the
    plain version, cuDNN's bf16 weight gradient and the float32 kernel on the widened values,
@@ -235,7 +239,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 24. seq_bf16, run after phase 23 (phase 21's horizon split with both models built at bf16, B4 at
    bf16, the bf16 KV-cache decode): K1's bf16 form (``conv_gn_stats_bf16``, B1's bf16 kernel
    with a statistics epilogue) and K2's (``gn_affine_mish_bf16``) against their plain versions
-   at every shape of a rank's sharded dim-128 forward (B 4, 512 of H 1024 a rank), bf16 K1 + K2
+   at every shape of a rank's sharded dim-128 forward (B 4, 512 of H 1024 a rank; K1's plan
+   printed: the row split or the channel split over its cluster), bf16 K1 + K2
    over one rank against B1's bf16 form; K3's bf16 form (``local_attention_halo_bf16``) at both
    ranks' slabs of one bf16 qkv, each rank's rows against B3's bf16 entry on the whole horizon;
    B4's bf16 form through ``windowed_attention`` at B 16 x H 128 and B 4 x H 1024 (dh 64) and at
@@ -3456,17 +3461,20 @@ def bf16_agreement(name, out, ref, where):
             "bit_equal_share": float((ulps == 0).float().mean())}
 
 
-def bf16_b1_rows(dev, timer, shape_counts, peaks):
-    """B1's bf16 kernel against its plain version at every shape of the
-    dim-128 serve forward (B 16 x H 64), timed beside B1's float32 kernel on
-    the same values in float32, the plain version and the bf16 composition
-    (``F.conv1d`` + ``group_norm`` + ``mish``); the bound: the bf16 operations
-    at BF16_FLOPS or the bytes (bf16 activations and weights, float32 bias,
+def bf16_b1_rows(dev, timer, shape_counts, peaks, batch=B):
+    """B1's bf16 kernel against its plain version at every shape of
+    ``shape_counts`` (Counter of (H, Cin, Cout) launches a forward) at
+    ``batch``: the dim-128 serve forward (B 16 x H 64), a bf16 training
+    micro-step's forward (B 32 x H 160), the ValueFunction's (B 16 x H 64).
+    Each timed beside B1's float32 kernel on the same values in float32, the
+    plain version and the bf16 composition (``F.conv1d`` + ``group_norm`` +
+    ``mish``), with the shape's plan; the bound: the bf16 operations at
+    BF16_FLOPS or the bytes (bf16 activations and weights, float32 bias,
     scale and shift)."""
     g = torch.Generator(device=dev).manual_seed(22)
     rows = []
     for (h, cin, cout), n in shape_counts.items():
-        x = torch.randn(B, h, cin, generator=g, device=dev).to(BF)
+        x = torch.randn(batch, h, cin, generator=g, device=dev).to(BF)
         w = (torch.randn(K, cin, cout, generator=g, device=dev) * (K * cin) ** -0.5).to(BF)
         b = 0.1 * torch.randn(cout, generator=g, device=dev)
         gamma = 1 + 0.1 * torch.randn(cout, generator=g, device=dev)
@@ -3475,16 +3483,20 @@ def bf16_b1_rows(dev, timer, shape_counts, peaks):
         out = CB.conv_gn_mish_bf16_cuda(*args)
         ref = CB.conv_gn_mish_plain(*args)
         torch.cuda.synchronize()
-        err = bf16_agreement("conv_gn_mish_bf16", out, ref, f"B {B}, H {h}, {cin}->{cout}")
+        err = bf16_agreement("conv_gn_mish_bf16", out, ref, f"B {batch}, H {h}, {cin}->{cout}")
+        if not torch.equal(out, CB.conv_gn_mish_bf16_cuda(*args)):
+            raise RuntimeError(f"conv_gn_mish_bf16 at B {batch}, H {h}, {cin}->{cout}: two "
+                               "launches differ")
         args32 = (x.float(), w.float(), b, gamma, beta, GROUPS)
         xc, wc = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
         b16, g16, be16 = b.to(BF), gamma.to(BF), beta.to(BF)
-        flops = 2.0 * B * h * cout * K * cin
-        nbytes = 2.0 * (B * h * (cin + cout) + K * cin * cout) + 4.0 * 3 * cout
+        flops = 2.0 * batch * h * cout * K * cin
+        nbytes = 2.0 * (batch * h * (cin + cout) + K * cin * cout) + 4.0 * 3 * cout
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
+        plan = CB.bf16_plan(batch, h, cin, cout, K, GROUPS)
         rows.append({
-            "B": B, "H": h, "cin": cin, "cout": cout, "per_forward": n,
-            "plan": dict(zip(("ck", "stages"), CB.bf16_plan(h, cin, cout, K, GROUPS))),
+            "B": batch, "H": h, "cin": cin, "cout": cout, "per_forward": n,
+            "plan": {**plan.fields(), "ctas": plan.grid, "smem_bytes": plan.smem_bytes},
             **err,
             "ms": timer(lambda: CB.conv_gn_mish_bf16_cuda(*args)),
             "f32_kernel_ms": timer(lambda: CB.conv_gn_mish_cuda(*args32)),
@@ -4037,7 +4049,9 @@ def bf16_train_run(tmp, name, argv, micro_expect, entry=None):
 
 
 def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
-    """Phase 23: B2's bf16 form at the 33 shapes of a dim-128 micro-step and
+    """Phase 23: B1's bf16 form at the 33 forward shapes of a dim-128
+    micro-step (B 32 x H 160) and the 20 of the ValueFunction (B 16 x H 64),
+    B2's bf16 form at the 33 shapes of a dim-128 micro-step and
     B3's bf16 entry with the keep mask at la_train's shape, each against its
     plain version and timed; the bf16 micro-steps' and value guidance's
     gradients against the plain path; then ``cli.train.main`` on the train
@@ -4049,8 +4063,14 @@ def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
     per_step = Counter(record_block_shapes(probe, torch.zeros(TRAIN_B, TRAIN_H, D, device=dev),
                                            torch.zeros(TRAIN_B, device=dev)))
     del probe
+    value = ValueFunction(D, H, dim=GUIDE_DIM).to(dev).eval()
+    per_value = Counter(record_block_shapes(value, torch.zeros(B, H, D, device=dev),
+                                            torch.zeros(B, device=dev)))
+    del value
     n_blocks = sum(per_step.values())
-    out = {"per_micro_step": n_blocks,
+    out = {"per_micro_step": n_blocks, "per_value_forward": sum(per_value.values()),
+           "b1_rows": bf16_b1_rows(dev, timer, per_step, peaks, TRAIN_B),
+           "b1_value_rows": bf16_b1_rows(dev, timer, per_value, peaks, B),
            "b2_rows": bf16_b2_rows(dev, timer, per_step, peaks, TRAIN_B),
            "b3_keep_row": bf16_b3_keep_row(dev, timer, peaks, la_cfg.model)}
     out["grads"] = bf16_grad_checks(dev, args.seed, la_cfg)
@@ -4147,8 +4167,9 @@ def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
         nbytes = (2.0 * (SEQ_B * (h + K - 1) * cin + K * cin * cout)
                   + 4.0 * (cout + SEQ_B * h * cout + 2 * SEQ_B * GROUPS))
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
+        plan = CB.bf16_plan(SEQ_B, h, cin, cout, K, GROUPS)
         row = {"B": SEQ_B, "H": h, "cin": cin, "cout": cout, "per_forward": n,
-               "plan": dict(zip(("ck", "stages"), CB.bf16_plan(h, cin, cout, K, GROUPS))),
+               "plan": {**plan.fields(), "ctas": plan.grid, "smem_bytes": plan.smem_bytes},
                "max_abs_err": errs["pre"], "errors": errs,
                "ms": timer(lambda: CB.conv_gn_stats_bf16_cuda(xh, w, b, GROUPS)),
                "f32_kernel_ms": timer(lambda: CB.conv_gn_stats_cuda(x32, w32, b, GROUPS)),
@@ -4734,6 +4755,10 @@ def main(argv=None) -> int:
     b2b, b3k = bt["b2_rows"], bt["b3_keep_row"]
     kernels[-2]["launches_train"] = bt["unet"]["launches"][B1_BF16]
     kernels[-1]["launches_train"] = bt["la"]["launches"][B3_BF16]
+    for key, rows in (("train_micro_step", bt["b1_rows"]), ("value_forward", bt["b1_value_rows"])):
+        kernels[-2][key] = {k: per_launch_sum(rows, k, "per_forward")
+                            for k in ("ms", "plain_ms", "bound_ms", "f32_kernel_ms",
+                                      "composition_ms")}
     kernels += [{
         "name": "conv1d_weight_grad_bf16", "route": "cuda",
         "status": "ported; matches its plain version",

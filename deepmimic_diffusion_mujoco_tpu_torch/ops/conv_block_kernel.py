@@ -30,8 +30,11 @@ x (B, H, Cin), w (k, Cin, Cout), b / gamma / beta (Cout,), out (B, H, Cout).
 bf16 (a model built with ``bf16=True``): ``conv_gn_mish_plain`` takes bf16 x
 and w with float32 b / gamma / beta (the Pallas kernel's types) and returns
 bf16; ``conv_gn_mish_bf16_cuda`` is the hand-written kernel of that form
-(``csrc/conv_gn_mish_bf16.cu``, bf16 ``mma.sync`` with float32 accumulation;
-``.launches`` counts it; ``bf16_plan`` its launch plan), and
+(``csrc/conv_gn_mish_bf16.cu``: clusters that split a group's input channels
+or a batch row's rows, batch rows sharing each TMA-staged weight chunk,
+``wgmma`` or ``mma.sync`` with float32 accumulation; ``.launches`` counts it;
+``bf16_plan`` its launch plan, a ``BF16Plan``; ``make_bf16_plan`` builds any
+other), and
 ``conv_gn_mish`` sends bf16 CUDA tensors to it. Its backward at bf16 follows
 the types of the Pallas kernel's custom VJP (the vjp of
 ``conv_gn_mish_reference`` with bf16 x and w, the cotangent widened to
@@ -62,8 +65,8 @@ x_halo and w: K1's plain version multiplies their float32 widenings (exact
 products, float32 sums, as B1's bf16 form does) and keeps the pre-norm rows
 and the statistics float32; K2's rounds its float32 result once to bf16.
 ``conv_gn_stats_bf16_cuda`` (K1's bf16 form: B1's bf16 kernel with a
-statistics epilogue, ``csrc/conv_gn_mish_bf16.cu``, on B1's bf16 plan at the
-rank's rows) and ``gn_affine_mish_bf16_cuda`` (K2 storing bf16,
+statistics epilogue, ``csrc/conv_gn_mish_bf16.cu``, on ``bf16_plan`` at the
+rank's rows: at B 4 the row split fills the card) and ``gn_affine_mish_bf16_cuda`` (K2 storing bf16,
 ``csrc/conv_gn_mish.cu``) are their kernels, each with its own
 ``.launches``.
 """
@@ -421,46 +424,189 @@ def conv_gn_mish_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
 conv_gn_mish_cuda.launches = 0
 
 
-# B1's bf16 form (csrc/conv_gn_mish_bf16.cu): one CTA of 8 warps per (group,
-# batch row), bf16 products on the tensor cores.
-BF16_CHUNKS = (64, 32, 16)  # input channels a ring stage takes
+# B1's bf16 form (csrc/conv_gn_mish_bf16.cu): a cluster of C CTAs per R batch
+# rows and one group, TMA-fed rings of 64-channel chunks, wgmma or mma.sync.
+# Constants of that source:
+BF16_CHUNK = 64           # kCk: input channels a ring stage takes
+BF16_MAX_ROWS = 16        # kMaxRows: batch rows a CTA
 BF16_MAX_STAGES = 4       # kMaxStages
-BF16_STATIC_SMEM = 4 * 8  # kStaticSmem: the block reduction's partials
+BF16_MAX_WGS = 2          # kMaxWgs: consumer warpgroups
+BF16_MAX_BOX = 256        # kMaxBox: rows of one TMA box
+BF16_ALIGN = 1024         # kAlign: the ring's swizzle period
+# kStaticSmem: the mbarriers, the statistics' slots and values, bias / gamma / beta
+BF16_STATIC_SMEM = 16 * BF16_MAX_STAGES + 4 * 4 * BF16_MAX_ROWS + 4 * 3 * MAX_GROUP_CHANNELS
+# The plan rule's choices (bf16_plan), fitted to ops/conv_block_sweep.py --bf16 on an H100
+H100_SMS = 132            # a channel split's grid stays within it; B x groups / it bounds R below
+BF16_WIDE_N = 64          # N (pad_n(cg)) from which a CTA aims at more rows and takes wgmma
+BF16_ROWS = (32, 64)      # the rows a CTA aims at, below and from BF16_WIDE_N
+BF16_WGMMA_ROWS = 32      # wgmma needs this many rows a CTA too; else mma.sync
+BF16_RANK_CHUNKS = 4      # a channel split leaves each rank this many 64-channel chunks at least
+BF16_MAX_CSPLIT = 4       # and has at most this many ranks
+BF16_RSPLIT_ROWS = 64     # a row split leaves each rank this many rows at least
+BF16_RSPLIT_CTAS = 66     # and keeps its grid within this many CTAs
 
 
-def bf16_stage_bytes(H: int, cg: int, k: int, ck: int) -> int:
-    """One ring stage of the bf16 kernel: the batch row's staged input and
-    the chunk's weights, bf16, rows padded by 8 values."""
-    return 2 * ((H + k - 1) * (ck + 8) + k * ck * (_ceil(cg, 8) * 8 + 8))
+def bf16_pad_n(cg: int) -> int:
+    """The product's N: the group's channels rounded up to a power of two, 8
+    at least (pad_n)."""
+    n = 8
+    while n < cg:
+        n *= 2
+    return n
 
 
-def bf16_smem_bytes(H: int, cg: int, k: int, ck: int, stages: int) -> int:
+def bf16_tiles_per(n: int) -> int:
+    """Accumulator tiles a warp (mma.sync) or warpgroup (wgmma) holds at N n
+    (tiles_per): 64 floats a thread (N 256: one tile, 128)."""
+    return 8 if n <= 16 else 1 if n >= 128 else 128 // n
+
+
+def bf16_rows_per_rank(H: int, cluster: int, split: int) -> int:
+    """Output rows of one batch row a CTA holds: H, or the row split's share
+    in multiples of 16."""
+    return _ceil(_ceil(H, cluster), 16) * 16 if split else H
+
+
+def bf16_smem_bytes(H: int, cg: int, k: int, rows: int, cluster: int, split: int,
+                    stages: int, mma: int = 0, wgs: int = 1) -> int:
     """Dynamic shared memory of one bf16 plan: layout() in
-    csrc/conv_gn_mish_bf16.cu (the ring, a zero row, the float32 output
-    tile)."""
-    cgp = _ceil(cg, 8) * 8
-    return (stages * bf16_stage_bytes(H, cg, k, ck) + 2 * (ck + 8)
-            + 4 * 16 * _ceil(H, 16) * (cgp + 4))
+    csrc/conv_gn_mish_bf16.cu (the ring of x boxes and weight atoms; over
+    it, with the channel split, the float32 slots the ranks push their
+    partial rows into, and for the mma.sync instance its k-step slices'
+    partial tiles; the rows' sums; the alignment slack)."""
+    n = bf16_pad_n(cg)
+    hc = bf16_rows_per_rank(H, cluster, split)
+    hp = hc + k - 1
+    nbox = _ceil(hp, BF16_MAX_BOX)
+    xr = nbox * _ceil(_ceil(hp, nbox), 8) * 8
+    stage = _ceil(rows * xr * 2 * BF16_CHUNK + k * BF16_CHUNK * n * 2, BF16_ALIGN) * BF16_ALIGN
+    # the channel split's receive buffer: C slots of each rank's ceil(R hc / C) rows
+    tile = 4 * cluster * _ceil(rows * hc, cluster) * (n + 4) if cluster > 1 and not split else 0
+    if mma:  # at most one slice fewer than the consumer warps, 16 rows of N each
+        tile = max(tile, 4 * (4 * wgs - 1) * 16 * n)
+    return BF16_ALIGN + max(stages * stage, tile) + 4 * rows * hc
+
+
+@dataclasses.dataclass(frozen=True)
+class BF16Plan:
+    """One launch plan of B1's bf16 kernel (struct Plan in
+    csrc/conv_gn_mish_bf16.cu) and what follows from it for its shape."""
+    rows: int      # R: batch rows a CTA, sharing every staged chunk
+    cluster: int   # C: CTAs a cluster
+    split: int     # 0: the ranks split the input channels by chunks; 1: the rows (R 1)
+    stages: int    # ring depth
+    mma: int       # 0: wgmma on 64-row tiles; 1: mma.sync on 16-row tiles
+    wgs: int       # consumer warpgroups (threads: 128 wgs + a producer warp)
+    tma: int       # 1: TMA for each operand that allows it; 0: the consumers stage both
+    smem_bytes: int  # dynamic shared memory of a CTA
+    grid: int        # CTAs: groups x ceil(B / R) x C
+    ints: object = dataclasses.field(compare=False, repr=False)  # ctypes int[7]
+    # (H, Cin, Cout, k, groups, device index) -> clusters the card holds at once
+    checked: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def fields(self) -> dict:
+        return {f: getattr(self, f) for f in ("rows", "cluster", "split", "stages", "mma",
+                                              "wgs", "tma")}
+
+
+def make_bf16_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int, rows: int = 1,
+                   cluster: int = 1, split: int = 0, stages: int | None = None, mma: int = 0,
+                   wgs: int | None = None, tma: int = 1) -> BF16Plan:
+    """The bf16 plan with these fields (plan_ok in the source): ``stages``
+    by default the deepest ring that fits (no deeper than a rank's chunks),
+    ``wgs`` the fewest warpgroups whose tiles hold the CTA's rows. Raises
+    ValueError for a plan the kernel does not take."""
+    cg = Cout // groups
+    n = bf16_pad_n(cg)
+    nch = _ceil(Cin, BF16_CHUNK)
+    hc = bf16_rows_per_rank(H, cluster, split)
+    why = None
+    if not (1 <= rows <= BF16_MAX_ROWS and cluster in CLUSTER_SIZES and split in (0, 1)
+            and mma in (0, 1) and tma in (0, 1)):
+        why = "a field out of range"
+    elif split and rows != 1:
+        why = "the row split takes one batch row a CTA"
+    elif not split and nch < cluster:
+        why = f"{nch} chunks of {BF16_CHUNK} channels for {cluster} ranks"
+    elif cg > MAX_GROUP_CHANNELS:
+        why = f"{cg} channels per group"
+    if wgs is None:  # a second warpgroup from the second 64-row tile on
+        wgs = 1 if rows * hc <= 64 else BF16_MAX_WGS
+    if why is None and not (1 <= wgs <= BF16_MAX_WGS
+                            and rows * hc <= wgs * bf16_tiles_per(n) * 64):
+        why = f"{rows * hc} rows exceed {wgs} warpgroups' tiles"
+    if why is None:
+        size = functools.partial(bf16_smem_bytes, H, cg, k, rows, cluster, split, mma=mma,
+                                 wgs=wgs)
+        deepest = min(BF16_MAX_STAGES, nch if split else _ceil(nch, cluster))
+        fits = [st for st in ((stages,) if stages else range(deepest, 0, -1))
+                if 1 <= st <= BF16_MAX_STAGES and size(st) + BF16_STATIC_SMEM <= MAX_SMEM]
+        if not fits:
+            why = f"no ring fits {MAX_SMEM} bytes of shared memory"
+    if why is not None:
+        raise ValueError(f"conv_gn_mish_bf16_cuda: no plan fits H {H}, Cin {Cin}, {cg} channels "
+                         f"per group, k {k} with rows {rows}, cluster {cluster}, split {split}: "
+                         f"{why}")
+    st = fits[0]
+    fields = (rows, cluster, split, st, mma, wgs, tma)
+    return BF16Plan(*fields, smem_bytes=size(st), grid=groups * _ceil(B, rows) * cluster,
+                    ints=(ctypes.c_int * 7)(*fields))
 
 
 @functools.lru_cache(maxsize=None)
-def bf16_plan(H: int, Cin: int, Cout: int, k: int, groups: int) -> tuple[int, int]:
-    """(ck, stages) of the bf16 kernel for one shape (one CTA a group and
-    batch row, whatever B), the rule that ``ops/conv_block_sweep.py --bf16``
-    supports at the 14 shapes of the dim-128 serve forward on an H100
-    (``PERF.md``), where it is the fastest plan or within 2 % of it: the
-    chunk that pads Cin least, the larger on a tie (at 35 channels 64 took
-    17-18 % longer than 16; elsewhere 64 was fastest); the deepest ring that
-    fits (the depth moved the time by 4.4 % at most). Raises where no plan fits (the CTA keeps
-    its float32 output tile in shared memory, so the horizon a shape takes
-    is bounded)."""
+def bf16_plan(B: int, H: int, Cin: int, Cout: int, k: int, groups: int) -> BF16Plan:
+    """The cached bf16 plan for one shape: the rule fitted to
+    ``ops/conv_block_sweep.py --bf16`` on an H100 (``PERF.md``: its plans
+    sum to 2.84 ms over the serve, training, ValueFunction and K1 passes
+    against 2.47 for the best plan at each shape).
+
+    - Rows R: enough batch rows for BF16_ROWS[wide] rows a CTA (wide: N =
+      pad_n(cg) >= BF16_WIDE_N) and for B x groups / R <= H100_SMS, at
+      most B, BF16_MAX_ROWS and what two warpgroups' tiles hold.
+    - With R 1 and H >= 2 BF16_RSPLIT_ROWS, the row split: the most ranks (up
+      to 8) that keep BF16_RSPLIT_ROWS rows each and the grid within
+      BF16_RSPLIT_CTAS. Otherwise the channel split: the most ranks (up to
+      BF16_MAX_CSPLIT) that keep BF16_RANK_CHUNKS chunks each and the grid
+      within H100_SMS. Few fat CTAs beat a full card: each CTA's time is
+      mostly fixed latency (the first chunk's TMA, the epilogue), and a rank
+      costs a cluster barrier and a share of the partial-tile exchange.
+    - wgmma where wide with BF16_WGMMA_ROWS rows a CTA or more, else
+      mma.sync with its k-steps sliced over spare warps. The sweep's fastest
+      plans are all wgmma, but at the ValueFunction's narrow shapes the longer
+      float32 chains of unsliced sums fail ``chip_smoke.py``'s bf16
+      value-gradient check. Two warpgroups; the deepest ring that fits; TMA.
+    Where that plan does not fit (a long H), the row split with more ranks.
+    Raises ValueError where no plan fits (a CTA keeps its rows' float32 tile
+    in shared memory, so the horizon a shape takes is bounded)."""
     cg = Cout // groups
-    fits = [(ck, st) for ck in BF16_CHUNKS for st in range(2, BF16_MAX_STAGES + 1)
-            if bf16_smem_bytes(H, cg, k, ck, st) + BF16_STATIC_SMEM <= MAX_SMEM]
-    if not fits:
-        raise ValueError(f"conv_gn_mish_bf16_cuda: no plan fits {MAX_SMEM} bytes of shared "
-                         f"memory at H {H}, {cg} channels per group, k {k}")
-    return min(fits, key=lambda f: (_ceil(Cin, f[0]) * f[0], -f[0], -f[1]))
+    n = bf16_pad_n(cg)
+    wide = n >= BF16_WIDE_N
+    hold = BF16_MAX_WGS * bf16_tiles_per(n) * 64 // H  # batch rows two warpgroups hold
+    rows = max(1, min(B, BF16_MAX_ROWS, hold,
+                      max(_ceil(BF16_ROWS[wide], H), _ceil(B * groups, H100_SMS))))
+    blocks = groups * _ceil(B, rows)
+    nch = _ceil(Cin, BF16_CHUNK)
+    split, cluster = 0, 1
+    if rows == 1 and H >= 2 * BF16_RSPLIT_ROWS:
+        while (2 * cluster <= max(CLUSTER_SIZES) and blocks * 2 * cluster <= BF16_RSPLIT_CTAS
+               and _ceil(H, 2 * cluster) >= BF16_RSPLIT_ROWS):
+            cluster *= 2
+        split = int(cluster > 1)
+    if not split:
+        while (2 * cluster <= BF16_MAX_CSPLIT and blocks * 2 * cluster <= H100_SMS
+               and nch >= 2 * cluster * BF16_RANK_CHUNKS):
+            cluster *= 2
+    tries = [(rows, cluster, split)] + [(1, c, 1) for c in CLUSTER_SIZES[1:] if c > cluster]
+    for r, c, sp in tries:
+        hc = bf16_rows_per_rank(H, c, sp)
+        mma = int(not (wide and r * hc >= BF16_WGMMA_ROWS))
+        try:
+            return make_bf16_plan(B, H, Cin, Cout, k, groups, r, c, sp, mma=mma,
+                                  wgs=BF16_MAX_WGS)
+        except ValueError:
+            continue
+    raise ValueError(f"conv_gn_mish_bf16_cuda: no plan fits {MAX_SMEM} bytes of shared "
+                     f"memory at H {H}, {cg} channels per group, k {k}")
 
 
 def _library_bf16() -> ctypes.CDLL:
@@ -474,12 +620,11 @@ def _library_bf16() -> ctypes.CDLL:
         lib.conv_gn_stats_bf16.restype = ctypes.c_int
         lib.conv_gn_mish_bf16_smem_bytes.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.conv_gn_mish_bf16_smem_bytes.restype = ctypes.c_longlong
+        lib.conv_gn_mish_bf16_plan_check.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        lib.conv_gn_mish_bf16_plan_check.restype = ctypes.c_int
         lib.conv_gn_mish_bf16_error_string.argtypes = [ctypes.c_int]
         lib.conv_gn_mish_bf16_error_string.restype = ctypes.c_char_p
     return lib
-
-
-_BF16_CHECKED: set = set()
 
 
 def _bf16_args(fn, x, w, floats: dict, groups: int, halo: bool = False):
@@ -516,39 +661,51 @@ def _bf16_args(fn, x, w, floats: dict, groups: int, halo: bool = False):
     return B, H, cin, cout, k
 
 
-def _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan):
-    """The plan's ctypes ints, its shared-memory layout checked against
-    ``bf16_smem_bytes`` on its first use."""
-    ints = (ctypes.c_int * 2)(*(plan or bf16_plan(H, cin, cout, k, groups)))
-    key = (H, cin, cout, k, groups, tuple(ints))
-    if key not in _BF16_CHECKED:
-        smem = lib.conv_gn_mish_bf16_smem_bytes(H, cin, cout, k, groups, ctypes.addressof(ints))
-        mirror = bf16_smem_bytes(H, cout // groups, k, *ints)
-        if smem != mirror:
-            raise RuntimeError(f"{fn}: the kernel lays out {smem} bytes of shared memory for "
-                               f"plan {tuple(ints)} (-1: refused), bf16_smem_bytes {mirror}")
-        _BF16_CHECKED.add(key)
-    return ints
+def _bf16_checked_plan(fn, lib, B, H, cin, cout, k, groups, plan, device) -> BF16Plan:
+    """``plan`` (by default ``bf16_plan``'s), checked on its first use at this
+    shape and card: the kernel's shared-memory layout against
+    ``bf16_smem_bytes``, and that the card holds one of its clusters (the
+    kernel's shared-memory opt-in is made by that query). Raises with the
+    reason otherwise."""
+    plan = plan or bf16_plan(B, H, cin, cout, k, groups)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (H, cin, cout, k, groups, index)
+    if key not in plan.checked:
+        smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(index):
+            err = lib.conv_gn_mish_bf16_plan_check(H, cin, cout, k, groups,
+                                                   ctypes.addressof(plan.ints),
+                                                   ctypes.byref(smem), ctypes.byref(clusters))
+        if err != 0:
+            raise RuntimeError(f"{fn}: plan {plan} refused: "
+                               + lib.conv_gn_mish_bf16_error_string(err).decode())
+        if smem.value != plan.smem_bytes:
+            raise RuntimeError(f"{fn}: the kernel lays out {smem.value} bytes of shared memory "
+                               f"for plan {plan}, bf16_smem_bytes {plan.smem_bytes}")
+        if clusters.value < 1:
+            raise RuntimeError(f"{fn}: plan {plan} cannot be scheduled on this card "
+                               f"(cudaOccupancyMaxActiveClusters is 0)")
+        plan.checked[key] = clusters.value
+    return plan
 
 
 def conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, groups: int = 8, eps: float = 1e-5,
-                           plan: tuple[int, int] | None = None):
+                           plan: BF16Plan | None = None):
     """Launch B1's bf16 kernel on PyTorch's current stream (built on first
     use): bf16 x (B, H, Cin) and w (k, Cin, Cout), float32 b, gamma, beta
-    -> bf16 (B, H, Cout), with ``plan`` (ck, stages) or ``bf16_plan``'s.
-    Raises on a tensor or shape the kernel does not take, and if the launch
-    is refused."""
+    -> bf16 (B, H, Cout), with ``plan`` or ``bf16_plan``'s. Raises on a
+    tensor or shape the kernel does not take, and if the launch is refused."""
     fn = "conv_gn_mish_bf16_cuda"
     B, H, cin, cout, k = _bf16_args(fn, x, w, {"b": b, "gamma": gamma, "beta": beta}, groups)
     out = torch.empty((B, H, cout), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
     lib = _library_bf16()
-    ints = _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan)
+    plan = _bf16_checked_plan(fn, lib, B, H, cin, cout, k, groups, plan, x.device)
     with torch.cuda.device(x.device):
         err = lib.conv_gn_mish_bf16(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), B, H, cin, cout, k, groups, eps, ctypes.addressof(ints),
+            out.data_ptr(), B, H, cin, cout, k, groups, eps, ctypes.addressof(plan.ints),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
@@ -592,12 +749,11 @@ def conv_gn_stats_cuda(x_halo, w, b, groups: int = 8, plan: ConvPlan | None = No
 conv_gn_stats_cuda.launches = 0
 
 
-def conv_gn_stats_bf16_cuda(x_halo, w, b, groups: int = 8, plan: tuple[int, int] | None = None):
+def conv_gn_stats_bf16_cuda(x_halo, w, b, groups: int = 8, plan: BF16Plan | None = None):
     """Launch K1's bf16 form on PyTorch's current stream: bf16 ``x_halo``
     (B, H + k - 1, Cin) and w, float32 b -> float32 pre-norm (B, H, Cout)
     and (B, groups, 2) (mean, M2), with ``plan`` or ``bf16_plan``'s at the H
-    output rows (the ring stages the same H + k - 1 rows as B1's bf16 form
-    at H). Raises on what the kernel does not take."""
+    output rows. Raises on what the kernel does not take."""
     fn = "conv_gn_stats_bf16_cuda"
     B, H, cin, cout, k = _bf16_args(fn, x_halo, w, {"b": b}, groups, halo=True)
     pre = torch.empty((B, H, cout), dtype=torch.float32, device=x_halo.device)
@@ -605,11 +761,11 @@ def conv_gn_stats_bf16_cuda(x_halo, w, b, groups: int = 8, plan: tuple[int, int]
     if pre.numel() == 0:
         return pre, stats
     lib = _library_bf16()
-    ints = _bf16_plan_ints(fn, lib, H, cin, cout, k, groups, plan)
+    plan = _bf16_checked_plan(fn, lib, B, H, cin, cout, k, groups, plan, x_halo.device)
     with torch.cuda.device(x_halo.device):
         err = lib.conv_gn_stats_bf16(
             x_halo.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr(), stats.data_ptr(),
-            B, H, cin, cout, k, groups, ctypes.addressof(ints),
+            B, H, cin, cout, k, groups, ctypes.addressof(plan.ints),
             torch.cuda.current_stream(x_halo.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "

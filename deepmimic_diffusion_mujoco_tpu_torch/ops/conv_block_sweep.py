@@ -12,11 +12,18 @@ matrix products to warm the card. Prints
 one JSON line per shape with the default's time, the best plan and its time,
 and the card's name and power limit; ``--out`` keeps every plan's time.
 
-``--bf16``: B1's bf16 form instead, at the 14 shapes of the dim-128 serve
-forward (B 16, H 64), under ``bf16_plan``'s default and every (ck, stages)
-that fits, each checked against the plain version (one bf16 ulp of
-the value plus 1e-4) and timed the same way, beside the float32 kernel's
-default plan on the same values in float32.
+``--bf16``: B1's bf16 form instead (``bf16_sweep``), at the 14 shapes of the
+dim-128 serve forward (B 16 x H 64), the 14 of a bf16 training micro-step
+(B 32 x H 160), the 12 of the dim-32 ValueFunction's value step (B 16 x H 64)
+and K1's bf16 entry at the 14 of a rank's sharded forward (B 4, 512 rows),
+under ``bf16_plan``'s default and the plans ``bf16_candidates`` builds (rows,
+cluster, channel or row split, ring depth, warpgroups, the wgmma or mma.sync
+instance, TMA off for the default), each checked against the plain version
+(one bf16 ulp of the value plus 1e-4; K1's pre-norm rows within 1e-4) and
+timed the same way, beside the float32 kernel's default plan on the same
+values in float32 and the bf16 composition (``F.conv1d`` + ``group_norm`` +
+``mish``; K1: ``F.conv1d`` + ``var_mean``). ``--kinds`` picks among serve,
+train, value and k1.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import conv_block_kernel as CB
 
@@ -41,11 +49,31 @@ SHAPES = [(16, 8, 1024, 1024), (16, 8, 512, 512), (16, 16, 512, 512), (16, 48, 3
           (32, 20, 1024, 1024), (32, 40, 256, 256), (32, 80, 256, 256), (32, 80, 128, 128),
           (32, 160, 35, 128), (32, 160, 128, 128)]
 K, GROUPS = 5, 8
-# the distinct (H, Cin, Cout) of the dim-128 serve forward at B 16 x H 64
-BF16_SHAPES = [(64, 35, 128), (64, 128, 128), (32, 128, 256), (32, 256, 256), (16, 256, 512),
-               (16, 512, 512), (8, 512, 1024), (8, 1024, 1024), (8, 2048, 512), (8, 512, 512),
-               (16, 1024, 256), (16, 256, 256), (32, 512, 128), (32, 128, 128)]
+# bf16 (B, H, Cin, Cout): the distinct shapes of the dim-128 serve forward (B 16 x H 64), a
+# bf16 training micro-step (B 32 x H 160), the dim-32 ValueFunction's value step (B 16 x H
+# 64) and a rank's sharded forward for K1 (B 4, 512 of H 1024 rows)
+BF16_SHAPES = {
+    "serve": [(16, 64, 35, 128), (16, 64, 128, 128), (16, 32, 128, 256), (16, 32, 256, 256),
+              (16, 16, 256, 512), (16, 16, 512, 512), (16, 8, 512, 1024), (16, 8, 1024, 1024),
+              (16, 8, 2048, 512), (16, 8, 512, 512), (16, 16, 1024, 256), (16, 16, 256, 256),
+              (16, 32, 512, 128), (16, 32, 128, 128)],
+    "train": [(32, 20, 512, 512), (32, 20, 512, 1024), (32, 20, 1024, 1024), (32, 20, 2048, 512),
+              (32, 40, 256, 256), (32, 40, 256, 512), (32, 40, 512, 512), (32, 40, 1024, 256),
+              (32, 80, 128, 128), (32, 80, 128, 256), (32, 80, 256, 256), (32, 80, 512, 128),
+              (32, 160, 35, 128), (32, 160, 128, 128)],
+    "value": [(16, 4, 64, 64), (16, 4, 128, 64), (16, 8, 128, 128), (16, 8, 128, 256),
+              (16, 8, 256, 128), (16, 8, 256, 256), (16, 16, 64, 128), (16, 16, 128, 128),
+              (16, 32, 32, 64), (16, 32, 64, 64), (16, 64, 32, 32), (16, 64, 35, 32)],
+    "k1": [(4, 512, 35, 128), (4, 512, 128, 128), (4, 256, 128, 256), (4, 256, 256, 256),
+           (4, 128, 256, 512), (4, 128, 512, 512), (4, 64, 512, 1024), (4, 64, 1024, 1024),
+           (4, 64, 2048, 512), (4, 64, 512, 512), (4, 128, 1024, 256), (4, 128, 256, 256),
+           (4, 256, 512, 128), (4, 256, 128, 128)],
+}
 
+
+def bf16_shapes(kinds=tuple(BF16_SHAPES)):
+    """Every (B, H, Cin, Cout) of ``BF16_SHAPES`` for ``kinds``."""
+    return [shape for kind in kinds for shape in BF16_SHAPES[kind]]
 
 def time_ms(fn, flush, reps=15, warmup=3):
     """Median device ms of fn over reps, L2 flushed before each; the card is
@@ -94,48 +122,97 @@ def candidates(B, H, cin, cout):
     return base, list(seen)
 
 
-def bf16_candidates(H, cout):
-    cg = cout // GROUPS
-    return [(ck, st) for ck in CB.BF16_CHUNKS for st in range(2, CB.BF16_MAX_STAGES + 1)
-            if CB.bf16_smem_bytes(H, cg, K, ck, st) + CB.BF16_STATIC_SMEM <= CB.MAX_SMEM]
+def bf16_candidates(B, H, cin, cout):
+    """The bf16 plans timed at one shape: the rule's default first, then for
+    rows R in the powers of two up to B (and the default's R), each cluster
+    size of the channel split and (R 1) of the row split whose grid stays
+    within 16..2 x 132 CTAs, each instance, at the deepest ring and one
+    shallower, with one and two warpgroups where both hold the rows; and the
+    default with TMA off."""
+    default = CB.bf16_plan(B, H, cin, cout, K, GROUPS)
+    seen = {default: None}
+    rows = {r for r in (1, 2, 4, 8, 16) if r <= B} | {default.rows}
+    for r in sorted(rows):
+        for split in ((0, 1) if r == 1 else (0,)):
+            for c in CB.CLUSTER_SIZES:
+                if split and (c == 1 or H < 16 * c):
+                    continue
+                if not 16 <= GROUPS * -(-B // r) * c <= 2 * CB.H100_SMS:
+                    continue
+                for mma in (0, 1):
+                    try:
+                        first = CB.make_bf16_plan(B, H, cin, cout, K, GROUPS, r, c, split,
+                                                  mma=mma)
+                    except ValueError:
+                        continue
+                    for st in sorted({first.stages, max(1, first.stages - 1)}):
+                        for wgs in sorted({first.wgs, 2}):
+                            try:
+                                seen.setdefault(CB.make_bf16_plan(
+                                    B, H, cin, cout, K, GROUPS, r, c, split, stages=st,
+                                    mma=mma, wgs=wgs), None)
+                            except ValueError:
+                                pass
+    seen.setdefault(CB.make_bf16_plan(B, H, cin, cout, K, GROUPS, **{**default.fields(),
+                                                                    "tma": 0}), None)
+    return default, list(seen)
 
 
-def bf16_sweep(dev, g, flush):
-    """-> one result per BF16_SHAPES shape at B 16 (see the module docstring)."""
+def bf16_sweep(dev, g, flush, kinds=tuple(BF16_SHAPES)):
+    """-> one result per shape of ``kinds`` (see the module docstring)."""
     results = []
-    for H, cin, cout in BF16_SHAPES:
-        B = 16
-        x = torch.randn(B, H, cin, generator=g, device=dev).to(torch.bfloat16)
-        w = (torch.randn(K, cin, cout, generator=g, device=dev)
-             * (K * cin) ** -0.5).to(torch.bfloat16)
-        b, gamma, beta = (0.1 * torch.randn(cout, generator=g, device=dev) for _ in range(3))
-        gamma += 1
-        ref = CB.conv_gn_mish_plain(x, w, b, gamma, beta, GROUPS).float()
-        default = CB.bf16_plan(H, cin, cout, K, GROUPS)
-        rows = []
-        for plan in bf16_candidates(H, cout):
-            fn = functools.partial(CB.conv_gn_mish_bf16_cuda, x, w, b, gamma, beta, GROUPS,
-                                   plan=plan)
-            d = (fn().float() - ref).abs()
-            if not bool((d <= 2.0 ** -7 * ref.abs() + TOL).all()):
-                raise RuntimeError(f"bf16 plan {plan} disagrees at {(B, H, cin, cout)}: "
-                                   f"{d.max().item()}")
-            rows.append({"plan": list(plan), "default": plan == default, "_fn": fn})
-        for r in rows + rows:  # two rounds: a plan's time is the lesser median
-            r["ms"] = min(r.get("ms", float("inf")), time_ms(r["_fn"], flush))
-        for r in rows:
-            del r["_fn"]
-        f32 = functools.partial(CB.conv_gn_mish_cuda, x.float(), w.float(), b, gamma, beta,
-                                GROUPS)
-        best = min(rows, key=lambda r: r["ms"])
-        line = {"shape": [B, H, cin, cout], "default_plan": list(default),
-                "default_ms": next(r["ms"] for r in rows if r["default"]),
-                "best_plan": best["plan"], "best_ms": best["ms"],
-                "f32_kernel_ms": time_ms(f32, flush), "plans": len(rows)}
-        print(json.dumps(line), flush=True)
-        results.append({**line, "rows": rows})
-    return results
+    for kind in kinds:
+        for B, H, cin, cout in BF16_SHAPES[kind]:
+            k1 = kind == "k1"
+            rows_in = H + K - 1 if k1 else H
+            x = torch.randn(B, rows_in, cin, generator=g, device=dev).to(torch.bfloat16)
+            w = (torch.randn(K, cin, cout, generator=g, device=dev)
+                 * (K * cin) ** -0.5).to(torch.bfloat16)
+            b, gamma, beta = (0.1 * torch.randn(cout, generator=g, device=dev) for _ in range(3))
+            gamma += 1
+            xc, wc = x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
+            b16, g16, be16 = b.to(torch.bfloat16), gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+            if k1:
+                ref = CB.conv_gn_stats_plain(x, w, b, GROUPS)[0]
+                entry = functools.partial(CB.conv_gn_stats_bf16_cuda, x, w, b, GROUPS)
+                f32 = functools.partial(CB.conv_gn_stats_cuda, x.float(), w.float(), b, GROUPS)
 
+                def composition():
+                    o = F.conv1d(xc, wc, b16)
+                    return torch.var_mean(o.view(B, GROUPS, -1), dim=-1, correction=0)
+            else:
+                ref = CB.conv_gn_mish_plain(x, w, b, gamma, beta, GROUPS).float()
+                entry = functools.partial(CB.conv_gn_mish_bf16_cuda, x, w, b, gamma, beta,
+                                          GROUPS)
+                f32 = functools.partial(CB.conv_gn_mish_cuda, x.float(), w.float(), b, gamma,
+                                        beta, GROUPS)
+
+                def composition():
+                    return F.mish(F.group_norm(F.conv1d(xc, wc, b16, padding=K // 2), GROUPS,
+                                               g16, be16))
+            default, plans = bf16_candidates(B, H, cin, cout)
+            rows = []
+            for plan in plans:
+                fn = functools.partial(entry, plan=plan)
+                out = fn()
+                d = ((out[0] if k1 else out.float()) - ref).abs()
+                bound = TOL if k1 else 2.0 ** -7 * ref.abs() + TOL
+                if not bool((d <= bound).all()):
+                    raise RuntimeError(f"bf16 plan {plan} disagrees at {kind} "
+                                       f"{(B, H, cin, cout)}: {d.max().item()}")
+                rows.append({"plan": plan.fields(), "default": plan == default, "_fn": fn})
+            for r in rows + rows:  # two rounds: a plan's time is the lesser median
+                r["ms"] = min(r.get("ms", float("inf")), time_ms(r["_fn"], flush))
+            for r in rows:
+                del r["_fn"]
+            best = min(rows, key=lambda r: r["ms"])
+            line = {"kind": kind, "shape": [B, H, cin, cout], "default_plan": default.fields(),
+                    "default_ms": rows[0]["ms"], "best_plan": best["plan"],
+                    "best_ms": best["ms"], "f32_kernel_ms": time_ms(f32, flush),
+                    "composition_ms": time_ms(composition, flush), "plans": len(rows)}
+            print(json.dumps(line), flush=True)
+            results.append({**line, "rows": rows})
+    return results
 
 def warm(dev, seconds=2.0):
     a = torch.randn(4096, 4096, device=dev)
@@ -150,7 +227,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--out", default=None)
     ap.add_argument("--shapes", type=int, default=len(SHAPES), help="first N shapes only")
-    ap.add_argument("--bf16", action="store_true", help="B1's bf16 form at the serve shapes")
+    ap.add_argument("--bf16", action="store_true", help="B1's bf16 form (bf16_sweep)")
+    ap.add_argument("--kinds", default=",".join(BF16_SHAPES),
+                    help="with --bf16: comma-separated of " + ", ".join(BF16_SHAPES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("conv_block_sweep: no CUDA device available", file=sys.stderr)
@@ -166,7 +245,7 @@ def main(argv=None) -> int:
     results = []
     warm(dev)
     if args.bf16:
-        results = bf16_sweep(dev, g, flush)
+        results = bf16_sweep(dev, g, flush, args.kinds.split(","))
     for B, H, cin, cout in ([] if args.bf16 else SHAPES[:args.shapes]):
         x = torch.randn(B, H, cin, generator=g, device=dev)
         w = torch.randn(K, cin, cout, generator=g, device=dev) * (K * cin) ** -0.5

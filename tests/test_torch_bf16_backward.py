@@ -127,9 +127,10 @@ def test_training_shapes_have_bf16_plans():
     shapes = _training_shapes()
     assert len(shapes) == 14 + 12
     for B, H, cin, cout in shapes:
-        ck, stages = TK.bf16_plan(H, cin, cout, K, GROUPS)
-        assert (TK.bf16_smem_bytes(H, cout // GROUPS, K, ck, stages) + TK.BF16_STATIC_SMEM
-                <= TK.MAX_SMEM)
+        b1 = TK.bf16_plan(B, H, cin, cout, K, GROUPS)
+        assert b1.smem_bytes == TK.bf16_smem_bytes(H, cout // GROUPS, K, b1.rows, b1.cluster,
+                                                   b1.split, b1.stages, b1.mma, b1.wgs)
+        assert b1.smem_bytes + TK.BF16_STATIC_SMEM <= TK.MAX_SMEM
         plan = TW.wgrad_plan(B, H, cin, cout, K, H100_SMS, bf16=True)
         assert plan.path == TW.BF16_PATH and plan.esize == 2
         assert plan.rows % TW.BF16_STEP == 0 and plan.rows <= TW.MAX_ROWS

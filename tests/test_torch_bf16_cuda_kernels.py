@@ -16,6 +16,8 @@ imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -m cuda tests/test_torch_bf16_cuda_kernels.py
 """
+import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,13 +88,54 @@ def test_conv_gn_mish_bf16_matches_plain(cuda, B, H, Cin, Cout, k):
     assert torch.equal(out, CB.conv_gn_mish_bf16_cuda(*args, 8))
 
 
+# Every plan family of the bf16 kernel: (B, H, Cin, Cout, k) and the plan's fields. R > 1 and
+# C > 1 (channel split), the row split, both instances (wgmma, mma.sync), TMA off (the
+# consumers stage both operands), Cin 35 (x staged by the consumers, w by TMA), a group width
+# no multiple of 8 (w staged by the consumers), one and two warpgroups, rings of one stage and
+# rings that wrap, k 9.
+B1_BF16_FAMILIES = [
+    ((5, 8, 256, 256, 5), dict(rows=5, cluster=4, split=0, mma=0)),
+    ((5, 8, 256, 256, 5), dict(rows=5, cluster=4, split=0, mma=1)),
+    ((5, 8, 256, 256, 5), dict(rows=2, cluster=2, split=0, mma=0, stages=1)),
+    ((5, 8, 256, 256, 5), dict(rows=5, cluster=1, split=0, mma=0, stages=2)),
+    ((5, 8, 256, 256, 5), dict(rows=5, cluster=1, split=0, mma=1, stages=3)),
+    ((5, 8, 256, 256, 5), dict(rows=8, cluster=1, split=0, mma=0, tma=0)),
+    ((5, 8, 256, 256, 5), dict(rows=3, cluster=4, split=0, mma=1, tma=0, wgs=2)),
+    ((3, 100, 128, 512, 5), dict(rows=1, cluster=4, split=1, mma=0)),
+    ((3, 100, 128, 512, 5), dict(rows=1, cluster=8, split=1, mma=1)),
+    ((3, 100, 128, 512, 5), dict(rows=2, cluster=2, split=0, mma=0, wgs=2)),
+    ((4, 64, 35, 128, 5), dict(rows=1, cluster=1, split=0, mma=0)),
+    ((4, 64, 35, 128, 5), dict(rows=2, cluster=1, split=0, mma=1)),
+    ((4, 160, 35, 128, 5), dict(rows=1, cluster=2, split=1, mma=0, wgs=2)),
+    ((3, 21, 70, 24, 9), dict(rows=3, cluster=2, split=0, mma=0)),
+    ((3, 21, 70, 24, 9), dict(rows=3, cluster=2, split=0, mma=1)),
+    ((2, 16, 512, 2048, 3), dict(rows=2, cluster=8, split=0, mma=0)),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("stages", [2, 3, 4])
-@pytest.mark.parametrize("ck", [16, 32, 64])
-def test_conv_gn_mish_bf16_every_plan(cuda, ck, stages):
-    args = _conv_inputs(cuda, 5, 8, 96, 256, 5, seed=ck + stages)
-    _within_one_ulp(CB.conv_gn_mish_bf16_cuda(*args, 8, plan=(ck, stages)),
-                    CB.conv_gn_mish_plain(*args, 8))
+@pytest.mark.parametrize("shape,fields", B1_BF16_FAMILIES)
+def test_conv_gn_mish_bf16_every_plan(cuda, shape, fields):
+    """Each plan family against the plain version, and a rerun to the bit."""
+    B, H, Cin, Cout, k = shape
+    plan = CB.make_bf16_plan(B, H, Cin, Cout, k, 8, **fields)
+    args = _conv_inputs(cuda, B, H, Cin, Cout, k, seed=sum(shape) + plan.mma)
+    out = CB.conv_gn_mish_bf16_cuda(*args, 8, plan=plan)
+    _within_one_ulp(out, CB.conv_gn_mish_plain(*args, 8))
+    assert torch.equal(out, CB.conv_gn_mish_bf16_cuda(*args, 8, plan=plan))
+
+
+@pytest.mark.cuda
+def test_conv_gn_mish_bf16_layout_matches_the_kernel(cuda):
+    """The host's shared-memory mirror equals the kernel's layout for every
+    plan the rule picks at the sweep's shapes (serving, training, the
+    ValueFunction's, K1's rank shapes)."""
+    from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_sweep as S
+    lib = CB._library_bf16()
+    for B, H, cin, cout in S.bf16_shapes():
+        plan = CB.bf16_plan(B, H, cin, cout, 5, 8)
+        got = lib.conv_gn_mish_bf16_smem_bytes(H, cin, cout, 5, 8, ctypes.addressof(plan.ints))
+        assert got == plan.smem_bytes, (B, H, cin, cout, plan)
 
 
 @pytest.mark.cuda
@@ -104,8 +147,12 @@ def test_conv_gn_mish_bf16_refuses_what_it_does_not_take(cuda):
         CB.conv_gn_mish_bf16_cuda(x, w, b.to(BF), gamma, beta, 8)
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         CB.conv_gn_mish_bf16_cuda(x.cpu(), w, b, gamma, beta, 8)
+    bad = CB.make_bf16_plan(1, 8, 16, 16, 5, 8)
+    bad = dataclasses.replace(bad, ints=(ctypes.c_int * 7)(0, *list(bad.ints)[1:]), checked={})
     with pytest.raises(RuntimeError, match="conv_gn_mish_bf16_cuda"):
-        CB.conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, 8, plan=(24, 2))
+        CB.conv_gn_mish_bf16_cuda(x, w, b, gamma, beta, 8, plan=bad)
+    with pytest.raises(ValueError, match="no plan fits"):
+        CB.make_bf16_plan(1, 8, 16, 16, 5, 8, rows=2, split=1)
 
 
 @pytest.mark.cuda
@@ -282,7 +329,17 @@ import json, sys, torch
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_weight_grad as CW
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 g = torch.Generator(device="cuda").manual_seed(0)
-if sys.argv[1] == "b2_bf16":
+if sys.argv[1] == "b1_bf16":
+    # B1's bf16 kernel, its first launch at a plan above 48 KB (the plan check opts in)
+    from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
+    x = torch.randn(16, 8, 1024, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(5, 1024, 1024, generator=g, device="cuda") / 72).to(torch.bfloat16)
+    b, gamma, beta = (torch.randn(1024, generator=g, device="cuda") * 0.1 for _ in range(3))
+    plan = CB.bf16_plan(16, 8, 1024, 1024, 5, 8)
+    out = CB.conv_gn_mish_bf16_cuda(x, w, b, gamma + 1, beta, 8)
+    err = (out.float() - CB.conv_gn_mish_plain(x, w, b, gamma + 1, beta, 8).float()).abs().max()
+    smem, static = plan.smem_bytes, CB.BF16_STATIC_SMEM
+elif sys.argv[1] == "b2_bf16":
     # the bf16 ring at 49,152 dynamic bytes (4 stages of 6,144 bf16): the bf16 instantiation
     # opts in on its own
     x = torch.randn(2, 96, 16, generator=g, device="cuda").to(torch.bfloat16)
@@ -316,7 +373,7 @@ print(json.dumps({"smem": smem, "static": static, "err": err.item()}))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["b2", "b2_bf16", "b3_bf16"])
+@pytest.mark.parametrize("kind", ["b2", "b2_bf16", "b3_bf16", "b1_bf16"])
 def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     """B2's launcher opts in above 48 KB by its static and dynamic bytes
     together: a fresh process whose first B2 plan takes exactly 48 KB of
@@ -324,7 +381,9 @@ def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     float32 form and in the bf16 form (its 2-byte ring counted as such). B3's
     dynamic bytes are multiples of 80, 144, 272 or 528 and none lies within
     16 bytes under 48 KB, so its fresh process runs the bf16 entry's first
-    launch at a plan above 48 KB: each instantiation opts in on its own."""
+    launch at a plan above 48 KB: each instantiation opts in on its own. B1's
+    bf16 kernel runs its first launch at the rule's plan for the deepest
+    serve shape (197,888 dynamic bytes)."""
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", FIRST_PLAN, kind], cwd=root,
                           capture_output=True, text=True, timeout=600)
@@ -333,5 +392,7 @@ def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     if kind.startswith("b2"):
         assert got["smem"] <= 48 * 1024 < got["smem"] + got["static"]
         assert got["err"] <= 1e-5
+    elif kind == "b1_bf16":
+        assert got["smem"] > 48 * 1024 and got["err"] <= 0.05
     else:
         assert got["smem"] > 48 * 1024 and got["err"] <= 0.05

@@ -141,26 +141,140 @@ def test_b3_bf16_plain_is_the_float32_function_rounded_once():
     assert torch.equal(out, ref.to(BF))
 
 
-@pytest.mark.parametrize("H,Cin,Cout,ck", [(64, 35, 128, 16), (8, 1024, 1024, 64),
-                                           (8, 2048, 512, 64), (4, 256, 256, 64),
-                                           (64, 96, 128, 32), (1024, 35, 128, 16)])
-def test_b1_bf16_plan_fits_shared_memory(H, Cin, Cout, ck):
-    """The chunk that pads Cin least (the larger on a tie); the deepest ring
-    that fits 227 KB with the kernel's static bytes. The dim-128 U-Net's
-    shapes and a H 1024 first block all have a plan."""
-    c, st = TK.bf16_plan(H, Cin, Cout, K, GROUPS)
-    assert c == ck and 2 <= st <= TK.BF16_MAX_STAGES
+def _holds(plan, B, H, Cin, Cout):
+    """The plan's own consistency against the host's mirror of the kernel:
+    its layout, the rows its warpgroups' tiles hold, its grid."""
     cg = Cout // GROUPS
+    assert plan.smem_bytes == TK.bf16_smem_bytes(H, cg, K, plan.rows, plan.cluster, plan.split,
+                                                 plan.stages, plan.mma, plan.wgs)
+    assert plan.smem_bytes + TK.BF16_STATIC_SMEM <= TK.MAX_SMEM
+    hc = TK.bf16_rows_per_rank(H, plan.cluster, plan.split)
+    assert plan.rows * hc <= plan.wgs * TK.bf16_tiles_per(TK.bf16_pad_n(cg)) * 64
+    assert plan.grid == GROUPS * -(-B // plan.rows) * plan.cluster
+    assert list(plan.ints) == list(plan.fields().values())
 
-    def fits(s):
-        return TK.bf16_smem_bytes(H, cg, K, ck, s) + TK.BF16_STATIC_SMEM <= TK.MAX_SMEM
 
-    assert fits(st) and not any(fits(s) for s in range(st + 1, TK.BF16_MAX_STAGES + 1))
+@pytest.mark.parametrize("B,H,Cin,Cout,rows", [
+    (16, 64, 35, 128, 1), (16, 8, 1024, 1024, 8), (16, 8, 2048, 512, 8), (16, 4, 256, 256, 8),
+    (16, 64, 96, 128, 1), (2, 1024, 35, 128, 1), (32, 20, 1024, 1024, 4), (3, 21, 37, 24, 2),
+])
+def test_b1_bf16_plan_fits_shared_memory(B, H, Cin, Cout, rows):
+    """The rule's plan fits 227 KB with the kernel's static bytes; its batch
+    rows give a CTA 32 rows (64 where N is 64 or more; all of B where that
+    is less); a channel split leaves each rank four chunks and the grid
+    within the card's 132 SMs, a row split 64 rows a rank and 66 CTAs. The
+    dim-128 U-Net's shapes, a H 1024 first block and an odd shape all have a
+    plan."""
+    plan = TK.bf16_plan(B, H, Cin, Cout, K, GROUPS)
+    _holds(plan, B, H, Cin, Cout)
+    assert plan.rows == rows and plan.wgs == 2
+    if plan.split:
+        assert plan.grid <= TK.BF16_RSPLIT_CTAS
+        assert TK.bf16_rows_per_rank(H, plan.cluster, 1) >= TK.BF16_RSPLIT_ROWS
+    else:
+        assert plan.cluster == 1 or (plan.grid <= TK.H100_SMS and -(-Cin // TK.BF16_CHUNK)
+                                     >= plan.cluster * TK.BF16_RANK_CHUNKS)
 
 
 def test_b1_bf16_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="no plan fits"):
-        TK.bf16_plan(8192, 35, 2048, K, GROUPS)
+        TK.bf16_plan(1, 8192, 35, 2048, K, GROUPS)
+    for fields, why in ((dict(rows=17), "out of range"), (dict(rows=2, split=1), "row split"),
+                        (dict(cluster=4), "chunks"), (dict(rows=16, wgs=1), "warpgroups")):
+        with pytest.raises(ValueError, match=why):
+            TK.make_bf16_plan(16, 64, 128, 512, K, GROUPS, **fields)
+
+
+@pytest.mark.parametrize("kind", ["serve", "train", "value", "k1"])
+def test_b1_bf16_plan_rule_at_the_sweep_shapes(kind):
+    """Every shape the sweep times has a rule plan that holds its rows in
+    one pass; the wgmma instance exactly where N is 64 or more and a CTA
+    holds 32 rows or more. K1's long rank horizons (H 128 and up at B 4)
+    take the row split; the serve forward's deep levels (H 8, 1024 -> 1024)
+    share each weight chunk among 8 batch rows over 4 channel ranks."""
+    from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_sweep as S
+    for B, H, Cin, Cout in S.BF16_SHAPES[kind]:
+        plan = TK.bf16_plan(B, H, Cin, Cout, K, GROUPS)
+        _holds(plan, B, H, Cin, Cout)
+        rows = plan.rows * TK.bf16_rows_per_rank(H, plan.cluster, plan.split)
+        wide = TK.bf16_pad_n(Cout // GROUPS) >= TK.BF16_WIDE_N
+        assert plan.mma == int(not (wide and rows >= TK.BF16_WGMMA_ROWS)), (B, H, Cin, Cout)
+        if kind == "k1" and H >= 128:
+            assert plan.split == 1 or Cin >= 1024, (H, Cin, Cout, plan)
+    deep = TK.bf16_plan(16, 8, 1024, 1024, K, GROUPS)
+    assert (deep.rows, deep.cluster, deep.split, deep.mma) == (8, 4, 0, 0)
+
+
+@pytest.mark.parametrize("split", [0, 1])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_b1_bf16_rows_per_rank(cluster, split):
+    """The row split gives each rank a multiple of 16 rows covering H; the
+    channel split keeps every row on every rank."""
+    for H in (8, 100, 512, 1024):
+        hc = TK.bf16_rows_per_rank(H, cluster, split)
+        if split:
+            assert hc % 16 == 0 and cluster * hc >= H and (cluster - 1) * hc < H + 16 * cluster
+        else:
+            assert hc == H
+
+
+@pytest.mark.parametrize("fields", [dict(rows=2, cluster=4, split=0), dict(rows=1, cluster=8, split=1),
+                                    dict(rows=3, cluster=2, split=0), dict(rows=1, cluster=4, split=1)])
+def test_b1_bf16_plan_split_reproduces_the_conv(fields):
+    """The kernel's work split, replayed in float64: the CTAs of a row block
+    take R batch rows; a channel split's ranks take whole 64-channel chunks
+    (the last zero-padded) and their partial products sum to the conv; a row
+    split's ranks take 16-row multiples of each batch row, every row once."""
+    B, H, Cin, Cout, k = 5, 100, 200, 64, 5
+    plan = TK.make_bf16_plan(B, H, Cin, Cout, k, GROUPS, **fields)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(B, H, Cin))
+    w = rng.normal(size=(k, Cin, Cout))
+    xp = np.pad(x, ((0, 0), (k // 2, k // 2), (0, -Cin % TK.BF16_CHUNK)))
+    wp = np.pad(w, ((0, 0), (0, -Cin % TK.BF16_CHUNK), (0, 0)))
+    ref = sum(np.einsum("bhc,cn->bhn", xp[:, t:t + H, :Cin], w[t]) for t in range(k))
+    nch = xp.shape[2] // TK.BF16_CHUNK
+    hc = TK.bf16_rows_per_rank(H, plan.cluster, plan.split)
+    out = np.zeros_like(ref)
+    seen = np.zeros((B, H), int)
+    for b0 in range(0, B, plan.rows):
+        rows = slice(b0, min(B, b0 + plan.rows))
+        for rank in range(plan.cluster):
+            lo, hi = (0, nch) if plan.split else (nch * rank // plan.cluster,
+                                                  nch * (rank + 1) // plan.cluster)
+            h0 = rank * hc if plan.split else 0
+            hs = slice(h0, min(H, h0 + hc))
+            chans = slice(lo * TK.BF16_CHUNK, hi * TK.BF16_CHUNK)
+            part = sum(np.einsum("bhc,cn->bhn", xp[rows, t + hs.start:t + hs.stop, chans],
+                                 wp[t, chans]) for t in range(k))
+            out[rows, hs] += part
+            if plan.split or rank == 0:
+                seen[rows, hs] += 1
+    assert (seen == 1).all()
+    np.testing.assert_allclose(out, ref, rtol=1e-10, atol=1e-9)
+
+
+def test_b1_bf16_smem_mirror_counts_the_ring_or_the_tile():
+    """The layout mirror: one stage is the R batch rows' staged x boxes (rows
+    rounded to 8, 128 bytes each) and the k x 64 x N weight atoms, rounded to
+    1024; with the channel split the C ranks' float32 partial rows (C slots
+    of ceil(R H / C) rows x (N + 4)) lie over the ring, and for mma.sync its
+    slices' partial 16-row tiles; the rows' sums follow, and 1024 bytes of
+    alignment slack."""
+    # H 8, k 5: 12 staged rows -> 16; N 128; 2 stages outweigh 8 slots of 8 rows
+    stage = 8 * 16 * 128 + 5 * 64 * 128 * 2
+    assert TK.bf16_smem_bytes(8, 128, 5, 8, 8, 0, 2) == 1024 + 2 * stage + 4 * 64
+    # H 1024 on one rank, N 16: 1,028 staged rows in 5 boxes of 208; no slots
+    assert TK.bf16_smem_bytes(1024, 16, 5, 1, 1, 0, 1) == (
+        1024 + 5 * 208 * 128 + 5 * 64 * 16 * 2 + 4 * 1024)
+    # H 8, k 1, N 128, R 8 over 8 ranks: the slots (8 x 8 rows x 132 floats) outweigh the stage
+    assert TK.bf16_smem_bytes(8, 128, 1, 8, 8, 0, 1) == 1024 + 4 * 64 * 132 + 4 * 64
+    # the row split keeps no slots
+    assert TK.bf16_smem_bytes(8, 128, 1, 1, 8, 1, 1) == (
+        1024 + 1 * 16 * 128 + 1 * 64 * 128 * 2 + 4 * 16)
+    # mma.sync with two warpgroups: 7 slices' 16-row partial tiles of N 128 outweigh the stage
+    assert TK.bf16_smem_bytes(8, 128, 1, 1, 8, 1, 1, mma=1, wgs=2) == (
+        1024 + 4 * 7 * 16 * 128 + 4 * 16)
 
 
 def _interpreted(module, fn, *args, **compiler_options):

@@ -77,6 +77,31 @@ def test_k1_k2_bf16_match_plain_and_b1_bf16(cuda, B, H, Cin, Cout, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    dict(rows=1, cluster=4, split=1, mma=0), dict(rows=1, cluster=8, split=1, mma=1),
+    dict(rows=2, cluster=2, split=0, mma=0), dict(rows=1, cluster=4, split=0, mma=1),
+    dict(rows=2, cluster=1, split=0, mma=0, tma=0),
+])
+def test_k1_bf16_every_plan_family(cuda, fields):
+    """K1's bf16 entry under the row split and the channel split, both
+    instances, TMA off: the pre-norm rows and (mean, M2) against the plain
+    version; a rerun gives the same bits."""
+    B, H, Cin, Cout, k = 4, 200, 256, 256, 5
+    g = torch.Generator(device=cuda).manual_seed(sum(fields.values()))
+    xh = torch.randn(B, H + k - 1, Cin, generator=g, device=cuda).to(BF)
+    w = (torch.randn(k, Cin, Cout, generator=g, device=cuda) * (k * Cin) ** -0.5).to(BF)
+    b = 0.1 * torch.randn(Cout, generator=g, device=cuda)
+    plan = CB.make_bf16_plan(B, H, Cin, Cout, k, 8, **fields)
+    pre, stats = CB.conv_gn_stats_bf16_cuda(xh, w, b, 8, plan=plan)
+    pre_p, stats_p = CB.conv_gn_stats_plain(xh, w, b, 8)
+    torch.testing.assert_close(pre, pre_p, atol=TOL, rtol=TOL)
+    torch.testing.assert_close(stats[..., 0], stats_p[..., 0], atol=TOL, rtol=TOL)
+    torch.testing.assert_close(stats[..., 1], stats_p[..., 1], atol=0, rtol=M2_RTOL)
+    again = CB.conv_gn_stats_bf16_cuda(xh, w, b, 8, plan=plan)
+    assert torch.equal(pre, again[0]) and torch.equal(stats, again[1])
+
+
+@pytest.mark.cuda
 def test_k1_k2_bf16_refuse_what_they_do_not_take(cuda):
     w = torch.zeros(5, 4, 8, device=cuda, dtype=BF)
     with pytest.raises(ValueError, match="no output row"):
