@@ -5,9 +5,10 @@
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: the five CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B1's bf16 form
-   csrc/conv_gn_mish_bf16.cu (and K1's bf16 form), B2 and its bf16 form
-   csrc/conv1d_weight_grad.cu, B3, K3 and B4 with their bf16 forms csrc/local_attention.cu,
+2. build: the six CUDA sources (B1, K1 and K2 csrc/conv_gn_mish.cu, B1's bf16 form
+   csrc/conv_gn_mish_bf16.cu (and K1's bf16 form), B2 csrc/conv1d_weight_grad.cu, its bf16
+   form csrc/conv1d_weight_grad_bf16.cu, B3, K3 and B4 with their bf16 forms
+   csrc/local_attention.cu,
    B5-B7 csrc/humanoid_dynamics.cu), compiled in
    parallel with nvcc,
    one process each, with ptxas's register and spill lines.
@@ -82,7 +83,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (walk clip, dt 1/30, substeps 17, contacts and limits on, fall height
    0.3) of 20 steps at N 4096 and N 65536, one B6 launch each, env-steps/s
    the best of 3, with 120 envs of each (start, middle, end) held against
-   one plain T-20 rollout; 20 ``step`` calls at N 4096 (20 B5 launches) held against
+   one plain T-20 rollout (its step captured once in a CUDA graph and replayed: the same
+   kernels, so the same bits, without the host dispatching each again); 20 ``step`` calls at N 4096
+   (20 B5 launches) held against
    one rollout from the same state, and B7 through its front door
    ``tracking_reward_fused`` on the stepped state; ``track_motions`` (horizon
    15) on the 16 motions the H 64 request wrote and on the walk clip, as
@@ -221,9 +224,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    at the 33 forward shapes of a dim-128 micro-step (B 32 x H 160) and the 20 of the dim-32
    ValueFunction (B 16 x H 64); B2's bf16 form
    (``conv1d_weight_grad_bf16``, bf16 x and dy, float32 dW) against its plain version at each
-   of the 33 shapes of a dim-128 micro-step (B 32 x H 160) within WGRAD_TOL, timed beside the
+   of the 33 shapes of a dim-128 micro-step (B 32 x H 160) and the 20 of a value step (B 16 x
+   H 64) within WGRAD_TOL (reruns of a cluster-split plan equal to the bit), timed beside the
    plain version, cuDNN's bf16 weight gradient and the float32 kernel on the widened values,
-   with the bound (operations at BF16_FLOPS, or bytes); B3's bf16 entry with the keep mask at
+   with the bound (operations at BF16_FLOPS, or bytes), its plan, TFLOP/s and whether it beats
+   cuDNN; B3's bf16 entry with the keep mask at
    la_train's B 64 x N 96 (within one bf16 ulp plus BF16_TOL), timed beside the float32 entry
    with the same mask, the plain version and the bf16 composition. One micro-step of the bf16
    dim-128 U-Net and of the bf16 localattn5k_r3 model (same t, noise and keep masks), one
@@ -267,6 +272,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -341,8 +347,8 @@ WALK = ROOT / "data" / "motions" / "humanoid3d_walk.txt"
 BACKFLIP = ROOT / "data" / "motions" / "humanoid3d_backflip.txt"
 B_CONFIG = ROOT / "experiments" / "allclips12k_r5" / "config.json"
 MOTIONS = ROOT / "data" / "motions"
-SOURCES = ("conv_gn_mish", "conv_gn_mish_bf16", "conv1d_weight_grad", "local_attention",
-           "humanoid_dynamics")
+SOURCES = ("conv_gn_mish", "conv_gn_mish_bf16", "conv1d_weight_grad", "conv1d_weight_grad_bf16",
+           "local_attention", "humanoid_dynamics")
 
 B, H, D, DIM, T, K, GROUPS = 16, 64, 35, 128, 1000, 5, 8
 TRAIN_B, TRAIN_H, ACCUM, TRAIN_STEPS = 32, 160, 2, 30
@@ -527,6 +533,37 @@ def build_all():
         log = Path(str(so) + ".log")
         out[name] = ([ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln] if log.exists() else None)
+    return out
+
+
+def wgrad_bf16_sass():
+    """B2's bf16 instances as built: per (taps, columns, warpgroups), the
+    count of each SASS op that shows the design (HGMMA: wgmma; UTMALDG: TMA
+    loads; LDSM: ldmatrix; WARPGROUP.ARRIVE / DEPBAR: the wgmma groups;
+    LDL / STL: local memory, i.e. spills) from cuobjdump, and ptxas's
+    registers and spill bytes; None where the toolkit has no cuobjdump."""
+    so = _build.build("conv1d_weight_grad_bf16")
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out, name = {}, re.compile(r"kernelILi(\d)ELi(\d+)ELi(\d)E")
+    for fn in sass.split("Function : ")[1:]:
+        m = name.search(fn.split()[0])
+        if m:
+            body = fn.split("\n", 1)[1]
+            out["x".join(m.groups())] = {op: body.count(op) for op in (
+                "HGMMA", "UTMALDG", "LDSM", "WARPGROUP.ARRIVE", "WARPGROUP.DEPBAR", "LDL", "STL")}
+    log, cur = Path(str(so) + ".log"), None
+    for ln in (log.read_text().splitlines() if log.exists() else []):
+        m = name.search(ln)
+        if m and "Compiling" in ln:
+            cur = out.get("x".join(m.groups()))
+        elif cur is not None and "spill stores" in ln:
+            cur["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif cur is not None and "Used" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
     return out
 
 
@@ -2258,12 +2295,40 @@ def sampled_rollout(env, state, final, rewards):
     return inputs, (final.qpos[idx], final.qvel[idx], rewards[:, idx], final.done[idx])
 
 
+def rollout_plain_replayed(qpos, qvel, targets, ref_qvels, done, **kw):
+    """``DK.rollout_plain`` over T steps as T one-step plain rollouts, the
+    step captured once in a CUDA graph and replayed: the same kernels in the
+    same order, so the same bits, without the host dispatching each of a
+    step's several hundred thousand small kernels again (about 7 s a step)."""
+    static = [qpos.clone(), qvel.clone(), targets[:1].clone(), ref_qvels[:1].clone(),
+              done.clone()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # one eager step first, as graph capture wants
+        DK.rollout_plain(*static, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DK.rollout_plain(*static, **kw)
+    rewards = []
+    for t in range(targets.shape[0]):
+        static[2].copy_(targets[t:t + 1])
+        static[3].copy_(ref_qvels[t:t + 1])
+        graph.replay()
+        rewards.append(out[2].clone())
+        for i, o in ((0, 0), (1, 1), (4, 3)):
+            static[i].copy_(out[o])
+    torch.cuda.synchronize()
+    return static[0], static[1], torch.cat(rewards), static[4]
+
+
 def rollouts_vs_plain(held):
     """The sampled envs of every main-path rollout through one plain T-20
     rollout (envs are independent): errors within the step tolerances."""
     inputs = [torch.cat([h[0][i] for h in held], dim=1 if i in (2, 3) else 0) for i in range(5)]
     out = [torch.cat([h[1][i] for h in held], dim=1 if i == 2 else 0) for i in range(4)]
-    ref = DK.rollout_plain(*inputs, h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS, fall_height=0.3)
+    ref = rollout_plain_replayed(*inputs, h=1.0 / 30.0 / SUBSTEPS, substeps=SUBSTEPS,
+                                 fall_height=0.3)
     errs, ok = step_errors(out[:3], ref[:3])
     if not (ok and torch.equal(out[3], ref[3])):
         raise RuntimeError(f"main-path rollouts disagree with the plain version: {errs}, done "
@@ -3748,14 +3813,15 @@ B2_BF16 = "conv_weight_grad.conv1d_weight_grad_bf16_cuda"
 B2_F32 = "conv_weight_grad.conv1d_weight_grad_cuda"
 
 
-def bf16_b2_rows(dev, timer, per_step, peaks, batch):
-    """B2's bf16 form against its plain version at every (H, Cin, Cout) of
-    ``per_step`` (Counter of launches a micro-step) at ``batch``, with bf16 x
-    and dy: within WGRAD_TOL of max |dW|, and where the plan splits the rows
-    over a cluster a second launch gives the same bits. Timed beside the
-    plain version, cuDNN's bf16 weight gradient (``torch.nn.grad.conv1d_weight``
-    on channel-first copies made outside the timed call; it rounds dW to
-    bf16) and the float32 kernel on the float32 widenings; the bound: the
+def bf16_b2_rows(dev, timer, per_step, peaks, batch, where):
+    """B2's bf16 form (``csrc/conv1d_weight_grad_bf16.cu``) against its plain
+    version at every (H, Cin, Cout) of ``per_step`` (Counter of launches a
+    step; ``where`` names the step) at ``batch``, with bf16 x and dy: within
+    WGRAD_TOL of max |dW|, and where the plan splits the rows over a cluster
+    a second launch gives the same bits. Timed beside the plain version,
+    cuDNN's bf16 weight gradient (``torch.nn.grad.conv1d_weight`` on
+    channel-first copies made outside the timed call; it rounds dW to bf16)
+    and the float32 kernel on the float32 widenings; the bound: the
     operations at BF16_FLOPS or the bytes (bf16 x and dy read, float32 dW
     written), whichever is larger."""
     rows = []
@@ -3763,7 +3829,7 @@ def bf16_b2_rows(dev, timer, per_step, peaks, batch):
     for (h, cin, cout), n in per_step.items():
         x = torch.randn(batch, h, cin, generator=g, device=dev).to(BF)
         dy = torch.randn(batch, h, cout, generator=g, device=dev).to(BF)
-        plan = CW.wgrad_plan(batch, h, cin, cout, K, CW.sm_count(x.device), True)
+        plan = CW.wgrad_bf16_plan(batch, h, cin, cout, K, CW.sm_count(x.device))
         out = CW.conv1d_weight_grad_bf16_cuda(x, dy, K)
         ref = CW.conv1d_weight_grad_plain(x, dy, K)
         xc, dyc = x.transpose(1, 2).contiguous(), dy.transpose(1, 2).contiguous()
@@ -3789,12 +3855,12 @@ def bf16_b2_rows(dev, timer, per_step, peaks, batch):
         nbytes = 2.0 * batch * h * (cin + cout) + 4.0 * K * cin * cout
         t_ops, t_bytes = flops / BF16_FLOPS * 1e3, nbytes / peaks[1] * 1e3
         rows.append({
-            "B": batch, "H": h, "cin": cin, "cout": cout, "per_micro_step": n,
-            "plan": {"tci": plan.tci, "tco": plan.tco, "rows": plan.rows,
-                     "stages": plan.stages, "cluster": plan.cluster, "slices": plan.slices,
-                     "ctas": plan.grid, "threads": plan.threads, "smem_bytes": plan.smem_bytes},
-            "path": plan.path, "bit_identical": identical, "max_abs_err": err,
-            "max_rel_err": err / scale, "library_rel_err": (lib - ref).abs().max().item() / scale,
+            "B": batch, "H": h, "cin": cin, "cout": cout, "step": where, "per_step": n,
+            "plan": {**plan.fields(), "ctas": plan.grid, "threads": plan.threads,
+                     "smem_bytes": plan.smem_bytes, "x_staging": plan.x_staging,
+                     "longest_chain": plan.longest_chain()},
+            "bit_identical": identical, "max_abs_err": err, "max_rel_err": err / scale,
+            "library_rel_err": (lib - ref).abs().max().item() / scale,
             "ms": timer(lambda: CW.conv1d_weight_grad_bf16_cuda(x, dy, K)),
             "plain_ms": timer(lambda: CW.conv1d_weight_grad_plain(x, dy, K)),
             "library_ms": timer(library),
@@ -3802,10 +3868,8 @@ def bf16_b2_rows(dev, timer, per_step, peaks, batch):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "mbytes": nbytes / 1e6})
         rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
+        rows[-1]["faster_than_library"] = rows[-1]["ms"] < rows[-1]["library_ms"]
         emit({"phase": "kernel", "name": "conv1d_weight_grad_bf16", **rows[-1]})
-    if not any(r["bit_identical"] for r in rows):
-        raise RuntimeError("conv1d_weight_grad_bf16: no shape's plan splits the rows over a "
-                           "cluster, so no launch was checked for determinism")
     return rows
 
 
@@ -4051,7 +4115,8 @@ def bf16_train_run(tmp, name, argv, micro_expect, entry=None):
 def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
     """Phase 23: B1's bf16 form at the 33 forward shapes of a dim-128
     micro-step (B 32 x H 160) and the 20 of the ValueFunction (B 16 x H 64),
-    B2's bf16 form at the 33 shapes of a dim-128 micro-step and
+    B2's bf16 form at the 33 shapes of a dim-128 micro-step and the 20 of a
+    value step, each beside cuDNN's bf16 wgrad, and
     B3's bf16 entry with the keep mask at la_train's shape, each against its
     plain version and timed; the bf16 micro-steps' and value guidance's
     gradients against the plain path; then ``cli.train.main`` on the train
@@ -4071,8 +4136,12 @@ def bf16_train_phase(dev, timer, args, tmp, peaks, la_cfg):
     out = {"per_micro_step": n_blocks, "per_value_forward": sum(per_value.values()),
            "b1_rows": bf16_b1_rows(dev, timer, per_step, peaks, TRAIN_B),
            "b1_value_rows": bf16_b1_rows(dev, timer, per_value, peaks, B),
-           "b2_rows": bf16_b2_rows(dev, timer, per_step, peaks, TRAIN_B),
+           "b2_rows": bf16_b2_rows(dev, timer, per_step, peaks, TRAIN_B, "micro_step"),
+           "b2_value_rows": bf16_b2_rows(dev, timer, per_value, peaks, B, "value_step"),
            "b3_keep_row": bf16_b3_keep_row(dev, timer, peaks, la_cfg.model)}
+    if not any(r["bit_identical"] for r in out["b2_rows"] + out["b2_value_rows"]):
+        raise RuntimeError("conv1d_weight_grad_bf16: no shape's plan splits the rows over a "
+                           "cluster, so no launch was checked for determinism")
     out["grads"] = bf16_grad_checks(dev, args.seed, la_cfg)
 
     unet_set = [f"train.gradient_accumulate_every={ACCUM}", "train.log_every=10",
@@ -4464,7 +4533,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ptxas = build_all()
     build_s = time.perf_counter() - t0
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "wgrad_bf16_sass": wgrad_bf16_sass()})
 
     timer = Timer(dev)
     torch.manual_seed(args.seed)
@@ -4748,11 +4818,11 @@ def main(argv=None) -> int:
         "shape": {"B": LA_B, "N": LA_H, "heads": b3b["heads"], "dim_head": b3b["dim_head"],
                   "window": b3b["window"]},
     }]
-    # phase 23: B2's bf16 form summed over one dim-128 micro-step's 33 launches (B 32 x H 160),
-    # B3's bf16 entry with the keep mask per launch at B 64 x N 96; launches from the bf16
-    # cli.train runs
+    # phase 23: B2's bf16 form summed over one dim-128 micro-step's 33 launches (B 32 x H 160)
+    # and a value step's 20 (B 16 x H 64), B3's bf16 entry with the keep mask per launch at
+    # B 64 x N 96; launches from the bf16 cli.train runs
     bt = result["bf16_train"]
-    b2b, b3k = bt["b2_rows"], bt["b3_keep_row"]
+    b2b, b2v, b3k = bt["b2_rows"], bt["b2_value_rows"], bt["b3_keep_row"]
     kernels[-2]["launches_train"] = bt["unet"]["launches"][B1_BF16]
     kernels[-1]["launches_train"] = bt["la"]["launches"][B3_BF16]
     for key, rows in (("train_micro_step", bt["b1_rows"]), ("value_forward", bt["b1_value_rows"])):
@@ -4763,15 +4833,19 @@ def main(argv=None) -> int:
         "name": "conv1d_weight_grad_bf16", "route": "cuda",
         "status": "ported; matches its plain version",
         "form": "B2 at bf16 (bf16 x and dy, float32 sums and dW)",
-        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv1d_weight_grad.cu",
+        "source": "deepmimic_diffusion_mujoco_tpu_torch/csrc/conv1d_weight_grad_bf16.cu",
         "replaces": "deepmimic_diffusion_mujoco_tpu/ops/pallas/conv_weight_grad.py:63",
         "launches": bt["unet"]["launches"][B2_BF16],
         "launches_per_micro_step": bt["per_micro_step"],
         "launches_value_step": bt["grads"]["value_diffusion_loss"]["launches"][B2_BF16],
-        "max_abs_err": max(r["max_abs_err"] for r in b2b),
-        "max_rel_err": max(r["max_rel_err"] for r in b2b),
-        **{k: per_launch_sum(b2b, k, "per_micro_step")
+        "max_abs_err": max(r["max_abs_err"] for r in b2b + b2v),
+        "max_rel_err": max(r["max_rel_err"] for r in b2b + b2v),
+        **{k: per_launch_sum(b2b, k, "per_step")
            for k in ("ms", "plain_ms", "bound_ms", "library_ms", "f32_kernel_ms")},
+        "value_step": {k: per_launch_sum(b2v, k, "per_step")
+                       for k in ("ms", "plain_ms", "bound_ms", "library_ms", "f32_kernel_ms")},
+        "shapes_slower_than_library": [[r["B"], r["H"], r["cin"], r["cout"]]
+                                       for r in b2b + b2v if not r["faster_than_library"]],
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in b2b)
         else "bytes", "library": "torch.nn.grad.conv1d_weight on the bf16 tensors (cuDNN)",
         "shape": {"B": TRAIN_B, "H": TRAIN_H, "launches_per_micro_step": bt["per_micro_step"]},

@@ -59,22 +59,7 @@
 //     "empty" mbarrier; the ring is filled up front, so a CTA with no more
 //     chunks than stages waits on one memory round trip.
 //
-//
-// The bf16 form (conv1d_weight_grad_bf16: a model built with bf16=True, whose
-// conv block backward hands B2 bf16 x and a bf16 cotangent; the Pallas kernel
-// then sums their products in float32, preferred_element_type=float32, and
-// writes float32 dW). The same kernel, templated on the staged element: the
-// ring holds bf16 (half the bytes a stage), and a k-step is 16 rows, one
-// mma.sync.m16n8k16 bf16 product with float32 sums (csrc/mma_bf16.h): a
-// product of two bf16 values is exact in float32, so no operand is split.
-// The A fragment (16 input channels x 16 rows of a tap) and the B fragments
-// (16 rows x 8 output channels) come from the staged rows with
-// ldmatrix.x4.trans; the zero padding between batch rows is applied to the
-// loaded A fragment, 16 bits at a time, from each row's position h. The
-// bound at bf16 is the same operations at the tensor cores' bf16 rate (989
-// TFLOP/s dense on an H100 SXM) against half the bytes. Where Cin or Cout is
-// no multiple of 8 (the first block's 35 channels) the rows are staged
-// element by element through registers (cp.async copies 4 bytes at least).
+// The bf16 form (bf16 x and dy) is csrc/conv1d_weight_grad_bf16.cu.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrapper (ops/conv_weight_grad.py) validates shapes, dtypes and
@@ -84,7 +69,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.h"
 #include "mma_tf32.h"
 
 namespace coop = cooperative_groups;
@@ -102,8 +86,7 @@ constexpr int kWarpCi = 16;            // a warp's piece of the tile: 16 input c
 constexpr int kWarpCo = 32;            // ... x 32 output channels
 constexpr int kNT = kWarpCo / 8;       // n8 tiles of a warp's piece
 constexpr int kMaxRows = 64;           // dy rows per chunk, at most
-constexpr int kStepF32 = 8;            // rows of a k-step: m16n8k8 (3xTF32) ...
-constexpr int kStepBf16 = 16;          // ... and m16n8k16 (bf16)
+constexpr int kStep = 8;               // rows of a k-step: m16n8k8 (3xTF32)
 constexpr int kPassTaps = 5;           // taps a pass over a staged chunk computes
 constexpr int kPadCols = 8;            // staged row stride = tile width + 8: with a
                                        // stride of 8 (mod 32) words the fragment
@@ -119,21 +102,19 @@ struct Plan {
   int slices;   // warps per piece of the tile; slice s takes k-steps s, s + S, ...
 };
 
-// Shared memory of one plan: the ring of staged chunks (elements of
-// `esize` bytes: 4 float32, 2 bf16) and, with slices or a cluster, the
-// float32 partial tile (k x tci rows of tco + kPadCols), which reuses the
-// ring once every chunk is consumed. With kPadCols 8 a bf16 row is an odd
-// number of 16-byte pieces, so the 8 rows of one ldmatrix hit 8 bank groups.
+// Shared memory of one plan: the ring of staged chunks and, with slices or a
+// cluster, the partial tile (k x tci rows of tco + kPadCols), which reuses
+// the ring once every chunk is consumed.
 struct Layout {
-  int sx, sd;    // row strides of staged x and dy, in elements
+  int sx, sd;    // row strides of staged x and dy, in floats
   int x_rows;    // staged x rows a chunk: rows + k - 1
-  int stage;     // one ring stage, in elements
-  int ring;      // elements
+  int stage;     // one ring stage, in floats
+  int ring;      // floats
   int part;      // floats
   size_t bytes;  // dynamic shared memory
 };
 
-__host__ __device__ inline Layout layout(const Plan& p, int K, int esize) {
+__host__ __device__ inline Layout layout(const Plan& p, int K) {
   Layout l;
   l.sx = p.tci + kPadCols;
   l.sd = p.tco + kPadCols;
@@ -141,7 +122,7 @@ __host__ __device__ inline Layout layout(const Plan& p, int K, int esize) {
   l.stage = l.x_rows * l.sx + p.rows * l.sd;
   l.ring = p.stages * l.stage;
   l.part = p.cluster > 1 || p.slices > 1 ? K * p.tci * l.sd : 0;
-  const size_t ring = (size_t)esize * l.ring, part = sizeof(float) * (size_t)l.part;
+  const size_t ring = sizeof(float) * (size_t)l.ring, part = sizeof(float) * (size_t)l.part;
   l.bytes = ring > part ? ring : part;
   return l;
 }
@@ -201,14 +182,13 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // Start the copies of rows [r0, r0 + n) x channels [c0, c0 + width) of
-// `src` (rows of ld elements T, R of them) into `dst` (row stride `stride`),
-// kW elements a copy: 16-byte cp.async, 4-byte cp.async (float32), or at
-// bf16 (T = uint16_t, the bits) a load and a store through registers; rows
-// outside [0, R) and channels past ld become zeros.
-template <typename T, int kW>
-__device__ __forceinline__ void stage_rows(T* dst, int stride, int n, int width, const T* src,
-                                           int ld, long long r0, int R, int c0, int tid,
-                                           int threads) {
+// `src` (rows of ld floats, R of them) into `dst` (row stride `stride`),
+// kW floats a copy (16-byte or 4-byte cp.async); rows outside [0, R) and
+// channels past ld become zeros.
+template <int kW>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, int n, int width,
+                                           const float* src, int ld, long long r0, int R, int c0,
+                                           int tid, int threads) {
   const int per_row = width / kW;
   const int ds = threads / per_row, dq = threads % per_row;
   int s = tid / per_row, q = tid % per_row;  // this thread's first copy; then steps of threads
@@ -216,13 +196,11 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, int n, int width,
     const long long r = r0 + s;
     const int c = c0 + kW * q;
     const bool ok = r >= 0 && r < R && c < ld;
-    const T* from = ok ? src + r * ld + c : src;
-    if constexpr (kW * sizeof(T) == 16)
+    const float* from = ok ? src + r * ld + c : src;
+    if constexpr (kW == 4)
       copy16(dst + s * stride + kW * q, from, ok);
-    else if constexpr (sizeof(T) == 4)
-      copy4(dst + s * stride + q, from, ok);
     else
-      dst[s * stride + q] = ok ? *from : T(0);
+      copy4(dst + s * stride + q, from, ok);
     s += ds;
     q += dq;
     if (q >= per_row) {
@@ -308,83 +286,6 @@ __device__ __forceinline__ void chunk_mma(float (&acc)[K][kNT][4], const float* 
     chunk_mma<K, P0 + NP>(acc, xs, ds, sx, sd, k_first, k_step, rows, ha0, hb0, dh, H, t4);
 }
 
-// 0xffff in the half of a bf16 pair whose row is valid: (row 2 t4 in the low
-// half, 2 t4 + 1 in the high one), as ldmatrix packs a fragment
-__device__ __forceinline__ uint32_t pair_mask(bool lo, bool hi) {
-  return (lo ? 0x0000ffffu : 0u) | (hi ? 0xffff0000u : 0u);
-}
-
-// The bf16 form of chunk_mma: taps [P0, P0 + kPassTaps) and then the next
-// pass, over the warp's k-steps of 16 rows (k_first, k_first + k_step, ...).
-// `xs` points at staged x row 0, column (the warp's first input channel);
-// `ds` at staged dy row 0, column (its first output channel). Lane l gives
-// ldmatrix the row address of row l % 8 of matrix l / 8: for A (x, stored
-// k-major: rows are reduction rows, input channels contiguous) matrix j
-// covers rows 8 (j / 2) and channels 8 (j % 2), so .trans yields A's
-// fragments a0..a3 (channels g, g + 8; rows 2 t4 (+1), 2 t4 + 8 (+1)); for B
-// (dy, rows x output channels) matrix j covers rows 8 (j % 2) and channels
-// 8 (j / 2) of a pair of n8 tiles. The lane's four A rows sit at positions
-// h0, h0 + 1, h0 + 8, h0 + 9 (mod H) of their batch rows; tap t of a row is
-// zero unless h + t - pad_l lies in [0, H).
-template <int K, int P0>
-__device__ __forceinline__ void chunk_mma_bf16(float (&acc)[K][kNT][4], const uint16_t* xs,
-                                               const uint16_t* ds, int sx, int sd, int k_first,
-                                               int k_step, int rows, int h_first, int dh,
-                                               const int (&dr)[3], int H, int lane) {
-  constexpr int kPad = (K - 1) / 2;
-  constexpr int NP = K - P0 < kPassTaps ? K - P0 : kPassTaps;
-  float c[NP][kNT][4];
-#pragma unroll
-  for (int u = 0; u < NP; ++u)
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[u][n][j] = 0.f;
-  const int i8 = lane & 7, j4 = lane >> 3;
-  const uint16_t* a_row = xs + (i8 + 8 * (j4 >> 1)) * sx + 8 * (j4 & 1);
-  const uint16_t* b_row = ds + (i8 + 8 * (j4 & 1)) * sd + 8 * (j4 >> 1);
-  int h0 = h_first;
-  for (int k0 = k_first; k0 < rows; k0 += k_step) {
-    uint32_t b[kNT][2];
-#pragma unroll
-    for (int n = 0; n < kNT; n += 2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, b_row + k0 * sd + 8 * n);
-      b[n][0] = r[0];
-      b[n][1] = r[1];
-      b[n + 1][0] = r[2];
-      b[n + 1][1] = r[3];
-    }
-    const int h1 = wrap(h0 + dr[0], H), h8 = wrap(h0 + dr[1], H), h9 = wrap(h0 + dr[2], H);
-#pragma unroll
-    for (int u = 0; u < NP; ++u) {
-      const int t = P0 + u - kPad;
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, a_row + (k0 + P0 + u) * sx);
-      const uint32_t m0 = pair_mask((unsigned)(h0 + t) < (unsigned)H,
-                                    (unsigned)(h1 + t) < (unsigned)H);
-      const uint32_t m8 = pair_mask((unsigned)(h8 + t) < (unsigned)H,
-                                    (unsigned)(h9 + t) < (unsigned)H);
-      a[0] &= m0;
-      a[1] &= m0;
-      a[2] &= m8;
-      a[3] &= m8;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) mma_bf16(c[u][n], a, b[n]);
-    }
-    h0 = wrap(h0 + dh, H);
-  }
-#pragma unroll
-  for (int u = 0; u < NP; ++u)
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[P0 + u][n][j] += c[u][n][j];
-  if constexpr (P0 + NP < K)
-    chunk_mma_bf16<K, P0 + NP>(acc, xs, ds, sx, sd, k_first, k_step, rows, h_first, dh, dr, H,
-                               lane);
-}
-
 // out[row, co], out[row, co + 1] = a, b where they lie inside Cout
 __device__ __forceinline__ void store_pair(float* out, size_t row, int co, int Cout, float a,
                                            float b) {
@@ -400,24 +301,20 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
-// Grid: tiles x cluster CTAs, 1-D, clusters of p.cluster along x. T: float
-// (the 3xTF32 path) or uint16_t (the bits of bf16 x and dy). `vec`: Cin and
-// Cout are multiples of 16 bytes' elements and x, dy start on 16 bytes, so
-// rows are staged as 16-byte pieces; else one element at a time.
-template <typename T, int K>
+// Grid: tiles x cluster CTAs, 1-D, clusters of p.cluster along x. `vec`:
+// Cin and Cout are multiples of 4 and x, dy start on 16 bytes, so rows are
+// staged as 16-byte pieces; else one float at a time.
+template <int K>
 __global__ void __launch_bounds__(kMaxThreads)
-conv1d_weight_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+conv1d_weight_grad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                           float* __restrict__ out, int R, int H, int Cin, int Cout, const Plan p,
                           int vec) {
   constexpr int kPad = (K - 1) / 2;
-  constexpr bool kBf16 = sizeof(T) == 2;
-  constexpr int kStep = kBf16 ? kStepBf16 : kStepF32;
-  constexpr int kVec = 16 / sizeof(T);  // elements of a 16-byte copy
   extern __shared__ float4 smem4[];
   __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
   float* smem = reinterpret_cast<float*>(smem4);
-  T* ring = reinterpret_cast<T*>(smem4);
-  const Layout l = layout(p, K, sizeof(T));
+  float* ring = smem;
+  const Layout l = layout(p, K);
   const int C = p.cluster;
   const int rank = blockIdx.x % C;
   const int tile = blockIdx.x / C;
@@ -447,20 +344,17 @@ conv1d_weight_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   // rows [r0, r0 + rows) and x rows [r0 - pad_l, r0 + rows + k - 1 - pad_l)
   // of the tile's channels, zeros outside the tensors.
   auto produce = [&](int i) {
-    T* xs = ring + (i % p.stages) * l.stage;
-    T* ds = xs + l.x_rows * l.sx;
+    float* xs = ring + (i % p.stages) * l.stage;
+    float* ds = xs + l.x_rows * l.sx;
     const long long r0 = (long long)(c_begin + i) * p.rows;
     if (vec) {
-      stage_rows<T, kVec>(xs, l.sx, l.x_rows, p.tci, x, Cin, r0 - kPad, R, ci0, tid, threads);
-      stage_rows<T, kVec>(ds, l.sd, p.rows, p.tco, dy, Cout, r0, R, co0, tid, threads);
+      stage_rows<4>(xs, l.sx, l.x_rows, p.tci, x, Cin, r0 - kPad, R, ci0, tid, threads);
+      stage_rows<4>(ds, l.sd, p.rows, p.tco, dy, Cout, r0, R, co0, tid, threads);
     } else {
-      stage_rows<T, 1>(xs, l.sx, l.x_rows, p.tci, x, Cin, r0 - kPad, R, ci0, tid, threads);
-      stage_rows<T, 1>(ds, l.sd, p.rows, p.tco, dy, Cout, r0, R, co0, tid, threads);
+      stage_rows<1>(xs, l.sx, l.x_rows, p.tci, x, Cin, r0 - kPad, R, ci0, tid, threads);
+      stage_rows<1>(ds, l.sd, p.rows, p.tco, dy, Cout, r0, R, co0, tid, threads);
     }
-    if (kBf16 && !vec)
-      mbar_arrive(&full[i % p.stages]);  // stores through registers: the arrive releases them
-    else
-      mbar_arrive_on_copies(&full[i % p.stages]);
+    mbar_arrive_on_copies(&full[i % p.stages]);
   };
 
   float acc[K][kNT][4];
@@ -477,21 +371,13 @@ conv1d_weight_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     const int st = i % p.stages;
     const uint32_t parity = (i / p.stages) & 1;
     mbar_wait(&full[st], parity);
-    const T* xs = ring + st * l.stage;
-    const T* ds = xs + l.x_rows * l.sx;
+    const float* xs = ring + st * l.stage;
+    const float* ds = xs + l.x_rows * l.sx;
     const long long row0 = (long long)(c_begin + i) * p.rows + kStep * slice;
-    if constexpr (kBf16) {
-      // the place in its batch row of this lane's first row, 2 t4 of the slice's first k-step
-      const int h0 = (int)((row0 + 2 * t4) % H);
-      const int dr[3] = {1 % H, 8 % H, 9 % H};
-      chunk_mma_bf16<K, 0>(acc, xs + ciw, ds + cow, l.sx, l.sd, kStep * slice, k_step, p.rows,
-                           h0, dh, dr, H, lane);
-    } else {
-      // the place in its batch row of this lane's first row, t4 of the slice's first k-step
-      const int ha = (int)((row0 + t4) % H);
-      chunk_mma<K, 0>(acc, xs + ciw + g, ds + cow + g, l.sx, l.sd, kStep * slice, k_step,
-                      p.rows, ha, (ha + 4) % H, dh, H, t4);
-    }
+    // the place in its batch row of this lane's first row, t4 of the slice's first k-step
+    const int ha = (int)((row0 + t4) % H);
+    chunk_mma<K, 0>(acc, xs + ciw + g, ds + cow + g, l.sx, l.sd, kStep * slice, k_step, p.rows,
+                    ha, (ha + 4) % H, dh, H, t4);
     mbar_arrive(&empty[st]);
     if (i + p.stages < n) {  // refill this stage once every thread has read it
       mbar_wait(&empty[st], parity);
@@ -565,24 +451,22 @@ conv1d_weight_grad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   if (C > 1) cluster_sync();  // no rank leaves while another may still read its shared memory
 }
 
-// The plan's own consistency at element size esize (4 float32, 2 bf16);
-// false for a plan the kernel does not take.
-bool plan_ok(const Plan& p, int K, int esize) {
-  const int step = esize == 2 ? kStepBf16 : kStepF32;
+// The plan's own consistency; false for a plan the kernel does not take.
+bool plan_ok(const Plan& p, int K) {
   if (p.tci <= 0 || p.tci % kWarpCi || p.tco <= 0 || p.tco % kWarpCo || p.rows <= 0 ||
-      p.rows % step || p.rows > kMaxRows || p.stages < 1 || p.stages > kMaxStages ||
+      p.rows % kStep || p.rows > kMaxRows || p.stages < 1 || p.stages > kMaxStages ||
       p.cluster < 1 || p.cluster > kMaxCluster || p.slices < 1)
     return false;
   const int threads = plan_threads(p);
   return threads >= 32 && threads <= kMaxThreads &&
-         layout(p, K, esize).bytes + kStaticSmem <= (size_t)kMaxSmem;
+         layout(p, K).bytes + kStaticSmem <= (size_t)kMaxSmem;
 }
 
-template <typename T, int K>
-int launch_as(const T* x, const T* dy, float* out, int R, int H, int Cin, int Cout,
+template <int K>
+int launch_as(const float* x, const float* dy, float* out, int R, int H, int Cin, int Cout,
               const Plan& p, int vec, cudaStream_t stream) {
-  const auto kernel = conv1d_weight_grad_kernel<T, K>;
-  const Layout l = layout(p, K, sizeof(T));
+  const auto kernel = conv1d_weight_grad_kernel<K>;
+  const Layout l = layout(p, K);
   // Attributes set so far, per device: they apply to the current device only.
   // 48 KB holds static and dynamic bytes together: without the static ones a
   // plan just under 48 KB of dynamic bytes would be refused at launch.
@@ -623,25 +507,23 @@ int launch_as(const T* x, const T* dy, float* out, int R, int H, int Cin, int Co
 
 Plan read_plan(const int* v) { return Plan{v[0], v[1], v[2], v[3], v[4], v[5]}; }
 
-template <typename T>
-int launch(const T* x, const T* dy, float* out, int B, int H, int Cin, int Cout, int k,
+int launch(const float* x, const float* dy, float* out, int B, int H, int Cin, int Cout, int k,
            const int* plan, void* stream) {
   const Plan p = read_plan(plan);
   if (B <= 0 || H <= 0 || Cin <= 0 || Cout <= 0 || (long long)B * H > 0x7fffffff ||
-      !plan_ok(p, k, sizeof(T)))
+      !plan_ok(p, k))
     return (int)cudaErrorInvalidValue;
   const int R = B * H;
-  constexpr int kVec = 16 / sizeof(T);
-  const int vec = Cin % kVec == 0 && Cout % kVec == 0 &&
+  const int vec = Cin % 4 == 0 && Cout % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(dy) % 16 == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return launch_as<T, 1>(x, dy, out, R, H, Cin, Cout, p, vec, s);
-    case 3: return launch_as<T, 3>(x, dy, out, R, H, Cin, Cout, p, vec, s);
-    case 5: return launch_as<T, 5>(x, dy, out, R, H, Cin, Cout, p, vec, s);
-    case 7: return launch_as<T, 7>(x, dy, out, R, H, Cin, Cout, p, vec, s);
-    case 9: return launch_as<T, 9>(x, dy, out, R, H, Cin, Cout, p, vec, s);
+    case 1: return launch_as<1>(x, dy, out, R, H, Cin, Cout, p, vec, s);
+    case 3: return launch_as<3>(x, dy, out, R, H, Cin, Cout, p, vec, s);
+    case 5: return launch_as<5>(x, dy, out, R, H, Cin, Cout, p, vec, s);
+    case 7: return launch_as<7>(x, dy, out, R, H, Cin, Cout, p, vec, s);
+    case 9: return launch_as<9>(x, dy, out, R, H, Cin, Cout, p, vec, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -658,20 +540,11 @@ int conv1d_weight_grad_f32(const float* x, const float* dy, float* out, int B, i
   return launch(x, dy, out, B, H, Cin, Cout, k, plan, stream);
 }
 
-// The bf16 form: x (B, H, Cin) and dy (B, H, Cout) bf16, out float32.
-int conv1d_weight_grad_bf16(const void* x, const void* dy, float* out, int B, int H, int Cin,
-                            int Cout, int k, const int* plan, void* stream) {
-  return launch(static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(dy), out, B, H,
-                Cin, Cout, k, plan, stream);
-}
-
 // The dynamic shared memory (bytes) the kernel lays out for a plan at kernel
-// size k and element size esize (4 float32, 2 bf16), or -1 for a plan it
-// does not take.
-int conv1d_weight_grad_smem_bytes(int k, const int* plan, int esize) {
+// size k, or -1 for a plan it does not take.
+int conv1d_weight_grad_smem_bytes(int k, const int* plan) {
   const Plan p = read_plan(plan);
-  if (esize != 2 && esize != 4) return -1;
-  return plan_ok(p, k, esize) ? (int)layout(p, k, esize).bytes : -1;
+  return plan_ok(p, k) ? (int)layout(p, k).bytes : -1;
 }
 
 const char* conv1d_weight_grad_error_string(int code) {

@@ -1,7 +1,7 @@
 // bf16 products on the tensor cores with float32 accumulation
 // (mma.sync m16n8k16), and the ldmatrix loads that feed its fragments from
 // shared memory. Used by csrc/conv_gn_mish_bf16.cu (B1's bf16 form) and
-// csrc/conv1d_weight_grad.cu (B2's bf16 form). A
+// csrc/conv1d_weight_grad_bf16.cu (B2's bf16 form: ldmatrix alone). A
 // product of two bf16 values is exact in float32, so c += a b equals the
 // float32 sum of the exact products up to the order of the additions.
 #pragma once

@@ -1,4 +1,5 @@
-// Hopper building blocks for csrc/conv_gn_mish_bf16.cu: swizzled shared-memory
+// Hopper building blocks for csrc/conv_gn_mish_bf16.cu and
+// csrc/conv1d_weight_grad_bf16.cu: swizzled shared-memory
 // offsets, mbarriers, TMA tile loads and warpgroup bf16 products (wgmma) with
 // A from registers and B from shared memory.
 //

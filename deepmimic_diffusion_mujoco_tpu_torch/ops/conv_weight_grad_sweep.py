@@ -16,12 +16,16 @@ cuDNN's weight gradient
 (``torch.nn.grad.conv1d_weight`` on channel-first copies made outside the
 timed call), each held against the plain version too.
 
-``--bf16`` sweeps the kernel's bf16 form instead (bf16 x and dy, float32 dW;
-chunk rows a multiple of its 16-row k-step) at the same shapes, beside
-cuDNN's bf16 weight gradient (which rounds dW to bf16, so it is held to
-BF16_LIB_TOL) and the float32 kernel's default plan on the float32
-widenings; its bounds are the bf16 operations at the tensor cores' rate
-and the bytes of bf16 inputs and a float32 output.
+``--bf16`` sweeps B2's bf16 form instead (``csrc/conv1d_weight_grad_bf16.cu``:
+bf16 x and dy, float32 dW) at the same shapes: every plan
+``make_wgrad_bf16_plan`` builds from a warpgroup layout (columns a
+warpgroup, warpgroups, the split of channels or taps), a cluster size,
+rows per chunk and x's staging (TMA or the CTA's threads), beside cuDNN's bf16
+weight gradient (which rounds dW to bf16, so it is held to BF16_LIB_TOL)
+and the float32 kernel's default plan on the float32 widenings, in the
+same turns; its bounds are the bf16 operations at the tensor cores' rate
+and the bytes of bf16 inputs and a float32 output. Each line also gives
+the rule's plan (``wgrad_bf16_plan``) against the best plan at the shape.
 
 Times: CUDA events, median of 15 launches with L2 flushed before each and
 the card held busy while they queue, after 2 s of matrix products; two
@@ -59,6 +63,7 @@ VALUE_SHAPES = [(64, 35, 32), (64, 32, 32), (32, 32, 64), (32, 64, 64), (16, 64,
                 (16, 128, 128), (8, 128, 256), (8, 256, 256), (8, 256, 128), (8, 128, 128),
                 (4, 128, 64), (4, 64, 64)]
 SHAPES = [(TRAIN_B, *s) for s in TRAIN_SHAPES] + [(VALUE_B, *s) for s in VALUE_SHAPES]
+BF16_ROWS = (32, 64, 128)
 TILES_CI = (16, 32, 48, 64, 128)
 TILES_CO = (32, 64, 128, 256)
 CLUSTERS = (1, 2, 4, 8, 16)
@@ -97,14 +102,13 @@ class SplitK:
         return out
 
 
-def plans(B, H, cin, cout, sms, bf16=False):
+def plans(B, H, cin, cout, sms):
     """The default plan and every plan of the tiles, clusters, chunk rows and
-    slices above that the kernel (its bf16 form with ``bf16``) takes
-    (duplicates once)."""
-    base = CW.wgrad_plan(B, H, cin, cout, K, sms, bf16)
+    slices above that the kernel takes (duplicates once)."""
+    base = CW.wgrad_plan(B, H, cin, cout, K, sms)
     seen = {base: None}
     R = B * H
-    step = CW.BF16_STEP if bf16 else CW.STEP
+    step = CW.STEP
     for tci in TILES_CI:
         if tci > -(-cin // 16) * 16:
             continue
@@ -122,7 +126,36 @@ def plans(B, H, cin, cout, sms, bf16=False):
                             continue
                         try:
                             p = CW.make_wgrad_plan(B, H, cin, cout, K, sms, tci=tci, tco=tco,
-                                                   rows=rows, cluster=c, slices=sl, bf16=bf16)
+                                                   rows=rows, cluster=c, slices=sl)
+                        except ValueError:
+                            continue
+                        seen.setdefault(p, None)
+    return base, list(seen)
+
+
+def bf16_plans(B, H, cin, cout, sms):
+    """The rule's bf16 plan and every plan of a warpgroup layout at k (each
+    instance, either split), a cluster size, chunk rows and x's staging
+    (the threads only where TMA could take x) that the kernel takes,
+    duplicates once."""
+    base = CW.wgrad_bf16_plan(B, H, cin, cout, K, sms)
+    seen = {base: None}
+    R = B * H
+    for kt, nw, wgs in CW.BF16_INSTANCES:
+        for split in (0, 1):
+            if CW.bf16_taps(K, wgs, split) != kt or (split and wgs < 2):
+                continue
+            tco = nw if split else nw * wgs
+            if tco > max(16, -(-cout // 16) * 16) * 2:  # tiles mostly past Cout
+                continue
+            for c in CLUSTERS:
+                for rows in BF16_ROWS:
+                    if rows > -(-R // (CW.BF16_STEP * c)) * CW.BF16_STEP:  # a rank's share
+                        continue
+                    for tma_x in ((1, 0) if cin % 8 == 0 else (1,)):
+                        try:
+                            p = CW.make_wgrad_bf16_plan(B, H, cin, cout, K, nw, wgs, split,
+                                                        rows, cluster=c, tma_x=tma_x)
                         except ValueError:
                             continue
                         seen.setdefault(p, None)
@@ -159,6 +192,7 @@ def main(argv=None) -> int:
     torch.cuda._sleep(1000)
     splitk = None if args.bf16 else SplitK()
     kernel = CW.conv1d_weight_grad_bf16_cuda if args.bf16 else CW.conv1d_weight_grad_cuda
+    plan_rows = bf16_plans if args.bf16 else plans
     g = torch.Generator(device=dev).manual_seed(0)
     results = []
     warm(dev)
@@ -192,7 +226,7 @@ def main(argv=None) -> int:
             ws = torch.empty(splits, K, cin, cout, device=dev)
             yardsticks["splitk"] = functools.partial(splitk, x, dy, splits, ws)
             errs["splitk"] = check(yardsticks["splitk"](), "the split-K kernel")
-        base, cands = plans(B, H, cin, cout, sms, args.bf16)
+        base, cands = plan_rows(B, H, cin, cout, sms)
         rows = []
         for p in cands:
             try:
@@ -201,7 +235,8 @@ def main(argv=None) -> int:
                 rows.append({"plan": repr(p), "error": str(e)[:200]})
                 continue
             rows.append({"plan": repr(p), "cluster": p.cluster,
-                         "rel_err": check(out, f"plan {p}"), "default": p == base, "_plan": p})
+                         "rel_err": check(out, f"plan {p}"), "default": p == base, "_plan": p,
+                         **({"fields": p.fields()} if args.bf16 else {})})
         timed = [r for r in rows if "_plan" in r]
         lib_ms = {}
         for rnd in ("first", "second"):  # plans and yardsticks in turns, twice
@@ -215,7 +250,8 @@ def main(argv=None) -> int:
             r["ms"] = min(r["ms_first"], r["ms_second"])
         best = min(timed, key=lambda r: r["ms"])
         default = next(r for r in timed if r["default"])
-        line = {"shape": [B, H, cin, cout, K], "path": base.path, "default_ms": default["ms"],
+        line = {"shape": [B, H, cin, cout, K],
+                "path": "bf16" if args.bf16 else base.path, "default_ms": default["ms"],
                 "default_plan": default["plan"], "default_rel_err": default["rel_err"],
                 "best_ms": best["ms"], "best_plan": best["plan"],
                 **{f"{name}_ms": min(ms) for name, ms in lib_ms.items()},

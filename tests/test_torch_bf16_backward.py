@@ -122,8 +122,9 @@ def _training_shapes():
 
 def test_training_shapes_have_bf16_plans():
     """Every conv block shape of a bf16 training micro-step and value step
-    has B1's bf16 plan and B2's bf16 plan (k-steps of 16 rows, a 2-byte
-    ring the kernel's layout mirrors) within 227 KB of shared memory."""
+    has B1's bf16 plan and B2's bf16 plan (``wgrad_bf16_plan``: a kernel
+    instance for its warpgroups, 16-row k-steps, a layout the kernel's
+    mirror gives) within 227 KB of shared memory."""
     shapes = _training_shapes()
     assert len(shapes) == 14 + 12
     for B, H, cin, cout in shapes:
@@ -131,27 +132,28 @@ def test_training_shapes_have_bf16_plans():
         assert b1.smem_bytes == TK.bf16_smem_bytes(H, cout // GROUPS, K, b1.rows, b1.cluster,
                                                    b1.split, b1.stages, b1.mma, b1.wgs)
         assert b1.smem_bytes + TK.BF16_STATIC_SMEM <= TK.MAX_SMEM
-        plan = TW.wgrad_plan(B, H, cin, cout, K, H100_SMS, bf16=True)
-        assert plan.path == TW.BF16_PATH and plan.esize == 2
-        assert plan.rows % TW.BF16_STEP == 0 and plan.rows <= TW.MAX_ROWS
-        assert plan.smem_bytes == TW.smem_bytes(plan.tci, plan.tco, plan.rows, plan.stages,
-                                                plan.cluster, plan.slices, K, esize=2)
-        assert plan.smem_bytes + TW.STATIC_SMEM <= TW.MAX_SMEM
-        # each slice keeps a k-step of a chunk, each rank a k-step of the rows
-        assert TW.BF16_STEP * plan.slices <= plan.rows
+        plan = TW.wgrad_bf16_plan(B, H, cin, cout, K, H100_SMS)
+        assert isinstance(plan, TW.WgradBf16Plan) and (plan.kt, plan.nw, plan.wgs) in \
+            TW.BF16_INSTANCES
+        assert plan.rows % TW.BF16_STEP == 0 and plan.rows <= TW.BF16_MAX_ROWS
+        assert plan.smem_bytes == TW.bf16_smem_bytes(plan.nw, plan.wgs, plan.split, plan.rows,
+                                                     plan.stages, plan.cluster, plan.chain, K)
+        assert plan.smem_bytes + TW.BF16_STATIC_SMEM <= TW.MAX_SMEM
+        # each rank keeps a k-step of the rows, and no chain outruns BF16_MAX_CHAIN k-steps
         assert TW.BF16_STEP * plan.cluster <= B * H
+        assert plan.longest_chain() <= TW.BF16_MAX_CHAIN
 
 
 def test_bf16_plans_stage_two_byte_elements_in_16_row_steps():
-    """The bf16 ring takes half the bytes of the float32 one at the same
-    plan, and a chunk's rows are a multiple of the bf16 k-step (16)."""
-    f32 = TW.make_wgrad_plan(32, 160, 128, 128, K, H100_SMS, tci=64, tco=64, rows=64,
-                             cluster=1, slices=1)
-    b16 = TW.make_wgrad_plan(32, 160, 128, 128, K, H100_SMS, tci=64, tco=64, rows=64,
-                             cluster=1, slices=1, bf16=True)
-    assert b16.stages >= f32.stages and b16.smem_bytes < f32.smem_bytes
+    """B2's bf16 ring stages bf16 rows: at one plan shape it takes less
+    shared memory than the float32 form's ring of the same rows, and a
+    chunk's rows are a multiple of the bf16 k-step (16)."""
+    f32 = TW.make_wgrad_plan(4, 160, 128, 128, K, H100_SMS, tci=64, tco=64, rows=64,
+                             cluster=1, slices=1, stages=1)
+    b16 = TW.make_wgrad_bf16_plan(4, 160, 128, 128, K, nw=64, wgs=1, rows=64, stages=1)
+    assert b16.stages == f32.stages and b16.smem_bytes < f32.smem_bytes
     with pytest.raises(ValueError, match="multiple of 16"):
-        TW.make_wgrad_plan(4, 8, 16, 32, K, H100_SMS, rows=8, bf16=True)
+        TW.make_wgrad_bf16_plan(4, 8, 16, 32, K, rows=8)
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ bf16 rounding), so the two agree within one bf16 ulp of the value plus the
 float32 forms' card tolerance for sums in another order: |d| <= 2^-7 |ref|
 + TOL elementwise. The dim-128 U-Net at bf16 sends every conv block to B1's
 bf16 kernel, and the local transformer every attention call to B3's bf16
-entry; no float32 launch happens on either path. B2's bf16 form sums the
-exact products of bf16 values in float32, as its plain version does: within
-WGRAD_TOL of max |dW| (the float32 form's card tolerance).
+entry; no float32 launch happens on either path. B2's bf16 form
+(csrc/conv1d_weight_grad_bf16.cu) sums the exact products of bf16 values in
+float32, as its plain version does: within WGRAD_TOL of max |dW| (the
+float32 form's card tolerance).
 
 Marked ``cuda``; each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package:
@@ -183,26 +184,106 @@ def test_b2_bf16_matches_plain(cuda, B, H, Cin, Cout, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("plan", [
-    dict(tci=16, tco=32, rows=16, stages=1, cluster=1, slices=1),
-    dict(tci=16, tco=64, rows=64, stages=4, cluster=16, slices=2),
-    dict(tci=64, tco=64, rows=32, stages=2, cluster=4, slices=1),
-    dict(tci=32, tco=32, rows=64, stages=3, cluster=2, slices=4),
-    dict(tci=32, tco=128, rows=64, stages=2, cluster=8, slices=1),
+    # x by TMA and by the CTA's threads; the warpgroups splitting the output channels (split 0)
+    # and the taps (split 1, two and three warpgroups); one CTA a tile, clusters of 2-16;
+    # chain joins into the float32 tile (one CTA and a cluster); ring depths 1-4
+    dict(nw=64, wgs=1, split=0, rows=16, stages=1, cluster=1),
+    dict(nw=64, wgs=2, split=0, rows=64, stages=4, cluster=16),
+    dict(nw=32, wgs=2, split=0, rows=32, stages=2, cluster=4, tma_x=0),
+    dict(nw=64, wgs=2, split=1, rows=128, stages=2, cluster=8),
+    dict(nw=64, wgs=3, split=1, rows=64, stages=3, cluster=2),
+    dict(nw=32, wgs=3, split=1, rows=48, stages=2, cluster=16, tma_x=0),
+    dict(nw=16, wgs=2, split=0, rows=128, stages=2, cluster=2, chain=8),
+    dict(nw=16, wgs=1, split=0, rows=32, stages=4, cluster=1, chain=4),
 ])
 def test_b2_bf16_plans(cuda, plan):
-    """Tiles, chunk rows, ring depths, clusters (to the non-portable 16) and
-    slices, at a training shape whose Cin (35) is staged through registers
-    and one staged in 16-byte pieces."""
+    """Every kind of bf16 plan at a training shape whose Cin (35) the CTA's
+    threads stage and one whose x comes by TMA; two launches give the same
+    bits."""
     for B, H, Cin, Cout in ((32, 160, 35, 128), (32, 40, 512, 256)):
         g = torch.Generator(device=cuda).manual_seed(Cin)
         x = torch.randn(B, H, Cin, generator=g, device=cuda).to(BF)
         dy = torch.randn(B, H, Cout, generator=g, device=cuda).to(BF)
-        p = CW.make_wgrad_plan(B, H, Cin, Cout, 5, CW.sm_count(x.device), bf16=True, **plan)
+        p = CW.make_wgrad_bf16_plan(B, H, Cin, Cout, 5, **plan)
         out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 5, plan=p)
         ref = CW.conv1d_weight_grad_plain(x, dy, 5)
         assert (out - ref).abs().max().item() <= WGRAD_TOL * ref.abs().max().item(), (B, H)
+        assert torch.equal(out, CW.conv1d_weight_grad_bf16_cuda(x, dy, 5, plan=p))
     with pytest.raises(ValueError, match="bf16 path"):
         CW.conv1d_weight_grad_cuda(x.float(), dy.float(), 5, plan=p)
+    with pytest.raises(ValueError, match="no bf16 plan"):
+        CW.conv1d_weight_grad_bf16_cuda(x[:, :20].contiguous(), dy[:, :20].contiguous(), 5,
+                                        plan=p)
+
+
+@pytest.mark.cuda
+def test_b2_bf16_long_rows_hold_the_tolerance(cuda):
+    """B 64 x H 160 = 10,240 rows (the largest reduction WGRAD_TOL covers) at
+    64 -> 64: the rule's plan (clusters of 16, 640 rows a rank), a chain join
+    every 16 k-steps, and chains of the most k-steps the kernel takes (64)."""
+    g = torch.Generator(device=cuda).manual_seed(64)
+    x = torch.randn(64, 160, 64, generator=g, device=cuda).to(BF)
+    dy = torch.randn(64, 160, 64, generator=g, device=cuda).to(BF)
+    ref = CW.conv1d_weight_grad_plain(x, dy, 5)
+    for p in (CW.wgrad_bf16_plan(64, 160, 64, 64, 5, CW.sm_count(cuda)),
+              CW.make_wgrad_bf16_plan(64, 160, 64, 64, 5, cluster=4, chain=16),
+              CW.make_wgrad_bf16_plan(64, 160, 64, 64, 5, rows=128, cluster=4, chain=64)):
+        out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 5, plan=p)
+        assert (out - ref).abs().max().item() <= WGRAD_TOL * ref.abs().max().item(), p
+    with pytest.raises(ValueError, match="chain"):
+        CW.make_wgrad_bf16_plan(64, 160, 64, 64, 5, rows=128, cluster=8, chain=0)
+
+
+@pytest.mark.cuda
+def test_b2_bf16_layout_matches_the_kernel(cuda):
+    """The kernel's own shared-memory layout (conv1d_weight_grad_bf16_smem_bytes)
+    equals bf16_smem_bytes at every instance, split, chain and a range of
+    rows and stages, and at the rule's plan for every training shape; each
+    rule plan's cluster fits the card."""
+    lib = CW._library_bf16()
+    n = 0
+    for kt, nw, wgs in CW.BF16_INSTANCES:
+        for split in (0, 1):
+            for k in CW.KERNEL_SIZES:
+                if CW.bf16_taps(k, wgs, split) != kt or (split and wgs < 2):
+                    continue
+                for rows, stages, cluster, chain in ((16, 1, 1, 0), (64, 2, 4, 0),
+                                                     (128, 3, 16, 0), (48, 2, 1, 8),
+                                                     (128, 2, 2, 64)):
+                    try:
+                        p = CW.make_wgrad_bf16_plan(4096, 1, 64, 128, k, nw, wgs, split, rows,
+                                                    stages, cluster, chain)
+                    except ValueError:
+                        continue
+                    got = lib.conv1d_weight_grad_bf16_smem_bytes(k, p.ints)
+                    assert got == p.smem_bytes, p
+                    n += 1
+    assert n >= 3 * len(CW.BF16_INSTANCES)
+    for B, H, cin, cout in ((32, 160, 35, 128), (32, 20, 1024, 1024), (16, 64, 35, 32),
+                            (16, 4, 64, 64)):
+        p = CW.wgrad_bf16_plan(B, H, cin, cout, 5, CW.sm_count(cuda))
+        smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        assert lib.conv1d_weight_grad_bf16_plan_check(5, p.ints, ctypes.byref(smem),
+                                                      ctypes.byref(clusters)) == 0
+        assert smem.value == p.smem_bytes and clusters.value >= 1
+
+
+@pytest.mark.cuda
+def test_b2_bf16_sass_runs_wgmma_with_dy_by_tma(cuda):
+    """Every instance of B2's bf16 kernel, as built: HGMMA (wgmma) products,
+    UTMALDG (TMA) loads, LDSM (ldmatrix) for the x fragments, and no local
+    memory (no spills)."""
+    from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
+    so = _build.build("conv1d_weight_grad_bf16")
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = [f for f in sass.split("Function : ")[1:] if "wgrad_bf16_kernel" in f.split()[0]]
+    assert len(funcs) == len(CW.BF16_INSTANCES)
+    for f in funcs:
+        body = f.split("\n", 1)[1]
+        assert "HGMMA" in body and "UTMALDG" in body and "LDSM" in body, f.split()[0]
+        assert "LDL" not in body and "STL" not in body, f.split()[0]
 
 
 @pytest.mark.cuda
@@ -340,16 +421,15 @@ if sys.argv[1] == "b1_bf16":
     err = (out.float() - CB.conv_gn_mish_plain(x, w, b, gamma + 1, beta, 8).float()).abs().max()
     smem, static = plan.smem_bytes, CB.BF16_STATIC_SMEM
 elif sys.argv[1] == "b2_bf16":
-    # the bf16 ring at 49,152 dynamic bytes (4 stages of 6,144 bf16): the bf16 instantiation
-    # opts in on its own
+    # B2's bf16 kernel, its first launch at a plan above 48 KB (51,200 dynamic bytes: one
+    # stage of 136 x rows and two 64-column dy atoms; the plan check opts in)
     x = torch.randn(2, 96, 16, generator=g, device="cuda").to(torch.bfloat16)
-    dy = torch.randn(2, 96, 64, generator=g, device="cuda").to(torch.bfloat16)
-    plan = CW.make_wgrad_plan(2, 96, 16, 64, 1, 132, tci=16, tco=64, rows=64, stages=4,
-                              cluster=1, slices=1, bf16=True)
-    ref = CW.conv1d_weight_grad_plain(x, dy, 1)
-    out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 1, plan=plan)
+    dy = torch.randn(2, 96, 128, generator=g, device="cuda").to(torch.bfloat16)
+    plan = CW.make_wgrad_bf16_plan(2, 96, 16, 128, 5, nw=64, wgs=2, rows=128, stages=1)
+    ref = CW.conv1d_weight_grad_plain(x, dy, 5)
+    out = CW.conv1d_weight_grad_bf16_cuda(x, dy, 5, plan=plan)
     err = (out - ref).abs().max() / ref.abs().max()
-    smem, static = plan.smem_bytes, CW.STATIC_SMEM
+    smem, static = plan.smem_bytes, CW.BF16_STATIC_SMEM
 elif sys.argv[1] == "b2":
     # 49,152 dynamic bytes: 48 KB exactly, over it with the 64 static bytes
     x = torch.randn(2, 96, 16, generator=g, device="cuda")
@@ -377,8 +457,8 @@ print(json.dumps({"smem": smem, "static": static, "err": err.item()}))
 def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     """B2's launcher opts in above 48 KB by its static and dynamic bytes
     together: a fresh process whose first B2 plan takes exactly 48 KB of
-    dynamic shared memory (over it with the 64 static bytes) runs, in the
-    float32 form and in the bf16 form (its 2-byte ring counted as such). B3's
+    dynamic shared memory (over it with the 64 static bytes) runs. B2's bf16
+    kernel runs its first launch at a plan above 48 KB. B3's
     dynamic bytes are multiples of 80, 144, 272 or 528 and none lies within
     16 bytes under 48 KB, so its fresh process runs the bf16 entry's first
     launch at a plan above 48 KB: each instantiation opts in on its own. B1's
@@ -389,9 +469,11 @@ def test_first_plan_in_a_fresh_process_runs(cuda, kind):
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    if kind.startswith("b2"):
+    if kind == "b2":
         assert got["smem"] <= 48 * 1024 < got["smem"] + got["static"]
         assert got["err"] <= 1e-5
+    elif kind == "b2_bf16":
+        assert got["smem"] > 48 * 1024 and got["err"] <= 1e-5
     elif kind == "b1_bf16":
         assert got["smem"] > 48 * 1024 and got["err"] <= 0.05
     else:

@@ -160,6 +160,61 @@ def test_3xtf32_emulation_holds_wgrad_tol_over_10240_rows(products, within):
     assert (err <= WGRAD_TOL) == within, err
 
 
+def _rz(a: np.ndarray) -> np.ndarray:
+    """float64 values rounded to float32 toward zero."""
+    f = a.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(a)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _bf16_chains_wgrad(x, dy, k, chain, rounds_per_step):
+    """B2's bf16 sums as its tensor cores and epilogue make them: per tap,
+    the exact products of each 16-row k-step added to a chain's accumulator
+    and rounded toward zero (``rounds_per_step`` times a k-step: 1, or 2 for
+    8-row halves), each ``chain`` k-steps joined into a float32 sum rounded
+    to nearest."""
+    B, H, cin = x.shape
+    pad_l = (k - 1) // 2
+    xp = np.pad(x, ((0, 0), (pad_l, k - 1 - pad_l), (0, 0)))
+    d = dy.reshape(B * H, -1)
+    n = 16 // rounds_per_step
+    out = []
+    for t in range(k):
+        a = xp[:, t:t + H].reshape(B * H, cin)
+        prods = np.einsum("sri,srj->sij", a.reshape(-1, n, cin), d.reshape(-1, n, d.shape[1]))
+        total = np.zeros(prods.shape[1:], dtype=np.float32)
+        acc = np.zeros_like(total)
+        for s in range(prods.shape[0]):
+            acc = _rz(acc.astype(np.float64) + prods[s])
+            if (s + 1) % (chain * rounds_per_step) == 0:
+                total, acc = total + acc, np.zeros_like(acc)
+        out.append(total + acc)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("rounds_per_step", [1, 2])
+@pytest.mark.parametrize("chain,within", [("plan", True), (TW.BF16_MAX_CHAIN, True),
+                                          (640, False)])
+def test_bf16_round_toward_zero_chains_hold_wgrad_tol_over_10240_rows(chain, within,
+                                                                      rounds_per_step):
+    """B2's bf16 form over B 64 x H 160 = 10,240 rows at 64 -> 64, k 5, on
+    bf16 values: chains of the rule plan's longest (a rank's 640 rows, 40
+    k-steps) and of BF16_MAX_CHAIN k-steps, rounded toward zero once or twice
+    a k-step and joined in float32, stay within WGRAD_TOL of float64; one
+    chain over every row (640 k-steps) does not."""
+    rng = np.random.default_rng(10)
+    rb = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    x = rb(rng.normal(size=(64, 160, 64))).astype(np.float64)
+    dy = rb(rng.normal(size=(64, 160, 64))).astype(np.float64)
+    if chain == "plan":
+        chain = TW.wgrad_bf16_plan(64, 160, 64, 64, 5, 132).longest_chain()
+        assert chain <= TW.BF16_MAX_CHAIN
+    ref = _plain(x, dy, 5)
+    err = np.abs(_bf16_chains_wgrad(x, dy, 5, chain, rounds_per_step) - ref).max()
+    assert (err <= WGRAD_TOL * np.abs(ref).max()) == within, err / np.abs(ref).max()
+
+
 def _value_inputs(H, cin, cout, seed):
     rng = np.random.default_rng(seed)
     return (rng.normal(size=(16, H, cin)).astype(np.float32),
