@@ -1161,9 +1161,11 @@ def b3_composition(qkv, h, dh, w, tables, mask):
     return out.transpose(1, 2).reshape(B, Np, h * dh)[:, :N]
 
 
-def attention_plan_row(Np, C, P, w, causal, dh, batch_heads):
-    """B3's / B4's launch plan for a shape, as a JSON-ready dict."""
-    return dataclasses.asdict(FA.attention_plan(Np, C, P, w, causal, dh, batch_heads))
+def attention_plan_row(Np, C, P, w, causal, dh, batch_heads, elem=4, keep=False):
+    """B3's / B4's launch plan for a shape (``elem`` 2: the bf16 form's;
+    ``keep``: with a dropout keep mask), as a JSON-ready dict."""
+    return dataclasses.asdict(FA.attention_plan(Np, C, P, w, causal, dh, batch_heads,
+                                                elem=elem, keep=keep))
 
 
 SERVE_MASKS = ("none", "lengths", "lengths+keep")
@@ -3600,7 +3602,8 @@ def bf16_b3_row(dev, timer, peaks, mcfg):
     nbytes = 2.0 * 4 * LA_B * LA_H * h * dh
     bound_ms, bound_by = bound(flops, nbytes, peaks)
     row = {"B": LA_B, "N": LA_H, "heads": h, "dim_head": dh, "window": w, **err,
-           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_B * h),
+           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_B * h, elem=2),
+           "f32_plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_B * h),
            "ms": timer(lambda: FA.fused_qkv_local_attention_bf16_cuda(*args)),
            "f32_kernel_ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args32)),
            "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args)),
@@ -3904,7 +3907,9 @@ def bf16_b3_keep_row(dev, timer, peaks, mcfg):
     bound_ms, bound_by = bound(flops, nbytes, peaks)
     row = {"B": LA_TRAIN_B, "N": LA_TRAIN_H, "heads": h, "dim_head": dh, "window": w,
            "keep_prob": KEEP_PROB, **err,
-           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_TRAIN_B * h),
+           "plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_TRAIN_B * h, elem=2,
+                                      keep=True),
+           "f32_plan": attention_plan_row(Np, p["C"], p["P"], w, causal, dh, LA_TRAIN_B * h),
            "ms": timer(lambda: FA.fused_qkv_local_attention_bf16_cuda(*args)),
            "f32_kernel_ms": timer(lambda: FA.fused_qkv_local_attention_cuda(*args32)),
            "plain_ms": timer(lambda: FA.fused_qkv_local_attention_plain(*args)),
@@ -4312,7 +4317,10 @@ def seq_bf16_k3_rows(dev, timer, peaks, mcfg):
         flops = h * 4.0 * dh * pairs + 6.0 * SEQ_B * (n + Nh) * h * dh
         row = {"rank": rank, "B": SEQ_B, "Nh": Nh, "q0": q0, "Nq": n, "pos0": pos0, **err,
                "vs_b3_bf16": vs_b3,
-               "plan": dataclasses.asdict(FA.halo_plan(SEQ_B, h, dh, w, q0, n, Nh, causal, True)),
+               "plan": dataclasses.asdict(FA.halo_plan(SEQ_B, h, dh, w, q0, n, Nh, causal, True,
+                                                       elem=2)),
+               "f32_plan": dataclasses.asdict(FA.halo_plan(SEQ_B, h, dh, w, q0, n, Nh, causal,
+                                                           True)),
                "ms": timer(lambda: FA.local_attention_halo_bf16_cuda(*args)),
                "f32_kernel_ms": timer(lambda: FA.local_attention_halo_cuda(*args32)),
                "plain_ms": timer(lambda: FA.local_attention_halo_plain(*args)),
@@ -4367,7 +4375,10 @@ def bf16_b4_rows(dev, timer, peaks, mcfg):
         flops = h * 4.0 * dh * pairs + 6.0 * batch * h * n * dh
         bound_ms, bound_by = bound(flops, 2.0 * 4 * batch * h * n * dh, peaks)
         rows.append({"B": batch, "heads": h, "N": n, "dh": dh, **err,
-                     "plan": attention_plan_row(n, LH.CHUNK, LH.CHUNK, w, causal, dh, batch * h),
+                     "plan": attention_plan_row(n, LH.CHUNK, LH.CHUNK, w, causal, dh, batch * h,
+                                                elem=2),
+                     "f32_plan": attention_plan_row(n, LH.CHUNK, LH.CHUNK, w, causal, dh,
+                                                    batch * h),
                      "ms": timer(lambda: LH.local_attention_heads_bf16_cuda(q, k, v, w, causal)),
                      "f32_kernel_ms": timer(lambda: LH.local_attention_heads_cuda(q32, k32, v32,
                                                                                   w, causal)),

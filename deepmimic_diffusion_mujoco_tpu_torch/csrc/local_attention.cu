@@ -7,10 +7,9 @@
 //     fused_qkv_local_attention_bf16 is its bf16 form (a model built with
 //     bf16=True): bf16 qkv in, bf16 context out, everything between in
 //     float32 exactly as the f32 entry computes it, as the TPU kernel upcasts
-//     a bf16 qkv and writes qkv.dtype. The staging widens each bf16 row to
-//     float32 in shared memory (plain 16-byte loads, then the plain mbarrier
-//     arrive, where the float32 form copies with cp.async), and the final
-//     store rounds once; the float32 instantiation is unchanged.
+//     a bf16 qkv and writes qkv.dtype. Its instance stages bf16 as bf16 and
+//     widens in the consumer (Design, bf16); the store rounds once. The
+//     float32 instance is unchanged by it.
 //   local_attention_heads_f32      (B4) q, k, v (B*h, N, dh) -> out (B*h, N, dh).
 //     local_attention_heads_bf16 is its bf16 form: bf16 q, k, v and out. The
 //     TPU kernel scales q in q's dtype (`q_ref * scale`: bf16 q times the
@@ -91,11 +90,29 @@
 // Shared-memory rows have a stride of dh + 4 floats, so the rows a warp
 // reads at once sit in different banks.
 //
-// What limits it at B 16 x H 128 (ops/local_attention_sweep.py's clock
-// stamps, H100): all blocks stage at once, so the load phase runs at the
-// card's bandwidth, and only then does any block compute; launch, the
+// What limits the float32 form at B 16 x H 128 (ops/local_attention_sweep.py's
+// clock stamps, H100): all blocks stage at once, so the load phase runs at
+// the card's bandwidth, and only then does any block compute; launch, the
 // mbarrier set-up and the rotation add a few microseconds of latency.
-// Overlapping one block's loads with another's compute is the next step.
+//
+// bf16 (T = bf16). The staged rows are bf16 as they come: Q, K and V with
+// 16-byte cp.async into rows of DH + 8 values (a 16-byte pad, so the rows a
+// warp reads fall in different banks), Q and K under bars[0] and V under
+// bars[1] as in the float32 form, so V lands while Q K^T runs. Only Q's and
+// K's real rows are copied; V's rows past N are zero stores. The consumers
+// widen (a 16-bit shift): step 2 reads the bf16 Q and K rows and writes the
+// float32 scaled and rotated rows that Q K^T reads (3xTF32, the float32
+// form's values), taking cos/sin from the table in L2 (one bulk L2 prefetch
+// of the block's table rows goes out with the copies; staging them, as the
+// float32 form does, was slower in ops/local_attention_sweep.py --bf16:
+// the table rows outweigh the bf16 rows); P V builds its B fragment
+// straight from the bf16 V rows. A bf16 value widened to float32 is a TF32
+// value (8 mantissa bits of 10), so V's TF32 low half is zero and P V takes
+// two products, P_lo V and P_hi V, where the float32 form's third adds
+// zeros. Half the staged bytes and no cos/sin rows let a plan hold two or
+// three blocks an SM (ops/fused_local_attention.py `attention_plan`, elem
+// 2). Its kernel asks ptxas for one block an SM (launch bounds), which keeps
+// the CUDA-core instances' set-up values out of local memory.
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrappers (ops/fused_local_attention.py, ops/local_attention_kernel.py)
@@ -196,7 +213,7 @@ __device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
   return fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y, fmaf(x.x, y.x, acc))));
 }
 
-__device__ __forceinline__ void copy16(float* dst, const float* src) {
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
@@ -207,21 +224,31 @@ __device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
                : "memory");
 }
 
-// Arrives on `bar` (release: this thread's shared-memory stores so far are
-// seen by a thread that waits on it).
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 state;\n\t"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}\n" ::"r"(smem_addr(bar))
-      : "memory");
+// Prefetches `bytes` (a multiple of 16) of global memory from `src` (16-byte
+// aligned) into L2, one bulk request.
+__device__ __forceinline__ void l2_prefetch(const void* src, uint32_t bytes) {
+  if (bytes > 0)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes)
+                 : "memory");
 }
 
-// Eight bf16 values (16 bytes) widened to float32.
-__device__ __forceinline__ void widen8(uint4 u, float4* lo, float4* hi) {
-  *lo = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                    __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-  *hi = make_float4(__uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-                    __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
+// Four bf16 values (8 bytes) widened to float32 (exact: a 16-bit shift).
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Element i of a staged row, as float32.
+__device__ __forceinline__ float elem(const float* row, int i) { return row[i]; }
+__device__ __forceinline__ float elem(const bf16* row, int i) {
+  return __uint_as_float(static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(row)[i]) << 16);
+}
+
+// Staged row stride, in elements: the float32 form's rows DH + 4 floats, the
+// bf16 form's staged rows DH + 8 values (16 bytes of pad either way)
+template <int DH, typename E>
+__host__ __device__ constexpr int row_stride() {
+  return std::is_same_v<E, float> ? DH + 4 : DH + 8;
 }
 
 // Two and four context values to `p`, rounded once where T is bf16.
@@ -240,48 +267,57 @@ __device__ __forceinline__ void store4(bf16* p, float x, float y, float z, float
       make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
 }
 
-// Stage rows [0, n) of one operand into dst (row stride DH + 4 floats): row
-// r from src(r), or zeros where src(r) is null. Float rows: every thread
-// copies 16-byte pieces with cp.async and arrives on `bar` once its pieces
-// land (one arrival a thread); the zero rows are plain stores, which a block
-// barrier makes visible. bf16 rows: every thread loads 16-byte pieces (8
-// values), widens them to float32, stores them, and arrives on `bar`.
-template <int DH, typename Src>
-__device__ __forceinline__ void stage(float* dst, int n, Src src, uint64_t* bar, int tid,
+// Stage rows [0, n) of one operand into dst (row stride row_stride<DH, E>):
+// row r from src(r), or zeros where src(r) is null. Every thread copies
+// 16-byte pieces (4 floats or 8 bf16 values, as they are) with cp.async and
+// arrives on `bar` once its pieces land (one arrival a thread); the zero
+// rows are plain stores, which a block barrier makes visible.
+template <int DH, typename E, typename Src>
+__device__ __forceinline__ void stage(E* dst, int n, Src src, uint64_t* bar, int tid,
                                       int nthreads) {
-  if constexpr (std::is_same_v<decltype(src(0)), const float*>) {
-    constexpr int kVec = DH / 4;
-    for (int e = tid; e < n * kVec; e += nthreads) {
-      const int r = e / kVec, v = e % kVec;
-      const float* row = src(r);
-      float* d = dst + r * (DH + 4) + 4 * v;
-      if (row != nullptr)
-        copy16(d, row + 4 * v);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    mbar_arrive_on_copies(bar);
-  } else {
-    constexpr int kVec = DH / 8;
-    for (int e = tid; e < n * kVec; e += nthreads) {
-      const int r = e / kVec, v = e % kVec;
-      const bf16* row = src(r);
-      float4* d = reinterpret_cast<float4*>(dst + r * (DH + 4) + 8 * v);
-      if (row != nullptr) {
-        widen8(*reinterpret_cast<const uint4*>(row + 8 * v), d, d + 1);
-      } else {
-        d[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-        d[1] = d[0];
-      }
-    }
-    mbar_arrive(bar);
+  constexpr int kPer = 16 / sizeof(E);  // elements a piece
+  constexpr int kVec = DH / kPer;
+  for (int e = tid; e < n * kVec; e += nthreads) {
+    const int r = e / kVec, v = e % kVec;
+    const E* row = src(r);
+    E* d = dst + r * row_stride<DH, E>() + kPer * v;
+    if (row != nullptr)
+      copy16(d, row + kPer * v);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  mbar_arrive_on_copies(bar);
 }
 
 // x * mul, rounded to bf16 (nearest even) where `round` is set.
 __device__ __forceinline__ float scaled(float x, float mul, bool round) {
   const float y = x * mul;
   return round ? __bfloat162float(__float2bfloat16_rn(y)) : y;
+}
+
+// One rotation item: x1, x2 the four (dim, dim + DH/2) pairs, scaled by
+// `mul` (the product rounded to bf16 where `round` is set) and, with a table
+// row, rotated by its (cos, sin) float4s t01, t23. Both forms' step 2 run it,
+// so they compute the same values.
+__device__ __forceinline__ void rotate_item(float4 a, float4 b, const float4* t, float mul,
+                                            bool round, float4* x1p, float4* x2p) {
+  float x1[4] = {scaled(a.x, mul, round), scaled(a.y, mul, round), scaled(a.z, mul, round),
+                 scaled(a.w, mul, round)};
+  float x2[4] = {scaled(b.x, mul, round), scaled(b.y, mul, round), scaled(b.z, mul, round),
+                 scaled(b.w, mul, round)};
+  if (t != nullptr) {
+    const float4 t01 = t[0], t23 = t[1];
+    const float cs[4] = {t01.x, t01.z, t23.x, t23.z}, sn[4] = {t01.y, t01.w, t23.y, t23.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float y1 = x1[c] * cs[c] - x2[c] * sn[c];
+      const float y2 = x2[c] * cs[c] + x1[c] * sn[c];
+      x1[c] = y1;
+      x2[c] = y2;
+    }
+  }
+  *x1p = make_float4(x1[0], x1[1], x1[2], x1[3]);
+  *x2p = make_float4(x2[0], x2[1], x2[2], x2[3]);
 }
 
 // Scale (the product rounded to bf16 where `round` is set) and, with `tab`,
@@ -297,34 +333,50 @@ __device__ __forceinline__ void rotate_rows(float* base, const float* tab, int r
     const int r = e / kItems, g = e % kItems;
     float4* x1p = reinterpret_cast<float4*>(base + r * (DH + 4)) + g;
     float4* x2p = x1p + kItems;
-    float x1[4] = {scaled(x1p->x, mul, round), scaled(x1p->y, mul, round),
-                   scaled(x1p->z, mul, round), scaled(x1p->w, mul, round)};
-    float x2[4] = {scaled(x2p->x, mul, round), scaled(x2p->y, mul, round),
-                   scaled(x2p->z, mul, round), scaled(x2p->w, mul, round)};
-    if (tab != nullptr) {
-      const float4* t = reinterpret_cast<const float4*>(tab + r * (DH + 4)) + 2 * g;
-      const float4 t01 = t[0], t23 = t[1];
-      const float cs[4] = {t01.x, t01.z, t23.x, t23.z}, sn[4] = {t01.y, t01.w, t23.y, t23.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float y1 = x1[c] * cs[c] - x2[c] * sn[c];
-        const float y2 = x2[c] * cs[c] + x1[c] * sn[c];
-        x1[c] = y1;
-        x2[c] = y2;
-      }
-    }
-    *x1p = make_float4(x1[0], x1[1], x1[2], x1[3]);
-    *x2p = make_float4(x2[0], x2[1], x2[2], x2[3]);
+    rotate_item(*x1p, *x2p,
+                tab != nullptr ? reinterpret_cast<const float4*>(tab + r * (DH + 4)) + 2 * g
+                               : nullptr,
+                mul, round, x1p, x2p);
   }
 }
 
-// o += p * row (this lane's dims of one staged row: float4s g * L + h)
-template <int DH, int L>
-__device__ __forceinline__ void accumulate(float* o, float p, const float* row, int h) {
-  const float4* v4 = reinterpret_cast<const float4*>(row);
+// The bf16 form's step 2: rows [0, real) of the staged bf16 rows `src`
+// widened, scaled and, with `tab` (row r at tab + r * DH floats: the table
+// in L2), rotated into the float32 rows `dst`, as rotate_rows does them in
+// place; rows [real, rows) of dst are zero.
+template <int DH>
+__device__ __forceinline__ void widen_rows(float* dst, const bf16* src, const float* tab,
+                                           int rows, int real, float mul, bool round, int tid,
+                                           int nthreads) {
+  constexpr int kItems = DH / 8;
+#pragma unroll 4
+  for (int e = tid; e < rows * kItems; e += nthreads) {
+    const int r = e / kItems, g = e % kItems;
+    float4* x1p = reinterpret_cast<float4*>(dst + r * (DH + 4)) + g;
+    float4* x2p = x1p + kItems;
+    if (r < real) {
+      const uint2* s = reinterpret_cast<const uint2*>(src + r * (DH + 8)) + g;
+      rotate_item(widen4(s[0]), widen4(s[kItems]),
+                  tab != nullptr ? reinterpret_cast<const float4*>(tab + r * DH) + 2 * g
+                                 : nullptr,
+                  mul, round, x1p, x2p);
+    } else {
+      *x1p = make_float4(0.f, 0.f, 0.f, 0.f);
+      *x2p = *x1p;
+    }
+  }
+}
+
+// o += p * row (this lane's dims of one staged row: groups of four g * L + h)
+template <int DH, int L, typename E>
+__device__ __forceinline__ void accumulate(float* o, float p, const E* row, int h) {
 #pragma unroll
   for (int g = 0; g < DH / (4 * L); ++g) {
-    const float4 vv = v4[g * L + h];
+    float4 vv;
+    if constexpr (std::is_same_v<E, float>)
+      vv = reinterpret_cast<const float4*>(row)[g * L + h];
+    else
+      vv = widen4(reinterpret_cast<const uint2*>(row)[g * L + h]);
     o[4 * g] = fmaf(p, vv.x, o[4 * g]);
     o[4 * g + 1] = fmaf(p, vv.y, o[4 * g + 1]);
     o[4 * g + 2] = fmaf(p, vv.z, o[4 * g + 2]);
@@ -373,10 +425,13 @@ __device__ __forceinline__ void q_fragment(const float* qrow, int k0, int t, uin
 // fragment is P V's A fragment as it stands.
 //
 // T: the element type of qkv and the context (float, or bf16 in the bf16
-// entry); staged rows, scores and sums are float32 either way.
+// entry); scores and sums are float32 either way. Shared memory, in order:
+// float32: Q (S rows), K, V (cap rows each) and, with rotary, the cos/sin
+// rows of Q's and K's positions (S, cap), all of DH + 4 floats;
+// bf16: the staged bf16 Q, K, V (S, cap, cap rows of DH + 8 values), then
+// the float32 rotated Q and K (S, cap rows of DH + 4 floats).
 template <int DH, bool MMA, typename T>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-windowed_attention_kernel(const Args a, const Plan p) {
+__device__ __forceinline__ void windowed_attention(const Args& a, const Plan& p) {
   constexpr int kStride = DH + 4;
   constexpr int RPW = rows_per_warp(MMA);
   constexpr int TILE = MMA ? 16 : 48;        // keys per tile
@@ -384,14 +439,22 @@ windowed_attention_kernel(const Args a, const Plan p) {
   constexpr int KPL = TILE / L;              // CUDA cores: keys per lane per tile
   constexpr int R = MMA ? 2 : 1;             // query rows per lane
   constexpr int kOut = MMA ? DH / 2 : DH / L;  // output values per lane
+  constexpr bool kBf16 = std::is_same_v<T, bf16>;
+  constexpr int kVStride = row_stride<DH, T>();  // staged rows, elements of T
   extern __shared__ float4 smem4[];
   __shared__ uint64_t bars[2];  // 0: Q and K landed, 1: V landed
-  float* qs = reinterpret_cast<float*>(smem4);  // S x kStride
-  float* ks = qs + p.slab * kStride;            // cap x kStride
-  float* vs = ks + p.cap * kStride;             // cap x kStride
-  // with rotary: the (cos, sin) rows of the queries' and the keys' positions
-  float* qt = vs + p.cap * kStride;             // S x kStride
-  float* kt = qt + p.slab * kStride;            // cap x kStride
+  // qs, ks: the rows Q K^T reads (float32); vs: V as staged; qr, kr: the
+  // bf16 form's staged Q and K (the float32 form stages into qs, ks)
+  T* const qr = reinterpret_cast<T*>(smem4);  // S x kVStride
+  T* const kr = qr + p.slab * kVStride;       // cap x kVStride
+  T* const vs = kr + p.cap * kVStride;        // cap x kVStride
+  float* const qs = kBf16 ? reinterpret_cast<float*>(vs + p.cap * kVStride)
+                          : reinterpret_cast<float*>(qr);  // S x kStride
+  float* const ks = kBf16 ? qs + p.slab * kStride : reinterpret_cast<float*>(kr);
+  // float32 with rotary: the (cos, sin) rows of the queries' and the keys' positions
+  float* const qt = reinterpret_cast<float*>(vs + p.cap * kStride);  // S x kStride
+  float* const kt = qt + p.slab * kStride;                           // cap x kStride
+  const bool tables = a.rotary && !kBf16;  // cos/sin rows staged
 
   const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int spc = (a.C + p.slab - 1) / p.slab;  // slabs per chunk
@@ -427,7 +490,7 @@ windowed_attention_kernel(const Args a, const Plan p) {
   const int slot0 = a.P - a.q0 - c * a.C;  // chunk key slot of key row j: j + slot0
 
   if (tid == 0) {  // each thread arrives once a stage: Q, K (and their tables); V
-    mbar_init(&bars[0], (a.rotary ? 4 : 2) * nthreads);
+    mbar_init(&bars[0], (tables ? 4 : 2) * nthreads);
     mbar_init(&bars[1], nthreads);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -450,17 +513,23 @@ windowed_attention_kernel(const Args a, const Plan p) {
     if (lo > blo) __syncthreads();  // every warp is done with the previous segment's rows
     // 1. one round trip: Q and K under bars[0], V under bars[1]
     const int nq = lo == blo ? s1 - s0 : 0;
-    stage<DH>(qs, nq, [&](int rr) -> const T* {
+    const int q_real = max(0, min(s0 + nq, a.N) - s0), k_real = max(0, min(hi, a.N) - lo);
+    // the bf16 form copies Q's and K's real rows only: step 2 writes the zero rows
+    stage<DH>(qr, kBf16 ? q_real : nq, [&](int rr) -> const T* {
       return s0 + rr < a.N ? qb + (long long)(s0 + rr) * a.in_row : nullptr;
     }, &bars[0], tid, nthreads);
-    stage<DH>(ks, hi - lo, [&](int rr) -> const T* {
+    stage<DH>(kr, kBf16 ? k_real : hi - lo, [&](int rr) -> const T* {
       return lo + rr < a.N ? kb + (long long)(lo + rr) * a.in_row : nullptr;
     }, &bars[0], tid, nthreads);
     stage<DH>(vs, hi - lo, [&](int rr) -> const T* {
       return lo + rr < a.N ? vb + (long long)(lo + rr) * a.in_row : nullptr;
     }, &bars[1], tid, nthreads);
     const int qpos = s0 + a.lf * a.w;
-    if (a.rotary) {
+    if (kBf16 && a.rotary && tid == 0) {  // the table rows step 2 reads, on their way to L2
+      l2_prefetch(a.rot + (long long)qpos * DH, q_real * DH * sizeof(float));
+      l2_prefetch(a.rot + (long long)lo * DH, k_real * DH * sizeof(float));
+    }
+    if (tables) {
       stage<DH>(qt, nq, [&](int rr) -> const float* {
         return s0 + rr < a.N ? a.rot + (long long)(qpos + rr) * DH : nullptr;
       }, &bars[0], tid, nthreads);
@@ -471,10 +540,16 @@ windowed_attention_kernel(const Args a, const Plan p) {
     mbar_wait(&bars[0], phase & 1);
 
     // 2. scale Q, rotate Q and K (the zero rows stay zero), then the one barrier
-    const int q_real = max(0, min(s0 + nq, a.N) - s0);
-    if (q_real > 0)
-      rotate_rows<DH>(qs, a.rotary ? qt : nullptr, q_real, a.scale, a.round_q, tid, nthreads);
-    if (a.rotary) rotate_rows<DH>(ks, kt, max(0, min(hi, a.N) - lo), 1.f, false, tid, nthreads);
+    if constexpr (kBf16) {
+      const float* qtab = a.rotary ? a.rot + (long long)qpos * DH : nullptr;
+      const float* ktab = a.rotary ? a.rot + (long long)lo * DH : nullptr;
+      if (nq > 0) widen_rows<DH>(qs, qr, qtab, nq, q_real, a.scale, a.round_q, tid, nthreads);
+      widen_rows<DH>(ks, kr, ktab, hi - lo, k_real, 1.f, false, tid, nthreads);
+    } else {
+      if (q_real > 0)
+        rotate_rows<DH>(qs, a.rotary ? qt : nullptr, q_real, a.scale, a.round_q, tid, nthreads);
+      if (a.rotary) rotate_rows<DH>(ks, kt, k_real, 1.f, false, tid, nthreads);
+    }
     __syncthreads();
 
     if constexpr (kKeepQ) {
@@ -581,21 +656,28 @@ windowed_attention_kernel(const Args a, const Plan p) {
           split_tf32(s[4 * k8 + 2], &ah[1], &al[1]);
           split_tf32(s[4 * k8 + 1], &ah[2], &al[2]);
           split_tf32(s[4 * k8 + 3], &ah[3], &al[3]);
-          const float* vrow0 = vs + (min(t0 + 8 * k8 + 2 * h, t_end - 1) - lo) * kStride;
-          const float* vrow1 = vs + (min(t0 + 8 * k8 + 2 * h + 1, t_end - 1) - lo) * kStride;
+          const T* vrow0 = vs + (min(t0 + 8 * k8 + 2 * h, t_end - 1) - lo) * kVStride;
+          const T* vrow1 = vs + (min(t0 + 8 * k8 + 2 * h + 1, t_end - 1) - lo) * kVStride;
 #pragma unroll
           for (int d = 0; d < DH / 8; ++d) {
             uint32_t bh[2], bl[2];
-            split_tf32(vrow0[8 * d + r], &bh[0], &bl[0]);
-            split_tf32(vrow1[8 * d + r], &bh[1], &bl[1]);
-            mma_3xtf32(o + 4 * d, ah, al, bh, bl);
+            if constexpr (kBf16) {  // widened bf16 is TF32: lo = 0, two products
+              bh[0] = __float_as_uint(elem(vrow0, 8 * d + r));
+              bh[1] = __float_as_uint(elem(vrow1, 8 * d + r));
+              mma_tf32(o + 4 * d, al, bh);
+              mma_tf32(o + 4 * d, ah, bh);
+            } else {
+              split_tf32(vrow0[8 * d + r], &bh[0], &bl[0]);
+              split_tf32(vrow1[8 * d + r], &bh[1], &bl[1]);
+              mma_3xtf32(o + 4 * d, ah, al, bh, bl);
+            }
           }
         }
       } else {
 #pragma unroll
         for (int kk = 0; kk < TILE; ++kk) {
           const float pk = __shfl_sync(0xffffffffu, s[kk / L], r + RPW * (kk % L));
-          accumulate<DH, L>(o, pk, vs + (min(t0 + kk, t_end - 1) - lo) * kStride, h);
+          accumulate<DH, L>(o, pk, vs + (min(t0 + kk, t_end - 1) - lo) * kVStride, h);
         }
       }
     }
@@ -636,12 +718,13 @@ windowed_attention_kernel(const Args a, const Plan p) {
           for (int kk = 0; kk < nt; ++kk) {
             const float wgt = keep_row[u] != nullptr ? inv_k * keep_row[u][t0 + kk] * a.inv_keep
                                                      : inv_k;
-            const float* vrow = vs + kk * kStride;
+            const T* vrow = vs + kk * kVStride;
             if constexpr (MMA) {
 #pragma unroll
               for (int d = 0; d < DH / 8; ++d) {
-                o[4 * d + 2 * u] = fmaf(wgt, vrow[8 * d + 2 * h], o[4 * d + 2 * u]);
-                o[4 * d + 2 * u + 1] = fmaf(wgt, vrow[8 * d + 2 * h + 1], o[4 * d + 2 * u + 1]);
+                o[4 * d + 2 * u] = fmaf(wgt, elem(vrow, 8 * d + 2 * h), o[4 * d + 2 * u]);
+                o[4 * d + 2 * u + 1] =
+                    fmaf(wgt, elem(vrow, 8 * d + 2 * h + 1), o[4 * d + 2 * u + 1]);
               }
             } else {
               accumulate<DH, L>(o, wgt, vrow, h);
@@ -681,9 +764,39 @@ size_t smem_bytes(int dh, const Plan& p, bool rotary) {
          (dh + 4);
 }
 
+// The bf16 form: bf16 Q, K and V rows, then float32 rotated Q and K rows
+// (the kernel's layout)
+size_t smem_bytes_bf16(int dh, const Plan& p) {
+  return sizeof(bf16) * (size_t)(p.slab + 2 * p.cap) * (dh + 8) +
+         sizeof(float) * (size_t)(p.slab + p.cap) * (dh + 4);
+}
+
+template <typename T>
+size_t smem_bytes_of(int dh, const Plan& p, bool rotary) {
+  return std::is_same_v<T, bf16> ? smem_bytes_bf16(dh, p) : smem_bytes(dh, p, rotary);
+}
+
+// The two forms' kernels, one body. The bf16 form's asks for one block an SM
+// (minBlocks 1): with the maximum threads alone ptxas capped its CUDA-core
+// instances at 80-128 registers and put set-up values in local memory.
+template <int DH, bool MMA>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+windowed_attention_kernel(const Args a, const Plan p) {
+  windowed_attention<DH, MMA, float>(a, p);
+}
+
+template <int DH, bool MMA>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+windowed_attention_bf16_kernel(const Args a, const Plan p) {
+  windowed_attention<DH, MMA, bf16>(a, p);
+}
+
 template <int DH, bool MMA, typename T>
 int launch_as(const Args& a, const Plan& p, dim3 grid, cudaStream_t stream) {
-  const size_t smem = smem_bytes(DH, p, a.rotary);
+  void (*const kernel)(Args, Plan) = std::is_same_v<T, bf16>
+                                         ? windowed_attention_bf16_kernel<DH, MMA>
+                                         : windowed_attention_kernel<DH, MMA>;
+  const size_t smem = smem_bytes_of<T>(DH, p, a.rotary);
   // Dynamic shared memory allowed so far, per device: the attribute applies
   // to the current device only. 48 KB holds static and dynamic bytes
   // together: without the static ones a plan just under 48 KB of dynamic
@@ -695,14 +808,12 @@ int launch_as(const Args& a, const Plan& p, dim3 grid, cudaStream_t stream) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
     if (!(dev < kMaxDevices && smem <= configured[dev])) {
-      e = cudaFuncSetAttribute(windowed_attention_kernel<DH, MMA, T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
       if (dev < kMaxDevices) configured[dev] = smem;
     }
   }
-  windowed_attention_kernel<DH, MMA, T>
-      <<<grid, p.slab / rows_per_warp(MMA) * 32, smem, stream>>>(a, p);
+  kernel<<<grid, p.slab / rows_per_warp(MMA) * 32, smem, stream>>>(a, p);
   return (int)cudaGetLastError();
 }
 
@@ -720,7 +831,7 @@ int launch(const Args& a, int dh, const Plan& p, int mma, int batch, int heads,
       a.q0 + a.Nq > a.Np || p.cap <= 0 ||
       p.slab <= 0 || p.slab % rpw != 0 || p.slab / rpw > kMaxWarps ||
       (a.rotary && a.rot == nullptr) ||
-      smem_bytes(dh, p, a.rotary) + kStaticSmem > (size_t)kMaxSmem)
+      smem_bytes_of<T>(dh, p, a.rotary) + kStaticSmem > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(a.Nq / a.C * ((a.C + p.slab - 1) / p.slab), heads, batch);
   switch (dh) {
@@ -904,6 +1015,13 @@ int local_attention_halo_bf16(const void* qkv, const int* lengths, const float* 
                               void* stream) {
   return halo(static_cast<const bf16*>(qkv), lengths, rot, static_cast<bf16*>(out), B, Nh, q0,
               Nq, heads, dim_head, window, causal, exact, rotary, slab, cap, mma, stream);
+}
+
+// Dynamic shared memory a block of the float32 (bf16 0) or bf16 (bf16 1) form
+// takes under a plan: what the launch asks for, from the kernel's layout.
+int local_attention_smem_bytes(int bf16_form, int dh, int slab, int cap, int rotary) {
+  const Plan p{slab, cap};
+  return (int)(bf16_form ? smem_bytes_bf16(dh, p) : smem_bytes(dh, p, rotary));
 }
 
 const char* local_attention_error_string(int code) {

@@ -34,8 +34,9 @@ bf16 (a model built with ``bf16=True``): a bf16 qkv gives a bf16 context,
 computed in float32 between (the TPU kernel upcasts its bf16 qkv and writes
 ``qkv.dtype``). The plain version converts to float32, runs the same chunk
 semantics and rounds once; ``fused_qkv_local_attention_bf16_cuda`` launches
-the kernel's bf16 entry (the same core, templated on the element type: the
-staging widens, the store rounds) and counts it in its own ``.launches``;
+the kernel's bf16 entry (the same core as its own kernel: bf16 rows staged
+as bf16, widened where they are read, the store rounding once; its plan is
+``attention_plan(..., elem=2)``) and counts it in its own ``.launches``;
 the float32 keep mask goes with it. The backward at bf16 differentiates the
 plain version on the float32 widening of qkv and returns the gradient in
 qkv's dtype, as JAX's vjp of its chunk transcription does.
@@ -339,6 +340,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.local_attention_heads_bf16.restype = i
         lib.local_attention_halo_bf16.argtypes = lib.local_attention_halo_f32.argtypes
         lib.local_attention_halo_bf16.restype = i
+        if hasattr(lib, "local_attention_smem_bytes"):  # (a build of an earlier source lacks it)
+            lib.local_attention_smem_bytes.argtypes = [i] * 5  # bf16 form, dh, slab, cap, rotary
+            lib.local_attention_smem_bytes.restype = i
         lib.local_attention_error_string.argtypes = [i]
         lib.local_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -349,6 +353,7 @@ MAX_WARPS = 8               # kMaxWarps: warps per block
 SMEM_LIMIT = 232448 - 16    # kMaxSmem less the two mbarriers
 # The plan's defaults (attention_plan)
 MIN_BLOCKS = 128            # blocks a launch should have: about one per SM of an H100
+BF16_MIN_BLOCKS = 256       # the bf16 form's: about two per SM
 
 
 def rows_per_warp(mma: bool) -> int:
@@ -367,6 +372,7 @@ class AttnPlan:
     segments: int    # most staging rounds a block takes: ceil(band / cap)
     blocks: int      # blocks per (head, batch row)
     smem_bytes: int  # dynamic shared memory per block
+    elem: int = 4    # bytes of an element: 4 for the float32 form, 2 for the bf16 form
 
 
 def key_band(q0: int, q1: int, w: int, causal: bool, C: int, P: int, Np: int, base: int = 0):
@@ -390,55 +396,78 @@ def slab_rows(Np: int, C: int, slab: int, base: int = 0, Nq: int | None = None):
             for c in range(Nq // C) for s0 in range(base + c * C, base + (c + 1) * C, slab)]
 
 
-def smem_bytes(dh: int, slab: int, cap: int, rotary: bool) -> int:
+def smem_bytes(dh: int, slab: int, cap: int, rotary: bool, elem: int = 4) -> int:
     """Q, K and V rows, and with rotary the (cos, sin) rows of Q's and K's
-    positions: smem_bytes() in csrc/local_attention.cu."""
-    return 4 * (slab + 2 * cap + (slab + cap if rotary else 0)) * (dh + 4)
+    positions: smem_bytes() in csrc/local_attention.cu. The bf16 form (elem
+    2, smem_bytes_bf16()): bf16 Q, K and V rows of dh + 8 values, then
+    float32 rotated Q and K rows of dh + 4 (cos/sin come from the table in
+    L2)."""
+    if elem == 4:
+        return 4 * (slab + 2 * cap + (slab + cap if rotary else 0)) * (dh + 4)
+    return 2 * (slab + 2 * cap) * (dh + 8) + 4 * (slab + cap) * (dh + 4)
+
+
+def _fits(dh: int, slab: int, rotary: bool, elem: int) -> int:
+    """The most key rows (cap) that fit in shared memory beside ``slab``."""
+    if elem == 4:
+        return (SMEM_LIMIT // (4 * (dh + 4)) - slab * (2 if rotary else 1)) // (3 if rotary else 2)
+    per_row = 4 * (dh + 8) + 4 * (dh + 4)  # a key row's bf16 K and V and float32 K
+    return (SMEM_LIMIT - smem_bytes(dh, slab, 0, rotary, elem)) // per_row
 
 
 @functools.lru_cache(maxsize=None)
 def attention_plan(Np: int, C: int, P: int, w: int, causal: bool, dh: int,
                    batch_heads: int | None = None, rotary: bool = True, slab: int | None = None,
                    cap: int | None = None, mma: bool | None = None, base: int = 0,
-                   Nq: int | None = None) -> AttnPlan:
+                   Nq: int | None = None, elem: int = 4, keep: bool = False) -> AttnPlan:
     """The plan for one shape; ``batch_heads`` is the launch's (batch row,
-    head) pairs, and a keyword given fixes that choice (``base`` and ``Nq``:
-    K3's query rows, [base, base + Nq) of the Np). The defaults follow
-    the best of the plans ``ops/local_attention_sweep.py`` timed on an H100
-    at the served shapes (``PERF.md``).
+    head) pairs, ``elem`` the element's bytes (4: the float32 form, 2: the
+    bf16 form), ``keep`` whether a dropout keep mask goes with the launch,
+    and a keyword given fixes that choice (``base`` and ``Nq``: K3's query
+    rows, [base, base + Nq) of the Np). The defaults follow the best of the
+    plans ``ops/local_attention_sweep.py`` (``--bf16`` for the bf16 form)
+    timed on an H100 at the served shapes (``PERF.md``).
 
-    - Units and slab S: the tensor cores with slabs of 128 or 64 rows where
-      that still gives MIN_BLOCKS blocks, else the CUDA cores with the
-      largest slab of 64, 32, 16 or 8 rows that does (the smallest where
-      none does). S is at most the chunk rounded up to whole warps and at
-      most MAX_WARPS warps, halved while the slab and its whole key band do
-      not fit in shared memory.
+    - Units and slab S, float32: the tensor cores with slabs of 128 or 64
+      rows where that still gives MIN_BLOCKS blocks, else the CUDA cores
+      with the largest slab of 64, 32, 16 or 8 rows that does (the smallest
+      where none does). bf16: the tensor cores with slabs of 64 or 32 rows
+      (32 where a keep mask goes with the launch) where that gives
+      BF16_MIN_BLOCKS blocks (two an SM), else the CUDA cores with the
+      largest slab of 32 or 16 rows that gives MIN_BLOCKS (8 where none
+      does). S is at most the chunk rounded up to whole warps and at most
+      MAX_WARPS warps, halved while the slab and its whole key band do not
+      fit in shared memory.
     - cap: the most key rows any slab's windows reach, so that each block
       stages its band in one round; where that does not fit even at the
       smallest slab, the most that does (the band then comes in segments)."""
+    if elem not in (2, 4):
+        raise ValueError(f"elem {elem}: 4 (float32) or 2 (bf16)")
     rows = functools.partial(slab_rows, Np, C, base=base, Nq=Nq)
     default_slab = slab is None
     if default_slab:
-        slab, default_mma = _default_units(rows, batch_heads)
+        slab, default_mma = (_default_units(rows, batch_heads) if elem == 4
+                             else _default_units_bf16(rows, batch_heads, keep))
         mma = default_mma if mma is None else mma
     mma = bool(mma)
     rpw = rows_per_warp(mma)
     if default_slab:
         slab = min(slab, MAX_WARPS * rpw, -(-min(C, Np) // rpw) * rpw)
         while slab > rpw and smem_bytes(dh, slab, _band(rows, Np, C, P, w, causal, slab, base),
-                                        rotary) > SMEM_LIMIT:
+                                        rotary, elem) > SMEM_LIMIT:
             slab //= 2
     if slab % rpw or not rpw <= slab <= MAX_WARPS * rpw:
         raise ValueError(f"slab {slab} must be a multiple of {rpw} up to {MAX_WARPS * rpw}")
     band = _band(rows, Np, C, P, w, causal, slab, base)
-    fits = (SMEM_LIMIT // (4 * (dh + 4)) - slab * (2 if rotary else 1)) // (3 if rotary else 2)
+    fits = _fits(dh, slab, rotary, elem)
     if cap is None:
         cap = min(band, fits)
     if not 0 < cap <= fits:
         raise ValueError(f"cap {cap} rows: between 1 and {fits} fit beside slab {slab} "
                          f"at dh {dh}")
     return AttnPlan(slab=slab, cap=cap, mma=mma, band=band, segments=-(-band // cap),
-                    blocks=len(rows(slab)), smem_bytes=smem_bytes(dh, slab, cap, rotary))
+                    blocks=len(rows(slab)), smem_bytes=smem_bytes(dh, slab, cap, rotary, elem),
+                    elem=elem)
 
 
 def _default_units(rows, batch_heads):
@@ -450,6 +479,21 @@ def _default_units(rows, batch_heads):
         if blocks(slab) >= MIN_BLOCKS:
             return slab, True
     for slab in (64, 32, 16):
+        if blocks(slab) >= MIN_BLOCKS:
+            return slab, False
+    return 8, False
+
+
+def _default_units_bf16(rows, batch_heads, keep):
+    """(slab, tensor cores?) of the bf16 form's default plan: see
+    ``attention_plan``."""
+    def blocks(slab):
+        return len(rows(slab)) * (batch_heads or BF16_MIN_BLOCKS)
+
+    for slab in (32,) if keep else (64, 32):
+        if blocks(slab) >= BF16_MIN_BLOCKS:
+            return slab, True
+    for slab in (32, 16):
         if blocks(slab) >= MIN_BLOCKS:
             return slab, False
     return 8, False
@@ -496,6 +540,16 @@ def raise_on_error(lib, err: int, fn: str):
                            + lib.local_attention_error_string(err).decode())
 
 
+def plan_args(fn: str, dtype, lp: AttnPlan) -> tuple:
+    """The plan's arguments of the entry of ``dtype``: (slab, cap, mma);
+    raises on a plan made for the other form."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if lp.elem != elem:
+        raise ValueError(f"{fn}: a plan for {lp.elem}-byte elements; this entry takes "
+                         f"attention_plan(..., elem={elem})")
+    return lp.slab, lp.cap, int(lp.mma)
+
+
 def _launch_fused_qkv(wrapper, dtype, qkv, heads, dim_head, window_size, causal,
                       exact_windowsize, use_rotary, key_mask, dropout_keep, keep_prob,
                       launch_plan):
@@ -523,7 +577,8 @@ def _launch_fused_qkv(wrapper, dtype, qkv, heads, dim_head, window_size, causal,
             raise ValueError(f"{fn}: dropout_keep {tuple(dropout_keep.shape)} must be "
                              f"{(B, p['Np'], heads * p['K'])}; use dropout_keep_mask()")
     lp = launch_plan or attention_plan(p["Np"], p["C"], p["P"], window_size, causal, dim_head,
-                                       B * heads, use_rotary)
+                                       B * heads, use_rotary, elem=qkv.element_size(),
+                                       keep=dropout_keep is not None)
     lib = _library()
     out = torch.empty((B, N, heads * dim_head), dtype=dtype, device=qkv.device)
     if out.numel() == 0:
@@ -539,7 +594,7 @@ def _launch_fused_qkv(wrapper, dtype, qkv, heads, dim_head, window_size, causal,
             None if dropout_keep is None else dropout_keep.data_ptr(),
             None if table is None else table.data_ptr(), out.data_ptr(), B, N, p["Np"], heads,
             dim_head, window_size, int(causal), int(exact_windowsize), int(use_rotary), p["C"],
-            p["P"], p["K"], 1.0 / keep_prob, lp.slab, lp.cap, int(lp.mma),
+            p["P"], p["K"], 1.0 / keep_prob, *plan_args(fn, dtype, lp),
             torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, err, fn)
     wrapper.launches += 1
@@ -579,11 +634,11 @@ fused_qkv_local_attention_bf16_cuda.launches = 0
 
 
 def halo_plan(B: int, heads: int, dim_head: int, window_size: int, q0: int, Nq: int, Nh: int,
-              causal: bool, use_rotary: bool) -> AttnPlan:
+              causal: bool, use_rotary: bool, elem: int = 4) -> AttnPlan:
     """K3's default launch plan: ``attention_plan`` for one chunk of the Nq
-    own rows from slab row q0, P = w."""
+    own rows from slab row q0, P = w (``elem`` 2: the bf16 form's)."""
     return attention_plan(Nh, Nq, window_size, window_size, causal, dim_head, B * heads,
-                          use_rotary, base=q0, Nq=Nq)
+                          use_rotary, base=q0, Nq=Nq, elem=elem)
 
 
 def _launch_halo(wrapper, dtype, qkv, heads, dim_head, window_size, q0, Nq, pos0, causal,
@@ -606,7 +661,7 @@ def _launch_halo(wrapper, dtype, qkv, heads, dim_head, window_size, q0, Nq, pos0
                              f"be ({B},) on {qkv.device}")
         lengths = lengths.to(torch.int32).contiguous()
     lp = launch_plan or halo_plan(B, heads, dim_head, window_size, q0, Nq, Nh, causal,
-                                  use_rotary)
+                                  use_rotary, qkv.element_size())
     lib = _library()
     out = torch.empty((B, Nq, heads * dim_head), dtype=dtype, device=qkv.device)
     if out.numel() == 0:
@@ -622,7 +677,7 @@ def _launch_halo(wrapper, dtype, qkv, heads, dim_head, window_size, q0, Nq, pos0
             qkv.data_ptr(), None if lengths is None else lengths.data_ptr(),
             None if table is None else table.data_ptr(), out.data_ptr(), B, Nh, q0, Nq, heads,
             dim_head, window_size, int(causal), int(exact_windowsize), int(use_rotary),
-            lp.slab, lp.cap, int(lp.mma), torch.cuda.current_stream(qkv.device).cuda_stream)
+            *plan_args(fn, dtype, lp), torch.cuda.current_stream(qkv.device).cuda_stream)
     raise_on_error(lib, err, fn)
     wrapper.launches += 1
     return out

@@ -87,7 +87,7 @@ def _launch_heads(wrapper, dtype, q, k, v, window_size, causal, exact_windowsize
         raise ValueError(f"{fn}: N {N} with window {window_size} needs N % {CHUNK} == 0, "
                          f"N % w == 0 and w <= {CHUNK}")
     lp = launch_plan or FK.attention_plan(N, CHUNK, CHUNK, window_size, causal, dh, B * h,
-                                          use_rotary)
+                                          use_rotary, elem=q.element_size())
     lib = FK._library()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -100,7 +100,7 @@ def _launch_heads(wrapper, dtype, q, k, v, window_size, causal, exact_windowsize
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if table is None else table.data_ptr(),
             out.data_ptr(), B * h, N, dh, window_size, int(causal), int(exact_windowsize),
-            int(use_rotary), lp.slab, lp.cap, int(lp.mma),
+            int(use_rotary), *FK.plan_args(fn, dtype, lp),
             torch.cuda.current_stream(q.device).cuda_stream)
     FK.raise_on_error(lib, err, fn)
     wrapper.launches += 1

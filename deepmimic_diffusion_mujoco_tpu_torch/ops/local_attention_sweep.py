@@ -2,7 +2,7 @@
 the local-attention transformer's serving shapes, on one CUDA card:
 
     python -m deepmimic_diffusion_mujoco_tpu_torch.ops.local_attention_sweep \\
-        [--baseline OLD/local_attention.cu] [--out sweep.json]
+        [--bf16] [--baseline OLD/local_attention.cu] [--out sweep.json]
 
 B3 runs at the three request shapes of the served config (B 16 x N 128, B 4
 x N 1024 in 128-row chunks, B 4 x N 120 padded to 128; 8 heads of 64, window
@@ -24,6 +24,19 @@ block's phases with the SM clock (``clock64``, thread 0). The earlier
 kernel's probe can also skip its P V pass. The probes exist only here; the
 one that skips P V computes another function.
 
+``--bf16`` sweeps the kernel's bf16 form instead (``attention_plan(...,
+elem=2)``: every slab on either units): B3 at la_serve's three shapes
+without masks and with prefix lengths and at la_train's B 64 x N 96 with
+the keep mask, K3 at both ranks' slabs of B 4 x H 1024 over two ranks (512
+own rows each), B4 at (16, 8, 128, 64) and (4, 8, 1024, 64). Each plan is
+checked against the plain version first (within one bf16 ulp of the value
+plus 1e-4), and each shape times the float32 form on the widened values
+under its own default plan. There ``--baseline`` names an earlier source
+with the same C interface (the bf16 form before its redesign, which ran
+the float32 plan): its bf16 entries are timed beside the new ones. The
+clock64 probe stamps the bf16 instance at B 4 and 16 x N 128 (and the
+baseline's).
+
 Times: CUDA events, median of 15 launches with L2 flushed before each and
 the card held busy while they queue, after 2 s of matrix products; each
 plan is timed in two rounds and keeps the lesser median. Prints one JSON
@@ -33,6 +46,7 @@ row.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -294,9 +308,195 @@ def summary(rows, extra):
             "disagree": len(rows) - len(timed)}
 
 
+# --bf16: the bf16 form's shapes. B3: (B, N, masks); K3: (q0, Nh) of each
+# rank's slab of B 4 x H 1024 over two ranks (512 own rows); B4: (B, N)
+BF16_B3 = [(16, 128, ("none", "lengths")), (4, 1024, ("none", "lengths")),
+           (4, 120, ("none", "lengths")), (64, 96, ("keep",))]
+BF16_K3 = (4, 512, [(0, 528), (16, 528)])
+BF16_ULP = 2.0 ** -7  # one bf16 ulp of a value v is at most 2^-7 |v|
+BF16_PROBED = {"default": {}, "tensor_cores_s128": dict(slab=128, mma=True),
+               "cuda_cores_s32": dict(slab=32, mma=False)}
+
+
+def bf16_check(out, ref, what):
+    """A bf16 output against its plain version: within one bf16 ulp of the
+    value plus TOL (the float32 form's sums in another order)."""
+    d = (out.float() - ref.float()).abs()
+    beyond = int((d > BF16_ULP * ref.float().abs() + TOL).sum())
+    if beyond or not torch.isfinite(out.float()).all():
+        raise RuntimeError(f"{what} disagrees with the plain version: {beyond} values beyond "
+                           f"one ulp, max |d| {d.max().item()}")
+    return d.max().item()
+
+
+def bf16_plans(Np, C, P, batch_heads, base=0, Nq=None, keep=False):
+    """The bf16 rule's plan and every other: slabs of 8-128 rows on either
+    units."""
+    kw = dict(base=base, Nq=Nq, elem=2)
+    default = FA.attention_plan(Np, C, P, W, False, DH, batch_heads, keep=keep, **kw)
+    seen = {default: None}
+    for mma in (False, True):
+        for slab in (8, 16, 32, 64, 128):
+            if slab > -(-C // 16) * 16:
+                continue
+            try:
+                seen.setdefault(FA.attention_plan(Np, C, P, W, False, DH, slab=slab, mma=mma,
+                                                  **kw), None)
+            except ValueError:  # more warps than a block takes
+                pass
+    return default, list(seen)
+
+
+def as_bf16_plan(plan):
+    """A float32-rule plan handed to the bf16 entries of an earlier source
+    (which staged float32 rows under the float32 plan)."""
+    return dataclasses.replace(plan, elem=2)
+
+
+@contextlib.contextmanager
+def library(lib):
+    """The wrappers launch through ``lib`` while inside."""
+    real = FA._library
+    FA._library = lambda: lib
+    try:
+        yield
+    finally:
+        FA._library = real
+
+
+def bf16_cases(g, dev):
+    """(name, args, bf16 entry, float32 entry, plain, default plan, plan list,
+    the float32 default plan) of every --bf16 shape."""
+    BF = torch.bfloat16
+    for batch, n, masks in BF16_B3:
+        p = FA.plan(n, W, False)
+        qkv, mk = b3_inputs(g, dev, batch, n)
+        qkv = qkv.to(BF)
+        if "keep" in masks:
+            mk = {"keep": (None, FA.dropout_keep_mask(g, KEEP_PROB, batch, n, HEADS, W))}
+        base, plan_list = bf16_plans(p["Np"], p["C"], p["P"], batch * HEADS, keep="keep" in masks)
+        f32_plan = FA.attention_plan(p["Np"], p["C"], p["P"], W, False, DH, batch * HEADS)
+        for name in masks:
+            km, keep = mk[name]
+            a = (qkv, HEADS, DH, W, False, True, True, km, keep,
+                 KEEP_PROB if keep is not None else 1.0)
+            yield ({"kernel": "B3", "B": batch, "N": n, "masks": name}, a,
+                   FA.fused_qkv_local_attention_bf16_cuda, FA.fused_qkv_local_attention_cuda,
+                   FA.fused_qkv_local_attention_plain, base, plan_list, f32_plan)
+    batch, nq, slabs = BF16_K3
+    for rank, (q0, nh) in enumerate(slabs):
+        qkv = torch.randn(batch, nh, 3 * HEADS * DH, generator=g, device=dev).to(BF)
+        pos0 = rank * nq - q0
+        a = (qkv, HEADS, DH, W, q0, nq, pos0, False, True, True, None)
+        base, plan_list = bf16_plans(nh, nq, W, batch * HEADS, base=q0, Nq=nq)
+        yield ({"kernel": "K3", "B": batch, "rank": rank, "q0": q0, "Nh": nh}, a,
+               FA.local_attention_halo_bf16_cuda, FA.local_attention_halo_cuda,
+               FA.local_attention_halo_plain, base, plan_list,
+               FA.halo_plan(batch, HEADS, DH, W, q0, nq, nh, False, True))
+    for batch, n in B4_SHAPES:
+        q, k, v = (torch.randn(batch, HEADS, n, DH, generator=g, device=dev).to(BF)
+                   for _ in range(3))
+        a = (q, k, v, W)
+        base, plan_list = bf16_plans(n, LH.CHUNK, LH.CHUNK, batch * HEADS)
+        yield ({"kernel": "B4", "B": batch, "N": n}, a, LH.local_attention_heads_bf16_cuda,
+               LH.local_attention_heads_cuda, LH.local_attention_heads_plain, base, plan_list,
+               FA.attention_plan(n, LH.CHUNK, LH.CHUNK, W, False, DH, batch * HEADS))
+
+
+def bf16_main(args, dev, smi, flush) -> int:
+    """The --bf16 sweep (the module's docstring)."""
+    old = old_probe = None
+    if args.baseline:
+        source = Path(args.baseline).resolve()
+        old = FA.bind(ctypes.CDLL(str(_build.build("local_attention_baseline", source))))
+        old_probe = FA.bind(ctypes.CDLL(str(build_probe(
+            source, "local_attention_probe_baseline", CURRENT_ANCHORS))))
+    probe = FA.bind(ctypes.CDLL(str(build_probe(
+        _build.CSRC / "local_attention.cu", "local_attention_probe", CURRENT_ANCHORS))))
+    g = torch.Generator(device=dev).manual_seed(0)
+    results = {"device": smi, "bf16": [], "latency": []}
+    warm(dev)
+    for line, a, bf16_fn, f32_fn, plain, base, plan_list, f32_plan in bf16_cases(g, dev):
+        what = " ".join(f"{k} {v}" for k, v in line.items())
+        ref = plain(*a)
+        rows = []
+        for p in plan_list:
+            row = {"plan": dataclasses.asdict(p), "default": p == base}
+            try:
+                row["max_abs_err"] = bf16_check(bf16_fn(*a, launch_plan=p), ref, f"{what} {p}")
+                row["_p"] = p
+            except RuntimeError as e:
+                if p == base:
+                    raise
+                row["error"] = str(e)[:300]
+            rows.append(row)
+        timed = [r for r in rows if "_p" in r]
+        for rnd in ("ms_first", "ms_second"):
+            for r in timed:
+                r[rnd] = time_ms(functools.partial(bf16_fn, *a, launch_plan=r["_p"]), flush)
+        for r in timed:
+            r.pop("_p")
+            r["ms"] = min(r["ms_first"], r["ms_second"])
+        line = summary(rows, line)
+        a32 = tuple(t.float() if torch.is_tensor(t) and t.dtype == torch.bfloat16 else t
+                    for t in a)
+        line["f32_plan"] = dataclasses.asdict(f32_plan)
+        line["f32_ms"] = time_ms(functools.partial(f32_fn, *a32, launch_plan=f32_plan), flush)
+        line["default_over_f32"] = line["default_ms"] / line["f32_ms"]
+        if old is not None:
+            with library(old):
+                bf16_check(bf16_fn(*a, launch_plan=as_bf16_plan(f32_plan)), ref, "the baseline")
+                line["baseline_ms"] = time_ms(functools.partial(
+                    bf16_fn, *a, launch_plan=as_bf16_plan(f32_plan)), flush)
+            line["default_over_baseline"] = line["default_ms"] / line["baseline_ms"]
+        print(json.dumps(line), flush=True)
+        results["bf16"].append({**line, "rows": rows})
+        if args.out:  # kept as it grows
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+
+    # where a B 16 x N 128 block's cycles go: the bf16 instance's phases under
+    # three plans, and the baseline's bf16 form under the float32 plan
+    n = B3_SHAPES[0][1]
+    for batch in (4, 16):
+        qkv = torch.randn(batch, n, 3 * HEADS * DH, generator=g, device=dev).to(torch.bfloat16)
+        ref = FA.fused_qkv_local_attention_plain(qkv, HEADS, DH, W)
+        row = {"B": batch, "N": n}
+        for name, kw in BF16_PROBED.items():
+            plan = FA.attention_plan(n, n, 0, W, False, DH, batch * HEADS, elem=2, **kw)
+            fn = functools.partial(FA.fused_qkv_local_attention_bf16_cuda, qkv, HEADS, DH, W,
+                                   launch_plan=plan)
+            row[f"{name}_plan"] = dataclasses.asdict(plan)
+            row[f"{name}_ms"] = time_ms(fn, flush)
+            row[f"{name}_no_rotary_ms"] = time_ms(functools.partial(fn, use_rotary=False), flush)
+            with library(probe):
+                bf16_check(fn(), ref, "the probe build")
+                row[f"{name}_phases"] = read_phases(probe, plan.blocks * HEADS * batch,
+                                                    CURRENT_PHASES)
+        if old is not None:
+            plan = as_bf16_plan(FA.attention_plan(n, n, 0, W, False, DH, batch * HEADS))
+            fn = functools.partial(FA.fused_qkv_local_attention_bf16_cuda, qkv, HEADS, DH, W,
+                                   launch_plan=plan)
+            with library(old):
+                row["baseline_ms"] = time_ms(fn, flush)
+            with library(old_probe):
+                bf16_check(fn(), ref, "the baseline probe build")
+                row["baseline_phases"] = read_phases(old_probe, plan.blocks * HEADS * batch,
+                                                     CURRENT_PHASES)
+        print(json.dumps({"latency": {k: v for k, v in row.items() if not k.endswith("_plan")}}),
+              flush=True)
+        results["latency"].append(row)
+    print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--baseline", default=None, help="an earlier csrc/local_attention.cu")
+    ap.add_argument("--bf16", action="store_true", help="sweep the bf16 form")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -309,6 +509,8 @@ def main(argv=None) -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flush.zero_()  # the flush and spin kernels load here, not inside a timed window
     torch.cuda._sleep(1000)
+    if args.bf16:
+        return bf16_main(args, dev, smi, flush)
     base_lib = base_probe = None
     if args.baseline:
         source = Path(args.baseline).resolve()

@@ -19,6 +19,7 @@ imports neither JAX nor the JAX package:
 """
 import ctypes
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -367,7 +368,10 @@ def test_b3_bf16_with_the_keep_mask_matches_plain(cuda, B, N, heads, dh):
 
 @pytest.mark.cuda
 def test_b3_bf16_every_plan(cuda):
-    """Tensor and CUDA cores, each slab, at the serving shape."""
+    """The bf16 rule's plan family: tensor and CUDA cores, each slab, at the
+    serving shape; and a band that comes in segments (dh 128, w 128: the
+    rule's plan and a smaller cap), with prefix lengths. A float32-rule plan
+    is refused."""
     B, N, heads, dh, w = 16, 128, 8, 64, 16
     qkv = _qkv(cuda, B, N, heads, dh, seed=5)
     ref = FA.fused_qkv_local_attention_plain(qkv, heads, dh, w)
@@ -375,9 +379,113 @@ def test_b3_bf16_every_plan(cuda):
     for mma in (True, False):
         for slab in (16, 32, 64, 128) if mma else (8, 16, 32, 64):
             lp = FA.attention_plan(p["Np"], p["C"], p["P"], w, False, dh, B * heads, True,
-                                   slab=slab, mma=mma)
+                                   slab=slab, mma=mma, elem=2)
             _within_one_ulp(FA.fused_qkv_local_attention_bf16_cuda(qkv, heads, dh, w,
                                                                    launch_plan=lp), ref)
+    with pytest.raises(ValueError, match="elem=2"):
+        FA.fused_qkv_local_attention_bf16_cuda(
+            qkv, heads, dh, w, launch_plan=FA.attention_plan(p["Np"], p["C"], p["P"], w, False,
+                                                             dh, B * heads))
+    B, N, heads, dh, w = 2, 512, 2, 128, 128
+    qkv = _qkv(cuda, B, N, heads, dh, seed=6)
+    key_mask = (torch.arange(N, device=cuda)[None] < torch.tensor([[N], [200]],
+                                                                  device=cuda)).float()
+    p = FA.plan(N, w, False)
+    rule = FA.attention_plan(p["Np"], p["C"], p["P"], w, False, dh, B * heads, elem=2)
+    assert rule.segments > 1
+    for lp in (rule, FA.attention_plan(p["Np"], p["C"], p["P"], w, False, dh, slab=16, mma=True,
+                                       cap=96, elem=2)):
+        for km in (None, key_mask):
+            ref = FA.fused_qkv_local_attention_plain(qkv, heads, dh, w, key_mask=km)
+            _within_one_ulp(FA.fused_qkv_local_attention_bf16_cuda(
+                qkv, heads, dh, w, key_mask=km, launch_plan=lp), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["b3", "b3_lengths", "b3_long", "b3_pad", "b3_keep", "k3"])
+def test_b3_bf16_equals_the_float32_entry_on_the_widened_values(cuda, kind):
+    """Under the bf16 rule's plan and a float32 plan on the same units with
+    one staging round (the float32 rule's where its units agree, else the
+    bf16 plan's slab), the bf16 entry is the float32 entry on the widened
+    qkv, rounded to bf16, value for value: the same float32 rotated rows,
+    scores, softmax and sums (a widened bf16 V has a zero TF32 low half, so
+    the float32 form's third P V product adds zeros)."""
+    heads, dh, w = 8, 64, 16
+    B, N = {"b3": (16, 128), "b3_lengths": (16, 128), "b3_long": (4, 1024), "b3_pad": (4, 120),
+            "b3_keep": (64, 96), "k3": (4, 528)}[kind]
+    qkv = _qkv(cuda, B, N, heads, dh, seed=N + 7)
+    if kind == "k3":  # rank 1's slab of B 4 x H 1024 over two ranks
+        args = (heads, dh, w, 16, 512, 496, False, True, True, None)
+        plan = functools.partial(FA.attention_plan, N, 512, w, w, False, dh, B * heads, base=16,
+                                 Nq=512)
+        bf16_fn, f32_fn = FA.local_attention_halo_bf16_cuda, FA.local_attention_halo_cuda
+        keep = None
+    else:
+        km = keep = None
+        if kind == "b3_lengths":
+            km = (torch.arange(N, device=cuda)[None]
+                  < torch.linspace(N, 3, B, device=cuda).round()[:, None]).float()
+        if kind == "b3_keep":
+            keep = FA.dropout_keep_mask(torch.Generator(device=cuda).manual_seed(1), 0.7, B, N,
+                                        heads, w)
+        args = (heads, dh, w, False, True, True, km, keep, 0.7 if keep is not None else 1.0)
+        p = FA.plan(N, w, False)
+        plan = functools.partial(FA.attention_plan, p["Np"], p["C"], p["P"], w, False, dh,
+                                 B * heads)
+        bf16_fn, f32_fn = FA.fused_qkv_local_attention_bf16_cuda, FA.fused_qkv_local_attention_cuda
+    p16 = plan(elem=2, keep=keep is not None)
+    p32 = plan()
+    if p32.mma != p16.mma:
+        p32 = plan(slab=p16.slab, mma=p16.mma)
+    assert p16.segments == p32.segments == 1
+    bf16 = bf16_fn(qkv, *args, launch_plan=p16)
+    f32 = f32_fn(qkv.float(), *args, launch_plan=p32)
+    torch.cuda.synchronize()
+    same = bf16 == f32.to(BF)
+    assert bool(same.all()), f"{int((~same).sum())} of {same.numel()} values differ"
+
+
+@pytest.mark.cuda
+def test_b3_bf16_layout_matches_the_kernel(cuda):
+    """The kernel's own byte count (local_attention_smem_bytes, what the
+    launch asks for) equals FA.smem_bytes at every rule plan of the served
+    shapes, with and without a keep mask, and over a range of slabs and
+    caps."""
+    lib = FA._library()
+    plans = []
+    for B, N in ((16, 128), (4, 1024), (4, 120), (64, 96), (2, 512)):
+        p = FA.plan(N, 16, False)
+        plans += [(FA.attention_plan(p["Np"], p["C"], p["P"], 16, False, dh, B * 8, rotary,
+                                     elem=elem, keep=keep), dh, rotary)
+                  for dh in FA.HEAD_DIMS for rotary in (False, True) for elem in (2, 4)
+                  for keep in (False, True)]
+    for slab, cap in ((16, 24), (64, 80), (128, 160), (96, 96)):
+        plans += [(FA.attention_plan(1024, 128, 16, 16, False, 64, slab=slab, cap=cap, mma=True,
+                                     elem=2), 64, True)]
+    for plan, dh, rotary in plans:
+        got = lib.local_attention_smem_bytes(int(plan.elem == 2), dh, plan.slab, plan.cap,
+                                             int(rotary))
+        assert got == plan.smem_bytes, plan
+
+
+@pytest.mark.cuda
+def test_b3_bf16_sass_stages_by_cp_async(cuda):
+    """Every bf16 instance of the attention kernel, as built: its rows
+    staged by cp.async (LDGSTS) with no register round trip, the tensor-core
+    instances' products on HMMA, and no local memory (no spills)."""
+    from deepmimic_diffusion_mujoco_tpu_torch.ops import _build
+    so = _build.build("local_attention")
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if "windowed_attention_bf16_kernel" in f.split()[0]]
+    assert len(funcs) == 2 * len(FA.HEAD_DIMS)  # (head width, tensor cores or not)
+    for f in funcs:
+        name, body = f.split("\n", 1)
+        assert "LDGSTS" in body and "LDL" not in body and "STL" not in body, name
+        if "ELb1E" in name:
+            assert "HMMA" in body, name
 
 
 @pytest.mark.cuda
@@ -440,10 +548,12 @@ elif sys.argv[1] == "b2":
     err = (CW.conv1d_weight_grad_cuda(x, dy, 1, plan=plan) - ref).abs().max() / ref.abs().max()
     smem, static = plan.smem_bytes, CW.STATIC_SMEM
 else:
-    # B3's bf16 entry first, at a plan over 48 KB (its own instantiation opts in)
+    # B3's bf16 entry first, at a bf16 plan over 48 KB (its own kernel opts in): slab 16,
+    # cap 48, dh 128: 64,256 dynamic bytes
     qkv = torch.randn(2, 256, 3 * 2 * 128, generator=g, device="cuda").to(torch.bfloat16)
     p = FA.plan(256, 16, False)
-    lp = FA.attention_plan(p["Np"], p["C"], p["P"], 16, False, 128, 4, True, slab=64, mma=True)
+    lp = FA.attention_plan(p["Np"], p["C"], p["P"], 16, False, 128, 4, True, slab=16, mma=True,
+                           elem=2)
     out = FA.fused_qkv_local_attention_bf16_cuda(qkv, 2, 128, 16, launch_plan=lp)
     err = (out.float() - FA.fused_qkv_local_attention_plain(qkv, 2, 128, 16).float()).abs().max()
     smem, static = lp.smem_bytes, 16
@@ -458,10 +568,11 @@ def test_first_plan_in_a_fresh_process_runs(cuda, kind):
     """B2's launcher opts in above 48 KB by its static and dynamic bytes
     together: a fresh process whose first B2 plan takes exactly 48 KB of
     dynamic shared memory (over it with the 64 static bytes) runs. B2's bf16
-    kernel runs its first launch at a plan above 48 KB. B3's
-    dynamic bytes are multiples of 80, 144, 272 or 528 and none lies within
-    16 bytes under 48 KB, so its fresh process runs the bf16 entry's first
-    launch at a plan above 48 KB: each instantiation opts in on its own. B1's
+    kernel runs its first launch at a plan above 48 KB. B3's bf16
+    form's dynamic bytes are sums of rows of 2 (dh + 8) and 4 (dh + 4)
+    bytes, multiples of 16; its fresh process runs the bf16 entry's first
+    launch at a bf16 plan above 48 KB (64,256 bytes at dh 128): each
+    kernel opts in on its own. B1's
     bf16 kernel runs its first launch at the rule's plan for the deepest
     serve shape (197,888 dynamic bytes)."""
     root = Path(__file__).resolve().parents[1]
