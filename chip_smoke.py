@@ -186,17 +186,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 21. seq, run after phase 20 (sequence-sharded sampling; two gloo ranks share the one card, so
    no timing here is scaling): K1 (``conv_gn_stats``, B1's conv + local statistics) and K2
-   (``gn_affine_mish``) against their plain versions at every shape of a rank's sharded
-   dim-128 U-Net forward (B 4, 512 of H 1024 a rank), K1 + K2 over one rank against B1 itself,
-   and K3 (``local_attention_halo``, B3's halo entry) at both ranks' slabs of the
-   localattn5k_r3 model, each with ms, the plain version's ms, the composition's
-   (``F.conv1d`` + ``var_mean``; the elementwise chain; rotary + SDPA with the band mask) and
-   the bound. Then two ranks (``parallel.launch.spawn_ranks``), the horizon split 512 + 512:
+   (``gn_affine_mish``: two ranks' statistics merged, normalise, Mish, and each addend: none,
+   the time term's (B, C) row, the residual's (B, H, C); with an addend equal to its launch
+   without one plus the add, to the bit) against their plain versions at every shape of a
+   rank's sharded dim-128 U-Net forward (B 4, 512 of H 1024 a rank), K1 + K2 over one rank
+   against B1 itself, and K3 (``local_attention_halo``, B3's halo entry) at both ranks' slabs
+   of the localattn5k_r3 model, each with ms, the plain version's ms, the composition's
+   (``F.conv1d`` + ``var_mean``; K2: the unfused chain it replaces, chan_merge + the
+   elementwise chain + the add, its library column; rotary + SDPA with the band mask) and
+   the bound, K2 timed with the addend the forward gives it at each shape. Then two ranks (``parallel.launch.spawn_ranks``), the horizon split 512 + 512:
    one forward of the dim-128 U-Net at B 4 x H 1024 against one process with B1 (FORWARD_TOL),
    then a DDIM-10 chain (the output read as x0) with holding_box through
    ``sample_loop(..., x_sharding=seq_sharding(mesh))``, its counts set to 0 just before and read
    just after (K1 and K2 33 a forward a rank, B1 0), against the one-process chain with B1
-   (SEQ_CHAIN_RTOL, SEQ_CHAIN_ATOL) and its clamped dims exact, and a DDIM-10 chain from
+   (SEQ_CHAIN_RTOL, SEQ_CHAIN_ATOL) and its clamped dims exact, then on each rank the
+   kernels (and copies) of one sharded forward, its device ms and a DDIM step's device and
+   wall ms (``scripts/seq_split_profile.py profile_rank``), and a DDIM-10 chain from
    t SEQ_EPS_T with the output read as epsilon, as the serve config reads it, held the same way;
    one forward and a v4 chain of
    SEQ_LA_STEPS steps of the localattn5k_r3 copy with max_seq_len 1024 at B 4 x H 1024 (K3
@@ -243,16 +248,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 24. seq_bf16, run after phase 23 (phase 21's horizon split with both models built at bf16, B4 at
    bf16, the bf16 KV-cache decode): K1's bf16 form (``conv_gn_stats_bf16``, B1's bf16 kernel
-   with a statistics epilogue) and K2's (``gn_affine_mish_bf16``) against their plain versions
-   at every shape of a rank's sharded dim-128 forward (B 4, 512 of H 1024 a rank; K1's plan
+   with a statistics epilogue) and K2's (``gn_affine_mish_bf16``, phase 21's K2 with a bf16
+   addend and output: without the addend within one bf16 ulp plus BF16_TOL; with it equal to
+   that launch plus the bf16 add, to the bit, and its plain version within one ulp of the Mish
+   value and one of the sum) against their plain versions at every shape of a rank's sharded
+   dim-128 forward (B 4, 512 of H 1024 a rank; K1's plan
    printed: the row split or the channel split over its cluster), bf16 K1 + K2
    over one rank against B1's bf16 form; K3's bf16 form (``local_attention_halo_bf16``) at both
    ranks' slabs of one bf16 qkv, each rank's rows against B3's bf16 entry on the whole horizon;
    B4's bf16 form through ``windowed_attention`` at B 16 x H 128 and B 4 x H 1024 (dh 64) and at
    dh 32, its launches counted. Each bf16 output within one bf16 ulp plus BF16_TOL with its
    error in ulps, timed beside its float32 form on the same values, its plain version and the
-   bf16 composition, with the bound. Then phase 21's two ranks and chains at bf16 (K1 and K2's
-   bf16 forms 33 a forward a rank, K3's 6, every float32 form and B1 / B3 0) against one process
+   bf16 composition, with the bound. Then phase 21's two ranks, chains and profile at bf16 (K1
+   and K2's bf16 forms 33 a forward a rank, K3's 6, every float32 form and B1 / B3 0) against
+   one process
    with B1's and B3's bf16 forms (SEQ_BF16_TOL), the clamped dims exact, and the float32
    chains' distance reported; then SEQ_BF16_DECODE frames of localattn5k_r3 with
    ``model.causal=true`` at bf16 decoded through the KV cache against its causal forward
@@ -269,6 +278,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import io
 import json
 import os
@@ -338,6 +348,17 @@ from deepmimic_diffusion_mujoco_tpu_torch.utils import profiling
 from deepmimic_diffusion_mujoco_tpu_torch.utils import seq as seqlib
 
 ROOT = Path(__file__).resolve().parent
+
+
+def _script(name):
+    """scripts/<name>.py of this checkout, loaded by path."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+profile_rank = _script("seq_split_profile").profile_rank  # phases 21 and 24
 USER_CONFIG = ROOT / "experiments" / "unet_walk10k" / "config.json"
 CARTWHEEL = ROOT / "data" / "motions" / "humanoid3d_cartwheel.txt"
 LA_CONFIG = ROOT / "experiments" / "localattn5k_r3" / "config.json"
@@ -3259,12 +3280,20 @@ def seq_worker(rank, world, seed, device="cuda", bf16=False):
     shard = meshlib.seq_sharding(meshlib.make_mesh(data=1, seq=world, device_type=dev.type))
     out = {}
     unet, sched, x, t = seq_unet(seed, dev, bf16)
-    with torch.inference_mode(), seqlib.sharded(shard):
-        y = unet(shard.shard(x).contiguous(), t)
-    out["unet_forward"] = y.cpu().numpy()
+    xs = shard.shard(x).contiguous()
+
+    def unet_forward():
+        with torch.inference_mode(), seqlib.sharded(shard):
+            return unet(xs, t)
+
+    out["unet_forward"] = unet_forward().cpu().numpy()
     seq_unet_chain(unet, sched, seed, dev, shard)
     traj, seconds, n = counted(lambda: seq_unet_chain(unet, sched, seed, dev, shard))
     out["unet"] = {"seconds": seconds, "counts": n, "traj": traj.cpu().numpy()}
+    if dev.type == "cuda":  # kernels of a sharded forward, device and wall ms of a step
+        out["unet"]["profile"] = profile_rank(
+            unet_forward, lambda: seq_unet_chain(unet, sched, seed, dev, shard), SEQ_DDIM,
+            warm=False)
     if not bf16:
         out["unet_epsilon"] = seq_unet_chain(unet, sched, seed, dev, shard, "epsilon",
                                              SEQ_EPS_T).cpu().numpy()
@@ -3284,10 +3313,74 @@ def seq_worker(rank, world, seed, device="cuda", bf16=False):
     return out
 
 
-def seq_k1_k2_rows(dev, timer, peaks, shapes):
+ADD_KINDS = ("none", "row", "full")  # K2's addend: none, the time term's row, the residual
+
+
+def record_k2_kinds(model, x, t):
+    """Counter of ((H, Cin, Cout), addend kind) over the conv blocks of one
+    forward: a residual block's blocks[0] takes the time term's (B, C) row,
+    its blocks[1] the residual's (B, H, C), every other block none."""
+    kinds, seen, hooks = {}, Counter(), []
+    for block in model.modules():
+        if isinstance(block, temporal_unet.ResidualTemporalBlock):
+            kinds[block.blocks[0]], kinds[block.blocks[1]] = "row", "full"
+    for block in model.modules():
+        if isinstance(block, temporal_unet.Conv1dBlock):
+            hooks.append(block.register_forward_pre_hook(
+                lambda m, a: seen.update([((a[0].shape[1], *m.weight.shape[1:]),
+                                           kinds.get(m, "none"))])))
+    try:
+        with torch.inference_mode():
+            model(x, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def k2_addend(kind, h, cout, g, dev, dtype=torch.float32):
+    if kind == "none":
+        return None
+    shape = (SEQ_B, cout) if kind == "row" else (SEQ_B, h, cout)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def added(y, add):
+    """The residual block's unfused add."""
+    return y if add is None else y + (add[:, None, :] if add.dim() == 2 else add)
+
+
+def k2_unfused(parts, count, pre, gamma, beta, add, dtype=torch.float32):
+    """The chain K2 replaces, as one composition: chan_merge's float64 ops,
+    the elementwise chain with ``F.mish``, the add."""
+    cg = pre.shape[2] // GROUPS
+
+    def run():
+        merged = CB.chan_merge(parts, count, 1e-5)
+        mean_c, rstd_c = (merged[..., i].repeat_interleave(cg, dim=1)[:, None, :] for i in (0, 1))
+        return added(F.mish(torch.addcmul(beta, (pre - mean_c) * rstd_c, gamma)).to(dtype), add)
+
+    return run
+
+
+def k2_bound(elems, cout, kind, esize, peaks):
+    """K2's bound: pre read (float32), the output and the addend (``esize``
+    bytes a value), SEQ_RANKS ranks' statistics, gamma and beta; 11
+    operations a value (normalise and affine 4; max, abs and add of the
+    softplus, exp, log1p, tanh and the product) and one more for the add."""
+    add_values = {"none": 0, "row": SEQ_B * cout, "full": elems}[kind]
+    nbytes = 4.0 * (elems + 2 * cout + 2 * SEQ_RANKS * SEQ_B * GROUPS) + esize * (
+        elems + add_values)
+    return bound((11.0 + (kind != "none")) * elems, nbytes, peaks)
+
+
+def seq_k1_k2_rows(dev, timer, peaks, shapes, kinds):
     """K1 and K2 against their plain versions at every (H, Cin, Cout) of a
     rank's sharded forward (``shapes``: Counter of launches a forward), K1 +
-    K2 over one rank (zero halo rows) against B1, with the compositions."""
+    K2 over one rank (zero halo rows) against B1, with the compositions. K2
+    merges SEQ_RANKS ranks' statistics (this rank's and the zero-halo rows')
+    and is checked with each addend at every shape, and timed with each
+    addend the forward gives it there (``kinds``: record_k2_kinds)."""
     g = torch.Generator(device=dev).manual_seed(7)
     k1, k2 = [], []
     for (h, cin, cout), n in shapes.items():
@@ -3298,29 +3391,33 @@ def seq_k1_k2_rows(dev, timer, peaks, shapes):
         pre, st = CB.conv_gn_stats_cuda(xh, w, b, GROUPS)
         pre_p, st_p = CB.conv_gn_stats_plain(xh, w, b, GROUPS)
         count = h * (cout // GROUPS)
-        merged = CB.chan_merge(st[None], count, 1e-5)
-        y = CB.gn_affine_mish_cuda(pre, merged, gamma, beta, GROUPS)
-        y_p = CB.gn_affine_mish_plain(pre, merged, gamma, beta, GROUPS)
         xz = xh.clone()  # one rank holding the whole horizon: zero halo rows, then B1
         xz[:, :K // 2] = 0
         xz[:, h + K // 2:] = 0
         pz, sz = CB.conv_gn_stats_cuda(xz, w, b, GROUPS)
-        via = CB.gn_affine_mish_cuda(pz, CB.chan_merge(sz[None], count, 1e-5), gamma, beta,
-                                     GROUPS)
+        via = CB.gn_affine_mish_cuda(pz, sz[None], count, 1e-5, gamma, beta, GROUPS)
         b1 = CB.conv_gn_mish_cuda(xz[:, K // 2:h + K // 2].contiguous(), w, b, gamma, beta,
                                   GROUPS)
+        parts = torch.stack([st, sz])
+        adds = {kind: k2_addend(kind, h, cout, g, dev) for kind in ADD_KINDS}
+        ys = {kind: CB.gn_affine_mish_cuda(pre, parts, count, 1e-5, gamma, beta, GROUPS, add=a)
+              for kind, a in adds.items()}
         torch.cuda.synchronize()
         errs = {"pre": (pre - pre_p).abs().max().item(),
                 "mean": (st[..., 0] - st_p[..., 0]).abs().max().item(),
                 "m2_rel": ((st[..., 1] - st_p[..., 1]).abs()
                            / st_p[..., 1].abs().clamp_min(1e-30)).max().item(),
-                "k2": (y - y_p).abs().max().item(), "k1_k2_vs_b1": (via - b1).abs().max().item()}
-        if not (max(errs["pre"], errs["mean"], errs["k2"], errs["k1_k2_vs_b1"]) <= KERNEL_TOL
-                and errs["m2_rel"] <= SEQ_STATS_TOL and torch.isfinite(y).all()):
-            raise RuntimeError(f"K1/K2 disagree at B {SEQ_B}, H {h}, {cin}->{cout}: {errs}")
+                **{f"k2_{kind}": (y - CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta,
+                                                             GROUPS, add=adds[kind])
+                                  ).abs().max().item() for kind, y in ys.items()},
+                "k1_k2_vs_b1": (via - b1).abs().max().item()}
+        epilogue = all(torch.equal(ys[kind], added(ys["none"], adds[kind])) for kind in ADD_KINDS)
+        if not (max(v for k, v in errs.items() if k != "m2_rel") <= KERNEL_TOL and epilogue
+                and errs["m2_rel"] <= SEQ_STATS_TOL
+                and all(torch.isfinite(y).all() for y in ys.values())):
+            raise RuntimeError(f"K1/K2 disagree at B {SEQ_B}, H {h}, {cin}->{cout}: {errs}; "
+                               f"each addend equal to the bare launch + the add: {epilogue}")
         xc, wc = xh.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous()
-        cg = cout // GROUPS
-        mean_c, rstd_c = (merged[..., i].repeat_interleave(cg, dim=1)[:, None, :] for i in (0, 1))
 
         def k1_comp():
             o = F.conv1d(xc, wc, b)
@@ -3338,20 +3435,28 @@ def seq_k1_k2_rows(dev, timer, peaks, shapes):
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, peaks)
         k1.append(row)
         emit({"phase": "kernel", "name": "conv_gn_stats", **row})
-        elems = SEQ_B * h * cout
-        # per value: 4 for the normalise and affine, max, abs and add of the softplus,
-        # exp, log1p, tanh and the product: 11
-        row = {"B": SEQ_B, "H": h, "C": cout, "per_forward": n, "max_abs_err": errs["k2"],
-               "ms": timer(lambda: CB.gn_affine_mish_cuda(pre, merged, gamma, beta, GROUPS)),
-               "plain_ms": timer(lambda: CB.gn_affine_mish_plain(pre, merged, gamma, beta,
-                                                                 GROUPS)),
-               "composition_ms": timer(lambda: F.mish(torch.addcmul(beta, (pre - mean_c) * rstd_c,
-                                                                    gamma)))}
-        row["bound_ms"], row["bound_by"] = bound(11.0 * elems, 4.0 * (2 * elems + 2 * cout
-                                                                      + 2 * SEQ_B * GROUPS), peaks)
-        k2.append(row)
-        emit({"phase": "kernel", "name": "gn_affine_mish", **row})
+        for kind in ADD_KINDS:
+            if not kinds[((h, cin, cout), kind)]:
+                continue
+            a = adds[kind]
+            row = {"B": SEQ_B, "H": h, "C": cout, "R": SEQ_RANKS, "add": kind,
+                   "per_forward": kinds[((h, cin, cout), kind)], "max_abs_err": errs[f"k2_{kind}"],
+                   "ms": timer(lambda: CB.gn_affine_mish_cuda(pre, parts, count, 1e-5, gamma, beta,
+                                                              GROUPS, add=a)),
+                   "plain_ms": timer(lambda: CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma,
+                                                                    beta, GROUPS, add=a)),
+                   "unfused_ms": timer(k2_unfused(parts, count, pre, gamma, beta, a))}
+            row["bound_ms"], row["bound_by"] = k2_bound(SEQ_B * h * cout, cout, kind, 4, peaks)
+            k2.append(row)
+            emit({"phase": "kernel", "name": "gn_affine_mish", **row})
     return k1, k2
+
+
+def split_profile(ranks):
+    """Each rank's profile_rank numbers, by key: the kernels (and copies) of
+    one sharded forward, its device ms, a DDIM step's device and wall ms."""
+    keys = ranks[0]["unet"]["profile"]
+    return {f"{k}_per_rank": [r["unet"]["profile"][k] for r in ranks] for k in keys}
 
 
 def seq_k3_rows(dev, timer, peaks, mcfg):
@@ -3412,8 +3517,9 @@ def seq_phase(dev, timer, args, tmp, peaks):
     probe = TemporalUnet(D, dim=DIM).to(dev).eval()
     x = torch.zeros(SEQ_B, SEQ_H // SEQ_RANKS, D, device=dev)
     shapes = Counter(record_block_shapes(probe, x, torch.zeros(SEQ_B, device=dev)))
+    kinds = record_k2_kinds(probe, x, torch.zeros(SEQ_B, device=dev))
     del probe
-    k1, k2 = seq_k1_k2_rows(dev, timer, peaks, shapes)
+    k1, k2 = seq_k1_k2_rows(dev, timer, peaks, shapes, kinds)
     k3 = seq_k3_rows(dev, timer, peaks, la_cfg.model)
 
     t0 = time.perf_counter()
@@ -3454,7 +3560,7 @@ def seq_phase(dev, timer, args, tmp, peaks):
     result["unet_ddim"] = {
         "B": SEQ_B, "H": SEQ_H, "steps": SEQ_DDIM, "counts_per_rank": counts,
         "forward_max_abs_err": fwd_err,
-        "one_process_counts": one_n,
+        "one_process_counts": one_n, **split_profile(ranks),
         "max_abs_diff": float(np.abs(got - ref).max()), "max_abs": float(np.abs(ref).max()),
         "epsilon_chain": {"t_start": SEQ_EPS_T, "steps": SEQ_DDIM,
                           "max_abs_diff": float(np.abs(eps_got - eps_ref).max()),
@@ -4191,12 +4297,34 @@ def within(dist, tol):
     return dist[0] <= tol[0] and dist[1] <= tol[1]
 
 
-def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
+def k2_bf16_agreement(y, bare, add, plain, bare_plain, where):
+    """bf16 K2 with an addend: equal to its launch without one followed by
+    the bf16 add (its rounding places), and within one bf16 ulp of the
+    plain Mish value carried through the add plus one of the sum, BF16_TOL
+    beside (the bare launch is held to bf16_agreement); else raise."""
+    if not torch.equal(y, added(bare, add)):
+        raise RuntimeError(f"gn_affine_mish_bf16 with its addend at {where} is not its bare "
+                           "launch followed by the bf16 add")
+    d = (y.float() - plain.float()).abs()
+    beyond = int((d > 2.0 ** -7 * (bare_plain.float().abs() + plain.float().abs())
+                  + BF16_TOL).sum())
+    if beyond:
+        raise RuntimeError(f"gn_affine_mish_bf16 with its addend at {where}: {beyond} values "
+                           f"beyond the bound (max abs err {d.max().item()})")
+    ulps = bf16_ulps(y, plain)
+    return {"max_abs_err": d.max().item(), "max_ulps": int(ulps.max()),
+            "bit_equal_share": float((ulps == 0).float().mean())}
+
+
+def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes, kinds):
     """K1's and K2's bf16 forms against their plain versions at every (H,
     Cin, Cout) of a rank's sharded dim-128 forward (``shapes``: Counter of
     launches a forward), bf16 K1 + K2 over one rank (zero halo rows) against
     B1's bf16 form, each timed beside its float32 form on the same values
-    (widened), its plain version and the bf16 composition."""
+    (widened), its plain version and the bf16 composition (K2: the unfused
+    chain it replaces). K2 as phase 21 takes it: SEQ_RANKS ranks' statistics,
+    each bf16 addend checked at every shape and timed where the forward
+    gives it (``kinds``)."""
     g = torch.Generator(device=dev).manual_seed(24)
     k1, k2 = [], []
     for (h, cin, cout), n in shapes.items():
@@ -4208,15 +4336,17 @@ def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
         pre, st = CB.conv_gn_stats_bf16_cuda(xh, w, b, GROUPS)
         pre_p, st_p = CB.conv_gn_stats_plain(xh, w, b, GROUPS)
         count = h * (cout // GROUPS)
-        merged = CB.chan_merge(st[None], count, 1e-5)
-        y = CB.gn_affine_mish_bf16_cuda(pre, merged, gamma, beta, GROUPS)
-        y_p = CB.gn_affine_mish_plain(pre, merged, gamma, beta, GROUPS, BF)
         xz = xh.clone()  # one rank holding the whole horizon: zero halo rows, then B1 at bf16
         xz[:, :K // 2] = 0
         xz[:, h + K // 2:] = 0
         pz, sz = CB.conv_gn_stats_bf16_cuda(xz, w, b, GROUPS)
-        via = CB.gn_affine_mish_bf16_cuda(pz, CB.chan_merge(sz[None], count, 1e-5), gamma, beta,
-                                          GROUPS)
+        via = CB.gn_affine_mish_bf16_cuda(pz, sz[None], count, 1e-5, gamma, beta, GROUPS)
+        parts = torch.stack([st, sz])
+        adds = {kind: k2_addend(kind, h, cout, g, dev, BF) for kind in ADD_KINDS}
+        ys = {kind: CB.gn_affine_mish_bf16_cuda(pre, parts, count, 1e-5, gamma, beta, GROUPS,
+                                                add=a) for kind, a in adds.items()}
+        plains = {kind: CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta, GROUPS,
+                                               add=a, dtype=BF) for kind, a in adds.items()}
         b1 = CB.conv_gn_mish_bf16_cuda(xz[:, K // 2:h + K // 2].contiguous(), w, b, gamma, beta,
                                        GROUPS)
         torch.cuda.synchronize()
@@ -4227,7 +4357,11 @@ def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
         if not (max(errs["pre"], errs["mean"]) <= KERNEL_TOL and errs["m2_rel"] <= SEQ_STATS_TOL
                 and pre.dtype == torch.float32 and torch.isfinite(pre).all()):
             raise RuntimeError(f"conv_gn_stats_bf16 disagrees at {where}: {errs}")
-        k2_err = bf16_agreement("gn_affine_mish_bf16", y, y_p, where)
+        k2_errs = {"none": bf16_agreement("gn_affine_mish_bf16", ys["none"], plains["none"],
+                                          where)}
+        for kind in ADD_KINDS[1:]:
+            k2_errs[kind] = k2_bf16_agreement(ys[kind], ys["none"], adds[kind], plains[kind],
+                                              plains["none"], f"{where}, addend {kind}")
         vs_b1 = bf16_agreement("bf16 K1 + K2 over one rank against conv_gn_mish_bf16", via, b1,
                                where)
         x32, w32 = xh.float(), w.float()
@@ -4252,23 +4386,24 @@ def seq_bf16_k1_k2_rows(dev, timer, peaks, shapes):
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         k1.append(row)
         emit({"phase": "kernel", "name": "conv_gn_stats_bf16", **row})
-        elems = SEQ_B * h * cout
-        cg = cout // GROUPS
-        mean_c, rstd_c = (merged[..., i].repeat_interleave(cg, dim=1)[:, None, :] for i in (0, 1))
-        row = {"B": SEQ_B, "H": h, "C": cout, "per_forward": n, **k2_err,
-               "k1_k2_vs_b1_bf16": vs_b1,
-               "ms": timer(lambda: CB.gn_affine_mish_bf16_cuda(pre, merged, gamma, beta, GROUPS)),
-               "f32_kernel_ms": timer(lambda: CB.gn_affine_mish_cuda(pre, merged, gamma, beta,
-                                                                     GROUPS)),
-               "plain_ms": timer(lambda: CB.gn_affine_mish_plain(pre, merged, gamma, beta,
-                                                                 GROUPS, BF)),
-               "composition_ms": timer(lambda: F.mish(torch.addcmul(
-                   beta, (pre - mean_c) * rstd_c, gamma)).to(BF))}
-        # the K2 function's 11 operations a value (see seq_k1_k2_rows); float32 in, bf16 out
-        row["bound_ms"], row["bound_by"] = bound(11.0 * elems, 6.0 * elems + 4.0 * (
-            2 * cout + 2 * SEQ_B * GROUPS), peaks)
-        k2.append(row)
-        emit({"phase": "kernel", "name": "gn_affine_mish_bf16", **row})
+        for kind in ADD_KINDS:
+            if not kinds[((h, cin, cout), kind)]:
+                continue
+            a = adds[kind]
+            a32 = None if a is None else a.float()
+            row = {"B": SEQ_B, "H": h, "C": cout, "R": SEQ_RANKS, "add": kind,
+                   "per_forward": kinds[((h, cin, cout), kind)], **k2_errs[kind],
+                   "k1_k2_vs_b1_bf16": vs_b1,
+                   "ms": timer(lambda: CB.gn_affine_mish_bf16_cuda(pre, parts, count, 1e-5, gamma,
+                                                                   beta, GROUPS, add=a)),
+                   "f32_kernel_ms": timer(lambda: CB.gn_affine_mish_cuda(
+                       pre, parts, count, 1e-5, gamma, beta, GROUPS, add=a32)),
+                   "plain_ms": timer(lambda: CB.gn_merge_mish_plain(
+                       pre, parts, count, 1e-5, gamma, beta, GROUPS, add=a, dtype=BF)),
+                   "unfused_ms": timer(k2_unfused(parts, count, pre, gamma, beta, a, BF))}
+            row["bound_ms"], row["bound_by"] = k2_bound(SEQ_B * h * cout, cout, kind, 2, peaks)
+            k2.append(row)
+            emit({"phase": "kernel", "name": "gn_affine_mish_bf16", **row})
     return k1, k2
 
 
@@ -4438,8 +4573,9 @@ def seq_bf16_phase(dev, timer, args, tmp, peaks):
     probe = TemporalUnet(D, dim=DIM).to(dev).eval()
     x = torch.zeros(SEQ_B, SEQ_H // SEQ_RANKS, D, device=dev)
     shapes = Counter(record_block_shapes(probe, x, torch.zeros(SEQ_B, device=dev)))
+    kinds = record_k2_kinds(probe, x, torch.zeros(SEQ_B, device=dev))
     del probe
-    k1, k2 = seq_bf16_k1_k2_rows(dev, timer, peaks, shapes)
+    k1, k2 = seq_bf16_k1_k2_rows(dev, timer, peaks, shapes, kinds)
     k3 = seq_bf16_k3_rows(dev, timer, peaks, la_cfg.model)
     b4, b4_launches = bf16_b4_rows(dev, timer, peaks, la_cfg.model)
 
@@ -4473,7 +4609,8 @@ def seq_bf16_phase(dev, timer, args, tmp, peaks):
                            f"(expected {want}), one process {one_n}")
     result["unet_ddim"] = {
         "B": SEQ_B, "H": SEQ_H, "steps": SEQ_DDIM, "counts_per_rank": counts,
-        "one_process_counts": one_n, "forward_rel_dist": fwd, "chain_rel_dist": chain,
+        "one_process_counts": one_n, **split_profile(ranks),
+        "forward_rel_dist": fwd, "chain_rel_dist": chain,
         "float32_chain_rel_dist": rel_dist(f32_chain, ref),
         "ms_per_step_sharded": [r["unet"]["seconds"] * 1e3 / SEQ_DDIM for r in ranks],
         "ms_per_step_one_process": one_s * 1e3 / SEQ_DDIM}
@@ -4762,6 +4899,10 @@ def main(argv=None) -> int:
     # rows a rank), K3 per launch at rank 0's slab
     seq = result["seq"]
     k3_main = seq["k3_rows"][0]
+    # K1's yardstick is its composition; K2's library column is the unfused chain it replaces
+    # (chan_merge, the elementwise chain, the add), timed as one composition
+    yardstick = {"conv_gn_stats": "composition_ms", "gn_affine_mish": "unfused_ms",
+                 "conv_gn_stats_bf16": "composition_ms", "gn_affine_mish_bf16": "unfused_ms"}
     for name, rows, launches in (
             ("conv_gn_stats", seq["k1_rows"], seq["unet_ddim"]["counts_per_rank"][0]),
             ("gn_affine_mish", seq["k2_rows"], seq["unet_ddim"]["counts_per_rank"][0])):
@@ -4773,9 +4914,11 @@ def main(argv=None) -> int:
             "launches_per_rank": [c[name] for c in seq["unet_ddim"]["counts_per_rank"]],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: per_launch_sum(rows, k, "per_forward")
-               for k in ("ms", "plain_ms", "bound_ms", "composition_ms")},
+               for k in ("ms", "plain_ms", "bound_ms", yardstick[name])},
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
-            else "bytes", "library_ms": None,
+            else "bytes",
+            "library_ms": (per_launch_sum(rows, "unfused_ms", "per_forward")
+                           if yardstick[name] == "unfused_ms" else None),
             "shape": {"B": SEQ_B, "H_per_rank": SEQ_H // SEQ_RANKS, "launches_per_forward":
                       seq["per_forward"]}})
     kernels.append({
@@ -4890,9 +5033,11 @@ def main(argv=None) -> int:
             "launches_per_rank": [c[name] for c in sb["unet_ddim"]["counts_per_rank"]],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: per_launch_sum(rows, k, "per_forward")
-               for k in ("ms", "plain_ms", "bound_ms", "f32_kernel_ms", "composition_ms")},
+               for k in ("ms", "plain_ms", "bound_ms", "f32_kernel_ms", yardstick[name])},
             "bound_by": "operations" if all(r["bound_by"] == "operations" for r in rows)
-            else "bytes", "library_ms": None,
+            else "bytes",
+            "library_ms": (per_launch_sum(rows, "unfused_ms", "per_forward")
+                           if yardstick[name] == "unfused_ms" else None),
             "shape": {"B": SEQ_B, "H_per_rank": SEQ_H // SEQ_RANKS,
                       "launches_per_forward": sb["per_forward"]}})
     k3b, b4b = sb["k3_rows"][0], sb["b4_rows"][0]

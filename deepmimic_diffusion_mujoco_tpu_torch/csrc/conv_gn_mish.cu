@@ -62,22 +62,48 @@
 // the same weights).
 //
 // The horizon-sharded form (sequence-sharded sampling: each rank holds H / R
-// frames, and GroupNorm's statistics span every rank's rows) splits the work
-// into two launches around a merge the host does across the ranks:
+// frames, and GroupNorm's statistics span every rank's rows) is two launches
+// around an exact gather of every rank's statistics (the host's collective):
 //   K1 conv_gn_stats_f32: the same kernel with kStats set. Its input is the
 //      rank's rows with a k / 2-row halo on each side, (B, H + k - 1, Cin),
 //      convolved without padding; it writes the pre-norm conv + bias
 //      (B, H, Cout) and, per (batch row, group), the local mean and the sum
 //      of squared deviations from it (M2), two-pass, as steps 1-3 compute
 //      them, and skips step 4.
-//   K2 gn_affine_mish_f32: elementwise, (pre - mean) * rstd * gamma + beta,
-//      then Mish in step 4's form, with the merged (mean, rstd) of each
-//      (batch row, group). It reads and writes each value once: bytes bound
-//      it. A float4 a thread where the groups' widths are multiples of 4.
-//      gn_affine_mish_bf16 is K2 of a bf16 model: the same float32 values
-//      (from K1's bf16 form, csrc/conv_gn_mish_bf16.cu), one bf16 rounding
-//      at the store.
-// The merge (Chan's parallel variance in float64) is ops/conv_block_kernel.py's.
+//   K2 gn_affine_mish_f32: everything after the gather, in one launch: the
+//      merge of the R ranks' (mean, M2) (Chan's formula in float64 in rank
+//      order, ops/conv_block_kernel.py:chan_merge's, so every rank gets the
+//      same merged bits), (pre - mean) * rstd * gamma + beta, Mish in step
+//      4's form, and the residual block's add: none, a (B, C) row over every
+//      row (the time term, after the first conv block) or a (B, H, C) tensor
+//      (the residual, after the second). gn_affine_mish_bf16 is its bf16
+//      form (the float32 rows of K1's bf16 form, csrc/conv_gn_mish_bf16.cu;
+//      a bf16 addend and output): the Mish value rounded to bf16, then
+//      bf16(y + addend), where the unfused bf16 `h + t` and `h + x` round.
+//      What bounds it: bytes, 4 B H C read, the addend's B C or B H C
+//      values, B H C written (4 or 2 bytes each), the R B groups statistics
+//      and gamma / beta: at a rank's shapes of the dim-128 U-Net (B 4, 512
+//      rows x 128 channels, the same count of values at every level) 2-3 MB,
+//      under 1 us at 3.35 TB/s. One launch is set by its latency (the launch
+//      and a DRAM round trip, several us), so the design moves the work of
+//      other launches into it and hides its own round trip:
+//        - the merge, once per CTA into shared memory, replaces about 13
+//          small float64 PyTorch kernels a block, and the epilogue's add a
+//          separate pass over the slab (its read and its write);
+//        - each thread issues its first 16-byte loads of `pre`, the addend,
+//          gamma and beta (4 float32 values, or 8 where the output is bf16,
+//          for one 16-byte store) before the merge, so that one DRAM round
+//          trip serves the launch and overlaps the merge;
+//        - a CTA is one (batch row, tile of rows); a thread keeps fixed
+//          channel columns, so it reads their gamma, beta and merged (mean,
+//          rstd, from shared memory) once per column, into registers, and
+//          its index math is 32-bit from blockIdx and threadIdx (no
+//          division per value);
+//        - the host halves a CTA's rows until the grid (B x row tiles) has a
+//          CTA for every SM (B 4: 256 CTAs at each shape of the split
+//          forward).
+// Its next step is to be folded into the next block's K1 staging (the
+// normalised rows and their halo never written to device memory).
 //
 // Plain C interface (no PyTorch headers) so nvcc builds it in seconds; the
 // Python wrapper (ops/conv_block_kernel.py) validates shapes, dtypes and
@@ -612,80 +638,228 @@ conv_gn_mish_kernel(const float* __restrict__ x, const float* __restrict__ w,
   if (C > 1) cluster_wait();  // no rank leaves while another may still read its shared memory
 }
 
-// K2: out = Mish((pre - mean) * rstd * gamma + beta) with `stats` (B, groups,
-// 2) holding each (batch row, group)'s (mean, rstd); kV values a thread
-// (4 where C and the group width are multiples of 4), grid-stride. TOut is
-// float, or bf16 (each value rounded once at the store).
-template <int kV, typename TOut>
-__global__ void __launch_bounds__(256)
-gn_affine_mish_kernel(const float* __restrict__ pre, const float* __restrict__ stats,
-                      const float* __restrict__ gamma, const float* __restrict__ beta,
-                      TOut* __restrict__ out, long long n, int HC, int C, int cg) {
-  const int groups = C / cg;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n / kV; i += stride) {
-    const long long e = i * kV;
-    const int b = (int)(e / HC);
-    const int c = (int)(e % C);
-    const float* st = stats + ((size_t)b * groups + c / cg) * 2;
-    const float m = st[0], s = st[1];
-    float v[4];
-    if constexpr (kV == 4) {
-      const float4 u = reinterpret_cast<const float4*>(pre)[i];
-      v[0] = u.x;
-      v[1] = u.y;
-      v[2] = u.z;
-      v[3] = u.w;
-    } else {
-      v[0] = pre[e];
-    }
+constexpr int kK2Threads = 256;  // K2's CTA, at most
+
+// K2's loads and stores of kV values (kV 1, 4 or 8; a multiple of 4 as 16-byte accesses)
+template <int kV>
+__device__ __forceinline__ void k2_load(const float* __restrict__ p, float* v) {
+  if constexpr (kV == 1) {
+    v[0] = p[0];
+  } else {
 #pragma unroll
-    for (int q = 0; q < kV; ++q) {
-      const float y = (v[q] - m) * s * gamma[c + q] + beta[c + q];
-      const float sp = fmaxf(y, 0.f) + log1pf(expf(-fabsf(y)));
-      v[q] = y * tanhf(sp);
-    }
-    if constexpr (std::is_same_v<TOut, float>) {
-      if constexpr (kV == 4) {
-        reinterpret_cast<float4*>(out)[i] = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-        out[e] = v[0];
-      }
-    } else if constexpr (kV == 4) {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-      reinterpret_cast<uint2*>(out)[i] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                                                    *reinterpret_cast<const uint32_t*>(&hi));
-    } else {
-      out[e] = __float2bfloat16_rn(v[0]);
+    for (int i = 0; i < kV; i += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + i);
+      v[i] = u.x;
+      v[i + 1] = u.y;
+      v[i + 2] = u.z;
+      v[i + 3] = u.w;
     }
   }
 }
 
-// K2's launch for an output of type TOut (`out` may be `pre` where TOut is float).
-template <typename TOut>
-int launch_k2(const float* pre, const float* stats, const float* gamma, const float* beta,
-              TOut* out, int B, int H, int C, int groups, void* stream) {
-  if (B <= 0 || H <= 0 || C <= 0 || groups <= 0 || C % groups) return (int)cudaErrorInvalidValue;
+template <int kV>
+__device__ __forceinline__ void k2_load(const __nv_bfloat16* __restrict__ p, float* v) {
+  if constexpr (kV == 1) {
+    v[0] = __bfloat162float(p[0]);
+  } else {
+    static_assert(kV == 8, "a bf16 vector is 8 values");
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void k2_store(float* __restrict__ p, const float* v) {
+  if constexpr (kV == 1) {
+    p[0] = v[0];
+  } else {
+#pragma unroll
+    for (int i = 0; i < kV; i += 4)
+      *reinterpret_cast<float4*>(p + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  }
+}
+
+template <int kV>
+__device__ __forceinline__ void k2_store(__nv_bfloat16* __restrict__ p, const float* v) {
+  if constexpr (kV == 1) {
+    p[0] = __float2bfloat16_rn(v[0]);
+  } else {
+    static_assert(kV == 8, "a bf16 vector is 8 values");
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
+// K2, one launch per sharded conv block (the header's "K2"): the ranks'
+// (mean, M2) merged in float64, normalise, affine, Mish and the residual
+// block's add. kV values a thread loads and stores as 16 bytes (4 float32,
+// or 8 where the output is bf16; 1 where C or an address does not allow
+// it); kAdd 0 (no addend), 1 (a (B, C) row over every row) or 2 (a (B, H, C)
+// tensor). A CTA is one batch row's rows [blockIdx.x blockDim.y, + blockDim.y);
+// thread (x, y) takes row y of them, columns x, x + blockDim.x, ...
+template <int kV, typename T, int kAdd>
+__global__ void __launch_bounds__(kK2Threads)
+gn_merge_mish_kernel(const float* __restrict__ pre, const float* __restrict__ parts,
+                     const float* __restrict__ gamma, const float* __restrict__ beta,
+                     const T* __restrict__ add, T* __restrict__ out, int B, int H, int C,
+                     int groups, int R, double count, double eps) {
+  extern __shared__ float k2_smem[];  // mean[C], rstd[C], then (mean, rstd) per group
+  float* s_mean = k2_smem;
+  float* s_rstd = k2_smem + C;
+  float* s_grp = k2_smem + 2 * C;
+  const int b = blockIdx.y;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int cols = C / kV;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const size_t row_at = ((size_t)b * H + row) * C;
+  // The thread's first vector of `pre`, of the addend and of its column's
+  // gamma and beta, loaded before the merge so that their DRAM round trip
+  // overlaps it.
+  float v[kV], a[kV], ga[kV], be[kV];
+  if (threadIdx.x < cols && row < H) {
+    const int c = threadIdx.x * kV;
+    k2_load<kV>(pre + row_at + c, v);
+    k2_load<kV>(gamma + c, ga);
+    k2_load<kV>(beta + c, be);
+    if constexpr (kAdd == 1) k2_load<kV>(add + (size_t)b * C + c, a);
+    if constexpr (kAdd == 2) k2_load<kV>(add + row_at + c, a);
+  }
+  // The merge of this batch row's groups, chan_merge's formula in rank order
+  // with every float64 operation rounded on its own (no contraction).
+  const size_t rank_stride = (size_t)B * groups * 2;
+  for (int g = tid; g < groups; g += nthreads) {
+    const float* p = parts + ((size_t)b * groups + g) * 2;
+    double sum = 0.0;
+    for (int i = 0; i < R; ++i) sum = __dadd_rn(sum, (double)p[i * rank_stride]);
+    const double mean = __ddiv_rn(sum, (double)R);
+    double m2 = 0.0, dev = 0.0;
+    for (int i = 0; i < R; ++i) {
+      m2 = __dadd_rn(m2, (double)p[i * rank_stride + 1]);
+      const double d = __dsub_rn((double)p[i * rank_stride], mean);
+      dev = __dadd_rn(dev, __dmul_rn(d, d));
+    }
+    const double var =
+        __ddiv_rn(__dadd_rn(m2, __dmul_rn(count, dev)), __dmul_rn(count, (double)R));
+    s_grp[2 * g] = __double2float_rn(mean);
+    s_grp[2 * g + 1] = __double2float_rn(__ddiv_rn(1.0, __dsqrt_rn(__dadd_rn(var, eps))));
+  }
+  __syncthreads();
   const int cg = C / groups;
-  const long long n = (long long)B * H * C;
-  const bool vec = cg % 4 == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TOut)) == 0;
-  int dev = 0, sms = 0;
+  for (int c = tid; c < C; c += nthreads) {
+    s_mean[c] = s_grp[2 * (c / cg)];
+    s_rstd[c] = s_grp[2 * (c / cg) + 1];
+  }
+  __syncthreads();
+  if (row >= H) return;  // no barrier follows
+  for (int col = threadIdx.x; col < cols; col += blockDim.x) {
+    const int c = col * kV;
+    if (col != threadIdx.x) {
+      k2_load<kV>(pre + row_at + c, v);
+      k2_load<kV>(gamma + c, ga);
+      k2_load<kV>(beta + c, be);
+      if constexpr (kAdd == 1) k2_load<kV>(add + (size_t)b * C + c, a);
+      if constexpr (kAdd == 2) k2_load<kV>(add + row_at + c, a);
+    }
+    float m[kV], s[kV], y[kV];
+    k2_load<kV>(s_mean + c, m);
+    k2_load<kV>(s_rstd + c, s);
+#pragma unroll
+    for (int q = 0; q < kV; ++q) {
+      float t = (v[q] - m[q]) * s[q] * ga[q] + be[q];
+      const float sp = fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)));
+      t = t * tanhf(sp);
+      if constexpr (kAdd != 0) {
+        // float32: y + a; bf16: the Mish value rounded, then the sum rounded at the
+        // store. __fadd_rn: never contracted with the product before it.
+        if constexpr (std::is_same_v<T, float>) {
+          t = __fadd_rn(t, a[q]);
+        } else {
+          t = __fadd_rn(__bfloat162float(__float2bfloat16_rn(t)), a[q]);
+        }
+      }
+      y[q] = t;
+    }
+    k2_store<kV>(out + row_at + c, y);
+  }
+}
+
+// The card's SM count, asked once per device.
+int device_sms(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const long long items = vec ? n / 4 : n;
-  const long long most = 8LL * sms;
-  const int grid = (int)((items + 255) / 256 < most ? (items + 255) / 256 : most);
+  if (dev < kMaxDevices && cached[dev] > 0) {
+    *sms = cached[dev];
+    return (int)cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < kMaxDevices) cached[dev] = *sms;
+  return (int)e;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int kV, typename T>
+int launch_k2_as(dim3 grid, dim3 block, size_t smem, cudaStream_t s, const float* pre,
+                 const float* parts, const float* gamma, const float* beta, const T* add,
+                 T* out, int B, int H, int C, int groups, int R, double count, double eps,
+                 int add_kind) {
+#define GN_MERGE_MISH_LAUNCH(KA)                                                          \
+  gn_merge_mish_kernel<kV, T, KA><<<grid, block, smem, s>>>(pre, parts, gamma, beta, add, \
+                                                            out, B, H, C, groups, R, count, \
+                                                            eps)
+  if (add_kind == 0)
+    GN_MERGE_MISH_LAUNCH(0);
+  else if (add_kind == 1)
+    GN_MERGE_MISH_LAUNCH(1);
+  else
+    GN_MERGE_MISH_LAUNCH(2);
+#undef GN_MERGE_MISH_LAUNCH
+  return (int)cudaGetLastError();
+}
+
+// K2's launch for an output (and addend) of type T. The block is up to
+// kK2Threads threads, blockDim.x over the C / kV columns (up to kK2Threads)
+// and blockDim.y over rows, halved while the grid (B x H / blockDim.y CTAs)
+// has fewer CTAs than the card has SMs.
+template <typename T>
+int launch_k2(const float* pre, const float* parts, const float* gamma, const float* beta,
+              const T* add, T* out, int B, int H, int C, int groups, int R, long long count,
+              double eps, int add_kind, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || C <= 0 || groups <= 0 || C % groups || R <= 0 ||
+      count <= 0 || add_kind < 0 || add_kind > 2 || (add_kind != 0) != (add != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * (size_t)C + 2 * (size_t)groups);
+  if (smem > kDefaultSmem) return (int)cudaErrorInvalidValue;
+  constexpr int kV = std::is_same_v<T, float> ? 4 : 8;
+  const bool vec = C % kV == 0 && aligned16(pre) && aligned16(gamma) && aligned16(beta) &&
+                   aligned16(out) && (add == nullptr || aligned16(add));
+  const int cols = vec ? C / kV : C;
+  const int bx = cols < kK2Threads ? cols : kK2Threads;
+  int by = kK2Threads / bx;
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err != (int)cudaSuccess) return err;
+  while (by > 1 && (long long)B * ceil_div(H, by) < sms) by /= 2;
+  const dim3 grid(ceil_div(H, by), B), block(bx, by);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec)
-    gn_affine_mish_kernel<4, TOut><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C,
-                                                        C, cg);
-  else
-    gn_affine_mish_kernel<1, TOut><<<grid, 256, 0, s>>>(pre, stats, gamma, beta, out, n, H * C,
-                                                        C, cg);
-  return (int)cudaGetLastError();
+    return launch_k2_as<kV, T>(grid, block, smem, s, pre, parts, gamma, beta, add, out, B, H, C,
+                               groups, R, (double)count, eps, add_kind);
+  return launch_k2_as<1, T>(grid, block, smem, s, pre, parts, gamma, beta, add, out, B, H, C,
+                            groups, R, (double)count, eps, add_kind);
 }
 
 // The plan's own consistency; false for a plan the kernel does not take.
@@ -837,19 +1011,26 @@ int conv_gn_stats_f32(const float* x, const float* w, const float* bias, float* 
                   plan, stream);
 }
 
-// K2: out (B, H, C) = Mish((pre - mean) * rstd * gamma + beta), stats (B,
-// groups, 2) the merged (mean, rstd). `out` may be `pre`.
-int gn_affine_mish_f32(const float* pre, const float* stats, const float* gamma,
-                       const float* beta, float* out, int B, int H, int C, int groups,
+// K2: out (B, H, C) = Mish((pre - mean) * rstd * gamma + beta) [+ add], with
+// (mean, rstd) merged from `parts` (R, B, groups, 2), every rank's (mean, M2)
+// over `count` values each; `add` null (add_kind 0), (B, C) (1) or (B, H, C)
+// (2). Returns as above.
+int gn_affine_mish_f32(const float* pre, const float* parts, const float* gamma,
+                       const float* beta, const float* add, float* out, int B, int H, int C,
+                       int groups, int R, long long count, double eps, int add_kind,
                        void* stream) {
-  return launch_k2(pre, stats, gamma, beta, out, B, H, C, groups, stream);
+  return launch_k2(pre, parts, gamma, beta, add, out, B, H, C, groups, R, count, eps, add_kind,
+                   stream);
 }
 
-// K2's bf16 form: the same, `out` (B, H, C) bf16.
-int gn_affine_mish_bf16(const float* pre, const float* stats, const float* gamma,
-                        const float* beta, void* out, int B, int H, int C, int groups,
+// K2's bf16 form: `add` and `out` bf16; the Mish value is rounded to bf16,
+// then the sum with the addend.
+int gn_affine_mish_bf16(const float* pre, const float* parts, const float* gamma,
+                        const float* beta, const void* add, void* out, int B, int H, int C,
+                        int groups, int R, long long count, double eps, int add_kind,
                         void* stream) {
-  return launch_k2(pre, stats, gamma, beta, static_cast<__nv_bfloat16*>(out), B, H, C, groups,
+  return launch_k2(pre, parts, gamma, beta, static_cast<const __nv_bfloat16*>(add),
+                   static_cast<__nv_bfloat16*>(out), B, H, C, groups, R, count, eps, add_kind,
                    stream);
 }
 

@@ -19,7 +19,8 @@ rank's frames and returns them, equal to the same frames of the whole
 horizon's forward. Each conv block takes a k // 2-row halo from its
 neighbours and goes through B1's sharded form
 (``ops.conv_block_kernel.conv_gn_mish_sharded``: conv + local statistics,
-the statistics merged over the ranks, normalise + Mish); the stride-2
+then the statistics merged over the ranks, normalise + Mish and the
+residual block's time-term or residual add in one K2); the stride-2
 downsample takes one row from the left, the transposed-conv upsample one
 row from each side and crops; LinearAttention's key softmax takes its max
 and sum over the whole horizon and its (d x d) context is summed over the
@@ -87,17 +88,23 @@ class Conv1dBlock(nn.Module):
         self.gn_weight = nn.Parameter(torch.ones(out_channels))
         self.gn_bias = nn.Parameter(torch.zeros(out_channels))
 
-    def forward(self, x, seq=None):  # (B, H, Cin) -> (B, H, Cout)
+    def forward(self, x, seq=None, add=None):  # (B, H, Cin) -> (B, H, Cout)
+        """Under a horizon split ``add`` (None, a (B, Cout) row over every row
+        or a (B, H, Cout) tensor, in the block's dtype) is added to the
+        output in the same K2 launch."""
         if self.dtype == P.BF16:  # bf16 x and w, float32 bias, scale and shift
             x, w = x.to(P.BF16), P.cast(self.weight, P.BF16)
         else:
             w = self.weight
         if seq is None:
+            if add is not None:
+                raise ValueError("Conv1dBlock takes an addend under a horizon split only")
             return conv_gn_mish(x, w, self.bias, self.gn_weight, self.gn_bias, self.n_groups)
         pad = self.weight.shape[0] // 2
         before, after, _ = seq.exchange_halo(x, pad, pad)
         return conv_gn_mish_sharded(torch.cat([before, x, after], dim=1), w, self.bias,
-                                    self.gn_weight, self.gn_bias, self.n_groups, 1e-5, seq)
+                                    self.gn_weight, self.gn_bias, self.n_groups, 1e-5, seq,
+                                    add=add)
 
 
 class LinearAttention(nn.Module):
@@ -162,11 +169,12 @@ class ResidualTemporalBlock(nn.Module):
                          if in_channels != out_channels else nn.Identity())
 
     def forward(self, x, t_emb, seq=None):  # x: (B, H, C), t_emb: (B, E)
-        h = self.blocks[0](x, seq) + P.linear(mish(t_emb), self.time_dense, self.dtype)[:, None, :]
-        h = self.blocks[1](h, seq)
-        if isinstance(self.residual, nn.Identity):
-            return h + x
-        return h + P.linear(x, self.residual, self.dtype)
+        t = P.linear(mish(t_emb), self.time_dense, self.dtype)
+        res = x if isinstance(self.residual, nn.Identity) else P.linear(x, self.residual,
+                                                                        self.dtype)
+        if seq is not None:  # under a horizon split each add runs inside its block's K2
+            return self.blocks[1](self.blocks[0](x, seq, add=t), seq, add=res)
+        return self.blocks[1](self.blocks[0](x) + t[:, None, :]) + res
 
 
 def downsample(conv: nn.Conv1d, x, seq=None, dtype: torch.dtype = torch.float32):

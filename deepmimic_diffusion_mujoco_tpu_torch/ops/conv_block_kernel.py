@@ -54,21 +54,25 @@ statistics span them all.
   (batch row, group)'s local mean and M2 (two-pass).
 - ``chan_merge``: every rank's (mean, M2), gathered exactly, merged in
   float64 with Chan's formula, M2 = sum M2_i + sum n_i (mean_i - mean)^2,
-  into the global (mean, rstd).
-- ``gn_affine_mish_plain`` / ``gn_affine_mish_cuda`` (K2): normalise with
+  into the global (mean, rstd); ``gn_affine_mish_plain``: normalise with
   the merged statistics, affine, Mish.
-- ``conv_gn_mish_sharded``: K1, the merge, K2; sampling only (it raises
-  where a gradient is asked of it: JAX shards no training over the horizon).
+- ``gn_merge_mish_plain`` / ``gn_affine_mish_cuda`` (K2): those two and the
+  residual block's add (none, the time term's (B, C) row or the residual's
+  (B, H, C)); on the card one launch.
+- ``conv_gn_mish_sharded``: K1, every rank's statistics gathered, K2;
+  sampling only (it raises where a gradient is asked of it: JAX shards no
+  training over the horizon).
 
-At bf16 (a bf16 model's horizon split) the same three steps take bf16
-x_halo and w: K1's plain version multiplies their float32 widenings (exact
-products, float32 sums, as B1's bf16 form does) and keeps the pre-norm rows
-and the statistics float32; K2's rounds its float32 result once to bf16.
+At bf16 (a bf16 model's horizon split) the same steps take bf16 x_halo and
+w: K1's plain version multiplies their float32 widenings (exact products,
+float32 sums, as B1's bf16 form does) and keeps the pre-norm rows and the
+statistics float32; K2's rounds its float32 result once to bf16 and, with
+a bf16 addend, the sum once more (where the unfused bf16 add rounds).
 ``conv_gn_stats_bf16_cuda`` (K1's bf16 form: B1's bf16 kernel with a
 statistics epilogue, ``csrc/conv_gn_mish_bf16.cu``, on ``bf16_plan`` at the
-rank's rows: at B 4 the row split fills the card) and ``gn_affine_mish_bf16_cuda`` (K2 storing bf16,
-``csrc/conv_gn_mish.cu``) are their kernels, each with its own
-``.launches``.
+rank's rows: at B 4 the row split fills the card) and
+``gn_affine_mish_bf16_cuda`` (K2 storing bf16, ``csrc/conv_gn_mish.cu``)
+are their kernels, each with its own ``.launches``.
 """
 from __future__ import annotations
 
@@ -166,6 +170,40 @@ def chan_merge(parts, count: int, eps: float):
     total = m2.sum(dim=0) + count * ((means - mean) ** 2).sum(dim=0)
     var = total / (count * p.shape[0])
     return torch.stack([mean, torch.rsqrt(var + eps)], dim=-1).to(torch.float32)
+
+
+def _check_k2(fn: str, pre, parts, gamma, beta, groups: int, add, dtype):
+    """K2's shapes: pre (B, H, C), parts (R, B, groups, 2), gamma and beta
+    (C,), the addend None, (B, C) or (B, H, C) of ``dtype``. Raises
+    ValueError otherwise; -> the addend's kind (0, 1 or 2)."""
+    if pre.dim() != 3:
+        raise ValueError(f"{fn}: pre {tuple(pre.shape)} must be (B, H, C)")
+    B, H, C = pre.shape
+    if groups <= 0 or C % groups:
+        raise ValueError(f"{fn}: C {C} is not a multiple of groups {groups}")
+    if parts.dim() != 4 or parts.shape[0] < 1 or tuple(parts.shape[1:]) != (B, groups, 2):
+        raise ValueError(f"{fn}: parts {tuple(parts.shape)} must be (R, {B}, {groups}, 2)")
+    for name, t in (("gamma", gamma), ("beta", beta)):
+        if tuple(t.shape) != (C,):
+            raise ValueError(f"{fn}: {name} must be ({C},)")
+    if add is None:
+        return 0
+    if add.dtype != dtype:
+        raise ValueError(f"{fn}: add is {add.dtype}, the output {dtype}")
+    if tuple(add.shape) not in ((B, C), (B, H, C)):
+        raise ValueError(f"{fn}: add {tuple(add.shape)} must be ({B}, {C}) or ({B}, {H}, {C})")
+    return add.dim() - 1
+
+
+def gn_merge_mish_plain(pre, parts, count: int, eps: float, gamma, beta, groups: int = 8,
+                        add=None, dtype: torch.dtype = torch.float32):
+    """K2's plain version: ``chan_merge(parts, count, eps)``, then
+    ``gn_affine_mish_plain`` rounded to ``dtype``, then ``+ add`` (a (B, C)
+    row over every row, or a (B, H, C) tensor, of ``dtype``): the unfused
+    chain of the sharded conv block and the residual block's add."""
+    kind = _check_k2("gn_merge_mish_plain", pre, parts, gamma, beta, groups, add, dtype)
+    out = gn_affine_mish_plain(pre, chan_merge(parts, count, eps), gamma, beta, groups, dtype)
+    return out if kind == 0 else out + (add[:, None, :] if kind == 1 else add)
 
 
 def _ceil(a: int, b: int) -> int:
@@ -312,8 +350,8 @@ def _library() -> ctypes.CDLL:
         lib.conv_gn_stats_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p, ctypes.c_void_p]
         lib.conv_gn_stats_f32.restype = ctypes.c_int
-        lib.gn_affine_mish_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        lib.gn_affine_mish_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
         lib.gn_affine_mish_f32.restype = ctypes.c_int
         lib.gn_affine_mish_bf16.argtypes = lib.gn_affine_mish_f32.argtypes
         lib.gn_affine_mish_bf16.restype = ctypes.c_int
@@ -777,77 +815,88 @@ def conv_gn_stats_bf16_cuda(x_halo, w, b, groups: int = 8, plan: BF16Plan | None
 conv_gn_stats_bf16_cuda.launches = 0
 
 
-def _launch_k2(wrapper, dtype, pre, stats, gamma, beta, groups: int):
+def _launch_k2(wrapper, dtype, pre, parts, count: int, eps: float, gamma, beta, groups: int,
+               add):
     """K2's launch for the output ``dtype``, counted in ``wrapper.launches``."""
     fn = wrapper.__name__
-    _check_tensors(fn, pre.device, pre=pre, stats=stats, gamma=gamma, beta=beta)
-    if pre.dim() != 3:
-        raise ValueError(f"{fn}: pre {tuple(pre.shape)} must be (B, H, C)")
-    B, H, C = pre.shape
-    if groups <= 0 or C % groups:
-        raise ValueError(f"{fn}: C {C} is not a multiple of groups {groups}")
-    if tuple(stats.shape) != (B, groups, 2):
-        raise ValueError(f"{fn}: stats {tuple(stats.shape)} must be ({B}, {groups}, 2)")
-    for name, t in (("gamma", gamma), ("beta", beta)):
-        if tuple(t.shape) != (C,):
-            raise ValueError(f"{fn}: {name} must be ({C},)")
+    kind = _check_k2(fn, pre, parts, gamma, beta, groups, add, dtype)
+    _check_tensors(fn, pre.device, pre=pre, parts=parts, gamma=gamma, beta=beta)
+    if add is not None and not (add.is_cuda and add.device == pre.device
+                                and add.is_contiguous()):
+        raise ValueError(f"{fn}: add must be a contiguous CUDA tensor on {pre.device}")
     out = torch.empty_like(pre, dtype=dtype)
     if out.numel() == 0:
         return out
+    B, H, C = pre.shape
+    if 8 * (C + groups) > 48 * 1024:
+        raise ValueError(f"{fn}: C {C} in {groups} groups: the merged statistics take more "
+                         "than 48 KB of shared memory")
     lib = _library()
     entry = lib.gn_affine_mish_bf16 if dtype == torch.bfloat16 else lib.gn_affine_mish_f32
     with torch.cuda.device(pre.device):
-        err = entry(pre.data_ptr(), stats.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                    out.data_ptr(), B, H, C, groups,
+        err = entry(pre.data_ptr(), parts.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    None if add is None else add.data_ptr(), out.data_ptr(), B, H, C, groups,
+                    parts.shape[0], count, eps, kind,
                     torch.cuda.current_stream(pre.device).cuda_stream)
     _raise_on_error(lib, err, fn)
     wrapper.launches += 1
     return out
 
 
-def gn_affine_mish_cuda(pre, stats, gamma, beta, groups: int = 8):
+def gn_affine_mish_cuda(pre, parts, count: int, eps: float, gamma, beta, groups: int = 8,
+                        add=None):
     """Launch K2 on PyTorch's current stream: (B, H, C) pre-norm values and
-    (B, groups, 2) merged (mean, rstd) -> (B, H, C)."""
-    return _launch_k2(gn_affine_mish_cuda, torch.float32, pre, stats, gamma, beta, groups)
+    every rank's (R, B, groups, 2) (mean, M2), each over ``count`` values ->
+    (B, H, C) float32, the merge, normalise, affine, Mish and ``+ add``
+    (None, (B, C) or (B, H, C) float32) in one launch:
+    ``gn_merge_mish_plain``'s function."""
+    return _launch_k2(gn_affine_mish_cuda, torch.float32, pre, parts, count, eps, gamma, beta,
+                      groups, add)
 
 
 gn_affine_mish_cuda.launches = 0
 
 
-def gn_affine_mish_bf16_cuda(pre, stats, gamma, beta, groups: int = 8):
-    """K2's bf16 form: the same float32 inputs -> bf16 (B, H, C), each value
-    rounded once."""
-    return _launch_k2(gn_affine_mish_bf16_cuda, torch.bfloat16, pre, stats, gamma, beta, groups)
+def gn_affine_mish_bf16_cuda(pre, parts, count: int, eps: float, gamma, beta, groups: int = 8,
+                             add=None):
+    """K2's bf16 form: the same float32 inputs and a bf16 addend -> bf16
+    (B, H, C), the Mish value rounded once and, with an addend, the sum
+    rounded once more."""
+    return _launch_k2(gn_affine_mish_bf16_cuda, torch.bfloat16, pre, parts, count, eps, gamma,
+                      beta, groups, add)
 
 
 gn_affine_mish_bf16_cuda.launches = 0
 
 
-def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, group):
+def conv_gn_mish_sharded(x_halo, w, b, gamma, beta, groups: int, eps: float, group, add=None):
     """Conv1d + GroupNorm + Mish of this rank's frames of a horizon split
-    over the ranks of ``group`` (a ``utils.seq`` shard): ``x_halo`` is the
-    rank's (B, H, Cin) rows with k // 2 rows of each neighbour (zeros at the
-    trajectory's ends) on each side. K1, the statistics merged over the
-    ranks, K2: the kernels for CUDA tensors, their plain versions for CPU
-    tensors; at bf16 (bf16 x_halo and w) their bf16 forms, returning bf16.
-    Sampling only: raises where a gradient is asked of it."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_halo, w, b, gamma, beta)):
+    over the ranks of ``group`` (a ``utils.seq`` shard), plus ``add`` (the
+    residual block's time term, (B, Cout), or its residual, (B, H, Cout), in
+    the block's dtype): ``x_halo`` is the rank's (B, H, Cin) rows with k // 2
+    rows of each neighbour (zeros at the trajectory's ends) on each side. K1,
+    every rank's statistics gathered, K2 (the merge, normalise, Mish and the
+    add): the kernels for CUDA tensors, their plain versions for CPU tensors;
+    at bf16 (bf16 x_halo and w) their bf16 forms, returning bf16. Sampling
+    only: raises where a gradient is asked of it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x_halo, w, b, gamma, beta, add)):
         raise RuntimeError("conv_gn_mish_sharded serves sampling only: no gradient flows "
                            "through the horizon-sharded conv block (run under "
                            "torch.no_grad or torch.inference_mode)")
     x_halo = x_halo.contiguous()
     bf16 = x_halo.dtype == torch.bfloat16
     if not x_halo.is_cuda:
-        stats_fn, affine_fn = conv_gn_stats_plain, functools.partial(gn_affine_mish_plain,
-                                                                     dtype=x_halo.dtype)
+        stats_fn, k2 = conv_gn_stats_plain, functools.partial(gn_merge_mish_plain,
+                                                              dtype=x_halo.dtype)
     elif bf16:
-        stats_fn, affine_fn = conv_gn_stats_bf16_cuda, gn_affine_mish_bf16_cuda
+        stats_fn, k2 = conv_gn_stats_bf16_cuda, gn_affine_mish_bf16_cuda
     else:
-        stats_fn, affine_fn = conv_gn_stats_cuda, gn_affine_mish_cuda
+        stats_fn, k2 = conv_gn_stats_cuda, gn_affine_mish_cuda
     pre, stats = stats_fn(x_halo, w, b, groups)
-    # every rank's statistics, gathered exactly: the same merged bits on every rank
-    merged = chan_merge(group.all_gather(stats), pre.shape[1] * (pre.shape[2] // groups), eps)
-    return affine_fn(pre, merged, gamma, beta, groups)
+    # every rank's statistics, gathered exactly: every rank merges the same bits
+    return k2(pre, group.all_gather(stats), pre.shape[1] * (pre.shape[2] // groups), eps, gamma,
+              beta, groups, add=None if add is None else add.contiguous())
 
 
 class _ConvGnMish(torch.autograd.Function):

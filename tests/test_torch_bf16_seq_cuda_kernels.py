@@ -8,7 +8,10 @@ rounding; K1's outputs stay float32), so a bf16 output agrees within one
 bf16 ulp of the value plus the float32 forms' card tolerance for sums in
 another order: |d| <= 2^-7 |ref| + TOL elementwise. Over one rank (zero halo
 rows) bf16 K1 + K2 is B1's bf16 form; K3's slabs put together are B3's bf16
-entry on the whole horizon.
+entry on the whole horizon. K2 with an addend rounds its Mish value to bf16
+and then the sum: it equals the launch without the addend followed by the
+bf16 add, to the bit, and its plain version within one bf16 ulp of the Mish
+value carried through the add plus one of the sum.
 
 Marked ``cuda``; each test skips where no CUDA device is present. This file
 imports neither JAX nor the JAX package:
@@ -21,6 +24,7 @@ import torch
 from deepmimic_diffusion_mujoco_tpu_torch.ops import conv_block_kernel as CB
 from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 from deepmimic_diffusion_mujoco_tpu_torch.ops import local_attention_kernel as LH
+from test_torch_seq_cuda_kernels import K2_SHAPES, added, k2_inputs
 
 BF = torch.bfloat16
 ULP = 2.0 ** -7  # one bf16 ulp of a value v is at most 2^-7 |v|
@@ -63,7 +67,7 @@ def test_k1_k2_bf16_match_plain_and_b1_bf16(cuda, B, H, Cin, Cout, k):
     before = [f.launches for f in counts]
     pre, stats = CB.conv_gn_stats_bf16_cuda(xh, w, b, 8)
     merged = CB.chan_merge(stats[None], H * (Cout // 8), 1e-5)
-    out = CB.gn_affine_mish_bf16_cuda(pre, merged, gamma, beta, 8)
+    out = CB.gn_affine_mish_bf16_cuda(pre, stats[None], H * (Cout // 8), 1e-5, gamma, beta, 8)
     torch.cuda.synchronize()
     assert [f.launches for f in counts] == [before[0] + 1, before[1] + 1, *before[2:]]
     assert pre.dtype == stats.dtype == torch.float32 and out.dtype == BF
@@ -110,10 +114,41 @@ def test_k1_k2_bf16_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="takes torch.bfloat16"):
         CB.conv_gn_stats_bf16_cuda(torch.zeros(1, 8, 4, device=cuda), w,
                                    torch.zeros(8, device=cuda))
-    with pytest.raises(ValueError, match="stats"):
-        CB.gn_affine_mish_bf16_cuda(torch.zeros(1, 4, 8, device=cuda),
-                                    torch.zeros(1, 4, 2, device=cuda),
-                                    torch.ones(8, device=cuda), torch.zeros(8, device=cuda), 8)
+    pre, gamma, beta = (torch.zeros(1, 4, 8, device=cuda), torch.ones(8, device=cuda),
+                        torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="parts"):
+        CB.gn_affine_mish_bf16_cuda(pre, torch.zeros(1, 4, 2, device=cuda), 4, 1e-5, gamma,
+                                    beta, 8)
+    parts = torch.zeros(2, 1, 8, 2, device=cuda)
+    for add, match in ((torch.zeros(1, 4, 8, device=cuda), "add is"),
+                       (torch.zeros(2, 8, dtype=BF, device=cuda), "add"),
+                       (torch.zeros(1, 4, 8, dtype=BF), "contiguous CUDA tensor")):
+        with pytest.raises(ValueError, match=match):
+            CB.gn_affine_mish_bf16_cuda(pre, parts, 4, 1e-5, gamma, beta, 8, add=add)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "row", "full"])
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("H,C", K2_SHAPES)
+def test_k2_bf16_merges_and_adds_as_its_plain_version(cuda, H, C, R, kind):
+    """R ranks' parts and each bf16 addend at every (H, C) of a rank's
+    forward: without the addend within one bf16 ulp of the plain version;
+    with it, the launch without it followed by the bf16 add, to the bit, and
+    the plain version within one ulp of its Mish value plus one of the sum."""
+    pre, parts, gamma, beta, count, add = k2_inputs(cuda, 4, H, C, R, kind, BF, H + C + R)
+    n = CB.gn_affine_mish_bf16_cuda.launches
+    out = CB.gn_affine_mish_bf16_cuda(pre, parts, count, 1e-5, gamma, beta, 8, add=add)
+    bare = CB.gn_affine_mish_bf16_cuda(pre, parts, count, 1e-5, gamma, beta, 8)
+    torch.cuda.synchronize()
+    assert CB.gn_affine_mish_bf16_cuda.launches == n + 2 and out.dtype == BF
+    bare_p = CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta, 8, dtype=BF)
+    _within_one_ulp(bare, bare_p)
+    assert torch.equal(out, added(bare, add))
+    plain = CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta, 8, add=add, dtype=BF)
+    d = (out.float() - plain.float()).abs()
+    bound = ULP * (bare_p.float().abs() + plain.float().abs()) + TOL
+    assert int((d > bound).sum()) == 0, f"max |d| {d.max().item()}"
 
 
 def _qkv(cuda, B, N, heads, dh, seed):

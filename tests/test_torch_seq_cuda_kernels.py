@@ -1,5 +1,6 @@
 """The kernels of sequence-sharded sampling against their plain versions,
-on the card: K1 (``conv_gn_stats``) and K2 (``gn_affine_mish``), B1's
+on the card: K1 (``conv_gn_stats``) and K2 (``gn_affine_mish``: the ranks'
+statistics merge, normalise, Mish and the residual block's add), B1's
 horizon-sharded form, and K3 (``local_attention_halo``), B3's halo entry.
 
 Marked ``cuda``; each test skips where no CUDA device is present. This file
@@ -20,6 +21,8 @@ from deepmimic_diffusion_mujoco_tpu_torch.ops import fused_local_attention as FA
 
 TOL = 1e-4       # f32 sums in another order (B1's and B3's card tolerance)
 M2_RTOL = 1e-4   # K1's sum of squared deviations, relative
+# (H, C) of K2's launches in a rank's sharded forward of the dim-128 U-Net (B 4, 512 rows a rank)
+K2_SHAPES = [(512, 128), (256, 256), (128, 512), (64, 1024), (64, 512), (128, 256), (256, 128)]
 
 
 @pytest.fixture
@@ -47,18 +50,86 @@ def test_k1_k2_match_plain_and_b1(cuda, B, H, Cin, Cout, k):
     gamma = 1 + 0.1 * torch.randn(Cout, generator=g, device=cuda)
     n1, n2 = CB.conv_gn_stats_cuda.launches, CB.gn_affine_mish_cuda.launches
     pre, stats = CB.conv_gn_stats_cuda(xh, w, b, 8)
-    merged = CB.chan_merge(stats[None], H * (Cout // 8), 1e-5)
-    out = CB.gn_affine_mish_cuda(pre, merged, gamma, beta, 8)
+    count = H * (Cout // 8)
+    out = CB.gn_affine_mish_cuda(pre, stats[None], count, 1e-5, gamma, beta, 8)
     torch.cuda.synchronize()
     assert (CB.conv_gn_stats_cuda.launches, CB.gn_affine_mish_cuda.launches) == (n1 + 1, n2 + 1)
     pre_p, stats_p = CB.conv_gn_stats_plain(xh, w, b, 8)
     torch.testing.assert_close(pre, pre_p, atol=TOL, rtol=TOL)
     torch.testing.assert_close(stats[..., 0], stats_p[..., 0], atol=TOL, rtol=TOL)
     torch.testing.assert_close(stats[..., 1], stats_p[..., 1], atol=0, rtol=M2_RTOL)
+    merged = CB.chan_merge(stats[None], count, 1e-5)
     torch.testing.assert_close(out, CB.gn_affine_mish_plain(pre, merged, gamma, beta, 8),
                                atol=TOL, rtol=TOL)
     b1 = CB.conv_gn_mish_cuda(xh[:, k // 2:H + k // 2].contiguous(), w, b, gamma, beta, 8)
     torch.testing.assert_close(out, b1, atol=TOL, rtol=TOL)
+
+
+def k2_inputs(cuda, B, H, C, R, kind, dtype, seed):
+    """pre (B, H, C), R ranks' (mean, M2) parts, gamma, beta, count and the
+    addend (None, (B, C) or (B, H, C) of ``dtype``), from a seed."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pre = 0.5 + 2 * torch.randn(B, H, C, generator=g, device=cuda)
+    count = H * (C // 8)
+    means = 0.5 + 0.3 * torch.randn(R, B, 8, generator=g, device=cuda)
+    m2 = count * (3 + 2 * torch.rand(R, B, 8, generator=g, device=cuda))
+    gamma = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    beta = 0.1 * torch.randn(C, generator=g, device=cuda)
+    shape = {"none": None, "row": (B, C), "full": (B, H, C)}[kind]
+    add = None if shape is None else torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return pre, torch.stack([means, m2], -1), gamma, beta, count, add
+
+
+def added(out, add):
+    """The unfused residual-block add."""
+    return out if add is None else out + (add[:, None, :] if add.dim() == 2 else add)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["none", "row", "full"])
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("H,C", K2_SHAPES)
+def test_k2_merges_and_adds_as_its_plain_version(cuda, H, C, R, kind):
+    """R ranks' parts and each addend at every (H, C) of a rank's forward:
+    the plain chain (chan_merge, normalise, Mish, the add) within TOL; the
+    add is the epilogue's: the launch without the addend, then the add, to
+    the bit; a rerun gives the same bits."""
+    pre, parts, gamma, beta, count, add = k2_inputs(cuda, 4, H, C, R, kind, torch.float32,
+                                                     H + C + R)
+    n = CB.gn_affine_mish_cuda.launches
+    out = CB.gn_affine_mish_cuda(pre, parts, count, 1e-5, gamma, beta, 8, add=add)
+    torch.cuda.synchronize()
+    assert CB.gn_affine_mish_cuda.launches == n + 1 and out.dtype == torch.float32
+    plain = CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta, 8, add=add)
+    torch.testing.assert_close(out, plain, atol=TOL, rtol=TOL)
+    bare = CB.gn_affine_mish_cuda(pre, parts, count, 1e-5, gamma, beta, 8)
+    assert torch.equal(out, added(bare, add))
+    assert torch.equal(out, CB.gn_affine_mish_cuda(pre, parts, count, 1e-5, gamma, beta, 8,
+                                                   add=add))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,C,groups", [(3, 21, 24, 8), (2, 5, 36, 4), (1, 7, 2048, 32)])
+def test_k2_odd_shapes(cuda, B, H, C, groups):
+    """A width no multiple of 4 per group or of 8 in all (the one-value
+    path where C / 4 is not whole: C 36 at bf16), few rows, 2048 channels."""
+    for dtype, fn in ((torch.float32, CB.gn_affine_mish_cuda),
+                      (torch.bfloat16, CB.gn_affine_mish_bf16_cuda)):
+        g = torch.Generator(device=cuda).manual_seed(C)
+        pre = torch.randn(B, H, C, generator=g, device=cuda)
+        count = H * (C // groups)
+        parts = torch.stack([torch.randn(2, B, groups, generator=g, device=cuda),
+                             count * (1 + torch.rand(2, B, groups, generator=g, device=cuda))],
+                            -1)
+        gamma, beta = torch.ones(C, device=cuda), torch.zeros(C, device=cuda)
+        add = torch.randn(B, H, C, generator=g, device=cuda).to(dtype)
+        out = fn(pre, parts, count, 1e-5, gamma, beta, groups, add=add)
+        plain = CB.gn_merge_mish_plain(pre, parts, count, 1e-5, gamma, beta, groups,
+                                       dtype=dtype)
+        bare = fn(pre, parts, count, 1e-5, gamma, beta, groups)
+        torch.testing.assert_close(bare.float(), plain.float(), atol=TOL,
+                                   rtol=TOL if dtype == torch.float32 else 2.0 ** -7)
+        assert torch.equal(out, added(bare, add))
 
 
 FIRST_PLAN = """
@@ -109,10 +180,20 @@ def test_k1_k2_refuse_what_they_do_not_take(cuda):
         CB.conv_gn_stats_cuda(torch.zeros(1, 4, 4, device=cuda), w, torch.zeros(8, device=cuda))
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         CB.conv_gn_stats_cuda(torch.zeros(1, 8, 4), w, torch.zeros(8, device=cuda))
-    with pytest.raises(ValueError, match="stats"):
-        CB.gn_affine_mish_cuda(torch.zeros(1, 4, 8, device=cuda), torch.zeros(1, 4, 2,
-                                                                              device=cuda),
-                               torch.ones(8, device=cuda), torch.zeros(8, device=cuda), 8)
+    pre, gamma, beta = (torch.zeros(1, 4, 8, device=cuda), torch.ones(8, device=cuda),
+                        torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="parts"):
+        CB.gn_affine_mish_cuda(pre, torch.zeros(1, 4, 2, device=cuda), 4, 1e-5, gamma, beta, 8)
+    with pytest.raises(ValueError, match="parts"):
+        CB.gn_affine_mish_cuda(pre, torch.zeros(2, 2, 8, 2, device=cuda), 4, 1e-5, gamma, beta,
+                               8)
+    parts = torch.zeros(2, 1, 8, 2, device=cuda)
+    for add, match in ((torch.zeros(1, 5, 8, device=cuda), "add"),
+                       (torch.zeros(1, 8, dtype=torch.bfloat16, device=cuda), "add is"),
+                       (torch.zeros(1, 8), "contiguous CUDA tensor"),
+                       (torch.zeros(1, 8, 4, device=cuda).transpose(1, 2), "contiguous CUDA")):
+        with pytest.raises(ValueError, match=match):
+            CB.gn_affine_mish_cuda(pre, parts, 4, 1e-5, gamma, beta, 8, add=add)
 
 
 @pytest.mark.cuda
